@@ -2,7 +2,7 @@
 """Where the time of the port's qwen3-4b clustered-KV serve goes, on one
 CUDA card.
 
-    python3 benchmarks/profile_torch_serve.py
+    python3 benchmarks/profile_torch_serve.py [--paged]
 
 Serves the workload of ``chip_smoke.py`` (its ``serve_workload``:
 qwen3-4b, random weights from seed 0, bf16, 8 requests through a
@@ -10,11 +10,15 @@ clustered-KV Server) once to warm up, then again under
 ``torch.profiler``.  Prints the host wall time split into engine
 launches, streaming absorbs and compactions (each wrapped in a
 ``record_function`` range), the device busy and idle share of the serve,
-and the CUDA kernels and host ops that take the most time.  The full tables go to ``chiprun_out/profile_torch_serve.txt``.
+and the CUDA kernels and host ops that take the most time.  With
+``--paged`` the same requests go through the paged engine
+(``PagedKVConfig(block_size=16)``, packed ragged launches).  The full
+tables go to ``chiprun_out/profile_torch_serve[_paged].txt``.
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
@@ -24,6 +28,10 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--paged", action="store_true",
+                    help="serve through the paged engine")
+    paged = ap.parse_args().paged
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -33,14 +41,18 @@ def main() -> int:
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     from chip_smoke import serve_workload
     from repro_torch.runtime import server as server_mod
+    from repro_torch.runtime.kv_pool import PagedKVConfig
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
-    cfg, srv, reqs, prompts = serve_workload(torch, torch.device("cuda"))
+    cfg, srv, reqs, prompts = serve_workload(
+        torch, torch.device("cuda"),
+        PagedKVConfig(block_size=16) if paged else None)
+    step = "decode_step_packed" if paged else "decode_step"
 
     # label the three kinds of device work the engine issues
-    host_s = {"decode_step": 0.0, "absorb": 0.0, "compact": 0.0}
+    host_s = {step: 0.0, "absorb": 0.0, "compact": 0.0}
 
     def wrap(obj, name, label):
         fn = getattr(obj, name)
@@ -54,7 +66,7 @@ def main() -> int:
         setattr(obj, name, inner)
 
     srv.serve(reqs, prompts)                       # warm-up serve
-    wrap(server_mod.tfm, "decode_step", "decode_step")
+    wrap(server_mod.tfm, step, step)
     wrap(srv, "_absorb", "absorb")
     wrap(srv, "compact_kv", "compact")
     torch.cuda.synchronize()
@@ -72,7 +84,8 @@ def main() -> int:
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and e.key not in host_s)
     lines = [f"card: {smi}", f"torch {torch.__version__}",
-             f"qwen3-4b {cfg.n_layers} layers, serve wall {wall:.3f} s, "
+             f"qwen3-4b {cfg.n_layers} layers, "
+             f"{'paged' if paged else 'dense'} serve wall {wall:.3f} s, "
              f"{int(st['decode_steps'])} engine steps, "
              f"{int(st['kv_absorbs'])} absorbs, "
              f"{int(st['kv_compactions'])} compactions",
@@ -88,7 +101,7 @@ def main() -> int:
     print(events.table(sort_by="self_device_time_total", row_limit=12))
     out = ROOT / "chiprun_out"
     out.mkdir(parents=True, exist_ok=True)
-    (out / "profile_torch_serve.txt").write_text(
+    (out / f"profile_torch_serve{'_paged' if paged else ''}.txt").write_text(
         "\n".join(lines) + "\n\nby device time\n" + by_dev
         + "\n\nby host time\n" + by_cpu + "\n")
     return 0

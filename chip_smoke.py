@@ -12,6 +12,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card at the serving path's shapes (clustered_decode: B=4, L=64, Hq=32,
    Hkv=8, Dh=128, C=64, R=256 in bf16, f32 and f32 + softcap 50;
+   paged_clustered_decode: the same data as 130 packed rows in a 256-row
+   bucket over a pool of 16-position blocks behind a shuffled block
+   table, in the same three cases, bit-equal to clustered_decode on every
+   real row, and its window floor ``wlo`` exact;
    distance_argmin: N=2^20, D=16, K=64, L1 and L2);
 4. model agreement: the reduced qwen3 in f32 decodes (mixed and plain
    steps, clustered cache) with the same logits on the card as on the CPU;
@@ -19,19 +23,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    requests through the continuous engine with chunked admission and a
    clustered KV cache; the clustered_decode launch count must equal
    layers x engine steps;
+5b. paged serve: the same requests through the paged engine
+   (``PagedKVConfig(block_size=16)``, packed ragged launches); the
+   paged_clustered_decode launch count must equal layers x engine steps,
+   and the pool must recycle blocks and drain to zero;
 6. k-medians: ``clustering.fit`` at its default (distance_argmin kernel),
    L1 medians, k=64 on 2^20 x 16 points;
 7. times: CUDA-event medians of 50 launches per kernel beside its plain
    version, a library yardstick and the card's bound.
 
 It imports ``repro_torch`` only.  The second-to-last line is the kernels
-JSON, the last line ``{"ok": true, "device": {...}}``; the full record goes
+JSON, ``{"kernels": [{"name": ..., ...}, ...]}`` with one object per
+kernel (``chiprun_out/chip_smoke.json`` keys the same objects by name),
+and the last line ``{"ok": true, "device": {...}}``; the full record goes
 to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
@@ -53,6 +64,8 @@ B, L, HQ, HKV, DH, C, R = 4, 64, 32, 8, 128, 64, 256
 T_SLOTS = [100, 1000, 300, 50]       # unwrapped, wrapped, wrapped, unwrapped
 CL_SLOTS = [64, 64, 1, 1]            # two chunks in flight, two decode rows
 COV_SLOTS = [0, 900, 60, 10]         # cov >= t + chunk_len - R everywhere
+BS = 16                              # paged: positions per pool block
+N_BUCKET = 256                       # paged: row bucket of the 130 rows
 N_PTS, D_PTS, K_PTS = 1 << 20, 16, 64
 
 
@@ -140,6 +153,112 @@ def check_clustered_decode(torch, cd, dev):
                       .item())
         say(f"clustered_decode {name}: kernel == plain within {tol} "
             f"(max abs err so far {max_err:.3e})")
+    return max_err
+
+
+def paged_inputs(torch, x, cl, bucket, seed=1):
+    """The dense kernel's inputs ``x`` as packed paged rows: each slot's
+    live ring blocks (positions in [cov, t + cl)) scattered through a
+    shuffled block table into a pool of BS-position blocks; unmapped
+    entries point at the base block 0, which holds non-zero garbage, as
+    ``BlockPool.table_for_read`` maps them; one row per (slot, chunk row
+    i < cl[slot]), padded to ``bucket`` rows on slot 0 with qpos1 0.
+    Returns (kernel args, rows, mapped block count)."""
+    from repro_torch.runtime.kv_pool import live_blocks
+
+    dev = x["q"].device
+    nt = R // BS
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    mapped = [(b, bi) for b in range(B)
+              for bi in live_blocks(T_SLOTS[b] + cl[b], COV_SLOTS[b], R, BS)]
+    nb = 1 + len(mapped) + 8                    # base + mapped + spares
+    ids = (1 + torch.randperm(nb - 1, generator=g)[:len(mapped)]).tolist()
+    table = torch.zeros(B, nt, dtype=torch.int32)
+    pools = {}
+    for key in ("k_tail", "v_tail"):
+        pool = torch.randn(nb, BS, HKV, DH, generator=g).to(dev, x[key].dtype)
+        blocks = x[key].reshape(B, nt, BS, HKV, DH)
+        for (b, bi), gid in zip(mapped, ids):
+            pool[gid] = blocks[b, bi]
+            table[b, bi] = gid
+        pools[key] = pool
+    rows = [(b, i) for b in range(B) for i in range(cl[b])]
+    vec = torch.zeros(4, bucket, dtype=torch.int32)   # slot, qpos1, tw, cov
+    for k, (b, i) in enumerate(rows):
+        vec[:, k] = torch.tensor([b, T_SLOTS[b] + i + 1, T_SLOTS[b] + cl[b],
+                                  COV_SLOTS[b]])
+    vec = vec.to(dev)
+    q = torch.zeros(bucket, HQ, DH, dtype=x["q"].dtype, device=dev)
+    q[:len(rows)] = x["q"][[b for b, _ in rows], [i for _, i in rows]]
+    args = dict(q=q, k_cents=x["k_cents"], v_cents=x["v_cents"],
+                counts=x["counts"], k_pool=pools["k_tail"],
+                v_pool=pools["v_tail"], row_slot=vec[0].contiguous(),
+                row_bt=table.to(dev)[vec[0].long()].contiguous(),
+                qpos1=vec[1].contiguous(), tw=vec[2].contiguous(),
+                cov=vec[3].contiguous())
+    return args, rows, len(mapped)
+
+
+def bits(torch, t):
+    """A float tensor's bit patterns, for exact comparison (-0 != +0)."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def check_paged_decode(torch, cd, pcd, dev):
+    """paged_clustered_decode on B1's phase-3 data: against its plain
+    version (same cases and tolerances as B1), bit for bit against B1 on
+    every real row, and (f32) the window floor: (cov, wlo) equals
+    (max(cov, wlo), 0) exactly and masks more than cov alone."""
+    max_err = 0.0
+    cases = [("bf16", torch.bfloat16, None, 1.6e-2),
+             ("f32", torch.float32, None, 1e-5),
+             ("f32_softcap50", torch.float32, 50.0, 1e-5)]
+    for name, dtype, cap, tol in cases:
+        x = decode_inputs(torch, dev, dtype)
+        args, rows, n_mapped = paged_inputs(torch, x, CL_SLOTS, N_BUCKET)
+        kw = dict(scale=DH ** -0.5, softcap=cap)
+        got = pcd.paged_clustered_decode_cuda(**args, **kw)
+        f32 = {k: (v.float() if v.is_floating_point() else v)
+               for k, v in args.items()}
+        want = pcd.paged_clustered_decode_plain(**f32, **kw).to(dtype)
+        dense = cd.clustered_decode_cuda(**x, **kw)
+        torch.cuda.synchronize()
+        n = len(rows)
+        torch.testing.assert_close(got[:n].float(), want[:n].float(),
+                                   rtol=tol, atol=tol)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"paged {name}: non-finite output")
+        max_err = max(max_err, (got[:n].float() - want[:n].float()).abs()
+                      .max().item())
+        ref = dense[[b for b, _ in rows], [i for _, i in rows]]
+        differ = (bits(torch, got[:n]) != bits(torch, ref)).any(-1).any(-1)
+        if differ.any():
+            raise AssertionError(
+                f"paged {name}: {int(differ.sum())} of {n} real rows differ "
+                "from clustered_decode bit for bit")
+        say(f"paged_clustered_decode {name}: kernel == plain within {tol}; "
+            f"all {n} real rows bit-equal to clustered_decode "
+            f"({n_mapped} mapped blocks of {BS}, {N_BUCKET}-row bucket; "
+            f"max abs err so far {max_err:.3e})")
+        if name != "f32":
+            continue
+        cov = args["cov"]
+        wlo = torch.zeros_like(cov)
+        wlo[0:n:3] = cov[0:n:3] + 37              # above cov
+        wlo[1:n:3] = torch.clamp(cov[1:n:3] - 5, min=0)   # below cov
+        floor = pcd.paged_clustered_decode_cuda(**args, wlo=wlo, **kw)
+        merged = pcd.paged_clustered_decode_cuda(
+            **dict(args, cov=torch.maximum(cov, wlo)),
+            wlo=torch.zeros_like(wlo), **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(bits(torch, floor[:n]), bits(torch, merged[:n])):
+            raise AssertionError("paged wlo: (cov, wlo) != (max(cov, wlo), "
+                                 "0) bit for bit")
+        moved = (floor[0:n:3] - got[0:n:3]).abs().amax((1, 2))
+        if not (moved > 0).all():
+            raise AssertionError("paged wlo: the window floor masked nothing")
+        say("paged_clustered_decode f32 window floor: (cov, wlo) == "
+            "(max(cov, wlo), 0) bit for bit on every real row")
     return max_err
 
 
@@ -233,11 +352,12 @@ def check_small_model(torch, dev):
 # ---------------------------------------------------------------------------
 
 
-def serve_workload(torch, dev):
+def serve_workload(torch, dev, paged=None, params=None):
     """The smoke's serve: qwen3-4b at full width (random weights from seed
-    0, bf16) behind a clustered-KV Server, and 8 requests.  Returns
-    ``(cfg, server, requests, prompts)``; benchmarks/profile_torch_serve.py
-    profiles the same workload."""
+    0, bf16) behind a clustered-KV Server — paged when ``paged`` is a
+    ``PagedKVConfig`` — and 8 requests.  ``params`` reuses weights made by
+    an earlier call.  Returns ``(cfg, server, requests, prompts)``;
+    benchmarks/profile_torch_serve.py profiles the same workload."""
     from repro_torch import configs
     from repro_torch.core.kv_compress import KVCompressConfig
     from repro_torch.core.request_cluster import Request
@@ -245,18 +365,19 @@ def serve_workload(torch, dev):
     from repro_torch.runtime.server import Server, ServerConfig
 
     cfg = configs.get_config("qwen3-4b")           # all 36 layers
-    t0 = time.perf_counter()
-    params = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
-                             device=dev)
-    torch.cuda.synchronize()
-    say(f"qwen3-4b params ({cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}) initialised in "
-        f"{time.perf_counter() - t0:.1f} s")
+    if params is None:
+        t0 = time.perf_counter()
+        params = tfm.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 cfg, device=dev)
+        torch.cuda.synchronize()
+        say(f"qwen3-4b params ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+            f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+            f"{cfg.dtype}) initialised in {time.perf_counter() - t0:.1f} s")
     ccfg = KVCompressConfig(n_clusters=64, iters=4, bits=16, keep_recent=256,
                             refresh_every=32, prompt_clusters=32)
     scfg = ServerConfig(batch_size=4, max_seq=2048, prefill_chunk=64,
-                        kv_compress=ccfg)
+                        kv_compress=ccfg, paged=paged)
     srv = Server(cfg, scfg, params, device=dev)
     rng = np.random.default_rng(0)
     lens = rng.integers(96, 1537, size=8)
@@ -267,10 +388,12 @@ def serve_workload(torch, dev):
     return cfg, srv, reqs, prompts
 
 
-def serve_qwen3(torch, dev, smi):
+def serve_qwen3(torch, dev, smi, paged=None, params=None):
+    """Serve the workload once, dense or paged, and hold it to its gates.
+    Returns (record, params)."""
     from repro_torch.kernels import ops
 
-    cfg, srv, reqs, prompts = serve_workload(torch, dev)
+    cfg, srv, reqs, prompts = serve_workload(torch, dev, paged, params)
     lens = np.array([r.prompt_len for r in reqs])
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -279,34 +402,72 @@ def serve_qwen3(torch, dev, smi):
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     st = srv.last_stats
+    mode = "paged" if paged is not None else "dense"
     for o in outs:
         want = reqs[o.uid].max_new_tokens
         if len(o.tokens) != want:
-            raise AssertionError(f"uid {o.uid}: {len(o.tokens)} tokens, "
-                                 f"want {want}")
+            raise AssertionError(f"{mode} uid {o.uid}: {len(o.tokens)} "
+                                 f"tokens, want {want}")
         if not all(0 <= t < cfg.padded_vocab for t in o.tokens):
-            raise AssertionError(f"uid {o.uid}: token out of range")
+            raise AssertionError(f"{mode} uid {o.uid}: token out of range")
     if not (st["kv_absorbs"] > 0 and st["kv_compactions"] > 0):
-        raise AssertionError(f"absorbs {st['kv_absorbs']}, compactions "
-                             f"{st['kv_compactions']}: the clustered path "
-                             "did not run")
+        raise AssertionError(f"{mode}: absorbs {st['kv_absorbs']}, "
+                             f"compactions {st['kv_compactions']}: the "
+                             "clustered path did not run")
     steps = int(st["decode_steps"])
-    if launches["clustered_decode"] != cfg.n_layers * steps:
+    kernel, other = (("paged_clustered_decode", "clustered_decode")
+                     if paged is not None else
+                     ("clustered_decode", "paged_clustered_decode"))
+    if launches[kernel] != cfg.n_layers * steps or launches[other] != 0:
         raise AssertionError(
-            f"clustered_decode launched {launches['clustered_decode']} "
-            f"times, want layers x steps = {cfg.n_layers} x {steps}")
-    say(f"served 8 requests ({int(lens.sum())} prompt tokens, "
+            f"{mode}: {kernel} launched {launches[kernel]} times, want "
+            f"layers x steps = {cfg.n_layers} x {steps}; {other} "
+            f"{launches[other]}, want 0")
+    pool = ""
+    if paged is not None:
+        allocs, frees = int(st["pool_allocs"]), int(st["pool_frees"])
+        peak, end = int(st["pool_blocks_peak"]), int(st["pool_blocks_end"])
+        if not (frees == allocs > peak and end == 0):
+            raise AssertionError(
+                f"paged pool: allocs {allocs}, frees {frees}, peak {peak}, "
+                f"end {end}: want frees == allocs > peak and end 0")
+        pool = (f"; pool {int(st['pool_blocks_total'])} blocks of "
+                f"{paged.block_size}, peak {peak}, {allocs} allocs = "
+                f"{frees} frees, end {end}, launch_pad_frac "
+                f"{st['launch_pad_frac']:.4f}")
+    tokens = {o.uid: list(map(int, o.tokens)) for o in outs}
+    digest = hashlib.sha256(json.dumps(tokens, sort_keys=True).encode())
+    say(f"{mode} serve: 8 requests ({int(lens.sum())} prompt tokens, "
         f"{int(st['gen_tokens'])} generated) in {wall:.1f} s wall; "
         f"{steps} engine steps, {int(st['kv_absorbs'])} absorbs, "
-        f"{int(st['kv_compactions'])} compactions; clustered_decode "
-        f"launches {launches['clustered_decode']} = {cfg.n_layers} x {steps}")
-    say(f"[{smi}] tokens_per_s {st['tokens_per_s']:.1f}  "
+        f"{int(st['kv_compactions'])} compactions; {kernel} launches "
+        f"{launches[kernel]} = {cfg.n_layers} x {steps}{pool}; tokens "
+        f"sha256 {digest.hexdigest()[:16]}")
+    say(f"[{smi}] {mode}: tokens_per_s {st['tokens_per_s']:.1f}  "
         f"tokens_per_s_wall {st['tokens_per_s_wall']:.1f}  "
         f"ttft_p50_ms {st['ttft_p50_ms']:.1f}  ttft_p95_ms "
         f"{st['ttft_p95_ms']:.1f}  itl_p50_ms {st['itl_p50_ms']:.2f}  "
         f"itl_p95_ms {st['itl_p95_ms']:.2f}")
-    return {"n_layers": cfg.n_layers, "stats": st, "wall_s": wall,
-            "launches": launches, "engine_steps": steps}
+    return ({"n_layers": cfg.n_layers, "stats": st, "wall_s": wall,
+             "launches": launches, "engine_steps": steps,
+             "tokens": tokens}, srv.params)
+
+
+def compare_tokens(dense, paged):
+    """How many requests' tokens the paged serve shares with the dense
+    serve, and where each other request first differs (not gated: the
+    trunk GEMMs see other row counts, so cuBLAS may round differently)."""
+    first = {}
+    for uid, want in dense["tokens"].items():
+        got = paged["tokens"][uid]
+        diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        if diff:
+            first[uid] = diff[0]
+    say(f"paged vs dense tokens: {len(dense['tokens']) - len(first)} of "
+        f"{len(dense['tokens'])} requests equal"
+        + ("" if not first else "; first differing position by uid "
+           + json.dumps(first)))
+    return first
 
 
 # ---------------------------------------------------------------------------
@@ -352,23 +513,45 @@ def kmedians(torch, dev):
 # ---------------------------------------------------------------------------
 
 
-def decode_work(x):
-    """Bytes each input read once and each output written once, and the
-    flops of the valid rows against the entries they can see: ``(bytes,
-    q.k flops, p.v flops)``, 2 flops per multiply-add."""
-    nbytes = sum(v.numel() * v.element_size() for v in x.values())
-    nbytes += x["q"].numel() * x["q"].element_size()          # output
-    counts = x["counts"].cpu().numpy()                         # (B, C, Hkv)
+def decode_flops(counts, cl):
+    """Flops of the valid rows (chunk rows i < cl[b]) against the entries
+    they can see, for q.k and for p.v alike, 2 flops per multiply-add."""
+    counts = counts.cpu().numpy()                              # (B, C, Hkv)
     flops = 0
     g = HQ // HKV
     for b in range(B):
-        tw = T_SLOTS[b] + CL_SLOTS[b]
+        tw = T_SLOTS[b] + cl[b]
         s = np.arange(R)
         pos = s if tw <= R else tw - R + np.mod(s - tw, R)
-        for i in range(CL_SLOTS[b]):
+        for i in range(cl[b]):
             ring = int(((pos >= COV_SLOTS[b]) & (pos <= T_SLOTS[b] + i)).sum())
             cents = (counts[b] > 0).sum(0)                     # (Hkv,)
             flops += int(((cents + ring) * g).sum()) * DH * 2
+    return flops
+
+
+def decode_work(x):
+    """Bytes each input read once and each output written once, and the
+    flops of the valid rows against the entries they can see: ``(bytes,
+    q.k flops, p.v flops)``."""
+    nbytes = sum(v.numel() * v.element_size() for v in x.values())
+    nbytes += x["q"].numel() * x["q"].element_size()          # output
+    flops = decode_flops(x["counts"], CL_SLOTS)
+    return nbytes, flops, flops
+
+
+def paged_work(args, rows, n_mapped, cl):
+    """The least bytes paged_clustered_decode must move for these rows:
+    each real row's q and output once, each slot's centroids and counts
+    once, each mapped pool block once, the row vectors and block-table
+    rows once; and the same flops as the dense rows they equal."""
+    el = args["q"].element_size()
+    n = len(rows)
+    nbytes = 2 * n * HQ * DH * el                          # q in, out
+    nbytes += B * C * HKV * (2 * DH * el + 4)              # cents, counts
+    nbytes += 2 * n_mapped * BS * HKV * DH * el            # k/v blocks
+    nbytes += n * 4 * (5 + args["row_bt"].shape[1])        # int vectors
+    flops = decode_flops(args["counts"], cl)
     return nbytes, flops, flops
 
 
@@ -409,7 +592,57 @@ def sdpa_yardstick(torch, x):
                                                   scale=DH ** -0.5)
 
 
-def timings(torch, cd, da, dev, xa, ca):
+def paged_sdpa_yardstick(torch, args):
+    """One scaled_dot_product_attention over each row's [centroids ⊕
+    ring gathered through its block table] (gather and float mask built
+    outside the timed call), every row of the bucket a batch entry."""
+    import torch.nn.functional as F
+
+    g = HQ // HKV
+    n = args["q"].shape[0]
+    rs = args["row_slot"].long()
+    dev = args["q"].device
+
+    def entries(cents, pool):
+        ring = pool[args["row_bt"].long()].reshape(n, R, HKV, DH)
+        kv = torch.cat([cents[rs], ring], 1).transpose(1, 2)   # (N, Hkv, E, Dh)
+        return kv.repeat_interleave(g, 1).contiguous()
+
+    k = entries(args["k_cents"], args["k_pool"])
+    v = entries(args["v_cents"], args["v_pool"])
+    q = args["q"][:, :, None].contiguous()                     # (N, Hq, 1, Dh)
+    cnt = args["counts"][rs].transpose(1, 2).repeat_interleave(g, 1)
+    bias_c = torch.where(cnt > 0, torch.log(cnt.clamp_min(1e-9)),
+                         torch.full_like(cnt, -1e30))[:, :, None, :]
+    tw = args["tw"].long()[:, None]
+    s = torch.arange(R, device=dev)[None]
+    pos = torch.where(tw <= R, s, tw - R + torch.remainder(s - tw, R))
+    ok = ((pos < args["qpos1"].long()[:, None])
+          & (pos >= args["cov"].long()[:, None]))
+    bias_t = torch.where(ok, 0.0, -1e30)[:, None, None, :].expand(n, HQ, 1, R)
+    mask = torch.cat([bias_c, bias_t], -1).to(q.dtype)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  scale=DH ** -0.5)
+
+
+def time_paged(torch, pcd, x, cl, bucket):
+    """B2 at one shape: kernel, plain, SDPA yardstick and bound."""
+    args, rows, n_mapped = paged_inputs(torch, x, cl, bucket)
+    kw = dict(scale=DH ** -0.5)
+    ms = time_ms(torch, lambda: pcd.paged_clustered_decode_cuda(**args,
+                                                                **kw))
+    plain = time_ms(torch, lambda: pcd.paged_clustered_decode_plain(**args,
+                                                                    **kw))
+    lib = time_ms(torch, paged_sdpa_yardstick(torch, args))
+    nb, fl_qk, fl_pv = paged_work(args, rows, n_mapped, cl)
+    b_ms, b_by = bound(nb, [(fl_qk, PEAK_BF16_FLOP_PER_S),
+                            (fl_pv, PEAK_F32_FLOP_PER_S)])
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, bytes=nb, flops_qk=fl_qk, flops_pv=fl_pv,
+                rows=len(rows), bucket=bucket, mapped_blocks=n_mapped)
+
+
+def timings(torch, cd, pcd, da, dev, xa, ca):
     x = decode_inputs(torch, dev, torch.bfloat16)
     kw = dict(scale=DH ** -0.5)
     cd_ms = time_ms(torch, lambda: cd.clustered_decode_cuda(**x, **kw))
@@ -422,6 +655,10 @@ def timings(torch, cd, da, dev, xa, ca):
     # accumulation give the same scores; p is f32, so p.v is f32 work
     cd_bound, cd_by = bound(nb, [(fl_qk, PEAK_BF16_FLOP_PER_S),
                                  (fl_pv, PEAK_F32_FLOP_PER_S)])
+    # paged: the phase-3 mixed shape (130 rows in a 256-row bucket) and
+    # a decode-only step (one row per slot, bucket 4)
+    pg = time_paged(torch, pcd, x, CL_SLOTS, N_BUCKET)
+    pg1 = time_paged(torch, pcd, x, [1] * B, B)
     da_ms = time_ms(torch, lambda: da.distance_argmin_cuda(xa, ca,
                                                            metric="l1"))
     da_plain = time_ms(torch, lambda: da.distance_argmin_plain(
@@ -437,6 +674,7 @@ def timings(torch, cd, da, dev, xa, ca):
                                  bound_by=cd_by, bytes=nb,
                                  flops_qk=fl_qk, flops_pv=fl_pv,
                                  decode_form_ms=cd_ms1),
+        "paged_clustered_decode": dict(pg, decode_only=pg1),
         "distance_argmin": dict(ms=da_ms, plain_ms=da_plain, library_ms=None,
                                 bound_ms=da_bound, bound_by=da_by,
                                 bytes=da_bytes, flops=da_flops,
@@ -460,6 +698,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import clustered_decode as cd
     from repro_torch.kernels import distance_argmin as da
+    from repro_torch.kernels import paged_clustered_decode as pcd
+    from repro_torch.runtime.kv_pool import PagedKVConfig
 
     record = {"card": smi, "kind": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -475,29 +715,44 @@ def main() -> int:
 
     # phase 3: kernels vs plain
     cd_err = check_clustered_decode(torch, cd, dev)
+    pcd_err = check_paged_decode(torch, cd, pcd, dev)
     da_err, xa, ca = check_distance_argmin(torch, da, dev)
 
     # phase 4: small model, card vs CPU
     check_small_model(torch, dev)
 
     # phase 5: serve
-    serve = serve_qwen3(torch, dev, smi)
+    serve, params = serve_qwen3(torch, dev, smi)
     record["serve"] = serve
+
+    # phase 5b: the same requests through the paged engine
+    paged = serve_qwen3(torch, dev, smi, PagedKVConfig(block_size=16),
+                        params)[0]
+    del params
+    record["serve_paged"] = paged
+    record["paged_vs_dense_first_diff"] = compare_tokens(serve, paged)
 
     # phase 6: k-medians through the kernel
     km = kmedians(torch, dev)
     record["kmedians"] = km
 
     # phase 7: times
-    tm = timings(torch, cd, da, dev, xa, ca)
+    tm = timings(torch, cd, pcd, da, dev, xa, ca)
     record["times"] = tm
     for name, v in tm.items():
         say(f"[{smi}] {name}: kernel_ms {v['ms']:.4f} plain_ms "
             f"{v['plain_ms']:.4f} library_ms {v['library_ms']} bound_ms "
             f"{v['bound_ms']:.4f} ({v['bound_by']})")
-    say(f"clustered_decode launches per engine step: {serve['n_layers']}; "
-        "distance_argmin: 0 per engine step (serving clusters with the "
-        "plain assignment), "
+    v = tm["paged_clustered_decode"]["decode_only"]
+    say(f"[{smi}] paged_clustered_decode decode-only (4 rows): kernel_ms "
+        f"{v['ms']:.4f} plain_ms {v['plain_ms']:.4f} library_ms "
+        f"{v['library_ms']:.4f} bound_ms {v['bound_ms']:.4f} "
+        f"({v['bound_by']}); clustered_decode one-token form "
+        f"{tm['clustered_decode']['decode_form_ms']:.4f}")
+    say(f"clustered_decode launches per dense engine step and "
+        f"paged_clustered_decode per paged engine step: "
+        f"{serve['n_layers']}; distance_argmin: 0 per engine step (serving "
+        "clusters with the plain assignment), "
         f"{km['launches']} in the k-medians fit")
     record["seconds"] = time.perf_counter() - t_all
 
@@ -511,6 +766,15 @@ def main() -> int:
              bound_ms=tm["clustered_decode"]["bound_ms"],
              bound_by=tm["clustered_decode"]["bound_by"],
              library_ms=tm["clustered_decode"]["library_ms"]),
+        dict(name="paged_clustered_decode", route="cuda",
+             source="src/repro_torch/csrc/paged_clustered_decode.cu",
+             replaces="src/repro/kernels/paged_clustered_decode.py:53",
+             launches=paged["launches"]["paged_clustered_decode"],
+             max_abs_err=pcd_err, ms=tm["paged_clustered_decode"]["ms"],
+             plain_ms=tm["paged_clustered_decode"]["plain_ms"],
+             bound_ms=tm["paged_clustered_decode"]["bound_ms"],
+             bound_by=tm["paged_clustered_decode"]["bound_by"],
+             library_ms=tm["paged_clustered_decode"]["library_ms"]),
         dict(name="distance_argmin", route="cuda",
              source="src/repro_torch/csrc/distance_argmin.cu",
              replaces="src/repro/kernels/distance_argmin.py:36",

@@ -56,6 +56,29 @@ struct DenseMask {
   }
 };
 
+// Entry ge of slot b, kv head h: centroid ge < C, else ring slot ge - C.
+template <typename T>
+struct DenseSrc {
+  const T* kc;
+  const T* vc;
+  const T* kt;
+  const T* vt;
+  int b, h, Hkv, dh, C, R;
+
+  __device__ __forceinline__ void operator()(int ge, const T*& k,
+                                             const T*& v) const {
+    if (ge < C) {
+      const size_t off = ((size_t)(b * C + ge) * Hkv + h) * dh;
+      k = kc + off;
+      v = vc + off;
+    } else {
+      const size_t off = ((size_t)(b * R + ge - C) * Hkv + h) * dh;
+      k = kt + off;
+      v = vt + off;
+    }
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 clustered_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
@@ -74,18 +97,11 @@ clustered_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int row0 = blockIdx.y * kRows;
 
   extern __shared__ float4 smem4[];          // 16-byte aligned
-  float* q_s = reinterpret_cast<float*>(smem4);  // kRows * dh
-  float* k_s = q_s + kRows * dh;              // kTile * k_stride(dh)
-  float* v_s = k_s + kTile * k_stride(dh);    // kTile * dh
-  float* s_s = v_s + kTile * dh;              // kRows * kTile
-  float* bias_s = s_s + kRows * kTile;        // kTile
-  int* pos_s = reinterpret_cast<int*>(bias_s + kTile);  // kTile
-  int* ok_s = pos_s + kTile;                  // kTile
+  const BlockSmem sm = block_smem(reinterpret_cast<float*>(smem4), dh);
 
   const int t = t_vec[b];
   const int cov = cov_vec[b];
   const int cl = cl_vec[b];
-  const int tw = t + cl;
 
   // query row r of this tile is chunk row i = row / g, head h * g + row % g
   for (int idx = threadIdx.x; idx < kRows * dh; idx += kThreads) {
@@ -95,94 +111,24 @@ clustered_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       const int i = row / g, hq = h * g + row % g;
       v = to_f32(q[((size_t)(b * L + i) * Hq + hq) * dh + d]);
     }
-    q_s[idx] = v;
+    sm.q_s[idx] = v;
   }
 
   RowState st[kRowsPerWarp];
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) row_state_init(st[i]);
 
-  const DenseMask mask{bias_s, pos_s, ok_s, row0, g, t, cov, cl};
-  const int n_entries = C + R;
-  for (int e0 = 0; e0 < n_entries; e0 += kTile) {
-    const int n_tile = min(kTile, n_entries - e0);
-    // stage the tile: entry e0 + e is centroid e0 + e, or ring slot
-    // e0 + e - C.  16-byte vectors (kVec elements; the wrapper checks
-    // dh % kVec == 0 and alignment), kBatch of each per thread issued
-    // before any is converted into shared memory.
-    constexpr int kVec = 16 / sizeof(T);
-    constexpr int kBatch = 4;
-    const int vpr = dh / kVec;  // vectors per entry
-    const int n_vec = kTile * vpr;
-    for (int base = 0; base < n_vec; base += kBatch * kThreads) {
-      uint4 kr[kBatch], vr[kBatch];
-#pragma unroll
-      for (int it = 0; it < kBatch; ++it) {
-        const int idx = base + it * kThreads + threadIdx.x;
-        const int ge = e0 + idx / vpr;
-        kr[it] = vr[it] = make_uint4(0u, 0u, 0u, 0u);
-        if (idx < n_vec && ge < n_entries) {
-          const int d0 = (idx % vpr) * kVec;
-          const bool cent = ge < C;
-          const size_t off =
-              cent ? ((size_t)(b * C + ge) * Hkv + h) * dh + d0
-                   : ((size_t)(b * R + ge - C) * Hkv + h) * dh + d0;
-          kr[it] = *reinterpret_cast<const uint4*>((cent ? kc : kt) + off);
-          vr[it] = *reinterpret_cast<const uint4*>((cent ? vc : vt) + off);
-        }
-      }
-#pragma unroll
-      for (int it = 0; it < kBatch; ++it) {
-        const int idx = base + it * kThreads + threadIdx.x;
-        if (idx < n_vec) {
-          const int e = idx / vpr, d0 = (idx % vpr) * kVec;
-          float kf[kVec], vf[kVec];
-          unpack16<T>(kr[it], kf);
-          unpack16<T>(vr[it], vf);
-#pragma unroll
-          for (int j = 0; j < kVec; ++j) {
-            k_s[e * k_stride(dh) + d0 + j] = kf[j];
-            v_s[e * dh + d0 + j] = vf[j];
-          }
-        }
-      }
-    }
-    if (threadIdx.x < kTile) {
-      const int ge = e0 + threadIdx.x;
-      if (ge < C) {
-        const float c = cnt[(b * C + ge) * Hkv + h];
-        bias_s[threadIdx.x] = logf(fmaxf(c, 1e-9f));
-        ok_s[threadIdx.x] = c > 0.f;
-        pos_s[threadIdx.x] = -1;
-      } else {
-        const int s = ge - C;
-        const int wrapped = tw - R + (((s - tw) % R) + R) % R;
-        // a slot past C + R is never scored (n_tile); park it at -2
-        pos_s[threadIdx.x] = ge < n_entries ? (tw <= R ? s : wrapped) : -2;
-        bias_s[threadIdx.x] = 0.f;
-        ok_s[threadIdx.x] = 0;
-      }
-    }
-    __syncthreads();
-    score_and_combine_tile(q_s, k_s, v_s, s_s, dh, n_tile, scale, softcap,
-                           mask, st);
-  }
+  const DenseMask mask{sm.bias_s, sm.pos_s, sm.ok_s, row0, g, t, cov, cl};
+  const DenseSrc<T> src{kc, vc, kt, vt, b, h, Hkv, dh, C, R};
+  attend_entries<T>(sm, src, cnt + (size_t)b * C * Hkv + h, Hkv, C, R,
+                    t + cl, dh, scale, softcap, mask, st);
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int row = row0 + warp + kWarps * i;
-    if (row >= n_rows) continue;
+  store_rows<T>(st, dh, [&](int r) -> T* {
+    const int row = row0 + r;
+    if (row >= n_rows) return nullptr;
     const int ci = row / g, hq = h * g + row % g;
-    const float l = fmaxf(st[i].l, 1e-30f);
-    T* o = out + ((size_t)(b * L + ci) * Hq + hq) * dh;
-#pragma unroll
-    for (int j = 0; j < kDhPerLane; ++j) {
-      const int d = lane + 32 * j;
-      if (d < dh) o[d] = from_f32<T>(st[i].acc[j] / l);
-    }
-  }
+    return out + ((size_t)(b * L + ci) * Hq + hq) * dh;
+  });
 }
 
 template <typename T>
@@ -190,10 +136,7 @@ int launch(const void* q, const void* kc, const void* vc, const void* cnt,
            const void* kt, const void* vt, const void* t, const void* cov,
            const void* cl, void* out, int B, int L, int Hq, int Hkv, int dh,
            int C, int R, float scale, float softcap, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (kRows * dh + kTile * k_stride(dh) + kTile * dh +
-                       kRows * kTile + kTile) +
-      sizeof(int) * 2 * kTile;
+  const size_t smem = block_smem_bytes(dh);
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(clustered_decode_kernel<T>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,

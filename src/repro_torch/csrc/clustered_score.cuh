@@ -2,12 +2,14 @@
 // decode kernels.
 //
 // Counterpart of score_and_combine in src/repro/kernels/clustered_decode.py:
-// the dense clustered_decode kernel calls score_and_combine_tile below for
-// every tile of entries, and the paged kernel must call the same function,
-// because paged tokens have to be bit-identical to dense ones.  The caller
-// stages one tile of entries in shared memory (keys and values as f32) and
-// supplies a mask functor; this function scores the tile against the
-// block's query rows and folds it into each row's online-softmax state.
+// the dense clustered_decode kernel and the paged paged_clustered_decode
+// kernel both walk their entries with attend_entries below, which stages
+// each tile of entries in shared memory (keys and values as f32) and
+// scores it with score_and_combine_tile against the block's query rows,
+// folding it into each row's online-softmax state.  The kernels differ
+// only in where an entry's bytes live (an entry-source functor) and which
+// entries a row sees (a mask functor), so a paged row is bit-identical to
+// the dense row of the same (slot, position).
 //
 // Order of operations per (row, entry), as in the reference:
 //   s = (q . k) * scale;  s = tanh(s / softcap) * softcap  (if softcap > 0);
@@ -100,8 +102,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Shared-memory layout of one block (floats; every array 16-byte aligned
-// when dh % 4 == 0, which the wrappers check).
+// Strides of the shared arrays (layout: BlockSmem below).
 __host__ __device__ constexpr int k_stride(int dh) { return dh + 4; }
 __host__ __device__ constexpr int score_index(int warp, int i, int e) {
   return (warp * kTile + e) * kRowsPerWarp + i;
@@ -194,6 +195,138 @@ __device__ __forceinline__ void score_and_combine_tile(
     }
   }
   __syncthreads();
+}
+
+// Shared memory of one block (floats; every array 16-byte aligned when
+// dh % 4 == 0, which the wrappers check):
+//   q_s [kRows][dh], k_s [kTile][k_stride(dh)], v_s [kTile][dh],
+//   s_s [kRows][kTile], bias_s [kTile]; then ints pos_s, ok_s [kTile].
+struct BlockSmem {
+  float* q_s;
+  float* k_s;
+  float* v_s;
+  float* s_s;
+  float* bias_s;  // log(max(count, 1e-9)) of centroid entries
+  int* pos_s;     // ring position, -1 for a centroid, -2 past the end
+  int* ok_s;      // centroid count > 0
+};
+
+__host__ __device__ constexpr size_t block_smem_bytes(int dh) {
+  return sizeof(float) * (kRows * dh + kTile * k_stride(dh) + kTile * dh +
+                          kRows * kTile + kTile) +
+         sizeof(int) * 2 * kTile;
+}
+
+__device__ __forceinline__ BlockSmem block_smem(float* base, int dh) {
+  BlockSmem sm;
+  sm.q_s = base;
+  sm.k_s = sm.q_s + kRows * dh;
+  sm.v_s = sm.k_s + kTile * k_stride(dh);
+  sm.s_s = sm.v_s + kTile * dh;
+  sm.bias_s = sm.s_s + kRows * kTile;
+  sm.pos_s = reinterpret_cast<int*>(sm.bias_s + kTile);
+  sm.ok_s = sm.pos_s + kTile;
+  return sm;
+}
+
+// Walk the C + R entries [C centroids (+) ring offsets 0..R-1] in tiles of
+// kTile and fold each into the rows' online softmax.
+//   src(ge, k, v)   points k and v at entry ge's Dh row of this block's
+//                   kv head (centroid ge < C, else ring offset ge - C)
+//   cnt[c * cnt_stride]  count of centroid c (this block's slot and head)
+//   tw              ring watermark: ring offset s holds position s while
+//                   tw <= R, else tw - R + ((s - tw) mod R), a floor mod
+//   mask            as for score_and_combine_tile, reading sm's arrays
+// The caller has written the query rows to sm.q_s; the first tile's
+// barrier publishes them.  Every thread of the block must call it.
+// Tile loads are 16-byte vectors (kVec elements; the wrappers check
+// dh % kVec == 0 and alignment), kBatch of each per thread issued before
+// any is converted into shared memory.
+template <typename T, typename Src, typename Mask>
+__device__ __forceinline__ void attend_entries(
+    const BlockSmem& sm, const Src& src, const float* cnt, int cnt_stride,
+    int C, int R, int tw, int dh, float scale, float softcap,
+    const Mask& mask, RowState (&st)[kRowsPerWarp]) {
+  const int n_entries = C + R;
+  for (int e0 = 0; e0 < n_entries; e0 += kTile) {
+    const int n_tile = min(kTile, n_entries - e0);
+    constexpr int kVec = 16 / sizeof(T);
+    constexpr int kBatch = 4;
+    const int vpr = dh / kVec;  // vectors per entry
+    const int n_vec = kTile * vpr;
+    for (int base = 0; base < n_vec; base += kBatch * kThreads) {
+      uint4 kr[kBatch], vr[kBatch];
+#pragma unroll
+      for (int it = 0; it < kBatch; ++it) {
+        const int idx = base + it * kThreads + threadIdx.x;
+        const int ge = e0 + idx / vpr;
+        kr[it] = vr[it] = make_uint4(0u, 0u, 0u, 0u);
+        if (idx < n_vec && ge < n_entries) {
+          const int d0 = (idx % vpr) * kVec;
+          const T* kp;
+          const T* vp;
+          src(ge, kp, vp);
+          kr[it] = __ldg(reinterpret_cast<const uint4*>(kp + d0));
+          vr[it] = __ldg(reinterpret_cast<const uint4*>(vp + d0));
+        }
+      }
+#pragma unroll
+      for (int it = 0; it < kBatch; ++it) {
+        const int idx = base + it * kThreads + threadIdx.x;
+        if (idx < n_vec) {
+          const int e = idx / vpr, d0 = (idx % vpr) * kVec;
+          float kf[kVec], vf[kVec];
+          unpack16<T>(kr[it], kf);
+          unpack16<T>(vr[it], vf);
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) {
+            sm.k_s[e * k_stride(dh) + d0 + j] = kf[j];
+            sm.v_s[e * dh + d0 + j] = vf[j];
+          }
+        }
+      }
+    }
+    if (threadIdx.x < kTile) {
+      const int ge = e0 + threadIdx.x;
+      if (ge < C) {
+        const float c = cnt[ge * cnt_stride];
+        sm.bias_s[threadIdx.x] = logf(fmaxf(c, 1e-9f));
+        sm.ok_s[threadIdx.x] = c > 0.f;
+        sm.pos_s[threadIdx.x] = -1;
+      } else {
+        const int s = ge - C;
+        const int wrapped = tw - R + (((s - tw) % R) + R) % R;
+        // a slot past C + R is never scored (n_tile); park it at -2
+        sm.pos_s[threadIdx.x] =
+            ge < n_entries ? (tw <= R ? s : wrapped) : -2;
+        sm.bias_s[threadIdx.x] = 0.f;
+        sm.ok_s[threadIdx.x] = 0;
+      }
+    }
+    __syncthreads();
+    score_and_combine_tile(sm.q_s, sm.k_s, sm.v_s, sm.s_s, dh, n_tile, scale,
+                           softcap, mask, st);
+  }
+}
+
+// Write each row's softmax average acc / max(l, 1e-30) in T.
+// out_row(r) is the output row of block row r, or nullptr to skip it.
+template <typename T, typename OutRow>
+__device__ __forceinline__ void store_rows(
+    const RowState (&st)[kRowsPerWarp], int dh, const OutRow& out_row) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    T* o = out_row(warp + kWarps * i);
+    if (o == nullptr) continue;
+    const float l = fmaxf(st[i].l, 1e-30f);
+#pragma unroll
+    for (int j = 0; j < kDhPerLane; ++j) {
+      const int d = lane + 32 * j;
+      if (d < dh) o[d] = from_f32<T>(st[i].acc[j] / l);
+    }
+  }
 }
 
 }  // namespace repro

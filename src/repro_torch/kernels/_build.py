@@ -36,6 +36,10 @@ SIGNATURES = {
         "distance_argmin_launch",
         [_c_int, _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_void_p,
          _c_void_p, _c_void_p]),
+    "paged_clustered_decode": (
+        "paged_clustered_decode_launch",
+        [_c_int] + [_c_void_p] * 13 + [_c_int] * 7 + [_c_float, _c_float,
+                                                      _c_void_p]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.kernels import clustered_decode as _cd
 from repro_torch.kernels import distance_argmin as _da
+from repro_torch.kernels import paged_clustered_decode as _pcd
 
 
 def use_kernel_for(x: torch.Tensor) -> bool:
@@ -58,9 +59,32 @@ def clustered_decode(q, k_cents, v_cents, counts, k_tail, v_tail, t, cov,
         scale=scale, softcap=softcap)
 
 
+def paged_clustered_decode(q, k_cents, v_cents, counts, k_pool, v_pool,
+                           row_slot, row_bt, qpos1, tw, cov, row_wlo=None,
+                           *, scale: float, softcap: Optional[float] = None):
+    """Paged clustered-KV decode over packed ragged rows.
+
+    q (N, Hq, Dh) packed (slot, position) rows; k/v_pool (nb, bs, Hkv, Dh)
+    tail block pools; row_bt (N, T) physical block per ring block (every
+    entry valid: unmapped blocks point at a garbage block the masks
+    exclude); qpos1 / tw / cov per row: position + 1 (0: padding row),
+    ring watermark, coverage frontier; ``row_wlo`` (N,) the retention
+    window floor (None: zeros, frontier-only masking) → (N, Hq, Dh)."""
+    if use_kernel_for(q):
+        paged_clustered_decode.launches += 1
+        return _pcd.paged_clustered_decode_cuda(
+            q, k_cents, v_cents, counts, k_pool, v_pool, row_slot, row_bt,
+            qpos1, tw, cov, row_wlo, scale=scale, softcap=softcap)
+    return _pcd.paged_clustered_decode_plain(
+        q, k_cents, v_cents, counts, k_pool, v_pool, row_slot, row_bt,
+        qpos1, tw, cov, row_wlo, scale=scale, softcap=softcap)
+
+
 distance_argmin.launches = 0
 clustered_decode.launches = 0
+paged_clustered_decode.launches = 0
 _WRAPPERS = {"clustered_decode": clustered_decode,
+             "paged_clustered_decode": paged_clustered_decode,
              "distance_argmin": distance_argmin}
 
 

@@ -6,7 +6,8 @@ Cache leaves keep the reference's layouts: exact k/v (B, Sc, Hkv, Dh);
 clustered k/v_cents (B, C, Hkv, Dh), counts (B, C, Hkv) f32, k/v_tail
 (B, R, Hkv, Dh) in ring order, cov (B,) int32.  Decode writes the new keys
 and values into the cache IN PLACE (and returns the cache): an engine step
-must not copy every layer's KV.
+must not copy every layer's KV.  Paged serving keeps the tails in a
+shared block pool (nb, bs, Hkv, Dh) read through block tables.
 """
 
 from __future__ import annotations
@@ -158,22 +159,33 @@ def _cache_write(cache, k_new, v_new, slot):
 
 def init_cache_attn_clustered(cfg: ModelConfig, batch: int, *,
                               n_clusters: int = 512, tail: int = 256,
-                              kv_repeat: int = 1, device=None):
+                              kv_repeat: int = 1, device=None,
+                              pool_blocks: int = 0, block_size: int = 0):
     """Clustered KV cache for global-attention layers (the paper's memory
     manager): C median centroids (+ per-centroid counts) stand in for the
     compressed prefix; the most recent ``tail`` keys stay exact in a ring.
     Centroids summarize positions [0, cov); the ring is exact for
-    [cov, t).  Dense layout only (the paged pool is a later slice)."""
+    [cov, t).
+
+    With ``pool_blocks``/``block_size`` set (paged serving), the tail
+    leaves are a shared block pool ``(pool_blocks, block_size, H, Dh)``:
+    ring offset ``r`` of a slot lives at offset ``r % block_size`` of the
+    block its block table maps for ring block ``r // block_size``
+    (runtime/kv_pool.py).  The pool starts zeroed, never uninitialised:
+    unmapped table entries read a real block whose masked entries reach
+    P·V as probability 0 times the payload, and 0 × NaN is NaN."""
     dt = cdtype(cfg)
     hkv = cfg.n_kv_heads * kv_repeat
     dh = cfg.head_dim
     z = lambda shape, d=dt: torch.zeros(shape, dtype=d, device=device)  # noqa: E731
+    tail_shape = ((pool_blocks, block_size, hkv, dh) if pool_blocks
+                  else (batch, tail, hkv, dh))
     return {
         "k_cents": z((batch, n_clusters, hkv, dh)),
         "v_cents": z((batch, n_clusters, hkv, dh)),
         "counts": z((batch, n_clusters, hkv), torch.float32),
-        "k_tail": z((batch, tail, hkv, dh)),
-        "v_tail": z((batch, tail, hkv, dh)),
+        "k_tail": z(tail_shape),
+        "v_tail": z(tail_shape),
         "cov": z((batch,), torch.int32),
     }
 
@@ -247,6 +259,57 @@ def attn_decode_clustered(p, x, cfg: ModelConfig, *, cache, t,
                + torch.einsum("bhlgs,bshd->blhgd", pw[..., nc:],
                               v_tail.to(f32)))
     y = out.reshape(b, l, hq * cfg.head_dim).to(x.dtype) @ p["wo"]
+    return y, cache
+
+
+def attn_decode_clustered_packed(p, x, cfg: ModelConfig, *, cache,
+                                 row_slot, row_pos, row_tw, block_tables,
+                                 block_size: int, kv_repeat: int = 1,
+                                 row_wlo=None):
+    """Paged clustered-KV attention over packed ragged rows.
+
+    x (N, 1, d): one embedding per real (slot, position) pair this step,
+    padded to the row bucket.  row_slot (N,) slot; row_pos (N,) absolute
+    position (−1: padding row, output garbage by contract); row_tw (N,)
+    the slot's ring watermark t + chunk_len (all of a chunk's rows are
+    written before any row scores, so intra-chunk causality falls out of
+    the per-row position mask as in the dense mixed launch); block_tables
+    (B, T) global block ids, every entry valid, with every block written
+    this step owned by its slot alone (``kv_pool.ensure``).
+
+    Each row's K/V go into its slot's pool block at the ring offset the
+    dense path uses (in place; padding rows drop), so the pool holds the
+    dense ring's live bytes and the outputs equal the dense engine's."""
+    n = x.shape[0]
+    positions = row_pos[:, None]                          # (N, 1)
+    q, k, v = _qkv(p, x, cfg, positions, kv_repeat)
+    t_blocks = block_tables.shape[1]
+    nb = cache["k_tail"].shape[0]
+    rs = row_slot.long()
+    row_bt = block_tables[rs]                             # (N, T)
+    roff = torch.remainder(row_pos, t_blocks * block_size).long()
+    blk = torch.gather(row_bt, 1, (roff // block_size)[:, None])[:, 0]
+    # flat pool index blk * bs + off of each row's ring offset; padding
+    # rows point past the pool and drop
+    flat = torch.where(row_pos >= 0, blk * block_size + roff % block_size,
+                       nb * block_size)
+    for key, new in (("k_tail", k), ("v_tail", v)):
+        pool = cache[key]
+        _ring_write_(pool.view(1, nb * block_size, *pool.shape[2:]),
+                     new[:, 0][None], flat[None])
+
+    valid = row_pos >= 0
+    qpos1 = torch.where(valid, row_pos + 1, torch.zeros_like(row_pos))
+    row_cov = cache["cov"][rs]
+    if row_wlo is None:
+        # no retention window: the cov frontier is the only lower bound
+        row_wlo = torch.zeros_like(qpos1)
+    out = kops.paged_clustered_decode(
+        q[:, 0], cache["k_cents"], cache["v_cents"], cache["counts"],
+        cache["k_tail"], cache["v_tail"], row_slot, row_bt, qpos1, row_tw,
+        row_cov, row_wlo, scale=_scale(cfg),
+        softcap=cfg.attn_logit_softcap)
+    y = out.reshape(n, 1, cfg.n_heads * cfg.head_dim).to(x.dtype) @ p["wo"]
     return y, cache
 
 

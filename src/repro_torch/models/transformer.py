@@ -113,13 +113,15 @@ def _ffn(p, h, cfg: ModelConfig):
 def init_sublayer_cache(cfg: ModelConfig, kind: str, batch: int,
                         max_seq: int, kv_repeat: int, kv_mode: str = "exact",
                         kv_clusters: int = 512, kv_tail: int = 256,
+                        kv_pool_blocks: int = 0, kv_block_size: int = 0,
                         device=None):
     if kind != "G":
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
     if kv_mode == "clustered":
         return attn.init_cache_attn_clustered(
             cfg, batch, n_clusters=kv_clusters, tail=kv_tail,
-            kv_repeat=kv_repeat, device=device)
+            kv_repeat=kv_repeat, device=device, pool_blocks=kv_pool_blocks,
+            block_size=kv_block_size)
     if kv_mode != "exact":
         raise NotImplementedError(f"kv_mode {kv_mode!r} is not ported")
     return attn.init_cache_attn(cfg, batch, max_seq, kv_repeat,
@@ -128,13 +130,18 @@ def init_sublayer_cache(cfg: ModelConfig, kind: str, batch: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                kv_repeat: int = 1, kv_mode: str = "exact",
-               kv_clusters: int = 512, kv_tail: int = 256, device=None):
-    """``{"layers": [leaf per layer]}``; ``device`` None means CUDA."""
+               kv_clusters: int = 512, kv_tail: int = 256,
+               kv_pool_blocks: int = 0, kv_block_size: int = 0, device=None):
+    """``{"layers": [leaf per layer]}``; ``device`` None means CUDA.
+    ``kv_pool_blocks``/``kv_block_size`` switch clustered tails to the
+    paged block-pool layout (runtime/kv_pool.py): one pool per layer
+    leaf, all sharing the engine's single block table."""
     check_supported(cfg)
     dev = resolve_device(device)
     return {"layers": [
         init_sublayer_cache(cfg, k, batch, max_seq, kv_repeat, kv_mode,
-                            kv_clusters, kv_tail, dev)
+                            kv_clusters, kv_tail, kv_pool_blocks,
+                            kv_block_size, dev)
         for k in layer_kinds(cfg)]}
 
 
@@ -170,5 +177,55 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, t, *,
         b = h.shape[0]
         idx = per_slot(chunk_len, b, h.device).long() - 1
         h = h[torch.arange(b, device=h.device), idx][:, None]
+    logits = lm_logits(params["embed"], h, cfg)[:, 0]
+    return logits, cache
+
+
+def _sublayer_decode_packed(p, h, cfg: ModelConfig, cache, *, row_slot,
+                            row_pos, row_tw, block_tables, block_size,
+                            kv_repeat):
+    """One 'G' sublayer over packed rows (paged clustered KV).  h
+    (N, 1, d); every non-attention op is row-wise, so rows stand in for
+    the batch axis exactly."""
+    x = apply_norm(p["norm1"], h, cfg)
+    y, cache = attn.attn_decode_clustered_packed(
+        p["attn"], x, cfg, cache=cache, row_slot=row_slot, row_pos=row_pos,
+        row_tw=row_tw, block_tables=block_tables, block_size=block_size,
+        kv_repeat=kv_repeat)
+    if cfg.post_norms:
+        y = apply_norm(p["post_attn_norm"], y, cfg)
+    h = h + y
+    return _ffn(p, h, cfg), cache
+
+
+def decode_step_packed(params, cfg: ModelConfig, cache, tokens, row_slot,
+                       row_pos, row_tw, row_cidx, block_tables, *,
+                       block_size: int, width: int = 1, kv_repeat: int = 1):
+    """Packed ragged engine step for the paged clustered-KV path.
+
+    Each real (slot, position) pair is one row: tokens (N,), row_slot (N,)
+    slot, row_pos (N,) absolute position (−1: padding row), row_tw (N,)
+    the slot's ring watermark t + chunk_len this step, row_cidx (N,) the
+    row's index within its admission chunk and ``width`` the step's
+    longest chunk (both sequence sliding-window and recurrent layers,
+    which are later slices), block_tables (B, T) global tail-block ids.
+    Returns (logits (N, V) f32, cache), every row's next-token
+    distribution, and writes the new keys and values into the cache's
+    pools in place.  MLP, norms and embeddings are row-wise, so rows
+    stand in for the batch exactly."""
+    kinds = layer_kinds(cfg)
+    for kind in sorted(set(kinds) - {"G"}):
+        item = "8.1" if kind == "L" else "9"
+        raise NotImplementedError(
+            f"layer kind {kind!r} over packed rows (ROADMAP Queue A item "
+            f"{item})")
+    tokens = torch.where(row_pos >= 0, tokens, torch.zeros_like(tokens))
+    h = embed_tokens(params["embed"], tokens[:, None], cfg)   # (N, 1, d)
+    for lp, c in zip(params["layers"], cache["layers"]):
+        h, _ = _sublayer_decode_packed(
+            lp, h, cfg, c, row_slot=row_slot, row_pos=row_pos,
+            row_tw=row_tw, block_tables=block_tables,
+            block_size=block_size, kv_repeat=kv_repeat)
+    h = apply_norm(params["final_norm"], h, cfg)
     logits = lm_logits(params["embed"], h, cfg)[:, 0]
     return logits, cache

@@ -3,7 +3,7 @@ TINY: greedy tokens are equal for exact KV with chunked admission (chunk 4
 and 16) and for clustered KV streaming long prompts through absorb_chunk
 and per-slot compaction (chunk 8).  Also the port's gates: no device
 means CUDA, and every ServerConfig feature this slice lacks raises
-NotImplementedError."""
+NotImplementedError, paged serving included where this slice lacks it."""
 
 import dataclasses
 
@@ -23,6 +23,7 @@ from repro_torch.core import kv_compress as kv_t
 from repro_torch.core import request_cluster as request_cluster_t
 from repro_torch.core.request_cluster import Request as RequestT
 from repro_torch.models.config import ModelConfig as ModelConfigT
+from repro_torch.runtime.kv_pool import PagedKVConfig as PagedKVConfigT
 from repro_torch.runtime.server import Server as ServerT
 from repro_torch.runtime.server import ServerConfig as ServerConfigT
 from repro_torch.runtime.telemetry import TelemetryConfig
@@ -120,7 +121,8 @@ def test_server_defaults_to_cuda(weights):
 @pytest.mark.parametrize("field,value", [
     ("engine", "static"),
     ("prefill_chunk", 0),
-    ("paged", object()),
+    # paged serving of exact KV (no kv_compress): QuotaRetention
+    ("paged", PagedKVConfigT(block_size=4)),
     ("prefix_share", object()),
     ("template_store", object()),
     ("scheduler", object()),
@@ -132,6 +134,24 @@ def test_unported_features_raise(weights, field, value):
     kw = {"prefill_chunk": 0 if field == "engine" else 8, field: value}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServerT(TINY_T, ServerConfigT(**kw), weights[1], device="cpu")
+
+
+def test_paged_blocking_admission_raises(weights):
+    """Paged clustered serving needs chunked admission in this slice."""
+    ccfg = kv_t.KVCompressConfig(keep_recent=16, refresh_every=8)
+    with pytest.raises(NotImplementedError,
+                       match="_write_slot_paged_impl.*item 6"):
+        ServerT(TINY_T, ServerConfigT(kv_compress=ccfg, prefill_chunk=0,
+                                      paged=PagedKVConfigT(block_size=4)),
+                weights[1], device="cpu")
+
+
+def test_paged_value_gates_kept(weights):
+    ccfg = kv_t.KVCompressConfig(keep_recent=18, refresh_every=8)
+    with pytest.raises(ValueError, match="must divide keep_recent"):
+        ServerT(TINY_T, ServerConfigT(kv_compress=ccfg, prefill_chunk=8,
+                                      paged=PagedKVConfigT(block_size=4)),
+                weights[1], device="cpu")
 
 
 def test_unported_layer_kinds_raise(weights):
