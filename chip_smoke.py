@@ -7,28 +7,40 @@ NVIDIA Hopper card.
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles the hand-written kernels from ``src/repro_torch/csrc``
-   with nvcc (sm_90a), all at once;
+2. build: compiles the five hand-written kernels from
+   ``src/repro_torch/csrc`` with nvcc (sm_90a), all at once;
 3. kernels vs plain: each kernel against its plain PyTorch version on the
-   card at the serving path's shapes (clustered_decode: B=4, L=64, Hq=32,
+   card at the path's shapes (clustered_decode: B=4, L=64, Hq=32,
    Hkv=8, Dh=128, C=64, R=256 in bf16, f32 and f32 + softcap 50;
    paged_clustered_decode: the same data as 130 packed rows in a 256-row
    bucket over a pool of 16-position blocks behind a shuffled block
    table, in the same three cases, bit-equal to clustered_decode on every
    real row, and its window floor ``wlo`` exact;
-   distance_argmin: N=2^20, D=16, K=64, L1 and L2);
+   distance_argmin: N=2^20, D=16, K=64, L1 and L2;
+   bitserial_median: ``torch.equal`` on medians and totals at the serve's
+   compaction (1,152 members x 320 points x 128 dims, K=64, 16 bits,
+   count weights with zeros) and absorb (288 members, K=32) shapes and the
+   fit's streamed shape (2^20 x 16, K=64, 32 bits), the last twice;
+   flash_decode: B=4, S=2048, Hq=32, Hkv=8, Dh=128, t=1500 in bf16, f32
+   and f32 + softcap 50, and against ``attention.decode_attention``);
 4. model agreement: the reduced qwen3 in f32 decodes (mixed and plain
    steps, clustered cache) with the same logits on the card as on the CPU;
 5. serve: qwen3-4b at full width (random weights, seed 0, bf16) answers 8
    requests through the continuous engine with chunked admission and a
    clustered KV cache; the clustered_decode launch count must equal
-   layers x engine steps;
+   layers x engine steps, and the memory manager's medians must have run
+   bitserial_median (launches >= absorbs + compactions);
 5b. paged serve: the same requests through the paged engine
    (``PagedKVConfig(block_size=16)``, packed ragged launches); the
    paged_clustered_decode launch count must equal layers x engine steps,
-   and the pool must recycle blocks and drain to zero;
-6. k-medians: ``clustering.fit`` at its default (distance_argmin kernel),
-   L1 medians, k=64 on 2^20 x 16 points;
+   bitserial_median gated as in 5, and the pool must recycle blocks and
+   drain to zero;
+6. clustering: ``clustering.fit`` at its default, L1 medians, k=64 on
+   2^20 x 16 points from a threefry k-means++ start: both of its kernels,
+   distance_argmin (assignment) and bitserial_median (median update),
+   must launch; then the paper's pipeline of
+   ``examples/quickstart_torch.py`` on the card at the table generators'
+   default sizes (wine_like 4,595 rows, census_like 5,000);
 7. times: CUDA-event medians of 50 launches per kernel beside its plain
    version, a library yardstick and the card's bound.
 
@@ -67,6 +79,14 @@ COV_SLOTS = [0, 900, 60, 10]         # cov >= t + chunk_len - R everywhere
 BS = 16                              # paged: positions per pool block
 N_BUCKET = 256                       # paged: row bucket of the 130 rows
 N_PTS, D_PTS, K_PTS = 1 << 20, 16, 64
+# bitserial_median members of the serve's memory manager over C + R points:
+# a compaction clusters (36 layers x 4 slots x 8 kv heads) at once, an
+# absorb (36 layers x 8 kv heads) of one slot into the prompt budget
+N_LAYERS = 36
+MED_CASES = [("compaction", N_LAYERS * B * HKV, C, 16),
+             ("absorb", N_LAYERS * HKV, C // 2, 16)]
+# flash_decode: qwen3-4b under the smoke's max_seq, t not a chunk multiple
+FD_S, FD_T = 2048, 1500
 
 
 def say(*a):
@@ -299,6 +319,128 @@ def check_distance_argmin(torch, da, dev):
     return max_err, x, c
 
 
+def median_inputs(torch, dev, m, k, bits, seed=0):
+    """Words as the memory manager makes them: m members of C + R normal
+    keys of Dh dims at their 16-bit auto scale; the first C points are
+    centroid summaries weighted by counts in [0, 2000) (a fifth empty), the
+    R ring points by 0/1 masks; random assignments to k clusters."""
+    from repro_torch.core import quantizer
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, C + R, DH, generator=g, device=dev)
+    spec = quantizer.FixedPointSpec(
+        bits=bits, scale=quantizer.auto_scale(x, bits).unsqueeze(-2))
+    u = quantizer.to_unsigned_order(quantizer.quantize(x, spec), bits)
+    a = torch.randint(0, k, (m, C + R), generator=g, device=dev,
+                      dtype=torch.int32)
+    cnt = torch.randint(0, 2000, (m, C), generator=g, device=dev).float()
+    cnt = cnt * (torch.rand(m, C, generator=g, device=dev) >= 0.2)
+    mask = torch.randint(0, 2, (m, R), generator=g, device=dev).float()
+    return u, a, torch.cat([cnt, mask], 1)
+
+
+def stream_inputs(torch, dev, seed=1):
+    """The phase-6 fit's shape: 2^20 x 16 points at 32 bits, k = 64, unit
+    weights."""
+    from repro_torch.core import quantizer
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(N_PTS, D_PTS, generator=g, device=dev) * 4.0
+    spec = quantizer.FixedPointSpec(bits=32,
+                                    scale=quantizer.auto_scale(x, 32))
+    u = quantizer.to_unsigned_order(quantizer.quantize(x, spec), 32)
+    a = torch.randint(0, K_PTS, (N_PTS,), generator=g, device=dev,
+                      dtype=torch.int32)
+    return u, a
+
+
+def check_bitserial_median(torch, bsm, dev):
+    """Medians and totals bit for bit (``torch.equal``) against the plain
+    version: integer weights keep every f32 vote sum exact.  Returns the
+    largest absolute difference of median words and totals over all
+    cases (0 when they are equal)."""
+    max_err = 0.0
+
+    def err(med, tot, med0, tot0):
+        return max((med - med0).abs().max().item(),
+                   (tot - tot0).abs().max().item())
+
+    for name, m, k, bits in MED_CASES:
+        u, a, w = median_inputs(torch, dev, m, k, bits)
+        med, tot = bsm.grouped_median_bits_cuda(u, a, k, w, bits=bits)
+        med0, tot0 = bsm.grouped_median_bits_plain(u, a, k, weights=w,
+                                                   bits=bits)
+        torch.cuda.synchronize()
+        max_err = max(max_err, err(med, tot, med0, tot0))
+        if not (torch.equal(med, med0) and torch.equal(tot, tot0)):
+            raise AssertionError(f"bitserial_median {name}: kernel != plain")
+        say(f"bitserial_median {name} ({m} members x {C + R} points x {DH} "
+            f"dims, K={k}, {bits} bits, count weights): kernel == plain bit "
+            "for bit (medians and totals)")
+    u, a = stream_inputs(torch, dev)
+    runs = [bsm.grouped_median_bits_cuda(u, a, K_PTS, bits=32)
+            for _ in range(2)]
+    med0, tot0 = bsm.grouped_median_bits_plain(u, a, K_PTS, bits=32)
+    torch.cuda.synchronize()
+    for med, tot in runs:
+        max_err = max(max_err, err(med, tot, med0, tot0))
+        if not (torch.equal(med, med0) and torch.equal(tot, tot0)):
+            raise AssertionError("bitserial_median streamed: kernel != plain")
+    say(f"bitserial_median streamed ({N_PTS} x {D_PTS}, K={K_PTS}, 32 bits, "
+        "unit weights): kernel == plain bit for bit, two runs equal")
+    return float(max_err)
+
+
+def decode_cache(torch, dev, dtype, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(B, HQ, DH, generator=g, device=dev).to(dtype),
+            torch.randn(B, FD_S, HKV, DH, generator=g, device=dev).to(dtype),
+            torch.randn(B, FD_S, HKV, DH, generator=g, device=dev).to(dtype))
+
+
+def bf16_ulp(torch, x):
+    """One bf16 ulp of each |x| = m 2^e (m in [0.5, 1)): 2^(e - 8); values
+    below 2^-20 take the ulp of 2^-20."""
+    _, e = torch.frexp(x.abs().clamp(min=2.0 ** -20))
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def check_flash_decode(torch, fd, dev):
+    """bf16 (vs plain in f32 cast to bf16: within 2 bf16 ulps of each value,
+    plus 1e-6 for f32 sums near 0), f32 and f32 with softcap 50 (1e-5);
+    each also against decode_attention on the cache."""
+    from repro_torch.models import attention
+
+    max_err = 0.0
+    cases = [("bf16", torch.bfloat16, None, "2 bf16 ulps"),
+             ("f32", torch.float32, None, 1e-5),
+             ("f32_softcap50", torch.float32, 50.0, 1e-5)]
+    for name, dtype, cap, tol in cases:
+        q, k, v = decode_cache(torch, dev, dtype)
+        kw = dict(scale=DH ** -0.5, softcap=cap)
+        got = fd.flash_decode_cuda(q, k, v, FD_T, **kw)
+        want = fd.flash_decode_plain(q.float(), k.float(), v.float(), FD_T,
+                                     **kw).to(dtype)
+        full = attention.decode_attention(q.float(), k.float(), v.float(),
+                                          t=FD_T, **kw).to(dtype)
+        torch.cuda.synchronize()
+        for ref in (want, full):
+            g, r = got.float(), ref.float()
+            if dtype == torch.bfloat16:
+                over = (g - r).abs() > 2 * bf16_ulp(torch, r) + 1e-6
+                if bool(over.any()):
+                    raise AssertionError(
+                        f"flash_decode {name}: {int(over.sum())} values "
+                        "beyond 2 bf16 ulps")
+            else:
+                torch.testing.assert_close(g, r, rtol=tol, atol=tol)
+        max_err = max(max_err, (got.float() - want.float()).abs().max()
+                      .item())
+        say(f"flash_decode {name}: kernel == plain and == decode_attention "
+            f"within {tol} (max abs err so far {max_err:.3e})")
+    return max_err
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the whole model on the card against the CPU, small and f32
 # ---------------------------------------------------------------------------
@@ -415,6 +557,13 @@ def serve_qwen3(torch, dev, smi, paged=None, params=None):
                              f"compactions {st['kv_compactions']}: the "
                              "clustered path did not run")
     steps = int(st["decode_steps"])
+    n_med = launches["bitserial_median"]
+    need = int(st["kv_absorbs"]) + int(st["kv_compactions"])
+    if not (n_med >= need and n_med > 0):
+        raise AssertionError(
+            f"{mode}: grouped_median_bits launched bitserial_median {n_med} "
+            f"times, want >= absorbs + compactions = {need}: the memory "
+            "manager's medians did not run on the kernel")
     kernel, other = (("paged_clustered_decode", "clustered_decode")
                      if paged is not None else
                      ("clustered_decode", "paged_clustered_decode"))
@@ -441,7 +590,9 @@ def serve_qwen3(torch, dev, smi, paged=None, params=None):
         f"{int(st['gen_tokens'])} generated) in {wall:.1f} s wall; "
         f"{steps} engine steps, {int(st['kv_absorbs'])} absorbs, "
         f"{int(st['kv_compactions'])} compactions; {kernel} launches "
-        f"{launches[kernel]} = {cfg.n_layers} x {steps}{pool}; tokens "
+        f"{launches[kernel]} = {cfg.n_layers} x {steps}{pool}; "
+        f"bitserial_median launches {n_med} (>= {need} absorbs + "
+        f"compactions; {n_med / steps:.3f} per engine step); tokens "
         f"sha256 {digest.hexdigest()[:16]}")
     say(f"[{smi}] {mode}: tokens_per_s {st['tokens_per_s']:.1f}  "
         f"tokens_per_s_wall {st['tokens_per_s_wall']:.1f}  "
@@ -471,12 +622,13 @@ def compare_tokens(dense, paged):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: k-medians through the distance_argmin kernel
+# phase 6: k-medians through distance_argmin and bitserial_median, and the
+# paper's pipeline
 # ---------------------------------------------------------------------------
 
 
 def kmedians(torch, dev):
-    from repro_torch.core import clustering
+    from repro_torch.core import clustering, prng
     from repro_torch.kernels import ops
 
     rng = np.random.default_rng(1)
@@ -486,26 +638,87 @@ def kmedians(torch, dev):
     x = torch.from_numpy(x).to(dev)
     cfg = clustering.ClusterConfig(k=K_PTS, metric="l1", centroid="median",
                                    bits=32, max_iters=20, seed=0)
-    init = clustering.init_kmeanspp(torch.Generator().manual_seed(0), x,
-                                    K_PTS, "l1")
+    t0 = time.perf_counter()
+    init = clustering.init_kmeanspp(prng.PRNGKey(0), x, K_PTS, "l1")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     first = clustering.fit(x, dataclasses.replace(cfg, max_iters=1), init)
     ops.reset_launches()
     t0 = time.perf_counter()
     res = clustering.fit(x, cfg, init)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    n_launch = ops.launch_counts()["distance_argmin"]
+    counts = ops.launch_counts()
+    n_da, n_med = counts["distance_argmin"], counts["bitserial_median"]
     inertia, inertia1 = float(res.inertia), float(first.inertia)
-    if n_launch <= 0:
-        raise AssertionError("fit did not launch distance_argmin")
+    if n_da <= 0 or n_med <= 0:
+        raise AssertionError(f"fit launched distance_argmin {n_da} and "
+                             f"bitserial_median {n_med} times: want both > 0")
     if not (np.isfinite(inertia) and inertia <= inertia1):
         raise AssertionError(f"inertia {inertia} vs first iteration "
                              f"{inertia1}")
-    say(f"k-medians fit: {int(res.n_iters)} iterations in {secs:.2f} s, "
-        f"{n_launch} distance_argmin launches, inertia {inertia:.6g} "
-        f"(first iteration {inertia1:.6g})")
-    return {"launches": n_launch, "iters": int(res.n_iters),
-            "inertia": inertia, "inertia_first": inertia1, "seconds": secs}
+    say(f"k-medians fit: threefry k-means++ start in {init_s:.2f} s; "
+        f"{int(res.n_iters)} iterations in {secs:.2f} s, {n_da} "
+        f"distance_argmin and {n_med} bitserial_median launches, inertia "
+        f"{inertia:.6g} (first iteration {inertia1:.6g})")
+    return {"launches": n_da, "median_launches": n_med,
+            "iters": int(res.n_iters), "inertia": inertia,
+            "inertia_first": inertia1, "seconds": secs, "init_s": init_s}
+
+
+def quickstart(torch, dev):
+    """examples/quickstart_torch.py's pipeline on the card at the table
+    generators' default sizes, held against the same pipeline on the CPU:
+    the same k* (the census table's true k, 5) and recognition rates within
+    half a point (assignments may differ at L1 near-ties between the
+    kernel's and the CPU's distance sums)."""
+    import runpy
+
+    from repro_torch.kernels import ops
+
+    run = runpy.run_path(str(ROOT / "examples" / "quickstart_torch.py"),
+                         run_name="quickstart_torch")["run"]
+    sizes = dict(wine_n=4595, census_n=5000)
+    lines = []
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    card = run(dev, say=lines.append, **sizes)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for line in lines:
+        say(f"quickstart: {line}")
+    cpu_lines = []
+    cpu = run("cpu", say=cpu_lines.append, **sizes)
+    same = sum(a == b for a, b in zip(lines, cpu_lines))
+    rates = {k: card[k]["rate"] for k in ("kmedians", "kmeans")}
+    # one distance_argmin per Lloyd iteration of the two fits and of each
+    # select_k fit (at least one iteration each); one bitserial_median per
+    # k-medians iteration and one for the feature medians
+    need_da = (card["kmedians"]["iters"] + card["kmeans"]["iters"]
+               + len(card["scores"]))
+    need_bsm = card["kmedians"]["iters"] + 1
+    if (counts["distance_argmin"] < need_da
+            or counts["bitserial_median"] < need_bsm):
+        raise AssertionError(f"quickstart launches {counts}: want "
+                             f"distance_argmin >= {need_da} and "
+                             f"bitserial_median >= {need_bsm}")
+    if not np.isfinite(card["median"]).all():
+        raise AssertionError("quickstart: non-finite medians")
+    if card["k_opt"] != cpu["k_opt"] or card["k_opt"] != 5:
+        raise AssertionError(f"quickstart k* {card['k_opt']} on the card, "
+                             f"{cpu['k_opt']} on the CPU, want 5")
+    for k, r in rates.items():
+        if not (0.95 <= r <= 1.0 and abs(r - cpu[k]["rate"]) <= 0.005):
+            raise AssertionError(f"quickstart {k} recognition {r} on the "
+                                 f"card, {cpu[k]['rate']} on the CPU")
+    say(f"quickstart on the card in {secs:.2f} s: k* {card['k_opt']}, "
+        f"recognition k-medians {rates['kmedians']:.4f} / k-means "
+        f"{rates['kmeans']:.4f}; {counts['bitserial_median']} "
+        f"bitserial_median and {counts['distance_argmin']} distance_argmin "
+        f"launches; {same} of {len(lines)} printed lines equal the CPU run's")
+    return {"seconds": secs, "k_opt": card["k_opt"], "rates": rates,
+            "launches": counts, "lines": lines, "lines_equal_cpu": same}
 
 
 # ---------------------------------------------------------------------------
@@ -642,7 +855,54 @@ def time_paged(torch, pcd, x, cl, bucket):
                 rows=len(rows), bucket=bucket, mapped_blocks=n_mapped)
 
 
-def timings(torch, cd, pcd, da, dev, xa, ca):
+def time_median(torch, bsm, u, a, k, w, bits, plain_n):
+    """B3 at one shape: kernel, plain and bound.  Bytes: the int64 words,
+    int32 assignments and f32 weights read once, the int64 medians and f32
+    totals written once; operations: one f32 vote add per (point, column,
+    bit), at the f32 rate."""
+    m = int(np.prod(u.shape[:-2]))
+    n, d = u.shape[-2:]
+    ms = time_ms(torch, lambda: bsm.grouped_median_bits_cuda(u, a, k, w,
+                                                             bits=bits))
+    plain = time_ms(torch, lambda: bsm.grouped_median_bits_plain(
+        u, a, k, weights=w, bits=bits), n=plain_n, warm=1)
+    nbytes = m * (n * d * 8 + n * 4 + (n * 4 if w is not None else 0)
+                  + k * d * 8 + k * 4)
+    votes = m * n * d * bits
+    b_ms, b_by = bound(nbytes, [(votes, PEAK_F32_FLOP_PER_S)])
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes, votes=votes,
+                library="none: no PyTorch call computes a weighted "
+                        "per-cluster median")
+
+
+def time_flash_decode(torch, fd, dev):
+    """B5 in bf16 at the phase-3 shape: kernel, plain, SDPA (enable_gqa,
+    boolean mask of the positions < t) and bound.  Bytes: q and the output
+    once, the keys and values of the t visible positions once; q.k at the
+    bf16 tensor-core rate, p.v (p in f32) at the f32 rate."""
+    import torch.nn.functional as F
+
+    q, k, v = decode_cache(torch, dev, torch.bfloat16)
+    kw = dict(scale=DH ** -0.5)
+    ms = time_ms(torch, lambda: fd.flash_decode_cuda(q, k, v, FD_T, **kw))
+    plain = time_ms(torch, lambda: fd.flash_decode_plain(q, k, v, FD_T,
+                                                         **kw))
+    q4 = q[:, :, None].contiguous()                       # (B, Hq, 1, Dh)
+    k4, v4 = (x.transpose(1, 2).contiguous() for x in (k, v))
+    mask = (torch.arange(FD_S, device=dev) < FD_T)[None, None, None, :]
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, enable_gqa=True, **kw))
+    el = q.element_size()
+    nbytes = 2 * q.numel() * el + 2 * B * FD_T * HKV * DH * el
+    flops = 2 * B * HQ * FD_T * DH
+    b_ms, b_by = bound(nbytes, [(flops, PEAK_BF16_FLOP_PER_S),
+                                (flops, PEAK_F32_FLOP_PER_S)])
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes, flops_qk=flops, flops_pv=flops)
+
+
+def timings(torch, cd, pcd, da, bsm, fd, dev, xa, ca):
     x = decode_inputs(torch, dev, torch.bfloat16)
     kw = dict(scale=DH ** -0.5)
     cd_ms = time_ms(torch, lambda: cd.clustered_decode_cuda(**x, **kw))
@@ -668,6 +928,13 @@ def timings(torch, cd, pcd, da, dev, xa, ca):
     da_bytes = 4 * (N_PTS * D_PTS + K_PTS * D_PTS + 2 * N_PTS)
     da_flops = N_PTS * K_PTS * (3 * D_PTS + 1)         # |x-c|, sum, compare
     da_bound, da_by = bound(da_bytes, [(da_flops, PEAK_F32_FLOP_PER_S)])
+    _, m, k, bits = MED_CASES[0]
+    u, a, w = median_inputs(torch, dev, m, k, bits)
+    med = time_median(torch, bsm, u, a, k, w, bits, plain_n=10)
+    del u, a, w
+    u, a = stream_inputs(torch, dev)
+    med_stream = time_median(torch, bsm, u, a, K_PTS, None, 32, plain_n=3)
+    del u, a
     return {
         "clustered_decode": dict(ms=cd_ms, plain_ms=cd_plain,
                                  library_ms=cd_lib, bound_ms=cd_bound,
@@ -679,6 +946,8 @@ def timings(torch, cd, pcd, da, dev, xa, ca):
                                 bound_ms=da_bound, bound_by=da_by,
                                 bytes=da_bytes, flops=da_flops,
                                 l2_ms=da_ms_l2),
+        "bitserial_median": dict(med, streamed=med_stream),
+        "flash_decode": time_flash_decode(torch, fd, dev),
     }
 
 
@@ -696,8 +965,10 @@ def main() -> int:
     say(smi)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
+    from repro_torch.kernels import bitserial_median as bsm
     from repro_torch.kernels import clustered_decode as cd
     from repro_torch.kernels import distance_argmin as da
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import paged_clustered_decode as pcd
     from repro_torch.runtime.kv_pool import PagedKVConfig
 
@@ -717,6 +988,8 @@ def main() -> int:
     cd_err = check_clustered_decode(torch, cd, dev)
     pcd_err = check_paged_decode(torch, cd, pcd, dev)
     da_err, xa, ca = check_distance_argmin(torch, da, dev)
+    bsm_err = check_bitserial_median(torch, bsm, dev)
+    fd_err = check_flash_decode(torch, fd, dev)
 
     # phase 4: small model, card vs CPU
     check_small_model(torch, dev)
@@ -732,28 +1005,42 @@ def main() -> int:
     record["serve_paged"] = paged
     record["paged_vs_dense_first_diff"] = compare_tokens(serve, paged)
 
-    # phase 6: k-medians through the kernel
+    # phase 6: k-medians through both clustering kernels, the pipeline
     km = kmedians(torch, dev)
     record["kmedians"] = km
+    record["quickstart"] = quickstart(torch, dev)
 
     # phase 7: times
-    tm = timings(torch, cd, pcd, da, dev, xa, ca)
+    tm = timings(torch, cd, pcd, da, bsm, fd, dev, xa, ca)
     record["times"] = tm
     for name, v in tm.items():
         say(f"[{smi}] {name}: kernel_ms {v['ms']:.4f} plain_ms "
             f"{v['plain_ms']:.4f} library_ms {v['library_ms']} bound_ms "
             f"{v['bound_ms']:.4f} ({v['bound_by']})")
+    v = tm["bitserial_median"]["streamed"]
+    say(f"[{smi}] bitserial_median streamed ({N_PTS} x {D_PTS}, K={K_PTS}, "
+        f"32 bits): kernel_ms {v['ms']:.4f} plain_ms {v['plain_ms']:.4f} "
+        f"library_ms None bound_ms {v['bound_ms']:.4f} ({v['bound_by']}); "
+        f"library: {v['library']}")
     v = tm["paged_clustered_decode"]["decode_only"]
     say(f"[{smi}] paged_clustered_decode decode-only (4 rows): kernel_ms "
         f"{v['ms']:.4f} plain_ms {v['plain_ms']:.4f} library_ms "
         f"{v['library_ms']:.4f} bound_ms {v['bound_ms']:.4f} "
         f"({v['bound_by']}); clustered_decode one-token form "
         f"{tm['clustered_decode']['decode_form_ms']:.4f}")
-    say(f"clustered_decode launches per dense engine step and "
-        f"paged_clustered_decode per paged engine step: "
-        f"{serve['n_layers']}; distance_argmin: 0 per engine step (serving "
-        "clusters with the plain assignment), "
-        f"{km['launches']} in the k-medians fit")
+    per_step = {mode: rec["launches"]["bitserial_median"]
+                / rec["engine_steps"]
+                for mode, rec in (("dense", serve), ("paged", paged))}
+    say(f"launches per engine step: clustered_decode (dense) and "
+        f"paged_clustered_decode (paged) {serve['n_layers']}; "
+        f"bitserial_median {per_step['dense']:.3f} dense, "
+        f"{per_step['paged']:.3f} paged (the memory manager's k-medians); "
+        f"distance_argmin {serve['launches']['distance_argmin']} in the "
+        f"dense serve (the memory manager assigns with the plain distance, "
+        f"as the reference does) and {km['launches']} in the k-medians fit, "
+        f"which launched bitserial_median {km['median_launches']} times; "
+        f"flash_decode {serve['launches']['flash_decode']} in the dense "
+        "serve (no model calls it, as in the reference)")
     record["seconds"] = time.perf_counter() - t_all
 
     kernels = [
@@ -784,6 +1071,24 @@ def main() -> int:
              bound_ms=tm["distance_argmin"]["bound_ms"],
              bound_by=tm["distance_argmin"]["bound_by"],
              library_ms=None),
+        dict(name="bitserial_median", route="cuda",
+             source="src/repro_torch/csrc/bitserial_median.cu",
+             replaces="src/repro/kernels/bitserial_median.py:35",
+             launches=serve["launches"]["bitserial_median"],
+             max_abs_err=bsm_err, ms=tm["bitserial_median"]["ms"],
+             plain_ms=tm["bitserial_median"]["plain_ms"],
+             bound_ms=tm["bitserial_median"]["bound_ms"],
+             bound_by=tm["bitserial_median"]["bound_by"],
+             library_ms=None),
+        dict(name="flash_decode", route="cuda",
+             source="src/repro_torch/csrc/flash_decode.cu",
+             replaces="src/repro/kernels/flash_decode.py:29",
+             launches=serve["launches"]["flash_decode"], max_abs_err=fd_err,
+             ms=tm["flash_decode"]["ms"],
+             plain_ms=tm["flash_decode"]["plain_ms"],
+             bound_ms=tm["flash_decode"]["bound_ms"],
+             bound_by=tm["flash_decode"]["bound_by"],
+             library_ms=tm["flash_decode"]["library_ms"]),
     ]
     record["kernels"] = {k["name"]: k for k in kernels}
     OUT.mkdir(exist_ok=True)

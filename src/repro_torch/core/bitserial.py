@@ -13,6 +13,12 @@ Words are unsigned-ordered fixed point carried in int64 (see
 matmul over float weights, exact for integer weights below 2^24.  Every
 function takes optional leading batch dimensions, which stand for the
 ``vmap`` over (slot, head) of the reference.
+
+:func:`grouped_median_bits` here is the plain version of the
+``bitserial_median`` CUDA kernel.  The float front ends reach it through
+``kernels.ops.grouped_median_bits``, which launches the kernel for tensors
+on the card, so every grouped median on the card (k-medians updates, the
+serve's absorb and compaction) runs the kernel.
 """
 
 from __future__ import annotations
@@ -24,30 +30,40 @@ import torch
 from repro_torch.core import quantizer
 
 
+def _median_limbs(limbs, weights: Optional[torch.Tensor], bits: int):
+    """The vote along axis 0 over words split into limbs, most significant
+    first, ``bits`` low bits of each: ``active`` and ``forced`` carry from
+    one limb to the next.  Returns one median limb (int64) per limb."""
+    shape, dev = limbs[0].shape, limbs[0].device
+    w = (torch.ones(shape, dtype=torch.float32, device=dev)
+         if weights is None
+         else torch.broadcast_to(weights.to(torch.float32), shape))
+    total = w.sum(0)
+    active = torch.ones(shape, dtype=torch.bool, device=dev)
+    forced = torch.zeros(shape, dtype=torch.float32, device=dev)
+    meds = []
+    for word in limbs:
+        word = word.to(torch.int64)
+        med = torch.zeros(shape[1:], dtype=torch.int64, device=dev)
+        for b in range(bits - 1, -1, -1):
+            bit = ((word >> b) & 1).to(torch.float32)
+            eff = torch.where(active, bit, forced)
+            mbit = (w * eff).sum(0) * 2.0 > total  # 1 iff strictly more ones
+            med = med | (mbit.to(torch.int64) << b)
+            out = active & (bit.bool() != mbit.unsqueeze(0))
+            forced = torch.where(out, bit, forced)
+            active = active & ~out
+        meds.append(med)
+    return meds
+
+
 def median_bits(u: torch.Tensor, *, weights: Optional[torch.Tensor] = None,
                 bits: int = 32) -> torch.Tensor:
     """Weighted bit-serial median of unsigned-ordered words along axis 0.
 
     u (N, ...) int64; weights optional, broadcastable to u, >= 0.  Returns
     the median with the leading axis reduced (int64)."""
-    u = u.to(torch.int64)
-    w = (torch.ones(u.shape, dtype=torch.float32, device=u.device)
-         if weights is None
-         else torch.broadcast_to(weights.to(torch.float32), u.shape))
-    total = w.sum(0)
-    active = torch.ones(u.shape, dtype=torch.bool, device=u.device)
-    forced = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
-    med = torch.zeros(u.shape[1:], dtype=torch.int64, device=u.device)
-    for b in range(bits - 1, -1, -1):
-        bit = ((u >> b) & 1).to(torch.float32)
-        eff = torch.where(active, bit, forced)
-        cnt1 = (w * eff).sum(0)
-        mbit = cnt1 * 2.0 > total        # majority: 1 iff strictly more ones
-        med = med | (mbit.to(torch.int64) << b)
-        dev = active & (bit.bool() != mbit.unsqueeze(0))
-        forced = torch.where(dev, bit, forced)
-        active = active & ~dev
-    return med
+    return _median_limbs([u], weights, bits)[0]
 
 
 def grouped_median_bits(u: torch.Tensor, assign: torch.Tensor, k: int, *,
@@ -83,6 +99,15 @@ def grouped_median_bits(u: torch.Tensor, assign: torch.Tensor, k: int, *,
     return med, total
 
 
+def median_bits64(hi: torch.Tensor, lo: torch.Tensor, *,
+                  weights: Optional[torch.Tensor] = None):
+    """64-bit two-limb variant (the paper's 64-bit fixed point): hi, lo
+    (N, ...) int64 holding the uint32 limbs of unsigned-ordered 64-bit
+    words.  Returns (med_hi, med_lo) int64 limbs, bits 63..0 scanned."""
+    med_hi, med_lo = _median_limbs([hi, lo], weights, 32)
+    return med_hi, med_lo
+
+
 def _point_scale(scale):
     """A per-feature scale row broadcasts over the point / cluster axis."""
     if torch.is_tensor(scale) and scale.dim() >= 1:
@@ -92,7 +117,9 @@ def _point_scale(scale):
 
 def median(x: torch.Tensor, *, bits: int = 32, scale=None,
            weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Bit-serial median of float data along axis 0 (per remaining dims)."""
+    """Bit-serial median of float data along axis 0 (per remaining dims).
+
+    ``weights`` holds one weight per point, shaped (N,) or (N, 1, ...)."""
     if scale is None:
         if x.dim() > 1:
             scale = quantizer.auto_scale(
@@ -101,7 +128,21 @@ def median(x: torch.Tensor, *, bits: int = 32, scale=None,
             scale = quantizer.auto_scale(x[:, None], bits)[0]
     spec = quantizer.FixedPointSpec(bits=bits, scale=scale)
     u = quantizer.to_unsigned_order(quantizer.quantize(x, spec), bits)
-    med_u = median_bits(u, weights=weights, bits=bits)
+    n = u.shape[0]
+    if weights is not None:
+        if weights.numel() != n or weights.shape[:1] != (n,):
+            raise ValueError(
+                f"median takes one weight per point, shape ({n},) or "
+                f"({n}, 1, ...), not {tuple(weights.shape)}; per-element "
+                "weights go through median_bits")
+        weights = weights.reshape(n)
+    # one cluster of every point: the grouped kernel's path
+    from repro_torch.kernels import ops
+
+    assign = torch.zeros((n,), dtype=torch.int32, device=u.device)
+    med_u, _ = ops.grouped_median_bits(u.reshape(n, -1), assign, 1, weights,
+                                       bits=bits)
+    med_u = med_u.reshape(u.shape[1:])
     return quantizer.dequantize(quantizer.from_unsigned_order(med_u, bits),
                                 spec)
 
@@ -115,8 +156,10 @@ def grouped_median(x: torch.Tensor, assign: torch.Tensor, k: int, *,
         scale = quantizer.auto_scale(x, bits)
     spec = quantizer.FixedPointSpec(bits=bits, scale=_point_scale(scale))
     u = quantizer.to_unsigned_order(quantizer.quantize(x, spec), bits)
-    med_u, totals = grouped_median_bits(u, assign, k, weights=weights,
-                                        bits=bits)
+    from repro_torch.kernels import ops
+
+    med_u, totals = ops.grouped_median_bits(u, assign, k, weights,
+                                            bits=bits)
     return (quantizer.dequantize(quantizer.from_unsigned_order(med_u, bits),
                                  spec), totals)
 

@@ -12,9 +12,12 @@ reference's ``vmap`` over (slot, head): x (..., N, D), centroids
 once it converges, exactly as ``jax.lax.while_loop`` does under ``vmap``,
 so a member's result never depends on the batch it ran in.
 
-Random initialisation draws from a ``torch.Generator``; those draws are not
-``jax.random``'s threefry draws, so a fit without ``init_centroids`` starts
-elsewhere than the reference's.
+Random starts draw from ``core.prng``, a bit-exact port of ``jax.random``'s
+threefry, so a fit without ``init_centroids`` picks the reference's points
+for the same seed (k-means++ probabilities are computed by the port, so a
+last-ulp difference at a cumsum boundary could pick another point; ROADMAP
+Queue C).  The quality metrics (simplified silhouette, the optimal-k sweep,
+recognition rate) and the mini-batch fit follow the reference.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import bitserial, quantizer
+from repro_torch.core import bitserial, prng, quantizer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,40 +102,39 @@ def assign_points(x: torch.Tensor, cents: torch.Tensor, metric: str,
 # ---------------------------------------------------------------------------
 
 
-def init_random(generator: torch.Generator, x: torch.Tensor, k: int):
-    idx = torch.randperm(x.shape[0], generator=generator)[:k]
-    return x[idx.to(x.device)]
+def init_random(rng: torch.Tensor, x: torch.Tensor, k: int):
+    """k distinct points drawn by the ``prng`` key ``rng``."""
+    idx = prng.choice(rng, x.shape[0], (k,), replace=False)
+    return x[idx.to(x.device).long()]
 
 
-def init_kmeanspp(generator: torch.Generator, x: torch.Tensor, k: int,
+def init_kmeanspp(rng: torch.Tensor, x: torch.Tensor, k: int,
                   metric: str = "l2", weights=None):
     """k-means++ (D^2 sampling; D^1 for L1/k-medians) on one point set
-    (N, D).  Optional point ``weights`` scale the sampling probabilities —
-    zero-weight points are never chosen as seeds."""
+    (N, D), drawn by the ``prng`` key ``rng``.  Optional point ``weights``
+    scale the sampling probabilities — zero-weight points are never chosen
+    as seeds."""
     n, d = x.shape
+    r0, key = prng.split(rng)
 
-    def draw(probs):
-        return int(torch.multinomial(probs.detach().double().cpu(), 1,
-                                     generator=generator))
+    def probs_of(w):
+        wsum = w.sum()
+        return torch.where(wsum > 0, w / torch.clamp(wsum, min=1e-30),
+                           torch.full((n,), 1.0 / n, device=x.device))
 
     if weights is None:
-        first = x[int(torch.randint(0, n, (1,), generator=generator))]
+        first = x[int(prng.randint(r0, (), 0, n))]
     else:
-        wsum = weights.sum()
-        probs0 = (weights / wsum if float(wsum) > 0
-                  else torch.full((n,), 1.0 / n, device=x.device))
-        first = x[draw(probs0)]
+        first = x[int(prng.choice(r0, n, p=probs_of(weights)))]
     cents = torch.zeros((k, d), dtype=x.dtype, device=x.device)
     cents[0] = first
     mind = pairwise_dist(x, first[None, :], metric)[:, 0]
     for i in range(1, k):
+        key, sub = prng.split(key)
         w = mind if metric == "l2" else torch.clamp(mind, min=0.0)
         if weights is not None:
             w = w * weights
-        wsum = w.sum()
-        probs = (w / wsum if float(wsum) > 0
-                 else torch.full((n,), 1.0 / n, device=x.device))
-        c = x[draw(probs)]
+        c = x[int(prng.choice(sub, n, p=probs_of(w)))]
         cents[i] = c
         mind = torch.minimum(mind, pairwise_dist(x, c[None, :], metric)[:, 0])
     return cents
@@ -224,16 +226,16 @@ def fit(x: torch.Tensor, cfg: ClusterConfig, init_centroids=None, *,
     zero-weight points never influence centroids, counts, inertia or the
     fixed-point scale; integer weights > 1 treat a point as a summary of
     that many originals.  Without ``init_centroids`` the start is drawn by
-    ``cfg.init`` from a ``torch.Generator`` seeded with ``cfg.seed``;
+    ``cfg.init`` from ``prng.PRNGKey(cfg.seed)``, as the reference draws it;
     batched inputs need ``init_centroids``.
     """
     if init_centroids is None:
         if x.dim() != 2:
             raise ValueError("a batched fit needs init_centroids")
-        gen = torch.Generator().manual_seed(cfg.seed)
+        rng = prng.PRNGKey(cfg.seed)
         init_centroids = (
-            init_kmeanspp(gen, x, cfg.k, cfg.metric, weights=weights)
-            if cfg.init == "kmeanspp" else init_random(gen, x, cfg.k))
+            init_kmeanspp(rng, x, cfg.k, cfg.metric, weights=weights)
+            if cfg.init == "kmeanspp" else init_random(rng, x, cfg.k))
     # one shared fixed-point scale for the whole run (paper: single 2^f);
     # zero-weight (masked) points must not widen the scale
     x_scale = x if weights is None else x * (weights > 0).unsqueeze(-1).to(
@@ -263,3 +265,74 @@ def fit(x: torch.Tensor, cfg: ClusterConfig, init_centroids=None, *,
         moved = torch.where(run, new_moved, moved)
         it = it + run.to(torch.int32)
     return ClusterResult(cents, assign, inertia, it, counts)
+
+
+def fit_minibatch(rng: torch.Tensor, x: torch.Tensor, cfg: ClusterConfig,
+                  batch_size: int, n_steps: int,
+                  init_centroids=None) -> ClusterResult:
+    """Mini-batch variant: per step sample a batch, assign, and blend the
+    batch centroid (mean or bit-serial median) into the running centroid
+    with a per-cluster learning rate 1/visit-count (Sculley-style)."""
+    if init_centroids is None:
+        r0, rng = prng.split(rng)
+        init_centroids = init_kmeanspp(r0, x, cfg.k, cfg.metric)
+    scale = quantizer.auto_scale(x, cfg.bits)
+    cents = init_centroids
+    visits = torch.zeros((cfg.k,), dtype=torch.float32, device=x.device)
+    for key in prng.split(rng, n_steps):
+        idx = prng.randint(key, (batch_size,), 0, x.shape[0])
+        xb = x[idx.to(x.device).long()]
+        assign, _ = assign_points(xb, cents, cfg.metric)
+        if cfg.centroid == "mean":
+            batch_c, counts = update_mean(xb, assign, cfg.k, cents)
+        else:
+            batch_c, counts = update_median(xb, assign, cfg.k, cents,
+                                            bits=cfg.bits, scale=scale)
+        visits = visits + counts
+        lr = torch.where(counts > 0, counts / torch.clamp(visits, min=1.0),
+                         torch.zeros_like(counts))
+        cents = cents + lr[:, None] * (batch_c - cents)
+    assign, mind = assign_points(x, cents, cfg.metric)
+    return ClusterResult(cents, assign, mind.sum(),
+                         torch.tensor(n_steps, dtype=torch.int32), visits)
+
+
+# ---------------------------------------------------------------------------
+# Quality metrics / model selection (paper §4, Table 3)
+# ---------------------------------------------------------------------------
+
+
+def simplified_silhouette(x, cents, assign):
+    """Simplified silhouette (centroid-based): mean of (b - a) / max(a, b),
+    a the squared L2 distance to the own centroid, b to the nearest other
+    one — the 'avgBMP' score the paper's optimal-k loop averages."""
+    dist = pairwise_dist(x, cents, "l2")
+    own = assign.long()[:, None]
+    a = torch.gather(dist, 1, own)[:, 0]
+    b = dist.scatter(1, own, float("inf")).amin(1)
+    s = (b - a) / torch.clamp(torch.maximum(a, b), min=1e-30)
+    return s.mean()
+
+
+def select_k(x, kmin: int, kmax: int, cfg: ClusterConfig):
+    """Paper §4: sweep k in [kmin, kmax], fit each, score avgBMP(k); return
+    (k_opt, scores), k_opt the first k of the highest score."""
+    scores = []
+    for k in range(kmin, kmax + 1):
+        res = fit(x, dataclasses.replace(cfg, k=k))
+        scores.append(float(simplified_silhouette(x, res.centroids,
+                                                  res.assign)))
+    return kmin + scores.index(max(scores)), scores
+
+
+def recognition_rate(assign, labels, k: int, n_classes: int):
+    """Paper Table 3 protocol: each cluster adopts its majority true label;
+    the fraction of points whose cluster's label is their own."""
+    assign, labels = assign.long(), labels.long()
+    conf = torch.zeros((k, n_classes), dtype=torch.float32,
+                       device=assign.device)
+    conf.index_put_((assign, labels), torch.ones_like(assign,
+                                                      dtype=torch.float32),
+                    accumulate=True)
+    pred = torch.argmax(conf, 1)[assign]
+    return (pred == labels).to(torch.float32).mean()

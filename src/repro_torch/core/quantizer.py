@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -67,6 +68,23 @@ def quantize(x: torch.Tensor, spec: FixedPointSpec) -> torch.Tensor:
 
 def dequantize(q: torch.Tensor, spec: FixedPointSpec) -> torch.Tensor:
     return q.to(torch.float32) / spec.scale
+
+
+def quantize64_host(x: np.ndarray, scale) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side (numpy float64) 64-bit fixed-point encode: returns
+    unsigned-comparable (hi, lo) uint32 limbs (sign bit already flipped)."""
+    q = np.clip(np.round(np.asarray(x, np.float64) * scale), -(2.0 ** 63),
+                2.0 ** 63 - 1)
+    u = q.astype(np.int64).astype(np.uint64) ^ np.uint64(0x8000000000000000)
+    hi = (u >> np.uint64(32)).astype(np.uint32)
+    lo = (u & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return hi, lo
+
+
+def dequantize64_host(hi: np.ndarray, lo: np.ndarray, scale) -> np.ndarray:
+    u = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    qi = (u ^ np.uint64(0x8000000000000000)).astype(np.int64)
+    return qi.astype(np.float64) / scale
 
 
 def to_unsigned_order(q: torch.Tensor, bits: int = 32) -> torch.Tensor:

@@ -4,10 +4,9 @@ of ``repro.core.request_cluster``).
 Queued requests are clustered by (prompt_len, expected_new_tokens) with the
 paper's bit-serial k-medians and batched within clusters, minimizing
 padded-token waste.  A small queue is simply sorted by length.  Large
-queues run a k-means++ ``fit`` whose draws come from a ``torch.Generator``,
-not ``jax.random``, so the port may order a large queue differently from
-the reference; that changes only the admission order, never a request's
-tokens.
+queues run a k-means++ ``fit`` whose draws come from the port of
+``jax.random``'s threefry (``core.prng``), so they start where the
+reference's start for the same seed.
 """
 
 from __future__ import annotations

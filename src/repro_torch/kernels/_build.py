@@ -25,9 +25,15 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+#: shared memory one block may use on an H100 (bytes)
+MAX_SHARED_BYTES = 232_448
+
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry point and its argument types, per kernel library
 SIGNATURES = {
+    "bitserial_median": (
+        "bitserial_median_launch",
+        [_c_void_p] * 3 + [_c_int] * 6 + [_c_void_p] * 4),
     "clustered_decode": (
         "clustered_decode_launch",
         [_c_int] + [_c_void_p] * 10 + [_c_int] * 7 + [_c_float, _c_float,
@@ -36,6 +42,10 @@ SIGNATURES = {
         "distance_argmin_launch",
         [_c_int, _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_void_p,
          _c_void_p, _c_void_p]),
+    "flash_decode": (
+        "flash_decode_launch",
+        [_c_int] + [_c_void_p] * 3 + [_c_int] * 7 + [_c_float, _c_float]
+        + [_c_void_p] * 3),
     "paged_clustered_decode": (
         "paged_clustered_decode_launch",
         [_c_int] + [_c_void_p] * 13 + [_c_int] * 7 + [_c_float, _c_float,

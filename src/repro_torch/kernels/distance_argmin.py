@@ -14,8 +14,6 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: shared memory one block may use on an H100 (bytes)
-MAX_SHARED_BYTES = 232_448
 POINTS_PER_BLOCK = 256
 
 
@@ -64,9 +62,10 @@ def distance_argmin_cuda(x: torch.Tensor, cents: torch.Tensor, *,
         raise ValueError("distance_argmin kernel needs contiguous inputs")
     n, d = x.shape
     k = cents.shape[0]
-    if shared_bytes(k, d) > MAX_SHARED_BYTES:
+    if shared_bytes(k, d) > _build.MAX_SHARED_BYTES:
         raise ValueError(f"centroid bank K={k} x D={d} does not fit the "
-                         f"{MAX_SHARED_BYTES}-byte shared memory of a block")
+                         f"{_build.MAX_SHARED_BYTES}-byte shared memory of a "
+                         "block")
     assign = torch.empty((n,), dtype=torch.int32, device=x.device)
     mind = torch.empty((n,), dtype=torch.float32, device=x.device)
     _build.launch("distance_argmin", 1 if metric == "l1" else 0,

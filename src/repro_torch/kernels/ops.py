@@ -18,8 +18,10 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import bitserial_median as _bsm
 from repro_torch.kernels import clustered_decode as _cd
 from repro_torch.kernels import distance_argmin as _da
+from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import paged_clustered_decode as _pcd
 
 
@@ -31,6 +33,22 @@ def use_kernel_for(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
     raise ValueError(f"no kernel backend for device {x.device}")
+
+
+def grouped_median_bits(u: torch.Tensor, assign: torch.Tensor, k: int,
+                        weights: Optional[torch.Tensor] = None, *,
+                        bits: int = 32):
+    """Per-cluster bit-serial medians of unsigned-ordered words.
+
+    u (..., N, D) int64, assign (..., N) → (med (..., k, D) int64, totals
+    (..., k) f32).  On the card the kernel runs at every N: the reference's
+    fallback above ``MAX_KERNEL_POINTS`` is a TPU VMEM limit."""
+    if use_kernel_for(u):
+        grouped_median_bits.launches += 1
+        return _bsm.grouped_median_bits_cuda(u, assign, k, weights,
+                                             bits=bits)
+    return _bsm.grouped_median_bits_plain(u, assign, k, weights=weights,
+                                          bits=bits)
 
 
 def distance_argmin(x: torch.Tensor, cents: torch.Tensor, *,
@@ -80,12 +98,26 @@ def paged_clustered_decode(q, k_cents, v_cents, counts, k_pool, v_pool,
         qpos1, tw, cov, row_wlo, scale=scale, softcap=softcap)
 
 
-distance_argmin.launches = 0
-clustered_decode.launches = 0
-paged_clustered_decode.launches = 0
+def flash_decode(q, k, v, t, *, scale: float, softcap: Optional[float] = None,
+                 chunk: int = 512):
+    """One-token exact GQA attention over a (B, S, Hkv, Dh) cache, positions
+    < t: q (B, Hq, Dh) → (B, Hq, Dh).  Nothing in the model calls it, as
+    nothing in the reference's does."""
+    if use_kernel_for(q):
+        flash_decode.launches += 1
+        return _fd.flash_decode_cuda(q, k, v, t, scale=scale,
+                                     softcap=softcap, chunk=chunk)
+    return _fd.flash_decode_plain(q, k, v, t, scale=scale, softcap=softcap,
+                                  chunk=chunk)
+
+
 _WRAPPERS = {"clustered_decode": clustered_decode,
              "paged_clustered_decode": paged_clustered_decode,
-             "distance_argmin": distance_argmin}
+             "bitserial_median": grouped_median_bits,
+             "distance_argmin": distance_argmin,
+             "flash_decode": flash_decode}
+for _fn in _WRAPPERS.values():
+    _fn.launches = 0
 
 
 def reset_launches() -> None:

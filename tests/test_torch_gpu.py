@@ -6,8 +6,10 @@ the card (sm_90).  Marked ``gpu``; without a Hopper card every test skips
 import pytest
 import torch
 
+from repro_torch.kernels import bitserial_median as bsm
 from repro_torch.kernels import clustered_decode as cd
 from repro_torch.kernels import distance_argmin as da
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_clustered_decode as pcd
 
@@ -147,3 +149,88 @@ def test_wrappers_count_launches(cuda):
     x = torch.randn(100, 4, device=cuda)
     ops.distance_argmin(x, x[:3].contiguous())
     assert ops.launch_counts()["distance_argmin"] == 1
+
+
+@pytest.mark.parametrize("lead,n,d,k,bits,weighted", [
+    ((3, 4), 320, 128, 64, 16, True),      # compaction members (resident)
+    ((), 1500, 12, 3, 32, False),          # the quickstart's table
+    ((2,), 37, 130, 5, 32, True),          # a partial column tile
+    ((), 20_000, 16, 64, 32, False),       # streamed form
+    ((2,), 9_000, 40, 7, 16, True)])       # streamed, batched, two tiles
+def test_bitserial_median_kernel_equals_plain(cuda, lead, n, d, k, bits,
+                                              weighted):
+    """Integer weights (counts with zeros) and unit weights: bit for bit."""
+    g = torch.Generator(device="cpu").manual_seed(n + d)
+    u = torch.randint(0, 2 ** bits, lead + (n, d), generator=g)
+    a = torch.randint(0, k, lead + (n,), generator=g, dtype=torch.int32)
+    w = None
+    if weighted:
+        w = torch.randint(0, 2000, lead + (n,), generator=g).float()
+        w[torch.rand(lead + (n,), generator=g) < 0.2] = 0.0
+    u, a = u.to(cuda), a.to(cuda)
+    w = None if w is None else w.to(cuda)
+    med, tot = bsm.grouped_median_bits_cuda(u, a, k, w, bits=bits)
+    med0, tot0 = bsm.grouped_median_bits_plain(u, a, k, weights=w, bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(med, med0)
+    assert torch.equal(tot, tot0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, None)])
+@pytest.mark.parametrize("softcap", [None, 50.0])
+def test_flash_decode_kernel_matches_plain(cuda, dtype, tol, softcap):
+    """f32 within ``tol``; bf16 within 2 bf16 ulps of each plain value
+    (2^(e - 8) per ulp for |x| = m 2^e, m in [0.5, 1)), plus 1e-6 for f32
+    sums near 0."""
+    g = torch.Generator(device="cpu").manual_seed(2)
+    b, s, hq, hkv, dh, t = 2, 700, 8, 2, 128, 600
+    q, k, v = (torch.randn(*sh, generator=g).to(cuda, dtype)
+               for sh in ((b, hq, dh), (b, s, hkv, dh), (b, s, hkv, dh)))
+    got = fd.flash_decode_cuda(q, k, v, t, scale=dh ** -0.5, softcap=softcap)
+    want = fd.flash_decode_plain(q.float(), k.float(), v.float(), t,
+                                 scale=dh ** -0.5,
+                                 softcap=softcap).to(dtype)
+    torch.cuda.synchronize()
+    if tol is not None:
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        return
+    g, r = got.float(), want.float()
+    _, e = torch.frexp(r.abs().clamp(min=2.0 ** -20))
+    ulp = torch.ldexp(torch.ones_like(r), e - 8)
+    assert ((g - r).abs() <= 2 * ulp + 1e-6).all()
+
+
+def test_fit_on_card_runs_both_clustering_kernels(cuda):
+    """A k-medians fit from a threefry k-means++ start: distance_argmin and
+    bitserial_median both launch, and the fit equals the CPU fit."""
+    from repro_torch.core import clustering, prng
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    centers = torch.randn(6, 8, generator=g) * 6
+    x = (centers[torch.randint(0, 6, (3000,), generator=g)]
+         + torch.randn(3000, 8, generator=g))
+    cfg = clustering.ClusterConfig(k=6, metric="l1", max_iters=8)
+    init = clustering.init_kmeanspp(prng.PRNGKey(0), x, 6, "l1")
+    init_c = clustering.init_kmeanspp(prng.PRNGKey(0), x.to(cuda), 6, "l1")
+    assert torch.equal(init_c.cpu(), init)
+    ops.reset_launches()
+    res = clustering.fit(x.to(cuda), cfg, init_c)
+    counts = ops.launch_counts()
+    assert counts["distance_argmin"] > 0 and counts["bitserial_median"] > 0
+    ref = clustering.fit(x, cfg, init)
+    assert torch.equal(res.assign.cpu(), ref.assign)
+    assert torch.equal(res.centroids.cpu(), ref.centroids)
+
+
+def test_new_wrappers_count_launches(cuda):
+    ops.reset_launches()
+    u = torch.randint(0, 2 ** 16, (50, 4), device=cuda)
+    ops.grouped_median_bits(u, torch.zeros(50, dtype=torch.int32,
+                                           device=cuda), 2, bits=16)
+    q = torch.randn(1, 4, 16, device=cuda)
+    kv = torch.randn(1, 40, 2, 16, device=cuda)
+    ops.flash_decode(q, kv, kv, 30, scale=0.25)
+    counts = ops.launch_counts()
+    assert counts["bitserial_median"] == 1 and counts["flash_decode"] == 1

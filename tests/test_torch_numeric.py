@@ -246,9 +246,9 @@ def test_seed_empty_centroids_matches():
 
 
 def test_kmeanspp_fit_without_init_runs():
-    """Without init_centroids the port draws k-means++ from a
-    torch.Generator (not jax.random's threefry), so only the quality of
-    the result is pinned here, not equality."""
+    """Without init_centroids the port draws k-means++ from its threefry
+    port (``core.prng``); the fit finds the four blobs.  Equality with the
+    reference's draws is held in tests/test_torch_pipeline.py."""
     rng = np.random.default_rng(5)
     x = make_blobs(rng, 50, CENTERS)
     res = clustering_t.fit(T(x), clustering_t.ClusterConfig(k=4, seed=3))
