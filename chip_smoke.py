@@ -15,7 +15,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    paged_clustered_decode: the same data as 130 packed rows in a 256-row
    bucket over a pool of 16-position blocks behind a shuffled block
    table, in the same three cases, bit-equal to clustered_decode on every
-   real row, and its window floor ``wlo`` exact;
+   real row both with the engine's row groups and one row per block, and
+   its window floor ``wlo`` exact;
    distance_argmin: N=2^20, D=16, K=64, L1 and L2;
    bitserial_median: ``torch.equal`` on medians and totals at the serve's
    compaction (1,152 members x 320 points x 128 dims, K=64, 16 bits,
@@ -41,8 +42,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    must launch; then the paper's pipeline of
    ``examples/quickstart_torch.py`` on the card at the table generators'
    default sizes (wine_like 4,595 rows, census_like 5,000);
-7. times: CUDA-event medians of 50 launches per kernel beside its plain
-   version, a library yardstick and the card's bound.
+7. times: per kernel, the median over 50 launches of its own device time
+   (torch.profiler's CUDA activity, L2 flushed before each launch) beside
+   the wrapper call's CUDA-event time, its plain version, a library
+   yardstick (device time too) and the card's bound; clustered_decode in
+   its mixed, serve-like mixed (chunk_len [64, 1, 1, 1]) and one-token
+   forms, paged_clustered_decode mixed and decode-only.
 
 It imports ``repro_torch`` only.  The second-to-last line is the kernels
 JSON, ``{"kernels": [{"name": ..., ...}, ...]}`` with one object per
@@ -75,6 +80,7 @@ PEAK_BF16_FLOP_PER_S = 989e12
 B, L, HQ, HKV, DH, C, R = 4, 64, 32, 8, 128, 64, 256
 T_SLOTS = [100, 1000, 300, 50]       # unwrapped, wrapped, wrapped, unwrapped
 CL_SLOTS = [64, 64, 1, 1]            # two chunks in flight, two decode rows
+CL_SERVE = [64, 1, 1, 1]             # the engine's mixed step: one chunk
 COV_SLOTS = [0, 900, 60, 10]         # cov >= t + chunk_len - R everywhere
 BS = 16                              # paged: positions per pool block
 N_BUCKET = 256                       # paged: row bucket of the 130 rows
@@ -87,6 +93,10 @@ MED_CASES = [("compaction", N_LAYERS * B * HKV, C, 16),
              ("absorb", N_LAYERS * HKV, C // 2, 16)]
 # flash_decode: qwen3-4b under the smoke's max_seq, t not a chunk multiple
 FD_S, FD_T = 2048, 1500
+# tokens sha256 of both serves while each decode kernel's block walked all
+# C + R entries alone (before the warps split them), printed beside this
+# run's: the new reduction order may move a greedy token
+SHA_ONE_WALK = "5d59b931804a1476"
 
 
 def say(*a):
@@ -102,7 +112,8 @@ def smi_line() -> str:
 
 
 def time_ms(torch, fn, n=50, warm=5):
-    """Median CUDA-event time of ``n`` calls after ``warm`` warm-ups."""
+    """Median CUDA-event time of ``n`` calls after ``warm`` warm-ups: the
+    whole call, host work of a wrapper included (``call_ms``)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -116,6 +127,95 @@ def time_ms(torch, fn, n=50, warm=5):
         e.synchronize()
         times.append(s.elapsed_time(e))
     return float(np.median(times))
+
+
+#: device-kernel names of this repository's CUDA sources (namespace
+#: repro), demangled or mangled
+REPRO_KERNELS = ("repro::", "5repro")
+FLUSH_BYTES = 64 << 20               # more than the H100's 50 MB of L2
+
+
+def _device_activities(prof):
+    """(name, start ns, duration ns) of every device activity the
+    profiler recorded, in start order."""
+    from torch.autograd import DeviceType
+
+    acts = [(e.name(), e.start_ns(), e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+    return sorted(acts, key=lambda a: a[1])
+
+
+_FLUSH_NAMES: set = set()
+
+
+def _flush_names(torch, flush, probes=8, tries=5):
+    """Names of the device activities of ``flush``, read once from a trace
+    of ``probes`` flushes and kept: CUPTI may drop a trace's first
+    activity, so a trace of one flush can come back empty."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        if _FLUSH_NAMES:
+            break
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(probes):
+                flush()
+            torch.cuda.synchronize()
+        acts = _device_activities(prof)
+        # every flush is one kernel of one name: keep a name only if it
+        # ran at least probes - 1 times (the first may be dropped)
+        names = [a[0] for a in acts]
+        _FLUSH_NAMES.update(x for x in set(names)
+                            if names.count(x) >= probes - 1)
+    if not _FLUSH_NAMES:
+        raise AssertionError(f"device_ms: no flush activity in {tries} "
+                             f"traces of {probes} flushes")
+    return _FLUSH_NAMES
+
+
+def device_ms(torch, fn, match=None, n=50, warm=5, tries=3):
+    """Median over ``n`` calls of ``fn`` of the device time of one call,
+    read from torch.profiler's CUDA activity: the summed durations of the
+    call's kernels whose name contains ``match`` (a string or a tuple of
+    strings), or of all the call's device activities when ``match`` is
+    None.  Before each call an f64 fill of 64 MB leaves L2 cold, as each
+    layer's attention finds it in the serve; the fill separates the calls
+    in the trace and is not counted.  Two more calls than ``n`` run
+    under the profiler, and the last ``n`` count.  A trace that does not
+    separate ``n`` calls, each with device time (CUPTI dropped an
+    activity), is taken again, up to ``tries`` traces."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if isinstance(match, str):
+        match = (match,)
+    buf = torch.empty(FLUSH_BYTES // 8, dtype=torch.float64, device="cuda")
+    flush = lambda: buf.fill_(1.0)                        # noqa: E731
+    flush_names = _flush_names(torch, flush)
+    for _ in range(warm):
+        flush()
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n + 2):
+                flush()
+                fn()
+            torch.cuda.synchronize()
+        calls = []
+        for name, _, dur in _device_activities(prof):
+            if name in flush_names:
+                calls.append(0)
+            elif calls and (match is None or any(m in name for m in match)):
+                calls[-1] += dur
+        # the first calls of a trace may lose an activity: keep the last n
+        calls = calls[-n:]
+        if len(calls) == n and min(calls) > 0:
+            return float(np.median(calls)) / 1e6
+    raise AssertionError(
+        f"device_ms: {len(calls)} calls of {n} separated in the trace, "
+        f"least device time {min(calls, default=0)} ns (match {match}), "
+        f"{tries} traces")
 
 
 # ---------------------------------------------------------------------------
@@ -236,8 +336,11 @@ def check_paged_decode(torch, cd, pcd, dev):
     for name, dtype, cap, tol in cases:
         x = decode_inputs(torch, dev, dtype)
         args, rows, n_mapped = paged_inputs(torch, x, CL_SLOTS, N_BUCKET)
+        args = with_groups(torch, pcd, args)
         kw = dict(scale=DH ** -0.5, softcap=cap)
         got = pcd.paged_clustered_decode_cuda(**args, **kw)
+        alone = pcd.paged_clustered_decode_cuda(
+            **dict(args, row_group=None), **kw)       # one row per block
         f32 = {k: (v.float() if v.is_floating_point() else v)
                for k, v in args.items()}
         want = pcd.paged_clustered_decode_plain(**f32, **kw).to(dtype)
@@ -251,13 +354,16 @@ def check_paged_decode(torch, cd, pcd, dev):
         max_err = max(max_err, (got[:n].float() - want[:n].float()).abs()
                       .max().item())
         ref = dense[[b for b, _ in rows], [i for _, i in rows]]
-        differ = (bits(torch, got[:n]) != bits(torch, ref)).any(-1).any(-1)
-        if differ.any():
-            raise AssertionError(
-                f"paged {name}: {int(differ.sum())} of {n} real rows differ "
-                "from clustered_decode bit for bit")
+        for form, out in (("grouped", got), ("one row per block", alone)):
+            differ = (bits(torch, out[:n]) != bits(torch, ref)).flatten(
+                1).any(1)
+            if differ.any():
+                raise AssertionError(
+                    f"paged {name} ({form}): {int(differ.sum())} of {n} real "
+                    "rows differ from clustered_decode bit for bit")
         say(f"paged_clustered_decode {name}: kernel == plain within {tol}; "
-            f"all {n} real rows bit-equal to clustered_decode "
+            f"all {n} real rows bit-equal to clustered_decode, grouped as "
+            "the engine groups them and one row per block "
             f"({n_mapped} mapped blocks of {BS}, {N_BUCKET}-row bucket; "
             f"max abs err so far {max_err:.3e})")
         if name != "f32":
@@ -593,7 +699,8 @@ def serve_qwen3(torch, dev, smi, paged=None, params=None):
         f"{launches[kernel]} = {cfg.n_layers} x {steps}{pool}; "
         f"bitserial_median launches {n_med} (>= {need} absorbs + "
         f"compactions; {n_med / steps:.3f} per engine step); tokens "
-        f"sha256 {digest.hexdigest()[:16]}")
+        f"sha256 {digest.hexdigest()[:16]} (one-walk kernels: "
+        f"{SHA_ONE_WALK})")
     say(f"[{smi}] {mode}: tokens_per_s {st['tokens_per_s']:.1f}  "
         f"tokens_per_s_wall {st['tokens_per_s_wall']:.1f}  "
         f"ttft_p50_ms {st['ttft_p50_ms']:.1f}  ttft_p95_ms "
@@ -601,7 +708,8 @@ def serve_qwen3(torch, dev, smi, paged=None, params=None):
         f"itl_p95_ms {st['itl_p95_ms']:.2f}")
     return ({"n_layers": cfg.n_layers, "stats": st, "wall_s": wall,
              "launches": launches, "engine_steps": steps,
-             "tokens": tokens}, srv.params)
+             "tokens": tokens, "tokens_sha256": digest.hexdigest()[:16]},
+            srv.params)
 
 
 def compare_tokens(dense, paged):
@@ -743,27 +851,29 @@ def decode_flops(counts, cl):
     return flops
 
 
-def decode_work(x):
+def decode_work(x, cl):
     """Bytes each input read once and each output written once, and the
     flops of the valid rows against the entries they can see: ``(bytes,
     q.k flops, p.v flops)``."""
-    nbytes = sum(v.numel() * v.element_size() for v in x.values())
+    nbytes = sum(v.numel() * v.element_size() for v in x.values()
+                 if v is not None)
     nbytes += x["q"].numel() * x["q"].element_size()          # output
-    flops = decode_flops(x["counts"], CL_SLOTS)
+    flops = decode_flops(x["counts"], cl)
     return nbytes, flops, flops
 
 
 def paged_work(args, rows, n_mapped, cl):
     """The least bytes paged_clustered_decode must move for these rows:
     each real row's q and output once, each slot's centroids and counts
-    once, each mapped pool block once, the row vectors and block-table
-    rows once; and the same flops as the dense rows they equal."""
+    once, each mapped pool block once, the row vectors, group table and
+    block-table rows once; and the same flops as the dense rows they
+    equal."""
     el = args["q"].element_size()
     n = len(rows)
     nbytes = 2 * n * HQ * DH * el                          # q in, out
     nbytes += B * C * HKV * (2 * DH * el + 4)              # cents, counts
     nbytes += 2 * n_mapped * BS * HKV * DH * el            # k/v blocks
-    nbytes += n * 4 * (5 + args["row_bt"].shape[1])        # int vectors
+    nbytes += n * 4 * (6 + args["row_bt"].shape[1])        # int vectors
     flops = decode_flops(args["counts"], cl)
     return nbytes, flops, flops
 
@@ -776,31 +886,43 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def decode_bound(nbytes, fl_qk, fl_pv):
+    """B1 and B2: q.k of bf16 operands on the bf16 tensor cores (exact in
+    f32); p.v as the kernels compute it, two bf16 tensor-core products
+    (p = hi + lo)."""
+    return bound(nbytes, [(fl_qk + 2 * fl_pv, PEAK_BF16_FLOP_PER_S)])
+
+
 def sdpa_yardstick(torch, x):
     """One scaled_dot_product_attention over [centroids ⊕ ring] with a
     float mask carrying log(count) and the masks (built outside the
-    timed call)."""
+    timed call).  q (B, L, Hq, Dh) with chunk_len, or (B, Hq, Dh)."""
     import torch.nn.functional as F
 
     g = HQ // HKV
+    q = x["q"] if x["q"].dim() == 4 else x["q"][:, None]
+    n_l = q.shape[1]
     k = torch.cat([x["k_cents"], x["k_tail"]], 1).transpose(1, 2)
     v = torch.cat([x["v_cents"], x["v_tail"]], 1).transpose(1, 2)
     k = k.repeat_interleave(g, 1).contiguous()                 # (B, Hq, E, Dh)
     v = v.repeat_interleave(g, 1).contiguous()
-    q = x["q"].transpose(1, 2).contiguous()                    # (B, Hq, L, Dh)
+    q = q.transpose(1, 2).contiguous()                         # (B, Hq, L, Dh)
     dev = q.device
     cnt = x["counts"].transpose(1, 2).repeat_interleave(g, 1)  # (B, Hq, C)
     bias_c = torch.where(cnt > 0, torch.log(cnt.clamp_min(1e-9)),
                          torch.full_like(cnt, -1e30))[:, :, None, :]
+    cl = x["chunk_len"]
+    cl = (torch.ones(B, dtype=torch.long, device=dev) if cl is None
+          else cl.long())
     t = x["t"].long()[:, None]
-    tw = t + x["chunk_len"].long()[:, None]
+    tw = t + cl[:, None]
     s = torch.arange(R, device=dev)[None]
     pos = torch.where(tw <= R, s, tw - R + torch.remainder(s - tw, R))
-    i = torch.arange(L, device=dev)[None, :, None]
+    i = torch.arange(n_l, device=dev)[None, :, None]
     ok = ((pos[:, None, :] <= t[:, :, None] + i)
           & (pos[:, None, :] >= x["cov"].long()[:, None, None]))
-    bias_t = torch.where(ok, 0.0, -1e30)[:, None].expand(B, HQ, L, R)
-    mask = torch.cat([bias_c.expand(B, HQ, L, C), bias_t], -1).to(q.dtype)
+    bias_t = torch.where(ok, 0.0, -1e30)[:, None].expand(B, HQ, n_l, R)
+    mask = torch.cat([bias_c.expand(B, HQ, n_l, C), bias_t], -1).to(q.dtype)
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   scale=DH ** -0.5)
 
@@ -838,21 +960,79 @@ def paged_sdpa_yardstick(torch, args):
                                                   scale=DH ** -0.5)
 
 
-def time_paged(torch, pcd, x, cl, bucket):
-    """B2 at one shape: kernel, plain, SDPA yardstick and bound."""
-    args, rows, n_mapped = paged_inputs(torch, x, cl, bucket)
+def with_groups(torch, pcd, args):
+    """``args`` with the row-group table the engine would build for its
+    rows (``pcd.group_rows``); unchanged when ``pcd`` has none (an older
+    kernel that scores one row per block)."""
+    if not hasattr(pcd, "group_rows"):
+        return args
+    grp = pcd.group_rows(args["row_slot"].cpu().numpy(),
+                         args["qpos1"].cpu().numpy(),
+                         args["tw"].cpu().numpy(), HQ // HKV)
+    return dict(args, row_group=torch.from_numpy(grp).to(args["q"].device))
+
+
+def time_clustered(torch, cd, x, cl, plain=False):
+    """B1 at one form: kernel device time, wrapper call time, SDPA device
+    time and bound; the plain version's call time when ``plain``."""
     kw = dict(scale=DH ** -0.5)
-    ms = time_ms(torch, lambda: pcd.paged_clustered_decode_cuda(**args,
-                                                                **kw))
-    plain = time_ms(torch, lambda: pcd.paged_clustered_decode_plain(**args,
-                                                                    **kw))
-    lib = time_ms(torch, paged_sdpa_yardstick(torch, args))
+    run = lambda: cd.clustered_decode_cuda(**x, **kw)     # noqa: E731
+    nb, fl_qk, fl_pv = decode_work(x, cl)
+    b_ms, b_by = decode_bound(nb, fl_qk, fl_pv)
+    out = dict(ms=device_ms(torch, run, "clustered_decode_kernel"),
+               call_ms=time_ms(torch, run),
+               library_ms=device_ms(torch, sdpa_yardstick(torch, x)),
+               bound_ms=b_ms, bound_by=b_by, bytes=nb, flops_qk=fl_qk,
+               flops_pv=fl_pv, chunk_len=list(cl))
+    out["plain_ms"] = (time_ms(torch, lambda: cd.clustered_decode_plain(
+        **x, **kw)) if plain else None)
+    return out
+
+
+def time_paged(torch, pcd, x, cl, bucket, plain=False):
+    """B2 at one shape (rows grouped as the engine groups them): kernel
+    device time, wrapper call time, SDPA device time and bound; the plain
+    version's call time when ``plain``."""
+    args, rows, n_mapped = paged_inputs(torch, x, cl, bucket)
+    args = with_groups(torch, pcd, args)
+    kw = dict(scale=DH ** -0.5)
+    run = lambda: pcd.paged_clustered_decode_cuda(**args, **kw)  # noqa: E731
     nb, fl_qk, fl_pv = paged_work(args, rows, n_mapped, cl)
-    b_ms, b_by = bound(nb, [(fl_qk, PEAK_BF16_FLOP_PER_S),
-                            (fl_pv, PEAK_F32_FLOP_PER_S)])
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by, bytes=nb, flops_qk=fl_qk, flops_pv=fl_pv,
-                rows=len(rows), bucket=bucket, mapped_blocks=n_mapped)
+    b_ms, b_by = decode_bound(nb, fl_qk, fl_pv)
+    out = dict(ms=device_ms(torch, run, "paged_clustered_decode_kernel"),
+               call_ms=time_ms(torch, run),
+               library_ms=device_ms(torch,
+                                    paged_sdpa_yardstick(torch, args)),
+               bound_ms=b_ms, bound_by=b_by, bytes=nb, flops_qk=fl_qk,
+               flops_pv=fl_pv, rows=len(rows), bucket=bucket,
+               mapped_blocks=n_mapped)
+    out["plain_ms"] = (time_ms(torch, lambda: (
+        pcd.paged_clustered_decode_plain(**args, **kw))) if plain else None)
+    return out
+
+
+def decode_times(torch, cd, pcd, dev, plain=True):
+    """B1 in its mixed (chunk_len CL_SLOTS), serve-like mixed (CL_SERVE:
+    what the engine launches while one prompt is admitted) and one-token
+    forms, and B2 in its mixed (the phase-3 rows, 256-row bucket) and
+    decode-only (one row per slot) forms, bf16.
+    benchmarks/time_decode_kernels.py runs it against another commit's
+    kernels."""
+    x = decode_inputs(torch, dev, torch.bfloat16)
+    xs = dict(x, chunk_len=torch.tensor(CL_SERVE, dtype=torch.int32,
+                                        device=dev))
+    x1 = dict(x, q=x["q"][:, 0].contiguous(), chunk_len=None)
+    return {
+        "clustered_decode": time_clustered(torch, cd, x, CL_SLOTS, plain),
+        "clustered_decode serve_mixed": time_clustered(torch, cd, xs,
+                                                       CL_SERVE),
+        "clustered_decode one_token": time_clustered(torch, cd, x1,
+                                                     [1] * B),
+        "paged_clustered_decode": time_paged(torch, pcd, x, CL_SLOTS,
+                                             N_BUCKET, plain),
+        "paged_clustered_decode decode_only": time_paged(
+            torch, pcd, x, [1] * B, B, plain),
+    }
 
 
 def time_median(torch, bsm, u, a, k, w, bits, plain_n):
@@ -862,16 +1042,18 @@ def time_median(torch, bsm, u, a, k, w, bits, plain_n):
     bit), at the f32 rate."""
     m = int(np.prod(u.shape[:-2]))
     n, d = u.shape[-2:]
-    ms = time_ms(torch, lambda: bsm.grouped_median_bits_cuda(u, a, k, w,
-                                                             bits=bits))
+    run = lambda: bsm.grouped_median_bits_cuda(u, a, k, w,  # noqa: E731
+                                               bits=bits)
     plain = time_ms(torch, lambda: bsm.grouped_median_bits_plain(
         u, a, k, weights=w, bits=bits), n=plain_n, warm=1)
     nbytes = m * (n * d * 8 + n * 4 + (n * 4 if w is not None else 0)
                   + k * d * 8 + k * 4)
     votes = m * n * d * bits
     b_ms, b_by = bound(nbytes, [(votes, PEAK_F32_FLOP_PER_S)])
-    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by, bytes=nbytes, votes=votes,
+    return dict(ms=device_ms(torch, run, REPRO_KERNELS),
+                call_ms=time_ms(torch, run), plain_ms=plain,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                votes=votes,
                 library="none: no PyTorch call computes a weighted "
                         "per-cluster median")
 
@@ -885,70 +1067,50 @@ def time_flash_decode(torch, fd, dev):
 
     q, k, v = decode_cache(torch, dev, torch.bfloat16)
     kw = dict(scale=DH ** -0.5)
-    ms = time_ms(torch, lambda: fd.flash_decode_cuda(q, k, v, FD_T, **kw))
+    run = lambda: fd.flash_decode_cuda(q, k, v, FD_T, **kw)  # noqa: E731
     plain = time_ms(torch, lambda: fd.flash_decode_plain(q, k, v, FD_T,
                                                          **kw))
     q4 = q[:, :, None].contiguous()                       # (B, Hq, 1, Dh)
     k4, v4 = (x.transpose(1, 2).contiguous() for x in (k, v))
     mask = (torch.arange(FD_S, device=dev) < FD_T)[None, None, None, :]
-    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+    lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
         q4, k4, v4, attn_mask=mask, enable_gqa=True, **kw))
     el = q.element_size()
     nbytes = 2 * q.numel() * el + 2 * B * FD_T * HKV * DH * el
     flops = 2 * B * HQ * FD_T * DH
     b_ms, b_by = bound(nbytes, [(flops, PEAK_BF16_FLOP_PER_S),
                                 (flops, PEAK_F32_FLOP_PER_S)])
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by, bytes=nbytes, flops_qk=flops, flops_pv=flops)
+    return dict(ms=device_ms(torch, run, REPRO_KERNELS),
+                call_ms=time_ms(torch, run), plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops_qk=flops,
+                flops_pv=flops)
 
 
 def timings(torch, cd, pcd, da, bsm, fd, dev, xa, ca):
-    x = decode_inputs(torch, dev, torch.bfloat16)
-    kw = dict(scale=DH ** -0.5)
-    cd_ms = time_ms(torch, lambda: cd.clustered_decode_cuda(**x, **kw))
-    cd_plain = time_ms(torch, lambda: cd.clustered_decode_plain(**x, **kw))
-    cd_lib = time_ms(torch, sdpa_yardstick(torch, x))
-    x1 = dict(x, q=x["q"][:, 0].contiguous(), chunk_len=None)
-    cd_ms1 = time_ms(torch, lambda: cd.clustered_decode_cuda(**x1, **kw))
-    nb, fl_qk, fl_pv = decode_work(x)
-    # bf16 q.k products are exact in f32, so bf16 tensor cores with f32
-    # accumulation give the same scores; p is f32, so p.v is f32 work
-    cd_bound, cd_by = bound(nb, [(fl_qk, PEAK_BF16_FLOP_PER_S),
-                                 (fl_pv, PEAK_F32_FLOP_PER_S)])
-    # paged: the phase-3 mixed shape (130 rows in a 256-row bucket) and
-    # a decode-only step (one row per slot, bucket 4)
-    pg = time_paged(torch, pcd, x, CL_SLOTS, N_BUCKET)
-    pg1 = time_paged(torch, pcd, x, [1] * B, B)
-    da_ms = time_ms(torch, lambda: da.distance_argmin_cuda(xa, ca,
-                                                           metric="l1"))
+    tm = decode_times(torch, cd, pcd, dev)
+    run = lambda: da.distance_argmin_cuda(xa, ca, metric="l1")  # noqa: E731
     da_plain = time_ms(torch, lambda: da.distance_argmin_plain(
         xa, ca, metric="l1"), n=20, warm=2)
-    da_ms_l2 = time_ms(torch, lambda: da.distance_argmin_cuda(xa, ca,
-                                                              metric="l2"))
+    da_ms_l2 = device_ms(torch, lambda: da.distance_argmin_cuda(
+        xa, ca, metric="l2"), REPRO_KERNELS)
     da_bytes = 4 * (N_PTS * D_PTS + K_PTS * D_PTS + 2 * N_PTS)
     da_flops = N_PTS * K_PTS * (3 * D_PTS + 1)         # |x-c|, sum, compare
     da_bound, da_by = bound(da_bytes, [(da_flops, PEAK_F32_FLOP_PER_S)])
+    tm["distance_argmin"] = dict(
+        ms=device_ms(torch, run, REPRO_KERNELS), call_ms=time_ms(torch, run),
+        plain_ms=da_plain, library_ms=None, bound_ms=da_bound, bound_by=da_by,
+        bytes=da_bytes, flops=da_flops, l2_ms=da_ms_l2)
     _, m, k, bits = MED_CASES[0]
     u, a, w = median_inputs(torch, dev, m, k, bits)
-    med = time_median(torch, bsm, u, a, k, w, bits, plain_n=10)
+    tm["bitserial_median"] = time_median(torch, bsm, u, a, k, w, bits,
+                                         plain_n=10)
     del u, a, w
     u, a = stream_inputs(torch, dev)
-    med_stream = time_median(torch, bsm, u, a, K_PTS, None, 32, plain_n=3)
+    tm["bitserial_median streamed"] = time_median(torch, bsm, u, a, K_PTS,
+                                                  None, 32, plain_n=3)
     del u, a
-    return {
-        "clustered_decode": dict(ms=cd_ms, plain_ms=cd_plain,
-                                 library_ms=cd_lib, bound_ms=cd_bound,
-                                 bound_by=cd_by, bytes=nb,
-                                 flops_qk=fl_qk, flops_pv=fl_pv,
-                                 decode_form_ms=cd_ms1),
-        "paged_clustered_decode": dict(pg, decode_only=pg1),
-        "distance_argmin": dict(ms=da_ms, plain_ms=da_plain, library_ms=None,
-                                bound_ms=da_bound, bound_by=da_by,
-                                bytes=da_bytes, flops=da_flops,
-                                l2_ms=da_ms_l2),
-        "bitserial_median": dict(med, streamed=med_stream),
-        "flash_decode": time_flash_decode(torch, fd, dev),
-    }
+    tm["flash_decode"] = time_flash_decode(torch, fd, dev)
+    return tm
 
 
 def main() -> int:
@@ -1013,21 +1175,12 @@ def main() -> int:
     # phase 7: times
     tm = timings(torch, cd, pcd, da, bsm, fd, dev, xa, ca)
     record["times"] = tm
+    fmt = lambda v: "None" if v is None else f"{v:.4f}"    # noqa: E731
     for name, v in tm.items():
-        say(f"[{smi}] {name}: kernel_ms {v['ms']:.4f} plain_ms "
-            f"{v['plain_ms']:.4f} library_ms {v['library_ms']} bound_ms "
-            f"{v['bound_ms']:.4f} ({v['bound_by']})")
-    v = tm["bitserial_median"]["streamed"]
-    say(f"[{smi}] bitserial_median streamed ({N_PTS} x {D_PTS}, K={K_PTS}, "
-        f"32 bits): kernel_ms {v['ms']:.4f} plain_ms {v['plain_ms']:.4f} "
-        f"library_ms None bound_ms {v['bound_ms']:.4f} ({v['bound_by']}); "
-        f"library: {v['library']}")
-    v = tm["paged_clustered_decode"]["decode_only"]
-    say(f"[{smi}] paged_clustered_decode decode-only (4 rows): kernel_ms "
-        f"{v['ms']:.4f} plain_ms {v['plain_ms']:.4f} library_ms "
-        f"{v['library_ms']:.4f} bound_ms {v['bound_ms']:.4f} "
-        f"({v['bound_by']}); clustered_decode one-token form "
-        f"{tm['clustered_decode']['decode_form_ms']:.4f}")
+        say(f"[{smi}] {name}: kernel_ms {v['ms']:.4f} (device) call_ms "
+            f"{v['call_ms']:.4f} plain_ms {fmt(v['plain_ms'])} library_ms "
+            f"{fmt(v['library_ms'])} (device) bound_ms {v['bound_ms']:.4f} "
+            f"({v['bound_by']})")
     per_step = {mode: rec["launches"]["bitserial_median"]
                 / rec["engine_steps"]
                 for mode, rec in (("dense", serve), ("paged", paged))}

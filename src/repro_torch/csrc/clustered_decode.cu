@@ -8,23 +8,25 @@
 // (position in [cov, t + i], row i < chunk_len).  Output per row:
 // (p_c . v_c + p_t . v_t) / max(sum p, 1e-30), math in f32, stored like q.
 //
-// What bounds it on this card: at the serving shapes the bytes (each (slot,
-// kv head) reads its C + R keys and values once) and the f32 p . v products
-// set about the same least time; the q . k products of bf16 operands are
-// exact in f32, so bf16 tensor cores could take them at ~15x the f32 rate.
-// chip_smoke.py reports the larger of the two for its inputs.  The design
-// keeps every intermediate out of device memory: one block per (slot, kv
-// head, tile of 16 query rows) stages the rows in shared memory once,
-// streams the entries
-// through shared memory in tiles of 32 (keys and values converted to f32 on
-// load), and folds each tile into an online softmax (running max, sum and
-// Dh accumulator per row, in registers).  The dot products run on the FMA
-// pipes: tensor cores (wgmma) and TMA loads are later work.  Rows of one
-// (slot, kv head) in different row tiles re-read the same entries, which
-// then come from L2.  At the serving shapes the whole grid fits in one
-// wave, so a call takes as long as one block's walk over the C + R
-// entries: the tile loads are 16-byte vectors, all issued before any is
-// converted, so a tile costs about one memory latency.
+// What bounds it on this card: the bytes.  Each (slot, kv head) reads its
+// C + R keys and values once (qwen3-4b at C + R = 320, Dh = 128 in bf16:
+// 164 KB); the q . k and p . v products of 4 to 64 query rows per entry are
+// a few operations per byte, far below the ~295 the tensor cores need
+// before they are the limit.  So the design aims at bytes in flight and at
+// keeping the math off the critical path:
+// - one block per (slot, kv head, tile of 16 query rows); its four warps
+//   split the entries (warp w takes the 16-entry tiles w, w + 4, ...), so
+//   a block keeps four tiles' loads in flight, two stages deep per warp
+//   (cp.async), instead of walking all C + R entries alone;
+// - q . k and p . v on the tensor cores (mma.sync.m16n8k16, bf16 -> f32;
+//   wgmma needs 64-row tiles and the one-token form has g = 4 rows per
+//   (slot, kv head)), keys and values bf16 in shared memory;
+// - a row tile whose rows all lie at chunk index >= chunk_len writes zeros
+//   and returns at once: in the engine's mixed step most tiles are such.
+// Rows of one (slot, kv head) in different row tiles re-read the same
+// entries, which then come from L2.  The scoring tile is shared with
+// paged_clustered_decode (clustered_score.cuh), so paged rows stay
+// bit-identical to dense rows.
 //
 // Ring position of slot s with tw = t + chunk_len entries written:
 // s while tw <= R, else tw - R + ((s - tw) mod R) with a floor mod.
@@ -36,50 +38,23 @@
 
 namespace repro {
 
-// Visibility and bias of entry e of the current tile for query row r.
-struct DenseMask {
-  const float* bias_s;  // [kTile] log(max(count, 1e-9)) of centroid entries
-  const int* pos_s;     // [kTile] ring position, or -1 for a centroid entry
-  const int* ok_s;      // [kTile] centroid count > 0 (centroid entries)
-  int row0, g, t, cov, cl;
-
-  __device__ __forceinline__ bool operator()(int r, int e, float& bias) const {
-    const int i = (row0 + r) / g;  // chunk row of query row r
-    const bool row_ok = i < cl;
-    const int pos = pos_s[e];
-    if (pos < 0) {                 // centroid
-      bias = bias_s[e];
-      return row_ok && ok_s[e];
-    }
-    bias = 0.f;
-    return row_ok && pos < t + i + 1 && pos >= cov;
-  }
-};
-
-// Entry ge of slot b, kv head h: centroid ge < C, else ring slot ge - C.
+// Entries of slot b, kv head h: centroid ge < C is row b * C + ge of
+// kc / vc, ring slot s = ge - C row b * R + s of kt / vt (rows of Hkv * dh
+// elements; see load_tile).
 template <typename T>
 struct DenseSrc {
   const T* kc;
   const T* vc;
-  const T* kt;
-  const T* vt;
-  int b, h, Hkv, dh, C, R;
+  const T* kr;
+  const T* vr;
+  int row_elems, head_off, b, C, R;
 
-  __device__ __forceinline__ void operator()(int ge, const T*& k,
-                                             const T*& v) const {
-    if (ge < C) {
-      const size_t off = ((size_t)(b * C + ge) * Hkv + h) * dh;
-      k = kc + off;
-      v = vc + off;
-    } else {
-      const size_t off = ((size_t)(b * R + ge - C) * Hkv + h) * dh;
-      k = kt + off;
-      v = vt + off;
-    }
+  __device__ __forceinline__ int row(int ge) const {
+    return ge < C ? -(b * C + ge) - 1 : b * R + ge - C;
   }
 };
 
-template <typename T>
+template <typename T, int DhP>
 __global__ void __launch_bounds__(kThreads)
 clustered_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc,
@@ -95,55 +70,66 @@ clustered_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int g = Hq / Hkv;
   const int n_rows = L * g;
   const int row0 = blockIdx.y * kRows;
-
-  extern __shared__ float4 smem4[];          // 16-byte aligned
-  const BlockSmem sm = block_smem(reinterpret_cast<float*>(smem4), dh);
-
   const int t = t_vec[b];
   const int cov = cov_vec[b];
   const int cl = cl_vec[b];
 
-  // query row r of this tile is chunk row i = row / g, head h * g + row % g
-  for (int idx = threadIdx.x; idx < kRows * dh; idx += kThreads) {
-    const int r = idx / dh, d = idx % dh, row = row0 + r;
-    float v = 0.f;
-    if (row < n_rows) {
-      const int i = row / g, hq = h * g + row % g;
-      v = to_f32(q[((size_t)(b * L + i) * Hq + hq) * dh + d]);
-    }
-    sm.q_s[idx] = v;
-  }
-
-  RowState st[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) row_state_init(st[i]);
-
-  const DenseMask mask{sm.bias_s, sm.pos_s, sm.ok_s, row0, g, t, cov, cl};
-  const DenseSrc<T> src{kc, vc, kt, vt, b, h, Hkv, dh, C, R};
-  attend_entries<T>(sm, src, cnt + (size_t)b * C * Hkv + h, Hkv, C, R,
-                    t + cl, dh, scale, softcap, mask, st);
-
-  store_rows<T>(st, dh, [&](int r) -> T* {
+  // block row r is query row row0 + r: chunk row i = row / g, head
+  // h * g + row % g
+  auto out_row = [&](int r) -> T* {
     const int row = row0 + r;
     if (row >= n_rows) return nullptr;
-    const int ci = row / g, hq = h * g + row % g;
-    return out + ((size_t)(b * L + ci) * Hq + hq) * dh;
-  });
+    return out + ((size_t)(b * L + row / g) * Hq + h * g + row % g) * dh;
+  };
+  if (row0 / g >= cl) {            // every row past the chunk: nothing to do
+    zero_rows<T>(dh, out_row);
+    return;
+  }
+  auto row_mask = [&](int r) -> RowMask {
+    const int row = row0 + r, i = row / g;
+    if (row >= n_rows || i >= cl) return dead_row();
+    return RowMask{1, cov, t + i + 1, 1};
+  };
+
+  extern __shared__ float4 smem4[];          // 16-byte aligned
+  const BlockSmem<T, DhP> sm(reinterpret_cast<unsigned char*>(smem4), C);
+  const float* cnt_bh = cnt + (size_t)b * C * Hkv + h;
+  auto stage = [&]() {
+    stage_block<T, DhP>(
+        sm, dh, C,
+        [&](int r) -> const T* {
+          const int row = row0 + r;
+          if (row >= n_rows) return nullptr;
+          return q + ((size_t)(b * L + row / g) * Hq + h * g + row % g) * dh;
+        },
+        [&](int c) { return cnt_bh[(size_t)c * Hkv]; }, row_mask);
+  };
+
+  const int lane = threadIdx.x & 31;
+  const RowMask rm[2] = {row_mask(lane >> 2), row_mask((lane >> 2) + 8)};
+  WarpState<DhP> st;
+  st.init();
+  const DenseSrc<T> src{kc, vc, kt, vt, Hkv * dh, h * dh, b, C, R};
+  walk_entries<T, DhP>(sm, src, C, R, t + cl, dh, scale, softcap, rm, st,
+                       stage);
+  finish_rows<T, DhP>(sm, st, dh, out_row);
 }
 
-template <typename T>
-int launch(const void* q, const void* kc, const void* vc, const void* cnt,
-           const void* kt, const void* vt, const void* t, const void* cov,
-           const void* cl, void* out, int B, int L, int Hq, int Hkv, int dh,
-           int C, int R, float scale, float softcap, cudaStream_t stream) {
-  const size_t smem = block_smem_bytes(dh);
+template <typename T, int DhP>
+int launch_dh(const void* q, const void* kc, const void* vc, const void* cnt,
+              const void* kt, const void* vt, const void* t, const void* cov,
+              const void* cl, void* out, int B, int L, int Hq, int Hkv,
+              int dh, int C, int R, float scale, float softcap,
+              cudaStream_t stream) {
+  const size_t smem = Smem<T, DhP>::bytes(C);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(clustered_decode_kernel<T>,
+    cudaFuncSetAttribute(clustered_decode_kernel<T, DhP>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
   }
   const dim3 grid(B * Hkv, (L * (Hq / Hkv) + kRows - 1) / kRows);
-  clustered_decode_kernel<T><<<grid, kThreads, smem, stream>>>(
+  clustered_decode_kernel<T, DhP><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), static_cast<const float*>(cnt),
       static_cast<const T*>(kt), static_cast<const T*>(vt),
@@ -151,6 +137,22 @@ int launch(const void* q, const void* kc, const void* vc, const void* cnt,
       static_cast<const int*>(cl), static_cast<T*>(out), L, Hq, Hkv, dh, C,
       R, scale, softcap);
   return (int)cudaGetLastError();
+}
+
+// head dims are padded with zeros to 64, 128 or 256 in shared memory
+template <typename T>
+int launch(const void* q, const void* kc, const void* vc, const void* cnt,
+           const void* kt, const void* vt, const void* t, const void* cov,
+           const void* cl, void* out, int B, int L, int Hq, int Hkv, int dh,
+           int C, int R, float scale, float softcap, cudaStream_t stream) {
+  if (dh <= 64)
+    return launch_dh<T, 64>(q, kc, vc, cnt, kt, vt, t, cov, cl, out, B, L,
+                            Hq, Hkv, dh, C, R, scale, softcap, stream);
+  if (dh <= 128)
+    return launch_dh<T, 128>(q, kc, vc, cnt, kt, vt, t, cov, cl, out, B, L,
+                             Hq, Hkv, dh, C, R, scale, softcap, stream);
+  return launch_dh<T, 256>(q, kc, vc, cnt, kt, vt, t, cov, cl, out, B, L, Hq,
+                           Hkv, dh, C, R, scale, softcap, stream);
 }
 
 }  // namespace repro

@@ -48,7 +48,7 @@ SIGNATURES = {
         + [_c_void_p] * 3),
     "paged_clustered_decode": (
         "paged_clustered_decode_launch",
-        [_c_int] + [_c_void_p] * 13 + [_c_int] * 7 + [_c_float, _c_float,
+        [_c_int] + [_c_void_p] * 14 + [_c_int] * 7 + [_c_float, _c_float,
                                                       _c_void_p]),
 }
 

@@ -7,7 +7,9 @@ Attention of each slot's query rows over [median centroids ⊕ exact tail
 ring]: centroid logits get +log(count) and empty clusters are masked; ring
 entries count only at positions in [cov, t + i] for chunk rows i <
 chunk_len; one joint softmax over C + R entries.  Rows at index >=
-chunk_len are garbage by contract.
+chunk_len are garbage by contract: the kernel writes zeros for them, and
+a block of 16 query rows that all lie there writes its zeros and returns
+without reading any entry (the engine's mixed step is mostly such rows).
 
 Layouts as in the reference: q (B, Hq, Dh) or (B, L, Hq, Dh); k/v_cents
 (B, C, Hkv, Dh); counts (B, C, Hkv) f32; k/v_tail (B, R, Hkv, Dh) in ring
@@ -138,11 +140,11 @@ def clustered_decode_cuda(q, k_cents, v_cents, counts, k_tail, v_tail, t,
         raise ValueError(f"head dim {dh} > {MAX_HEAD_DIM}")
     if not all(x.is_contiguous() for x in leaves + (counts,)):
         raise ValueError("clustered_decode kernel needs contiguous inputs")
-    # centroids and ring are read as 16-byte vectors
+    # query rows, centroids and ring are read as 16-byte vectors
     if dh % (16 // q.element_size()) or any(x.data_ptr() % 16
-                                            for x in leaves[1:]):
+                                            for x in leaves):
         raise ValueError("clustered_decode kernel needs 16-byte aligned "
-                         "centroid and ring rows")
+                         "query, centroid and ring rows")
     t = per_slot(t, b, q.device)
     cov = per_slot(cov, b, q.device)
     cl = per_slot(chunk_len, b, q.device, fill=1)

@@ -79,7 +79,8 @@ def clustered_decode(q, k_cents, v_cents, counts, k_tail, v_tail, t, cov,
 
 def paged_clustered_decode(q, k_cents, v_cents, counts, k_pool, v_pool,
                            row_slot, row_bt, qpos1, tw, cov, row_wlo=None,
-                           *, scale: float, softcap: Optional[float] = None):
+                           row_group=None, *, scale: float,
+                           softcap: Optional[float] = None):
     """Paged clustered-KV decode over packed ragged rows.
 
     q (N, Hq, Dh) packed (slot, position) rows; k/v_pool (nb, bs, Hkv, Dh)
@@ -87,15 +88,18 @@ def paged_clustered_decode(q, k_cents, v_cents, counts, k_pool, v_pool,
     entry valid: unmapped blocks point at a garbage block the masks
     exclude); qpos1 / tw / cov per row: position + 1 (0: padding row),
     ring watermark, coverage frontier; ``row_wlo`` (N,) the retention
-    window floor (None: zeros, frontier-only masking) → (N, Hq, Dh)."""
+    window floor (None: zeros, frontier-only masking); ``row_group`` (N,)
+    the kernel's row groups (``paged_clustered_decode.group_rows``; None:
+    one row each) → (N, Hq, Dh)."""
     if use_kernel_for(q):
         paged_clustered_decode.launches += 1
         return _pcd.paged_clustered_decode_cuda(
             q, k_cents, v_cents, counts, k_pool, v_pool, row_slot, row_bt,
-            qpos1, tw, cov, row_wlo, scale=scale, softcap=softcap)
+            qpos1, tw, cov, row_wlo, row_group, scale=scale,
+            softcap=softcap)
     return _pcd.paged_clustered_decode_plain(
         q, k_cents, v_cents, counts, k_pool, v_pool, row_slot, row_bt,
-        qpos1, tw, cov, row_wlo, scale=scale, softcap=softcap)
+        qpos1, tw, cov, row_wlo, row_group, scale=scale, softcap=softcap)
 
 
 def flash_decode(q, k, v, t, *, scale: float, softcap: Optional[float] = None,

@@ -265,7 +265,7 @@ def attn_decode_clustered(p, x, cfg: ModelConfig, *, cache, t,
 def attn_decode_clustered_packed(p, x, cfg: ModelConfig, *, cache,
                                  row_slot, row_pos, row_tw, block_tables,
                                  block_size: int, kv_repeat: int = 1,
-                                 row_wlo=None):
+                                 row_wlo=None, row_group=None):
     """Paged clustered-KV attention over packed ragged rows.
 
     x (N, 1, d): one embedding per real (slot, position) pair this step,
@@ -275,7 +275,9 @@ def attn_decode_clustered_packed(p, x, cfg: ModelConfig, *, cache,
     written before any row scores, so intra-chunk causality falls out of
     the per-row position mask as in the dense mixed launch); block_tables
     (B, T) global block ids, every entry valid, with every block written
-    this step owned by its slot alone (``kv_pool.ensure``).
+    this step owned by its slot alone (``kv_pool.ensure``); row_group
+    (N,) the kernel's row groups (``paged_clustered_decode.group_rows``),
+    or None.
 
     Each row's K/V go into its slot's pool block at the ring offset the
     dense path uses (in place; padding rows drop), so the pool holds the
@@ -307,7 +309,7 @@ def attn_decode_clustered_packed(p, x, cfg: ModelConfig, *, cache,
     out = kops.paged_clustered_decode(
         q[:, 0], cache["k_cents"], cache["v_cents"], cache["counts"],
         cache["k_tail"], cache["v_tail"], row_slot, row_bt, qpos1, row_tw,
-        row_cov, row_wlo, scale=_scale(cfg),
+        row_cov, row_wlo, row_group, scale=_scale(cfg),
         softcap=cfg.attn_logit_softcap)
     y = out.reshape(n, 1, cfg.n_heads * cfg.head_dim).to(x.dtype) @ p["wo"]
     return y, cache

@@ -183,7 +183,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, t, *,
 
 def _sublayer_decode_packed(p, h, cfg: ModelConfig, cache, *, row_slot,
                             row_pos, row_tw, block_tables, block_size,
-                            kv_repeat):
+                            kv_repeat, row_group):
     """One 'G' sublayer over packed rows (paged clustered KV).  h
     (N, 1, d); every non-attention op is row-wise, so rows stand in for
     the batch axis exactly."""
@@ -191,7 +191,7 @@ def _sublayer_decode_packed(p, h, cfg: ModelConfig, cache, *, row_slot,
     y, cache = attn.attn_decode_clustered_packed(
         p["attn"], x, cfg, cache=cache, row_slot=row_slot, row_pos=row_pos,
         row_tw=row_tw, block_tables=block_tables, block_size=block_size,
-        kv_repeat=kv_repeat)
+        kv_repeat=kv_repeat, row_group=row_group)
     if cfg.post_norms:
         y = apply_norm(p["post_attn_norm"], y, cfg)
     h = h + y
@@ -200,7 +200,8 @@ def _sublayer_decode_packed(p, h, cfg: ModelConfig, cache, *, row_slot,
 
 def decode_step_packed(params, cfg: ModelConfig, cache, tokens, row_slot,
                        row_pos, row_tw, row_cidx, block_tables, *,
-                       block_size: int, width: int = 1, kv_repeat: int = 1):
+                       block_size: int, width: int = 1, kv_repeat: int = 1,
+                       row_group=None):
     """Packed ragged engine step for the paged clustered-KV path.
 
     Each real (slot, position) pair is one row: tokens (N,), row_slot (N,)
@@ -208,7 +209,9 @@ def decode_step_packed(params, cfg: ModelConfig, cache, tokens, row_slot,
     the slot's ring watermark t + chunk_len this step, row_cidx (N,) the
     row's index within its admission chunk and ``width`` the step's
     longest chunk (both sequence sliding-window and recurrent layers,
-    which are later slices), block_tables (B, T) global tail-block ids.
+    which are later slices), block_tables (B, T) global tail-block ids,
+    row_group (N,) the attention kernel's row groups
+    (``kernels.paged_clustered_decode.group_rows``; None: one row each).
     Returns (logits (N, V) f32, cache), every row's next-token
     distribution, and writes the new keys and values into the cache's
     pools in place.  MLP, norms and embeddings are row-wise, so rows
@@ -225,7 +228,7 @@ def decode_step_packed(params, cfg: ModelConfig, cache, tokens, row_slot,
         h, _ = _sublayer_decode_packed(
             lp, h, cfg, c, row_slot=row_slot, row_pos=row_pos,
             row_tw=row_tw, block_tables=block_tables,
-            block_size=block_size, kv_repeat=kv_repeat)
+            block_size=block_size, kv_repeat=kv_repeat, row_group=row_group)
     h = apply_norm(params["final_norm"], h, cfg)
     logits = lm_logits(params["embed"], h, cfg)[:, 0]
     return logits, cache

@@ -50,6 +50,7 @@ from repro_torch.core import layer_state
 from repro_torch.core import retention
 from repro_torch.core.request_cluster import (BatchPlan, Request,
                                               plan_batches, plan_fifo)
+from repro_torch.kernels import paged_clustered_decode as pcd
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import resolve_device
@@ -419,7 +420,9 @@ class Server:
                 stall_retries = 0
                 # one row per real (slot, position) pair: (slot, token,
                 # position, ring watermark, index in chunk), padded to a
-                # power-of-two bucket with rows on slot 0 at position -1
+                # power-of-two bucket with rows on slot 0 at position -1;
+                # a sixth row carries the attention kernel's row groups
+                # in the same host-to-device copy
                 rows = []
                 for j in range(n):
                     if j in step_chunks:
@@ -432,17 +435,21 @@ class Server:
                         rows.append((j, int(cur[j]), int(pos[j]),
                                      int(pos[j]) + 1, 0))
                 compute_rows = _pow2ceil(len(rows))
-                packed = np.zeros((5, compute_rows), np.int32)
+                packed = np.zeros((6, compute_rows), np.int32)
                 packed[2] = -1
-                packed[:, :len(rows)] = np.asarray(rows, np.int32).T
+                packed[:5, :len(rows)] = np.asarray(rows, np.int32).T
+                packed[5] = pcd.group_rows(packed[0], packed[2] + 1,
+                                           packed[3],
+                                           cfg.n_heads // cfg.n_kv_heads)
                 last_row = {r[0]: i for i, r in enumerate(rows)}
                 bt_d = bt_device()
                 t0 = time.perf_counter()
-                rslot, tokp, rpos, rtw, rcidx = torch.from_numpy(
+                rslot, tokp, rpos, rtw, rcidx, rgrp = torch.from_numpy(
                     packed).to(dev)
                 logits, cache = tfm.decode_step_packed(
                     self.params, cfg, cache, tokp, rslot, rpos, rtw, rcidx,
-                    bt_d, block_size=paged.block_size, width=width)
+                    bt_d, block_size=paged.block_size, width=width,
+                    row_group=rgrp)
                 nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
                 nxt_of = lambda jj: nxt[last_row[jj]]      # noqa: E731
             else:

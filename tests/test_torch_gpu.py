@@ -98,7 +98,7 @@ def _paged_view(dev, dense, t, cl, cov, bs, seed=0):
     slot = torch.tensor([bi for bi, _ in rows] + [0, 0], dtype=torch.int32,
                         device=dev)
     qp = torch.cat([torch.stack([q[bi, i] for bi, i in rows]),
-                    torch.zeros_like(q[0, :2])])
+                    q.new_zeros(2, *q.shape[2:])])
     pos = torch.tensor([int(t[bi]) + i for bi, i in rows] + [-1, -1],
                        device=dev)
     qpos1 = torch.where(pos >= 0, pos + 1, 0).to(torch.int32)
@@ -234,3 +234,127 @@ def test_new_wrappers_count_launches(cuda):
     ops.flash_decode(q, kv, kv, 30, scale=0.25)
     counts = ops.launch_counts()
     assert counts["bitserial_median"] == 1 and counts["flash_decode"] == 1
+
+
+def _edge_slots(dev, b, l, r, one_token=False):
+    """t, chunk_len, cov per slot: a full chunk, a wrapped decode row, and
+    chunks of odd lengths; cov within the ring's live window."""
+    cl = [1] * b if one_token else [l, 1, max(1, l - 2), 1][:b]
+    t = [r // 2, 3 * r + 5, r + 1, 7][:b]
+    cov = [max(0, ti + ci - r) + (i % 3) for i, (ti, ci) in
+           enumerate(zip(t, cl))]
+    cov = [min(cv, ti) for cv, ti in zip(cov, t)]
+    as_t = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa
+    return as_t(t), as_t(cl), as_t(cov)
+
+
+def _check_dense_and_paged(dev, dtype, tol, dense, t, cl, cov, bs=16,
+                           split=None, one_token=False):
+    """B1 against its plain version on the valid rows; B2 on the same data
+    against its plain version and bit-equal to B1 on every real row, with
+    the engine's row groups (``group_rows``), one row per block, and
+    ``split`` (a list of group sizes cut from the packed rows, in order)
+    when given."""
+    b, _, hq, dh = dense[0].shape
+    hkv = dense[1].shape[2]
+    kw = dict(scale=dh ** -0.5, softcap=None)
+    q1 = dense[0][:, 0].contiguous() if one_token else dense[0]
+    got = cd.clustered_decode_cuda(q1, *dense[1:], t, cov,
+                                   None if one_token else cl, **kw)
+    want = cd.clustered_decode_plain(
+        q1.float(), *(a.float() for a in dense[1:]), t, cov,
+        None if one_token else cl, **kw).to(dtype)
+    if one_token:
+        got, want = got[:, None], want[:, None]
+    args, rows = _paged_view(dev, tuple(dense), t, cl, cov, bs)
+    torch.cuda.synchronize()
+    for bi in range(b):
+        n = int(cl[bi])
+        torch.testing.assert_close(got[bi, :n].float(), want[bi, :n].float(),
+                                   rtol=tol, atol=tol)
+    n = len(rows)
+    ref = torch.stack([got[bi, i] for bi, i in rows])
+    slot, qpos1, tw = (args[6].cpu().numpy(), args[8].cpu().numpy(),
+                       args[9].cpu().numpy())
+    tables = {"engine": torch.from_numpy(
+        pcd.group_rows(slot, qpos1, tw, hq // hkv)).to(dev), "alone": None}
+    if split is not None:
+        starts = [sum(split[:k]) for k in range(len(split))]
+        grp = torch.full((len(slot),), -1, dtype=torch.int32)
+        grp[:len(split)] = torch.tensor(
+            [(s << pcd.GROUP_SHIFT) | c for s, c in zip(starts, split)])
+        tables["split"] = grp.to(dev)
+    want_p = pcd.paged_clustered_decode_plain(
+        *(a.float() if a.is_floating_point() else a for a in args),
+        **kw).to(dtype)
+    for name, grp in tables.items():
+        out = pcd.paged_clustered_decode_cuda(*args, row_group=grp, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out[:n].float(), want_p[:n].float(),
+                                   rtol=tol, atol=tol)
+        assert torch.isfinite(out).all(), name
+        assert torch.equal(out[:n], ref), name
+        assert not out[n:].any(), name          # padding rows: zeros
+
+
+EDGE_SHAPES = {                  # b, l, hq, hkv, dh, c, r
+    "few_tiles": (3, 5, 4, 2, 16, 6, 16),      # C + R = 22: 2 tiles, 4 warps
+    "g1": (2, 9, 4, 4, 64, 10, 48),
+    "g8": (2, 5, 16, 2, 64, 20, 32),
+    "g16": (2, 3, 32, 2, 128, 33, 64),
+    "dh64": (2, 7, 8, 2, 64, 40, 80),
+    "dh256": (2, 6, 8, 2, 256, 17, 48),
+}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("shape", list(EDGE_SHAPES))
+def test_decode_kernels_at_edge_shapes(cuda, dtype, tol, shape):
+    """C + R not a multiple of the tile, fewer tiles than warps, g = 1, 8
+    and 16, Dh 64 and 256: B1 and B2 against their plain versions, B2
+    bit-equal to B1 on every real row."""
+    b, l, hq, hkv, dh, c, r = EDGE_SHAPES[shape]
+    dense = _decode_inputs(cuda, dtype, b, l, hq, hkv, dh, c, r, seed=5)
+    t, cl, cov = _edge_slots(cuda, b, l, r)
+    _check_dense_and_paged(cuda, dtype, tol, dense, t, cl, cov)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("b", [1, 2])
+def test_decode_kernels_one_token_small_buckets(cuda, dtype, tol, b):
+    """The one-token form at the engine's shrunk buckets (B = 1, 2) at
+    qwen3-4b's heads (32 / 8 of 128)."""
+    dense = _decode_inputs(cuda, dtype, b, 1, 32, 8, 128, 64, 256, seed=6)
+    t, cl, cov = _edge_slots(cuda, b, 1, 256, one_token=True)
+    _check_dense_and_paged(cuda, dtype, tol, dense, t, cl, cov,
+                           one_token=True)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1.6e-2)])
+def test_decode_kernels_rows_with_every_entry_masked(cuda, dtype, tol):
+    """Slot 0 has no live centroid and a frontier past its rows: every
+    entry of its rows is masked, so each gives the uniform average over
+    all C + R entries, as the plain version does."""
+    b, l, hq, hkv, dh, c, r = 3, 6, 8, 2, 64, 12, 32
+    dense = list(_decode_inputs(cuda, dtype, b, l, hq, hkv, dh, c, r,
+                                seed=7))
+    dense[3][0] = 0.0                              # counts of slot 0
+    t, cl, cov = _edge_slots(cuda, b, l, r)
+    cov[0] = t[0] + cl[0]                          # ring hidden from slot 0
+    _check_dense_and_paged(cuda, dtype, tol, tuple(dense), t, cl, cov)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1.6e-2)])
+def test_paged_slot_spanning_groups(cuda, dtype, tol):
+    """A slot's 7 chunk rows at g = 4 span two groups (4 + 3 as the engine
+    cuts them, and 3 + 4 + ... cut by hand, so a row sits at another place
+    in its block than in B1's): every real row stays bit-equal to B1."""
+    b, l, hq, hkv, dh, c, r = 2, 7, 32, 8, 128, 64, 256
+    dense = _decode_inputs(cuda, dtype, b, l, hq, hkv, dh, c, r, seed=8)
+    t, cl, cov = _edge_slots(cuda, b, l, r)
+    _check_dense_and_paged(cuda, dtype, tol, dense, t, cl, cov,
+                           split=[3, 4, 1, 1, 1])
