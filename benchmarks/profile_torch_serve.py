@@ -10,7 +10,8 @@ clustered-KV Server) once to warm up, then again under
 ``torch.profiler``.  Prints the host wall time split into engine
 launches, streaming absorbs and compactions (each wrapped in a
 ``record_function`` range), the device busy and idle share of the serve,
-and the CUDA kernels and host ops that take the most time.  With
+the CUDA kernels and host ops that take the most time, and the device
+time and launches of each of the repository's own kernels.  With
 ``--paged`` the same requests go through the paged engine
 (``PagedKVConfig(block_size=16)``, packed ragged launches).  The full
 tables go to ``chiprun_out/profile_torch_serve[_paged].txt``.
@@ -95,6 +96,13 @@ def main() -> int:
              f"share {1 - dev_us / 1e6 / wall:.3f}",
              f"tokens_per_s {st['tokens_per_s']:.2f} ttft_p50_ms "
              f"{st['ttft_p50_ms']:.1f} itl_p50_ms {st['itl_p50_ms']:.2f}"]
+    # the repository's own kernels (namespace repro), however small
+    for e in sorted(events, key=lambda e: -e.self_device_time_total):
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                "repro::" in e.key:
+            lines.append(f"kernel {e.key[:60]}: "
+                         f"{e.self_device_time_total / 1e3:.1f} ms device, "
+                         f"{e.count} launches")
     by_dev = events.table(sort_by="self_device_time_total", row_limit=25)
     by_cpu = events.table(sort_by="self_cpu_time_total", row_limit=25)
     print("\n".join(lines), flush=True)

@@ -21,9 +21,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    bitserial_median: ``torch.equal`` on medians and totals at the serve's
    compaction (1,152 members x 320 points x 128 dims, K=64, 16 bits,
    count weights with zeros) and absorb (288 members, K=32) shapes and the
-   fit's streamed shape (2^20 x 16, K=64, 32 bits), the last twice;
-   flash_decode: B=4, S=2048, Hq=32, Hkv=8, Dh=128, t=1500 in bf16, f32
-   and f32 + softcap 50, and against ``attention.decode_attention``);
+   fit's streamed shape (2^20 x 16, K=64, 32 bits), each twice;
+   flash_decode: B=4, S=2048, Hq=32, Hkv=8, Dh=128, t=1500, 0 and 2500 in
+   bf16, f32 and f32 + softcap 50, and against
+   ``attention.decode_attention``);
 4. model agreement: the reduced qwen3 in f32 decodes (mixed and plain
    steps, clustered cache) with the same logits on the card as on the CPU;
 5. serve: qwen3-4b at full width (random weights, seed 0, bf16) answers 8
@@ -91,8 +92,10 @@ N_PTS, D_PTS, K_PTS = 1 << 20, 16, 64
 N_LAYERS = 36
 MED_CASES = [("compaction", N_LAYERS * B * HKV, C, 16),
              ("absorb", N_LAYERS * HKV, C // 2, 16)]
-# flash_decode: qwen3-4b under the smoke's max_seq, t not a chunk multiple
+# flash_decode: qwen3-4b under the smoke's max_seq, t not a chunk multiple;
+# phase 3 also checks t = 0 (all masked) and t > S
 FD_S, FD_T = 2048, 1500
+FD_TS = (FD_T, 0, FD_S + 452)
 # tokens sha256 of both serves while each decode kernel's block walked all
 # C + R entries alone (before the warps split them), printed beside this
 # run's: the new reduction order may move a greedy token
@@ -147,6 +150,19 @@ def _device_activities(prof):
 
 
 _FLUSH_NAMES: set = set()
+_FLUSH: list = []
+
+
+def _flush_fn(torch):
+    """The L2 flush, an f64 fill of one 64 MB buffer kept for the process:
+    the fill's kernel (its vector width) follows the buffer's alignment, so
+    a new buffer per call could launch a kernel of another name than the
+    one ``_flush_names`` read."""
+    if not _FLUSH:
+        buf = torch.empty(FLUSH_BYTES // 8, dtype=torch.float64,
+                          device="cuda")
+        _FLUSH.append(lambda: buf.fill_(1.0))
+    return _FLUSH[0]
 
 
 def _flush_names(torch, flush, probes=8, tries=5):
@@ -189,8 +205,7 @@ def device_ms(torch, fn, match=None, n=50, warm=5, tries=3):
 
     if isinstance(match, str):
         match = (match,)
-    buf = torch.empty(FLUSH_BYTES // 8, dtype=torch.float64, device="cuda")
-    flush = lambda: buf.fill_(1.0)                        # noqa: E731
+    flush = _flush_fn(torch)
     flush_names = _flush_names(torch, flush)
     for _ in range(warm):
         flush()
@@ -212,10 +227,14 @@ def device_ms(torch, fn, match=None, n=50, warm=5, tries=3):
         calls = calls[-n:]
         if len(calls) == n and min(calls) > 0:
             return float(np.median(calls)) / 1e6
+        if not calls:             # no flush recognised: read its name again
+            _FLUSH_NAMES.clear()
+            flush_names = _flush_names(torch, flush)
+    seen = sorted({a[0][:60] for a in _device_activities(prof)})
     raise AssertionError(
         f"device_ms: {len(calls)} calls of {n} separated in the trace, "
         f"least device time {min(calls, default=0)} ns (match {match}), "
-        f"{tries} traces")
+        f"{tries} traces; flush {sorted(flush_names)}, seen {seen}")
 
 
 # ---------------------------------------------------------------------------
@@ -473,16 +492,19 @@ def check_bitserial_median(torch, bsm, dev):
 
     for name, m, k, bits in MED_CASES:
         u, a, w = median_inputs(torch, dev, m, k, bits)
-        med, tot = bsm.grouped_median_bits_cuda(u, a, k, w, bits=bits)
+        runs = [bsm.grouped_median_bits_cuda(u, a, k, w, bits=bits)
+                for _ in range(2)]
         med0, tot0 = bsm.grouped_median_bits_plain(u, a, k, weights=w,
                                                    bits=bits)
         torch.cuda.synchronize()
-        max_err = max(max_err, err(med, tot, med0, tot0))
-        if not (torch.equal(med, med0) and torch.equal(tot, tot0)):
-            raise AssertionError(f"bitserial_median {name}: kernel != plain")
+        for med, tot in runs:
+            max_err = max(max_err, err(med, tot, med0, tot0))
+            if not (torch.equal(med, med0) and torch.equal(tot, tot0)):
+                raise AssertionError(f"bitserial_median {name}: kernel != "
+                                     "plain")
         say(f"bitserial_median {name} ({m} members x {C + R} points x {DH} "
             f"dims, K={k}, {bits} bits, count weights): kernel == plain bit "
-            "for bit (medians and totals)")
+            "for bit (medians and totals), two runs equal")
     u, a = stream_inputs(torch, dev)
     runs = [bsm.grouped_median_bits_cuda(u, a, K_PTS, bits=32)
             for _ in range(2)]
@@ -514,7 +536,9 @@ def bf16_ulp(torch, x):
 def check_flash_decode(torch, fd, dev):
     """bf16 (vs plain in f32 cast to bf16: within 2 bf16 ulps of each value,
     plus 1e-6 for f32 sums near 0), f32 and f32 with softcap 50 (1e-5);
-    each also against decode_attention on the cache."""
+    each also against decode_attention on the cache; each at t = FD_T and
+    at the edges a split rule breaks first, t = 0 (every position masked:
+    the mean of v) and t > S (every position visible)."""
     from repro_torch.models import attention
 
     max_err = 0.0
@@ -524,26 +548,28 @@ def check_flash_decode(torch, fd, dev):
     for name, dtype, cap, tol in cases:
         q, k, v = decode_cache(torch, dev, dtype)
         kw = dict(scale=DH ** -0.5, softcap=cap)
-        got = fd.flash_decode_cuda(q, k, v, FD_T, **kw)
-        want = fd.flash_decode_plain(q.float(), k.float(), v.float(), FD_T,
-                                     **kw).to(dtype)
-        full = attention.decode_attention(q.float(), k.float(), v.float(),
-                                          t=FD_T, **kw).to(dtype)
-        torch.cuda.synchronize()
-        for ref in (want, full):
-            g, r = got.float(), ref.float()
-            if dtype == torch.bfloat16:
-                over = (g - r).abs() > 2 * bf16_ulp(torch, r) + 1e-6
-                if bool(over.any()):
-                    raise AssertionError(
-                        f"flash_decode {name}: {int(over.sum())} values "
-                        "beyond 2 bf16 ulps")
-            else:
-                torch.testing.assert_close(g, r, rtol=tol, atol=tol)
-        max_err = max(max_err, (got.float() - want.float()).abs().max()
-                      .item())
+        for t in FD_TS:
+            got = fd.flash_decode_cuda(q, k, v, t, **kw)
+            want = fd.flash_decode_plain(q.float(), k.float(), v.float(), t,
+                                         **kw).to(dtype)
+            full = attention.decode_attention(q.float(), k.float(),
+                                              v.float(), t=t, **kw).to(dtype)
+            torch.cuda.synchronize()
+            for ref in (want, full):
+                g, r = got.float(), ref.float()
+                if dtype == torch.bfloat16:
+                    over = (g - r).abs() > 2 * bf16_ulp(torch, r) + 1e-6
+                    if bool(over.any()):
+                        raise AssertionError(
+                            f"flash_decode {name} t={t}: {int(over.sum())} "
+                            "values beyond 2 bf16 ulps")
+                else:
+                    torch.testing.assert_close(g, r, rtol=tol, atol=tol)
+            max_err = max(max_err, (got.float() - want.float()).abs().max()
+                          .item())
         say(f"flash_decode {name}: kernel == plain and == decode_attention "
-            f"within {tol} (max abs err so far {max_err:.3e})")
+            f"within {tol} at t = {', '.join(map(str, FD_TS))} (max abs err "
+            f"so far {max_err:.3e})")
     return max_err
 
 
@@ -887,7 +913,7 @@ def bound(nbytes, ops):
 
 
 def decode_bound(nbytes, fl_qk, fl_pv):
-    """B1 and B2: q.k of bf16 operands on the bf16 tensor cores (exact in
+    """B1, B2 and B5: q.k of bf16 operands on the bf16 tensor cores (exact in
     f32); p.v as the kernels compute it, two bf16 tensor-core products
     (p = hi + lo)."""
     return bound(nbytes, [(fl_qk + 2 * fl_pv, PEAK_BF16_FLOP_PER_S)])
@@ -1016,7 +1042,7 @@ def decode_times(torch, cd, pcd, dev, plain=True):
     what the engine launches while one prompt is admitted) and one-token
     forms, and B2 in its mixed (the phase-3 rows, 256-row bucket) and
     decode-only (one row per slot) forms, bf16.
-    benchmarks/time_decode_kernels.py runs it against another commit's
+    benchmarks/time_kernels.py runs it against another commit's
     kernels."""
     x = decode_inputs(torch, dev, torch.bfloat16)
     xs = dict(x, chunk_len=torch.tensor(CL_SERVE, dtype=torch.int32,
@@ -1036,40 +1062,52 @@ def decode_times(torch, cd, pcd, dev, plain=True):
 
 
 def time_median(torch, bsm, u, a, k, w, bits, plain_n):
-    """B3 at one shape: kernel, plain and bound.  Bytes: the int64 words,
-    int32 assignments and f32 weights read once, the int64 medians and f32
-    totals written once; operations: one f32 vote add per (point, column,
-    bit), at the f32 rate."""
+    """B3 at one shape: kernel, plain (``plain_n`` calls; 0: not timed)
+    and bound.  Bytes: the int32 assignments and f32 weights of every
+    point read once, the int64 words of the points that can vote (weight
+    not 0, cluster in [0, k): the median does not depend on the others,
+    and the kernel reads no word of a point of weight 0) read once, the
+    int64 medians and f32 totals written once; ``bytes_all`` counts every
+    point's words.  Operations: one f32 vote add per (voting point,
+    column, bit), at the f32 rate."""
     m = int(np.prod(u.shape[:-2]))
     n, d = u.shape[-2:]
     run = lambda: bsm.grouped_median_bits_cuda(u, a, k, w,  # noqa: E731
                                                bits=bits)
     plain = time_ms(torch, lambda: bsm.grouped_median_bits_plain(
-        u, a, k, weights=w, bits=bits), n=plain_n, warm=1)
-    nbytes = m * (n * d * 8 + n * 4 + (n * 4 if w is not None else 0)
-                  + k * d * 8 + k * 4)
-    votes = m * n * d * bits
+        u, a, k, weights=w, bits=bits), n=plain_n, warm=1) if plain_n \
+        else None
+    voting = (a >= 0) & (a < k)
+    if w is not None:
+        voting &= torch.broadcast_to(w, a.shape) != 0
+    n_vote = int(voting.sum().item())
+    side = m * (n * 4 + (n * 4 if w is not None else 0) + k * d * 8 + k * 4)
+    nbytes = side + n_vote * d * 8
+    votes = n_vote * d * bits
     b_ms, b_by = bound(nbytes, [(votes, PEAK_F32_FLOP_PER_S)])
     return dict(ms=device_ms(torch, run, REPRO_KERNELS),
                 call_ms=time_ms(torch, run), plain_ms=plain,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                bytes_all=side + m * n * d * 8, voting_points=n_vote,
                 votes=votes,
                 library="none: no PyTorch call computes a weighted "
                         "per-cluster median")
 
 
-def time_flash_decode(torch, fd, dev):
-    """B5 in bf16 at the phase-3 shape: kernel, plain, SDPA (enable_gqa,
-    boolean mask of the positions < t) and bound.  Bytes: q and the output
-    once, the keys and values of the t visible positions once; q.k at the
-    bf16 tensor-core rate, p.v (p in f32) at the f32 rate."""
+def time_flash_decode(torch, fd, dev, plain=True):
+    """B5 in bf16 at the phase-3 shape: kernel, plain (unless not
+    ``plain``), SDPA (enable_gqa, boolean mask of the positions < t) and
+    bound.  Bytes: q and the output once, the keys and values of the t
+    visible positions once; operations as ``decode_bound`` counts them:
+    the kernel runs q.k and p.v (p = hi + lo) on bf16 tensor cores, as
+    B1 and B2 do."""
     import torch.nn.functional as F
 
     q, k, v = decode_cache(torch, dev, torch.bfloat16)
     kw = dict(scale=DH ** -0.5)
     run = lambda: fd.flash_decode_cuda(q, k, v, FD_T, **kw)  # noqa: E731
-    plain = time_ms(torch, lambda: fd.flash_decode_plain(q, k, v, FD_T,
-                                                         **kw))
+    plain_ms = time_ms(torch, lambda: fd.flash_decode_plain(
+        q, k, v, FD_T, **kw)) if plain else None
     q4 = q[:, :, None].contiguous()                       # (B, Hq, 1, Dh)
     k4, v4 = (x.transpose(1, 2).contiguous() for x in (k, v))
     mask = (torch.arange(FD_S, device=dev) < FD_T)[None, None, None, :]
@@ -1078,12 +1116,11 @@ def time_flash_decode(torch, fd, dev):
     el = q.element_size()
     nbytes = 2 * q.numel() * el + 2 * B * FD_T * HKV * DH * el
     flops = 2 * B * HQ * FD_T * DH
-    b_ms, b_by = bound(nbytes, [(flops, PEAK_BF16_FLOP_PER_S),
-                                (flops, PEAK_F32_FLOP_PER_S)])
+    b_ms, b_by = decode_bound(nbytes, flops, flops)
     return dict(ms=device_ms(torch, run, REPRO_KERNELS),
-                call_ms=time_ms(torch, run), plain_ms=plain, library_ms=lib,
-                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops_qk=flops,
-                flops_pv=flops)
+                call_ms=time_ms(torch, run), plain_ms=plain_ms,
+                library_ms=lib, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                flops_qk=flops, flops_pv=flops)
 
 
 def timings(torch, cd, pcd, da, bsm, fd, dev, xa, ca):

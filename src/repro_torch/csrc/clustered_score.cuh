@@ -7,7 +7,9 @@
 // block's query rows with stage_block once the first loads are in flight)
 // and write their rows with finish_rows.  They differ only in where an
 // entry's bytes live (an entry source), where a query row lives, and each
-// row's visibility window (RowMask).
+// row's visibility window (RowMask).  flash_decode walks one split of a
+// plain cache with the same tile (no centroids) and keeps each row's
+// unnormalised state (merge_warps) for its merge launch.
 //
 // Layout of the work.  A block holds kRows = 16 query-row places (the M of
 // mma.m16n8k16) and kWarps warps.  The C + R entries are cut into tiles of
@@ -583,14 +585,19 @@ __device__ __forceinline__ void walk_entries(const BlockSmem<T, DhP>& sm,
   cp_async_wait<0>();
 }
 
-// Merge the warps' states in warp order and store each live row's
-// acc / max(l, 1e-30) in T (rows not live: zeros).  out_row(r) is the
-// output row of block row r, or nullptr to skip it.  Every thread of the
-// block must call it.
-template <typename T, int DhP, typename OutRow>
-__device__ __forceinline__ void finish_rows(const BlockSmem<T, DhP>& sm,
+// Merge the warps' states in warp order: per row r, M = max_w m_w,
+// f_w = exp(m_w - M), l = sum_w l_w f_w (den_s[r] = max(l, 1e-30)), then
+// row_stat(r, M, l) for r < kRows; and for each row with row_ok(r) and
+// each group of kVec dims d0 < dh, emit(r, d0, a) with a[j] = sum_w
+// acc_w[r][d0 + j] f_w, unnormalised.  Every thread of the block must call
+// it.
+template <typename T, int DhP, typename RowOk, typename RowStat,
+          typename Emit>
+__device__ __forceinline__ void merge_warps(const BlockSmem<T, DhP>& sm,
                                             const WarpState<DhP>& st, int dh,
-                                            const OutRow& out_row) {
+                                            const RowOk& row_ok,
+                                            const RowStat& row_stat,
+                                            const Emit& emit) {
   constexpr int kVec = 16 / sizeof(T);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -628,24 +635,44 @@ __device__ __forceinline__ void finish_rows(const BlockSmem<T, DhP>& sm,
       l = __fmaf_rn(sm.ml_s[(w * kRows + r) * 2 + 1], f, l);
     }
     sm.den_s[r] = fmaxf(l, 1e-30f);
+    row_stat(r, m, l);
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < kRows * (DhP / kVec); idx += kThreads) {
     const int r = idx / (DhP / kVec), d0 = (idx % (DhP / kVec)) * kVec;
-    T* o = out_row(r);
-    if (o == nullptr || d0 >= dh) continue;
-    alignas(16) T vals[kVec];
+    if (!row_ok(r) || d0 >= dh) continue;
+    float a[kVec];
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
-      float a = 0.f;
+      a[j] = 0.f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w)
-        a = __fmaf_rn(acc[((size_t)w * kRows + r) * DhP + d0 + j],
-                      sm.fac_s[w * kRows + r], a);
-      vals[j] = from_f32<T>(sm.live_s[r] ? a / sm.den_s[r] : 0.f);
+        a[j] = __fmaf_rn(acc[((size_t)w * kRows + r) * DhP + d0 + j],
+                         sm.fac_s[w * kRows + r], a[j]);
     }
-    *reinterpret_cast<uint4*>(o + d0) = *reinterpret_cast<const uint4*>(vals);
+    emit(r, d0, a);
   }
+}
+
+// Merge the warps' states and store each live row's acc / max(l, 1e-30)
+// in T (rows not live: zeros).  out_row(r) is the output row of block row
+// r, or nullptr to skip it.  Every thread of the block must call it.
+template <typename T, int DhP, typename OutRow>
+__device__ __forceinline__ void finish_rows(const BlockSmem<T, DhP>& sm,
+                                            const WarpState<DhP>& st, int dh,
+                                            const OutRow& out_row) {
+  constexpr int kVec = 16 / sizeof(T);
+  merge_warps<T, DhP>(
+      sm, st, dh, [&](int r) { return out_row(r) != nullptr; },
+      [](int, float, float) {},
+      [&](int r, int d0, const float (&a)[kVec]) {
+        alignas(16) T vals[kVec];
+#pragma unroll
+        for (int j = 0; j < kVec; ++j)
+          vals[j] = from_f32<T>(sm.live_s[r] ? a[j] / sm.den_s[r] : 0.f);
+        *reinterpret_cast<uint4*>(out_row(r) + d0) =
+            *reinterpret_cast<const uint4*>(vals);
+      });
 }
 
 // Zeros for every stored row of a block that has nothing to score.

@@ -5,203 +5,208 @@
 // (launched by flash_decode_pallas): each query head attends to the cache
 // positions < t of its kv head, scores scaled, then soft-capped when a cap
 // is given, positions >= t masked with NEG = -1e30 (never -inf), output
-// acc / max(l, 1e-30) in q's dtype.  The cache is read in chunks of
-// `chunk` positions; positions past S count as zero keys and values, as
-// the reference's zero padding does.
+// acc / max(l, 1e-30) in q's dtype.  The reference walks the cache in
+// chunks of `chunk` positions, zero-padded to a multiple of `chunk`; the
+// padded positions below t count as keys and values of zeros (score 0).
 //
 // The TPU grid walks the chunks of one (batch, kv head) in sequence with
-// the online-softmax state (m, l, acc) in VMEM.  On the card the chunks
-// are independent blocks (flash-decoding): block (chunk, kv head, batch)
-// computes its chunk's G = Hq / Hkv score rows into shared memory, their
-// max m_c, l_c = sum exp(s - m_c) and acc_c = sum exp(s - m_c) v, all in
-// f32, and writes them to a scratch buffer; a second launch merges the
-// chunks of each query head in chunk order: M = max m_c, weights
-// exp(m_c - M).  The result equals the sequential online softmax up to f32
-// rounding.
+// the online-softmax state in VMEM.  On the card this is flash-decoding,
+// split finely enough to fill it: block (split, kv head, batch) takes
+// `split` consecutive positions (the kernel's own size, not the caller's
+// chunk) and writes its split's (m, l, acc) per query head; a second
+// launch merges the splits of each query head in split order, so runs
+// repeat bit for bit.  A block is the decode kernels' scoring tile
+// (clustered_score.cuh): the G query heads of the kv head are rows of the
+// 16-row mma tile, the block's four warps split its positions in tiles of
+// 16, each staged by 16-byte cp.async two stages deep; q.k and p.v run on
+// mma.sync (bf16) or the FMA pipes (f32), math in f32.
 //
-// What bounds it: bytes.  Each (batch, kv head) reads its S keys and
-// values once, 2 * Dh flops per (query head, position) for q . k and as
-// many for p . v, far below the card's f32 flop per byte balance.  One
-// warp scores one position at a time (lanes split Dh, shuffles reduce);
-// one thread per head dim accumulates p . v.
+// The edges follow the reference without touching the padding:
+//  * t >= 1: only the real positions below min(t, S) are read; splits at
+//    or past them do not exist; every position a split reads is visible.
+//    Padded positions in [S, min(t, S + pad)) have score exactly 0 and
+//    value 0: the merge adds them as one term (m = 0, l = their count).
+//  * t <= 0: every position is masked, so every weight is exp(0) = 1 and
+//    the result is the mean of v over the S + pad positions: the splits
+//    cover all S real positions (scores NEG) and the merge adds the pad
+//    positions as a term (m = NEG, l = pad).
+//
+// What bounds it: bytes.  Each (batch, kv head) reads the keys and values
+// of its visible positions once; q.k and p.v of G <= 8 query rows are a
+// few operations per byte, far below the tensor cores' balance.  The
+// split keeps several blocks on every SM with their loads in flight.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math.h>
+
+#include "clustered_score.cuh"
 
 namespace repro {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;       // query heads per kv head
-constexpr int kMaxDh = 256;
-constexpr float kNeg = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void from_f(float x, float* y) { *y = x; }
-__device__ __forceinline__ void from_f(float x, __nv_bfloat16* y) {
-  *y = __float2bfloat16(x);
-}
-
+// Positions of one split of (batch b, kv head h): entry e is cache row
+// row0 + e of k / v (rows of Hkv * dh elements; see load_tile).
 template <typename T>
+struct SplitSrc {
+  const T* kc;
+  const T* vc;
+  const T* kr;
+  const T* vr;
+  int row_elems, head_off, row0;
+
+  __device__ __forceinline__ int row(int ge) const { return row0 + ge; }
+};
+
+// Block (split, kv head, batch): the split's positions [p0, p0 + n) of
+// n_real real positions; visible: t >= 1 (else every score is NEG).
+template <typename T, int DhP>
 __global__ void __launch_bounds__(kThreads)
-chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, int S, int Hq, int Hkv, int Dh,
-             int chunk, int t, float scale, float softcap,
+split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, int S, int Hq, int Hkv, int dh,
+             int split, int n_real, int visible, float scale, float softcap,
              float* __restrict__ part_ml, float* __restrict__ part_acc) {
-  extern __shared__ float smem[];
+  const int sp = blockIdx.x, n_sp = gridDim.x;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv;
-  float* q_s = smem;                 // G * Dh
-  float* s_s = q_s + G * Dh;         // G * chunk scores, then probabilities
-  float* m_s = s_s + G * chunk;      // G
-  float* l_s = m_s + G;              // G
-  const int c = blockIdx.x, nc = gridDim.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  for (int e = tid; e < G * Dh; e += kThreads)
-    q_s[e] = to_f(q[((size_t)b * Hq + h * G) * Dh + e]);
-  __syncthreads();
-
-  // scores: one warp per position
-  for (int p = warp; p < chunk; p += kWarps) {
-    const int pos = c * chunk + p;
-    float acc[kMaxG];
+  const int p0 = sp * split;
+  const int n = min(split, n_real - p0);
+  auto row_mask = [&](int r) -> RowMask {
+    return r < G ? RowMask{0, 0, visible ? n : 0, 1} : dead_row();
+  };
+  extern __shared__ float4 smem4[];          // 16-byte aligned
+  const BlockSmem<T, DhP> sm(reinterpret_cast<unsigned char*>(smem4), 0);
+  auto stage = [&]() {
+    stage_block<T, DhP>(
+        sm, dh, 0,
+        [&](int r) -> const T* {
+          return r < G ? q + ((size_t)b * Hq + h * G + r) * dh : nullptr;
+        },
+        [](int) { return 0.f; }, row_mask);
+  };
+  const int lane = threadIdx.x & 31;
+  const RowMask rm[2] = {row_mask(lane >> 2), row_mask((lane >> 2) + 8)};
+  WarpState<DhP> st;
+  st.init();
+  const SplitSrc<T> src{k, v, k, v, Hkv * dh, h * dh, b * S + p0};
+  walk_entries<T, DhP>(sm, src, 0, n, n, dh, scale, softcap, rm, st, stage);
+  // the split's m, l and unnormalised acc of each query head
+  const size_t row = (((size_t)b * Hkv + h) * n_sp + sp) * G;
+  constexpr int kVec = 16 / sizeof(T);
+  merge_warps<T, DhP>(
+      sm, st, dh, [&](int r) { return r < G; },
+      [&](int r, float m, float l) {
+        if (r < G) {
+          part_ml[(row + r) * 2] = m;
+          part_ml[(row + r) * 2 + 1] = l;
+        }
+      },
+      [&](int r, int d0, const float (&a)[kVec]) {
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) acc[g] = 0.f;
-    if (pos < S) {
-      const T* kr = k + (((size_t)b * S + pos) * Hkv + h) * Dh;
-      for (int d = lane; d < Dh; d += 32) {
-        const float kd = to_f(kr[d]);
-#pragma unroll
-        for (int g = 0; g < kMaxG; ++g)
-          if (g < G) acc[g] = fmaf(q_s[g * Dh + d], kd, acc[g]);
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
-      float x = acc[g];
-      for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-      if (lane == 0) {
-        float s = x * scale;
-        if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-        s_s[g * chunk + p] = pos < t ? s : kNeg;
-      }
-    }
-  }
-  __syncthreads();
-
-  // per query head: max, then probabilities and their sum
-  for (int g = warp; g < G; g += kWarps) {
-    float* sg = s_s + g * chunk;
-    float mx = kNeg;
-    for (int p = lane; p < chunk; p += 32) mx = fmaxf(mx, sg[p]);
-    for (int o = 16; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.f;
-    for (int p = lane; p < chunk; p += 32) {
-      const float e = expf(sg[p] - mx);
-      sg[p] = e;
-      sum += e;
-    }
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (lane == 0) {
-      m_s[g] = mx;
-      l_s[g] = sum;
-    }
-  }
-  __syncthreads();
-
-  const size_t row = ((size_t)b * Hkv + h) * nc + c;   // (b, h, chunk)
-  for (int g = tid; g < G; g += kThreads) {
-    part_ml[(row * G + g) * 2] = m_s[g];
-    part_ml[(row * G + g) * 2 + 1] = l_s[g];
-  }
-  // p . v: one thread per head dim
-  const int p_end = min(chunk, S - c * chunk);
-  for (int d = tid; d < Dh; d += kThreads) {
-    float acc[kMaxG];
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) acc[g] = 0.f;
-    const T* vc = v + (((size_t)b * S + (size_t)c * chunk) * Hkv + h) * Dh + d;
-    for (int p = 0; p < p_end; ++p) {
-      const float vd = to_f(vc[(size_t)p * Hkv * Dh]);
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
-        if (g < G) acc[g] = fmaf(s_s[g * chunk + p], vd, acc[g]);
-    }
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g)
-      if (g < G) part_acc[(row * G + g) * Dh + d] = acc[g];
-  }
+        for (int j = 0; j < kVec; ++j)
+          part_acc[(row + r) * dh + d0 + j] = a[j];
+      });
 }
 
-// merge the chunks of query head (b, hq) in chunk order
+// merge the splits of query head (b, hq) in split order, then the padded
+// positions as one term (m = pad_m, l = pad_l, acc = 0) when pad_l > 0
 template <typename T>
 __global__ void merge_kernel(const float* __restrict__ part_ml,
                              const float* __restrict__ part_acc, int Hq,
-                             int Hkv, int Dh, int nc, T* __restrict__ out) {
+                             int Hkv, int dh, int n_sp, float pad_m,
+                             float pad_l, T* __restrict__ out) {
   const int b = blockIdx.y, hq = blockIdx.x;
   const int G = Hq / Hkv, h = hq / G, g = hq - h * G;
-  const size_t row0 = ((size_t)b * Hkv + h) * nc;
-  float mx = kNeg;
-  for (int c = 0; c < nc; ++c)
-    mx = fmaxf(mx, part_ml[((row0 + c) * G + g) * 2]);
-  for (int d = threadIdx.x; d < Dh; d += blockDim.x) {
+  const size_t row0 = ((size_t)b * Hkv + h) * n_sp * G + g;
+  float mx = pad_l > 0.f ? pad_m : kNeg;
+  for (int c = 0; c < n_sp; ++c)
+    mx = fmaxf(mx, part_ml[(row0 + (size_t)c * G) * 2]);
+  for (int d = threadIdx.x; d < dh; d += blockDim.x) {
     float l = 0.f, acc = 0.f;
-    for (int c = 0; c < nc; ++c) {
-      const size_t r = (row0 + c) * G + g;
-      const float w = expf(part_ml[r * 2] - mx);
-      l = fmaf(part_ml[r * 2 + 1], w, l);
-      acc = fmaf(part_acc[r * Dh + d], w, acc);
+    for (int c = 0; c < n_sp; ++c) {
+      const size_t r = row0 + (size_t)c * G;
+      const float f = expf(part_ml[r * 2] - mx);
+      l = fmaf(part_ml[r * 2 + 1], f, l);
+      acc = fmaf(part_acc[r * dh + d], f, acc);
     }
-    from_f(acc / fmaxf(l, 1e-30f), out + ((size_t)b * Hq + hq) * Dh + d);
+    if (pad_l > 0.f) l = fmaf(pad_l, expf(pad_m - mx), l);
+    out[((size_t)b * Hq + hq) * dh + d] = from_f32<T>(acc / fmaxf(l, 1e-30f));
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, int B, int S, int Hq,
-           int Hkv, int Dh, int chunk, int t, float scale, float softcap,
-           void* scratch, void* out, cudaStream_t s) {
-  const int G = Hq / Hkv;
-  const int nc = (S + chunk - 1) / chunk;
-  float* part_ml = static_cast<float*>(scratch);
-  float* part_acc = part_ml + (size_t)B * Hkv * nc * G * 2;
-  const size_t smem = sizeof(float) * ((size_t)G * Dh + (size_t)G * chunk + 2 * G);
+template <typename T, int DhP>
+int launch_dh(const void* q, const void* k, const void* v, int B, int S,
+              int Hq, int Hkv, int dh, int split, int n_real, int visible,
+              float pad_m, float pad_l, float scale, float softcap,
+              void* scratch, void* out, cudaStream_t s) {
+  const size_t smem = Smem<T, DhP>::bytes(0);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(chunk_kernel<T>,
+    cudaFuncSetAttribute(split_kernel<T, DhP>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
-  chunk_kernel<T><<<dim3(nc, Hkv, B), kThreads, smem, s>>>(
+  const int G = Hq / Hkv;
+  const int n_sp = (n_real + split - 1) / split;
+  float* part_ml = static_cast<float*>(scratch);
+  float* part_acc = part_ml + (size_t)B * Hkv * n_sp * G * 2;
+  split_kernel<T, DhP><<<dim3(n_sp, Hkv, B), kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), S, Hq, Hkv, Dh, chunk, t, scale, softcap,
-      part_ml, part_acc);
-  merge_kernel<T><<<dim3(Hq, B), Dh < 128 ? Dh : 128, 0, s>>>(
-      part_ml, part_acc, Hq, Hkv, Dh, nc, static_cast<T*>(out));
+      static_cast<const T*>(v), S, Hq, Hkv, dh, split, n_real, visible,
+      scale, softcap, part_ml, part_acc);
+  merge_kernel<T><<<dim3(Hq, B), dh < 128 ? dh : 128, 0, s>>>(
+      part_ml, part_acc, Hq, Hkv, dh, n_sp, pad_m, pad_l,
+      static_cast<T*>(out));
   return (int)cudaGetLastError();
+}
+
+// head dims are padded with zeros to 64, 128 or 256 in shared memory
+template <typename T>
+int launch(const void* q, const void* k, const void* v, int B, int S, int Hq,
+           int Hkv, int dh, int split, int n_real, int visible, float pad_m,
+           float pad_l, float scale, float softcap, void* scratch, void* out,
+           cudaStream_t s) {
+  if (dh <= 64)
+    return launch_dh<T, 64>(q, k, v, B, S, Hq, Hkv, dh, split, n_real,
+                            visible, pad_m, pad_l, scale, softcap, scratch,
+                            out, s);
+  if (dh <= 128)
+    return launch_dh<T, 128>(q, k, v, B, S, Hq, Hkv, dh, split, n_real,
+                             visible, pad_m, pad_l, scale, softcap, scratch,
+                             out, s);
+  return launch_dh<T, 256>(q, k, v, B, S, Hq, Hkv, dh, split, n_real, visible,
+                           pad_m, pad_l, scale, softcap, scratch, out, s);
 }
 
 }  // namespace repro
 
 // dtype: 0 = f32, 1 = bf16.  q (B, Hq, Dh), k/v (B, S, Hkv, Dh) -> out
-// (B, Hq, Dh); scratch of B * Hkv * ceil(S / chunk) * (Hq / Hkv) * (2 + Dh)
-// floats; softcap <= 0 means none.
+// (B, Hq, Dh), rows 16-byte aligned (Dh a multiple of 16 bytes); `chunk`
+// is the caller's (the reference's padding), `split` the positions of one
+// block (a multiple of 16); scratch of B * Hkv * ceil(S / split) *
+// (Hq / Hkv) * (2 + Dh) floats; softcap <= 0 means none.
 extern "C" int flash_decode_launch(int dtype, const void* q, const void* k,
                                    const void* v, int B, int S, int Hq,
-                                   int Hkv, int Dh, int chunk, int t,
-                                   float scale, float softcap, void* scratch,
-                                   void* out, void* stream) {
+                                   int Hkv, int Dh, int chunk, int split,
+                                   int t, float scale, float softcap,
+                                   void* scratch, void* out, void* stream) {
   using namespace repro;
   if (B <= 0 || Hq <= 0) return 0;
-  if (Hq % Hkv || Hq / Hkv > kMaxG || Dh > kMaxDh || chunk <= 0 || S <= 0)
+  if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > kMaxG || Dh <= 0 || Dh > kMaxDh ||
+      Dh * (dtype == 1 ? 2 : 4) % 16 || chunk <= 0 || S <= 0 || split <= 0 ||
+      split % kTile)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int c = chunk < S ? chunk : S;
+  const long long s_pad = (long long)(S + c - 1) / c * c;   // S + pad
+  const int visible = t > 0;
+  const int n_real = visible ? (t < S ? t : S) : S;
+  const long long top = visible ? (t < s_pad ? t : s_pad) : s_pad;
+  const float pad_l = (float)(top > S ? top - S : 0);
+  const float pad_m = visible ? 0.f : kNeg;
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, B, S, Hq, Hkv, Dh, chunk, t, scale,
-                                 softcap, scratch, out, s);
-  return launch<float>(q, k, v, B, S, Hq, Hkv, Dh, chunk, t, scale, softcap,
-                       scratch, out, s);
+    return launch<__nv_bfloat16>(q, k, v, B, S, Hq, Hkv, Dh, split, n_real,
+                                 visible, pad_m, pad_l, scale, softcap,
+                                 scratch, out, s);
+  return launch<float>(q, k, v, B, S, Hq, Hkv, Dh, split, n_real, visible,
+                       pad_m, pad_l, scale, softcap, scratch, out, s);
 }

@@ -44,12 +44,18 @@ SIGNATURES = {
          _c_void_p, _c_void_p]),
     "flash_decode": (
         "flash_decode_launch",
-        [_c_int] + [_c_void_p] * 3 + [_c_int] * 7 + [_c_float, _c_float]
+        [_c_int] + [_c_void_p] * 3 + [_c_int] * 8 + [_c_float, _c_float]
         + [_c_void_p] * 3),
     "paged_clustered_decode": (
         "paged_clustered_decode_launch",
         [_c_int] + [_c_void_p] * 14 + [_c_int] * 7 + [_c_float, _c_float,
                                                       _c_void_p]),
+}
+
+#: further C functions that return a size: library, return type, arguments
+QUERIES = {
+    "bitserial_median_scratch_bytes": ("bitserial_median", ctypes.c_longlong,
+                                       [_c_int] * 5),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -132,3 +138,11 @@ def launch(name: str, *args) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with cudaError {err}")
+
+
+def query(fn_name: str, *args) -> int:
+    """Call the C function ``fn_name`` of ``QUERIES`` and return its value."""
+    lib_name, restype, argtypes = QUERIES[fn_name]
+    fn = getattr(library(lib_name), fn_name)
+    fn.argtypes, fn.restype = argtypes, restype
+    return fn(*args)

@@ -6,8 +6,11 @@ q (B, Hq, Dh), k/v (B, S, Hkv, Dh) with Hq a multiple of Hkv (GQA), a
 scalar ``t`` (positions >= t are masked with NEG = -1e30) → (B, Hq, Dh)
 in q's dtype.  Scores are scaled, then soft-capped when a cap is given;
 the cache is walked in chunks of ``chunk`` positions with an online
-softmax, math in f32.  Like the reference, nothing in the model calls it:
-the serve decodes through ``clustered_decode``.
+softmax, math in f32.  The kernel splits the cache into blocks of
+``SPLIT`` positions of its own and merges them in order
+(``flash_decode_splits`` is that algorithm in PyTorch, for the tests).
+Like the reference, nothing in the model calls it: the serve decodes
+through ``clustered_decode``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ NEG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP = 8
 MAX_HEAD_DIM = 256
+#: cache positions of one kernel block (a multiple of the tile's 16)
+SPLIT = 128
 
 
 def flash_decode_plain(q, k, v, t, *, scale: float,
@@ -59,10 +64,60 @@ def flash_decode_plain(q, k, v, t, *, scale: float,
     return out.reshape(b, hq, dh).to(q.dtype)
 
 
+def flash_decode_splits(q, k, v, t, *, scale: float,
+                        softcap: Optional[float] = None, chunk: int = 512,
+                        split: int = SPLIT):
+    """The kernel's split-and-merge in PyTorch, for the tests.  Splits of
+    ``split`` positions cover the real positions below min(t, S) (all S
+    when t <= 0, where every score is NEG); each gives (m, l, acc); the
+    merge takes them in order, then the reference's zero padding (``chunk``)
+    as one term: positions [S, min(t, S + pad)) with score 0 when t >= 1,
+    all ``pad`` positions with score NEG when t <= 0."""
+    b, hq, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    c = min(chunk, s)
+    s_pad = -(-s // c) * c
+    t = int(t)
+    visible = t > 0
+    n_real = min(t, s) if visible else s
+    top = min(t, s_pad) if visible else s_pad
+    f32 = torch.float32
+    qh = q.to(f32).reshape(b, hkv, g, dh)
+    parts = []
+    for p0 in range(0, n_real, split):
+        kc = k[:, p0:min(n_real, p0 + split)].to(f32).permute(0, 2, 1, 3)
+        vc = v[:, p0:min(n_real, p0 + split)].to(f32).permute(0, 2, 1, 3)
+        sc = torch.matmul(qh, kc.transpose(-1, -2)) * scale
+        if softcap is not None:
+            sc = torch.tanh(sc / softcap) * softcap
+        if not visible:
+            sc = torch.full_like(sc, NEG)
+        m = sc.amax(-1, keepdim=True)
+        p = torch.exp(sc - m)
+        parts.append((m, p.sum(-1, keepdim=True), torch.matmul(p, vc)))
+    if top > s:
+        m_pad = torch.full((b, hkv, g, 1), 0.0 if visible else NEG, dtype=f32,
+                           device=q.device)
+        parts.append((m_pad, torch.full_like(m_pad, float(top - s)),
+                      torch.zeros((b, hkv, g, dh), dtype=f32,
+                                  device=q.device)))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    lsum = torch.zeros_like(mx)
+    acc = torch.zeros((b, hkv, g, dh), dtype=f32, device=q.device)
+    for m, lp, ap in parts:
+        f = torch.exp(m - mx)
+        lsum = lsum + lp * f
+        acc = acc + ap * f
+    out = acc / torch.clamp(lsum, min=1e-30)
+    return out.reshape(b, hq, dh).to(q.dtype)
+
+
 def flash_decode_cuda(q, k, v, t, *, scale: float,
                       softcap: Optional[float] = None, chunk: int = 512):
-    """Launch the CUDA kernels (chunk partials, then the merge) on
-    ``torch.cuda.current_stream()``."""
+    """Launch the CUDA kernels (split partials, then the merge) on
+    ``torch.cuda.current_stream()``.  ``chunk`` sets the reference's zero
+    padding, which the kernel adds without reading it."""
     if not all(x.is_cuda and x.device == q.device for x in (q, k, v)):
         raise ValueError("flash_decode: q, k and v must be on one CUDA "
                          "device")
@@ -80,17 +135,19 @@ def flash_decode_cuda(q, k, v, t, *, scale: float,
         raise ValueError(f"flash_decode kernel: {g} query heads per kv head "
                          f"(max {MAX_GROUP}), head dim {dh} (max "
                          f"{MAX_HEAD_DIM})")
-    chunk = min(chunk, s)
-    if 4 * (g * dh + g * chunk + 2 * g) > _build.MAX_SHARED_BYTES:
-        raise ValueError(f"chunk {chunk} does not fit shared memory")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    nc = -(-s // chunk)
-    scratch = torch.empty(b * hkv * nc * g * (2 + dh), dtype=torch.float32,
+    vec = 16 // q.element_size()
+    if dh % vec:
+        raise ValueError(f"flash_decode kernel: head dim {dh} must be a "
+                         f"multiple of {vec} (16-byte rows)")
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    q, k, v = (x.clone() if x.data_ptr() % 16 else x for x in (q, k, v))
+    n_sp = -(-s // SPLIT)
+    scratch = torch.empty(b * hkv * n_sp * g * (2 + dh), dtype=torch.float32,
                           device=q.device)
     out = torch.empty_like(q)
     _build.launch("flash_decode", _DTYPE_CODE[q.dtype], q.data_ptr(),
-                  k.data_ptr(), v.data_ptr(), b, s, hq, hkv, dh, chunk,
-                  int(t), float(scale),
+                  k.data_ptr(), v.data_ptr(), b, s, hq, hkv, dh,
+                  min(chunk, s), SPLIT, int(t), float(scale),
                   float(softcap) if softcap is not None else 0.0,
                   scratch.data_ptr(), out.data_ptr(),
                   torch.cuda.current_stream().cuda_stream)

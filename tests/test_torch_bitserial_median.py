@@ -3,18 +3,25 @@ CPU: the port's plain version and the radix-select form the CUDA kernel
 computes, both bit for bit against the reference's Pallas kernel in
 interpret mode, its numpy oracles and its ``ops.grouped_median_bits``, on
 the shapes of tests/test_kernels.py at 16 and 32 bits, with unit and
-integer weights, batched and one member at a time."""
+integer weights, batched and one member at a time; and the kernel's
+cluster-grouped, digit-at-a-time selection (``grouped_median_digits``, the
+resident form at one bit a digit, the streamed form at four bits over
+chunks) bit for bit against both, over ties, zero weights, empty
+clusters, K = 1, one cluster holding ~90 % of the points and 1, 13, 16
+and 32 bits (hypothesis)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.core import quantizer
 from repro.kernels import ops, ref
 from repro.kernels.bitserial_median import grouped_median_pallas
 from repro_torch.core import bitserial as bitserial_t
 from repro_torch.core import quantizer as quantizer_t
+from repro_torch.kernels import bitserial_median as bsm_t
 from repro_torch.kernels import ops as ops_t
 
 T = torch.from_numpy
@@ -209,3 +216,91 @@ def test_cpu_tensors_never_launch_the_kernel():
     ops_t.grouped_median_bits(torch.zeros(4, 2, dtype=torch.int64),
                               torch.zeros(4, dtype=torch.int32), 2)
     assert ops_t.launch_counts()["bitserial_median"] == 0
+
+
+# the kernel's two selections: the resident form (one bit a digit, one
+# chunk) and the streamed form (four-bit digits, partials over chunks)
+DIGIT_FORMS = [(1, 0), (4, 0), (4, 7), (3, 16)]
+
+
+def _skewed_case(rng, n, d, k, bits, skew, zero_frac, levels):
+    """Words from ``levels`` distinct values (ties), assignments with a
+    share ``skew`` of the points in cluster 0, integer weights with a
+    share ``zero_frac`` of zeros."""
+    vals = rng.integers(0, 2 ** bits, size=levels, dtype=np.int64)
+    u = vals[rng.integers(0, levels, size=(n, d))]
+    assign = rng.integers(0, k, size=n).astype(np.int32)
+    assign[rng.random(n) < skew] = 0
+    w = rng.integers(1, 50, size=n).astype(np.float32)
+    w[rng.random(n) < zero_frac] = 0.0
+    return u, assign, w
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.integers(1, 90), st.integers(1, 9), st.integers(1, 9),
+       st.sampled_from([1, 13, 16, 32]), st.sampled_from([0.0, 0.9]),
+       st.sampled_from([0.0, 0.5, 1.0]), st.integers(1, 6),
+       st.sampled_from(DIGIT_FORMS), st.integers(0, 2 ** 31))
+def test_digit_selection_equals_plain(n, d, k, bits, skew, zero_frac, levels,
+                                      form, seed):
+    """Bit for bit (medians and totals) against the plain per-bit one-hot
+    form; clusters with no point or only zero weights give the word 0."""
+    digit, chunk = form
+    rng = np.random.default_rng(seed)
+    u, assign, w = _skewed_case(rng, n, d, k, bits, skew, zero_frac, levels)
+    want = bsm_t.grouped_median_bits_plain(T(u), T(assign), k,
+                                           weights=T(w), bits=bits)
+    got = bsm_t.grouped_median_digits(T(u), T(assign), k, T(w), bits=bits,
+                                      digit=digit, chunk=chunk)
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+    empty = want[1].numpy() == 0
+    assert (got[0].numpy()[empty] == 0).all()
+
+
+@pytest.mark.parametrize("bits", [1, 13, 16, 32])
+@pytest.mark.parametrize("digit,chunk", DIGIT_FORMS)
+def test_digit_selection_matches_pallas(bits, digit, chunk):
+    """A skewed case (90 % of the points in one cluster, ties, a third of
+    the weights 0, K = 6 with empty clusters likely) against the
+    reference's Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(bits * 10 + digit + chunk)
+    n, d, k = 48, 5, 6
+    u, assign, w = _skewed_case(rng, n, d, k, bits, 0.9, 0.33, 4)
+    want = np.asarray(grouped_median_pallas(
+        jnp.asarray(u.astype(np.uint32)), jnp.asarray(assign),
+        jnp.asarray(w), k, bits=bits, interpret=True)).astype(np.int64)
+    got, tot = bsm_t.grouped_median_digits(T(u), T(assign), k, T(w),
+                                           bits=bits, digit=digit,
+                                           chunk=chunk)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tot.numpy(), np.bincount(assign, weights=w, minlength=k)
+        .astype(np.float32))
+
+
+@pytest.mark.parametrize("digit,chunk", DIGIT_FORMS)
+def test_digit_selection_single_cluster_and_batch(digit, chunk):
+    """K = 1 (the unweighted median's path) and leading member dimensions,
+    each member on its own."""
+    rng = np.random.default_rng(digit + chunk)
+    x = rng.integers(0, 2 ** 16, size=(3, 2, 30, 4), dtype=np.int64)
+    w = rng.integers(0, 3, size=(3, 2, 30)).astype(np.float32)
+    a = np.zeros((3, 2, 30), np.int32)
+    got, _ = bsm_t.grouped_median_digits(T(x), T(a), 1, T(w), bits=16,
+                                         digit=digit, chunk=chunk)
+    for i in range(3):
+        for j in range(2):
+            want, _ = bitserial_t.grouped_median_bits(
+                T(x[i, j]), T(a[i, j]), 1, weights=T(w[i, j]), bits=16)
+            np.testing.assert_array_equal(got[i, j].numpy(), want.numpy())
+
+
+def test_resident_and_streamed_shared_memory_sizes():
+    """The wrapper's form choice at the serve's and the fit's shapes: the
+    compaction and absorb members (320 points x 128 dims, K = 64 / 32)
+    stage whole; 2^20 points stream (their scratch, which the kernel's
+    library sizes, is checked on the card in test_torch_gpu.py)."""
+    assert bsm_t.resident_bytes(320, 128, 64) <= bsm_t.RESIDENT_MAX_BYTES
+    assert bsm_t.resident_bytes(320, 128, 32) <= bsm_t.RESIDENT_MAX_BYTES
+    assert bsm_t.resident_bytes(1 << 20, 16, 64) > bsm_t.RESIDENT_MAX_BYTES

@@ -1,7 +1,11 @@
 """Flash-decode (kernel B5) on the CPU: the port's plain version against
 the reference's Pallas kernel in interpret mode and against the port's
 ``decode_attention``, on the shapes of tests/test_kernels.py, within 1e-5
-in f32, with and without a softcap."""
+in f32, with and without a softcap; and the kernel's split-and-merge
+(``flash_decode_splits``: splits over the real positions below min(t, S),
+the zero padding added as one term) against both at the edges t = 0, 1,
+chunk, a t inside a chunk, S and t > S, with S not a multiple of the
+chunk, within 1e-5."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -72,3 +76,35 @@ def test_cpu_tensors_never_launch_the_kernel():
     q, k, v = (T(a) for a in _inputs(1, 8, 2, 1, 4, 0))
     ops_t.flash_decode(q, k, v, 4, scale=0.5)
     assert ops_t.launch_counts()["flash_decode"] == 0
+
+
+@pytest.mark.parametrize("split", [fd_t.SPLIT, 64])
+@pytest.mark.parametrize("softcap", [None, 20.0])
+@pytest.mark.parametrize("t", [0, 1, 128, 450, 700, 760, 2000, -5])
+def test_splits_match_plain_and_pallas_at_the_edges(t, softcap, split):
+    """S = 700 over chunks of 128 (68 padded positions): t = 0 and t < 0
+    mask everything (the mean of v over the 768 padded positions); t = 760
+    and 2000 count padded positions with score 0 up to min(t, 768)."""
+    q, k, v = _inputs(2, 700, 8, 2, 16, 40 + max(t, 0), q_scale=3.0)
+    kw = dict(scale=0.25, softcap=softcap, chunk=128)
+    want = np.asarray(flash_decode_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(t),
+        interpret=True, **kw))
+    got = fd_t.flash_decode_splits(T(q), T(k), T(v), t, split=split, **kw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    plain = fd_t.flash_decode_plain(T(q), T(k), T(v), t, **kw)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("t", [0, 33, 64])
+def test_splits_with_one_chunk_and_bf16(t):
+    """chunk >= S (no padding) and bf16 inputs, output in bf16: within one
+    bf16 rounding of the plain version's f32 result."""
+    q, k, v = _inputs(1, 64, 4, 1, 32, t)
+    bq, bk, bv = (T(a).to(torch.bfloat16) for a in (q, k, v))
+    got = fd_t.flash_decode_splits(bq, bk, bv, t, scale=0.2, split=16)
+    assert got.dtype == torch.bfloat16
+    want = fd_t.flash_decode_plain(bq.float(), bk.float(), bv.float(), t,
+                                   scale=0.2)
+    torch.testing.assert_close(got.float(), want.to(torch.bfloat16).float(),
+                               rtol=2 ** -7, atol=1e-6)

@@ -202,6 +202,89 @@ def test_flash_decode_kernel_matches_plain(cuda, dtype, tol, softcap):
     assert ((g - r).abs() <= 2 * ulp + 1e-6).all()
 
 
+@pytest.mark.parametrize("lead,k,streamed", [((36, 4, 8), 64, False),
+                                              ((36, 8), 32, False),
+                                              ((), 64, True)])
+def test_bitserial_median_serve_shapes_repeat(cuda, lead, k, streamed):
+    """The compaction and absorb members (320 points x 128 dims, 16 bits,
+    count and 0/1 mask weights) and the fit's streamed shape (2^20 x 16,
+    32 bits, 0/1 weights): equal to the plain version and two runs equal,
+    with one member whose points all lie in cluster 0 and cluster 1 of
+    weight 0 in every member."""
+    g = torch.Generator(device="cpu").manual_seed(k + len(lead))
+    n, d, bits = ((1 << 20, 16, 32) if streamed else (320, 128, 16))
+    u = torch.randint(0, 2 ** bits, lead + (n, d), generator=g)
+    a = torch.randint(0, k, lead + (n,), generator=g, dtype=torch.int32)
+    # integer weights with totals below 2^24: counts then 0/1 masks per
+    # member, 0/1 masks over the 2^20 streamed points
+    w = torch.randint(0, 2, lead + (n,), generator=g).float()
+    if not streamed:
+        w[..., :64] = torch.randint(0, 2000, lead + (64,), generator=g)
+    a.view(-1, n)[0] = 0
+    w[a == 1] = 0.0
+    u, a, w = u.to(cuda), a.to(cuda), w.to(cuda)
+    runs = [bsm.grouped_median_bits_cuda(u, a, k, w, bits=bits)
+            for _ in range(2)]
+    med0, tot0 = bsm.grouped_median_bits_plain(u, a, k, weights=w, bits=bits)
+    torch.cuda.synchronize()
+    for med, tot in runs:
+        assert torch.equal(med, med0)
+        assert torch.equal(tot, tot0)
+    assert (runs[0][0][..., 1, :] == 0).all()
+
+
+
+def test_bitserial_median_stream_scratch_size(cuda):
+    """The streamed form's scratch as the kernel's library sizes it: the
+    words' low 32 bits, then the chunk partials, far below the words at
+    the fit's shape; none for the resident form."""
+    from repro_torch.kernels import _build
+
+    q = lambda *a: _build.query("bitserial_median_scratch_bytes",  # noqa
+                                *a)
+    n, d, k, chunk = 1 << 20, 16, 64, bsm.STREAM_CHUNK
+    words = 4 * n * d
+    partials = 4 * (n // chunk) * k * (16 * d + 1)
+    assert q(1, n, d, k, chunk) == words + partials + 4 * k * d
+    assert words < q(1, n, d, k, chunk) < 2 * words
+    assert q(3, n, d, k, chunk) == 3 * q(1, n, d, k, chunk)
+    assert q(36, 320, 128, 64, 0) == 0
+
+
+FD_EDGES = (0, 1, 511, 512, 1500, 2048, 2300)
+
+
+@pytest.mark.parametrize("case", ["f32", "f32_softcap50", "bf16"])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_flash_decode_kernel_edges(cuda, g, dh, case):
+    """S = 2048 (a multiple of the default chunk 512), t at 0, 1, 511, 512,
+    1500, S and past S: f32 (+- softcap 50) within 1e-5 of the plain
+    version, bf16 within 2 bf16 ulps (+1e-6), two runs equal; and S = 700
+    (padded to 1024) at t = 0, 800 and 2000, where the padding counts."""
+    dtype = torch.bfloat16 if case == "bf16" else torch.float32
+    softcap = 50.0 if case == "f32_softcap50" else None
+    gen = torch.Generator(device="cpu").manual_seed(g * dh)
+    for s, edges in ((2048, FD_EDGES), (700, (0, 800, 2000))):
+        q, k, v = (torch.randn(*sh, generator=gen).to(cuda, dtype)
+                   for sh in ((2, 2 * g, dh), (2, s, 2, dh), (2, s, 2, dh)))
+        for t in edges:
+            kw = dict(scale=dh ** -0.5, softcap=softcap)
+            got = fd.flash_decode_cuda(q, k, v, t, **kw)
+            again = fd.flash_decode_cuda(q, k, v, t, **kw)
+            want = fd.flash_decode_plain(q.float(), k.float(), v.float(), t,
+                                         **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), (s, t)
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+                continue
+            r = want.to(dtype).float()
+            _, e = torch.frexp(r.abs().clamp(min=2.0 ** -20))
+            ulp = torch.ldexp(torch.ones_like(r), e - 8)
+            assert ((got.float() - r).abs() <= 2 * ulp + 1e-6).all(), (s, t)
+
+
 def test_fit_on_card_runs_both_clustering_kernels(cuda):
     """A k-medians fit from a threefry k-means++ start: distance_argmin and
     bitserial_median both launch, and the fit equals the CPU fit."""
