@@ -3,7 +3,7 @@
 on one CUDA card.
 
     python3 benchmarks/time_kernels.py [--src DIR] [--label NAME]
-                                       [--only decode|median|flash ...]
+        [--only decode|median|flash|distance|fit ...]
 
 Builds the kernels of the ``repro_torch`` package under ``DIR`` (default:
 this checkout's ``src``; point it at the ``src`` of another commit
@@ -18,7 +18,15 @@ them with ``chip_smoke.py``'s phase 7:
   x 128 dims, K = 64 / 32, 16 bits, count and mask weights) and streamed
   at the fit's shape (2^20 x 16, K = 64, 32 bits);
 - ``flash`` (``time_flash_decode``): flash_decode in bf16 at B = 4,
-  S = 2,048, t = 1,500, Hq = 32, Hkv = 8, Dh = 128, beside SDPA.
+  S = 2,048, t = 1,500, Hq = 32, Hkv = 8, Dh = 128, beside SDPA;
+- ``distance`` (``time_distance``): distance_argmin in L1 and L2 at the
+  fit's shape (2^20 x 16 points, K = 64) and at two of the quickstart's
+  (4,595 x 12, K = 3; 5,000 x 8, K = 5), beside ``torch.cdist`` then
+  ``.min(1)``, with sha256 digests of assign and mind, so two commits'
+  lines show whether their outputs are bit-equal;
+- ``fit`` (``kmedians``): the k-medians fit of ``chip_smoke.py`` phase 6
+  (seconds, iterations, launches, inertia and digests of its assignment
+  and centroids), under ``"fit"`` in the JSON line.
 
 Per form the median device time of 50 launches read from torch.profiler
 with L2 flushed before each launch, the wrapper's call time and the
@@ -37,7 +45,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-GROUPS = ("decode", "median", "flash")
+GROUPS = ("decode", "median", "flash", "distance", "fit")
 
 
 def main() -> int:
@@ -62,6 +70,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import bitserial_median as bsm
     from repro_torch.kernels import clustered_decode as cd
+    from repro_torch.kernels import distance_argmin as da
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import paged_clustered_decode as pcd
 
@@ -87,7 +96,20 @@ def main() -> int:
     if "flash" in args.only:
         times["flash_decode"] = smoke.time_flash_decode(torch, fd, dev,
                                                         plain=False)
+    if "distance" in args.only:
+        fit = (smoke.N_PTS, smoke.D_PTS, smoke.K_PTS)
+        for shape in (fit, smoke.DA_QUICKSTART[0], smoke.DA_L2_TIMED):
+            x, c = smoke.da_inputs(torch, dev, *shape)
+            for metric in ("l1", "l2"):
+                name = f"distance_argmin {metric}"
+                if shape != fit:
+                    name += " {} x {}, K {}".format(*shape)
+                times[name] = smoke.time_distance(torch, da, x, c, metric,
+                                                  plain=False)
+            del x, c
     rec = {"label": args.label or str(src), "card": card, "times": times}
+    if "fit" in args.only:
+        rec["fit"] = smoke.kmedians(torch, dev)
     line = json.dumps(rec, default=float)
     print(line, flush=True)
     out = ROOT / "chiprun_out"
@@ -96,10 +118,12 @@ def main() -> int:
         f.write(line + "\n")
     for form, v in times.items():
         lib = v["library_ms"]
+        sha = (f" assign {v['assign_sha256']} mind {v['mind_sha256']}"
+               if "assign_sha256" in v else "")
         print(f"[{card}] {rec['label']} {form}: kernel_ms {v['ms']:.4f} "
               f"call_ms {v['call_ms']:.4f} library_ms "
               f"{'None' if lib is None else f'{lib:.4f}'} bound_ms "
-              f"{v['bound_ms']:.4f} ({v['bound_by']})", flush=True)
+              f"{v['bound_ms']:.4f} ({v['bound_by']}){sha}", flush=True)
     return 0
 
 

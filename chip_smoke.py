@@ -17,7 +17,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    table, in the same three cases, bit-equal to clustered_decode on every
    real row both with the engine's row groups and one row per block, and
    its window floor ``wlo`` exact;
-   distance_argmin: N=2^20, D=16, K=64, L1 and L2;
+   distance_argmin: L1 and L2 at N=2^20, D=16, K=64, at N=2^16,
+   D=128, K=1,024 and at the quickstart's shapes (4,595 x 12, K=3;
+   5,000 x 8, K 2-8), L1 also bit for bit against its sequential twin;
    bitserial_median: ``torch.equal`` on medians and totals at the serve's
    compaction (1,152 members x 320 points x 128 dims, K=64, 16 bits,
    count weights with zeros) and absorb (288 members, K=32) shapes and the
@@ -48,7 +50,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the wrapper call's CUDA-event time, its plain version, a library
    yardstick (device time too) and the card's bound; clustered_decode in
    its mixed, serve-like mixed (chunk_len [64, 1, 1, 1]) and one-token
-   forms, paged_clustered_decode mixed and decode-only.
+   forms, paged_clustered_decode mixed and decode-only, distance_argmin
+   in L1 at the fit's shape and L2 at the quickstart's k sweep (5,000 x
+   8, K=5), one row each in the kernels line with its ``shape``, and L2
+   at the fit's shape too (``torch.cdist`` then ``.min(1)`` as the
+   yardstick); and the k-medians fit's time per
+   iteration beside distance_argmin's share of it.
 
 It imports ``repro_torch`` only.  The second-to-last line is the kernels
 JSON, ``{"kernels": [{"name": ..., ...}, ...]}`` with one object per
@@ -86,6 +93,11 @@ COV_SLOTS = [0, 900, 60, 10]         # cov >= t + chunk_len - R everywhere
 BS = 16                              # paged: positions per pool block
 N_BUCKET = 256                       # paged: row bucket of the 130 rows
 N_PTS, D_PTS, K_PTS = 1 << 20, 16, 64
+# distance_argmin in the quickstart: the wine table's two fits (4,595 x 12,
+# K = 3) and the census table's k sweep (5,000 x 8, K 2-8); L2 is timed at
+# the sweep's true k
+DA_QUICKSTART = [(4595, 12, 3)] + [(5000, 8, k) for k in range(2, 9)]
+DA_L2_TIMED = (5000, 8, 5)
 # bitserial_median members of the serve's memory manager over C + R points:
 # a compaction clusters (36 layers x 4 slots x 8 kv heads) at once, an
 # absorb (36 layers x 8 kv heads) of one slot into the prompt budget
@@ -338,6 +350,11 @@ def paged_inputs(torch, x, cl, bucket, seed=1):
     return args, rows, len(mapped)
 
 
+def sha16(t):
+    """First 16 hex digits of the sha256 of a tensor's bytes."""
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def bits(torch, t):
     """A float tensor's bit patterns, for exact comparison (-0 != +0)."""
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
@@ -407,41 +424,74 @@ def check_paged_decode(torch, cd, pcd, dev):
     return max_err
 
 
+def da_inputs(torch, dev, n=N_PTS, d=D_PTS, k=K_PTS, seed=0):
+    """Points and centroids of the distance_argmin checks and times (the
+    fit's shape by default), with centroid 5 a copy of centroid 2 and
+    point 0 placed on it where K > 5."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    c = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32))
+    if k > 5:
+        c[5] = c[2]              # duplicated centroid: the first index wins
+        x[0] = c[2]
+    return x.to(dev), c.to(dev)
+
+
 def check_distance_argmin(torch, da, dev):
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.normal(size=(N_PTS, D_PTS)).astype(np.float32))
-    c = torch.from_numpy(rng.normal(size=(K_PTS, D_PTS)).astype(np.float32))
-    c[5] = c[2]                  # duplicated centroid: the first index wins
-    x[0] = c[2]
-    x, c = x.to(dev), c.to(dev)
-    max_err = 0.0
-    for metric in ("l1", "l2"):
-        a, m = da.distance_argmin_cuda(x, c, metric=metric)
-        a0, m0 = da.distance_argmin_plain(x, c, metric=metric)
-        torch.cuda.synchronize()
-        agree = (a == a0).float().mean().item()
-        if agree < 0.9999:
-            raise AssertionError(f"{metric}: assignments agree on {agree}")
-        diff = torch.nonzero(a != a0)[:, 0]
-        if len(diff):
-            # a disagreement must be a near-tie of the two distances
-            xd = x[diff]
+    """Against the plain version at the fit's shape, at a 1,024 x 128 bank
+    and at the quickstart's shapes (>= 99.99 % of assignments equal, every
+    disagreement a near-tie, mindist within 1e-5, for L2 at D = 128 within
+    4 ulps of the largest |x|^2 + |c|^2, where the expansion cancels); L1
+    also bit for bit against the sequential twin run on the card."""
+    max_err = {"l1": 0.0, "l2": 0.0}
+    for n, d, k in [(N_PTS, D_PTS, K_PTS), (1 << 16, 128, 1024),
+                    *DA_QUICKSTART]:
+        x, c = da_inputs(torch, dev, n, d, k)
+        for metric in ("l1", "l2"):
+            a, m = da.distance_argmin_cuda(x, c, metric=metric)
+            a0, m0 = da.distance_argmin_plain(x, c, metric=metric)
+            torch.cuda.synchronize()
+            agree = (a == a0).float().mean().item()
+            if agree < 0.9999:
+                raise AssertionError(f"{metric} {n}x{d}, K {k}: assignments "
+                                     f"agree on {agree}")
+            diff = torch.nonzero(a != a0)[:, 0]
+            if len(diff):
+                # a disagreement must be a near-tie of the two distances
+                xd = x[diff]
+                if metric == "l1":
+                    d_k = (xd - c[a[diff].long()]).abs().sum(1)
+                    d_p = (xd - c[a0[diff].long()]).abs().sum(1)
+                else:
+                    d_k = ((xd - c[a[diff].long()]) ** 2).sum(1)
+                    d_p = ((xd - c[a0[diff].long()]) ** 2).sum(1)
+                torch.testing.assert_close(d_k, d_p, rtol=1e-5, atol=1e-5)
+            atol = 1e-5
+            if metric == "l2" and d > D_PTS:
+                # the expansion cancels: at a point on a centroid its error
+                # is ulps of |x|^2 + |c|^2 (~256 at D = 128, ulp 1.5e-5)
+                atol = 4 * torch.finfo(torch.float32).eps * float(
+                    (x * x).sum(1).max() + (c * c).sum(1).max())
+            torch.testing.assert_close(m, m0, rtol=1e-5, atol=atol)
+            if k > 5 and (int(a[0]) != 2 or int((a == 5).sum()) != 0):
+                raise AssertionError(f"{metric}: duplicated centroid did not "
+                                     "resolve to the first index")
+            twin = ""
             if metric == "l1":
-                d_k = (xd - c[a[diff].long()]).abs().sum(1)
-                d_p = (xd - c[a0[diff].long()]).abs().sum(1)
-            else:
-                d_k = ((xd - c[a[diff].long()]) ** 2).sum(1)
-                d_p = ((xd - c[a0[diff].long()]) ** 2).sum(1)
-            torch.testing.assert_close(d_k, d_p, rtol=1e-5, atol=1e-5)
-        torch.testing.assert_close(m, m0, rtol=1e-5, atol=1e-5)
-        if int(a[0]) != 2 or int((a == 5).sum()) != 0:
-            raise AssertionError(f"{metric}: duplicated centroid did not "
-                                 "resolve to the first index")
-        max_err = max(max_err, (m - m0).abs().max().item())
-        say(f"distance_argmin {metric}: assignments agree on "
-            f"{agree * 100:.5f}% ({len(diff)} near-ties), mindist max abs "
-            f"err {(m - m0).abs().max().item():.3e}")
-    return max_err, x, c
+                a_t, m_t = da.distance_argmin_sequential(x, c, metric="l1")
+                if not (torch.equal(a, a_t)
+                        and torch.equal(bits(torch, m), bits(torch, m_t))):
+                    raise AssertionError(f"l1 {n}x{d}, K {k}: not bit-equal "
+                                         "to the sequential twin")
+                twin = "; bit-equal to the sequential twin"
+                del a_t, m_t
+            err = (m - m0).abs().max().item()
+            max_err[metric] = max(max_err[metric], err)
+            say(f"distance_argmin {metric} {n} x {d}, K {k}: assignments "
+                f"agree on {agree * 100:.5f}% ({len(diff)} near-ties), "
+                f"mindist max abs err {err:.3e}{twin}")
+        del x, c
+    return max_err
 
 
 def median_inputs(torch, dev, m, k, bits, seed=0):
@@ -791,13 +841,18 @@ def kmedians(torch, dev):
     if not (np.isfinite(inertia) and inertia <= inertia1):
         raise AssertionError(f"inertia {inertia} vs first iteration "
                              f"{inertia1}")
+    iters = int(res.n_iters)
     say(f"k-medians fit: threefry k-means++ start in {init_s:.2f} s; "
-        f"{int(res.n_iters)} iterations in {secs:.2f} s, {n_da} "
+        f"{iters} iterations in {secs:.4f} s ({secs / iters * 1e3:.3f} ms "
+        f"an iteration), {n_da} "
         f"distance_argmin and {n_med} bitserial_median launches, inertia "
-        f"{inertia:.6g} (first iteration {inertia1:.6g})")
+        f"{inertia!r} (first iteration {inertia1!r}); assign sha256 "
+        f"{sha16(res.assign)}, centroids {sha16(res.centroids)}")
     return {"launches": n_da, "median_launches": n_med,
-            "iters": int(res.n_iters), "inertia": inertia,
-            "inertia_first": inertia1, "seconds": secs, "init_s": init_s}
+            "iters": iters, "inertia": inertia,
+            "inertia_first": inertia1, "seconds": secs, "init_s": init_s,
+            "assign_sha256": sha16(res.assign),
+            "centroids_sha256": sha16(res.centroids)}
 
 
 def quickstart(torch, dev):
@@ -826,17 +881,19 @@ def quickstart(torch, dev):
     cpu = run("cpu", say=cpu_lines.append, **sizes)
     same = sum(a == b for a, b in zip(lines, cpu_lines))
     rates = {k: card[k]["rate"] for k in ("kmedians", "kmeans")}
-    # one distance_argmin per Lloyd iteration of the two fits and of each
-    # select_k fit (at least one iteration each); one bitserial_median per
-    # k-medians iteration and one for the feature medians
-    need_da = (card["kmedians"]["iters"] + card["kmeans"]["iters"]
-               + len(card["scores"]))
+    # one distance_argmin per Lloyd iteration of the two fits (L1 k-medians,
+    # L2 k-means) and of each select_k fit (L2, at least one iteration
+    # each); one bitserial_median per k-medians iteration and one for the
+    # feature medians
+    need_l1 = card["kmedians"]["iters"]
+    need_l2 = card["kmeans"]["iters"] + len(card["scores"])
     need_bsm = card["kmedians"]["iters"] + 1
-    if (counts["distance_argmin"] < need_da
+    if (counts["distance_argmin l1"] < need_l1
+            or counts["distance_argmin l2"] < need_l2
             or counts["bitserial_median"] < need_bsm):
         raise AssertionError(f"quickstart launches {counts}: want "
-                             f"distance_argmin >= {need_da} and "
-                             f"bitserial_median >= {need_bsm}")
+                             f"distance_argmin L1 >= {need_l1}, L2 >= "
+                             f"{need_l2} and bitserial_median >= {need_bsm}")
     if not np.isfinite(card["median"]).all():
         raise AssertionError("quickstart: non-finite medians")
     if card["k_opt"] != cpu["k_opt"] or card["k_opt"] != 5:
@@ -850,7 +907,9 @@ def quickstart(torch, dev):
         f"recognition k-medians {rates['kmedians']:.4f} / k-means "
         f"{rates['kmeans']:.4f}; {counts['bitserial_median']} "
         f"bitserial_median and {counts['distance_argmin']} distance_argmin "
-        f"launches; {same} of {len(lines)} printed lines equal the CPU run's")
+        f"launches (L1 {counts['distance_argmin l1']}, L2 "
+        f"{counts['distance_argmin l2']}); {same} of {len(lines)} printed "
+        "lines equal the CPU run's")
     return {"seconds": secs, "k_opt": card["k_opt"], "rates": rates,
             "launches": counts, "lines": lines, "lines_equal_cpu": same}
 
@@ -1123,20 +1182,48 @@ def time_flash_decode(torch, fd, dev, plain=True):
                 flops_qk=flops, flops_pv=flops)
 
 
-def timings(torch, cd, pcd, da, bsm, fd, dev, xa, ca):
+def time_distance(torch, da, x, c, metric, plain=True):
+    """B4 in one metric: the kernel's device time, its call time, the plain
+    version's (unless ``plain`` is False), the yardstick ``torch.cdist``
+    then ``.min(1)`` (two calls; L2's cdist gives the root of the distance,
+    the same argmin), the bound, and sha256 digests of the outputs, with
+    the shape it timed."""
+    n, d = x.shape
+    k = c.shape[0]
+    run = lambda: da.distance_argmin_cuda(x, c, metric=metric)  # noqa: E731
+    p = 1.0 if metric == "l1" else 2.0
+    lib = lambda: torch.cdist(x, c, p=p).min(1)                 # noqa: E731
+    nbytes = 4 * (n * d + k * d + 2 * n)
+    # FP32-pipe instructions issued per (point, centroid): L1 2D + 1 (a
+    # subtract and an add with |.| folded into it per dim, the compare);
+    # L2 D + 4 (an FFMA per dim; x2 - 2 xc, + |c|^2, the clamp, the
+    # compare), plus |x|^2 once a point (N D)
+    instr = (n * k * (2 * d + 1) if metric == "l1"
+             else n * k * (d + 4) + n * d)
+    b_ms, b_by = bound(nbytes, [(instr, PEAK_F32_FLOP_PER_S / 2)])
+    a, m = run()
+    plain_ms = (time_ms(torch, lambda: da.distance_argmin_plain(
+        x, c, metric=metric), n=20, warm=2) if plain else None)
+    return dict(ms=device_ms(torch, run, REPRO_KERNELS),
+                call_ms=time_ms(torch, run), plain_ms=plain_ms,
+                library_ms=device_ms(torch, lib), bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes, instructions=instr,
+                assign_sha256=sha16(a), mind_sha256=sha16(m),
+                shape=f"{n} x {d}, K {k}")
+
+
+def timings(torch, cd, pcd, da, bsm, fd, dev):
     tm = decode_times(torch, cd, pcd, dev)
-    run = lambda: da.distance_argmin_cuda(xa, ca, metric="l1")  # noqa: E731
-    da_plain = time_ms(torch, lambda: da.distance_argmin_plain(
-        xa, ca, metric="l1"), n=20, warm=2)
-    da_ms_l2 = device_ms(torch, lambda: da.distance_argmin_cuda(
-        xa, ca, metric="l2"), REPRO_KERNELS)
-    da_bytes = 4 * (N_PTS * D_PTS + K_PTS * D_PTS + 2 * N_PTS)
-    da_flops = N_PTS * K_PTS * (3 * D_PTS + 1)         # |x-c|, sum, compare
-    da_bound, da_by = bound(da_bytes, [(da_flops, PEAK_F32_FLOP_PER_S)])
-    tm["distance_argmin"] = dict(
-        ms=device_ms(torch, run, REPRO_KERNELS), call_ms=time_ms(torch, run),
-        plain_ms=da_plain, library_ms=None, bound_ms=da_bound, bound_by=da_by,
-        bytes=da_bytes, flops=da_flops, l2_ms=da_ms_l2)
+    # the kernels line's rows: L1 at the fit's shape, L2 at the quickstart's
+    # k sweep; L2 at the fit's shape as well
+    for name, metric, shape in (
+            ("distance_argmin l1", "l1", (N_PTS, D_PTS, K_PTS)),
+            ("distance_argmin l2", "l2", DA_L2_TIMED),
+            ("distance_argmin l2 (fit's shape)", "l2",
+             (N_PTS, D_PTS, K_PTS))):
+        x, c = da_inputs(torch, dev, *shape)
+        tm[name] = time_distance(torch, da, x, c, metric)
+        del x, c
     _, m, k, bits = MED_CASES[0]
     u, a, w = median_inputs(torch, dev, m, k, bits)
     tm["bitserial_median"] = time_median(torch, bsm, u, a, k, w, bits,
@@ -1186,7 +1273,7 @@ def main() -> int:
     # phase 3: kernels vs plain
     cd_err = check_clustered_decode(torch, cd, dev)
     pcd_err = check_paged_decode(torch, cd, pcd, dev)
-    da_err, xa, ca = check_distance_argmin(torch, da, dev)
+    da_err = check_distance_argmin(torch, da, dev)
     bsm_err = check_bitserial_median(torch, bsm, dev)
     fd_err = check_flash_decode(torch, fd, dev)
 
@@ -1207,17 +1294,19 @@ def main() -> int:
     # phase 6: k-medians through both clustering kernels, the pipeline
     km = kmedians(torch, dev)
     record["kmedians"] = km
-    record["quickstart"] = quickstart(torch, dev)
+    qs = quickstart(torch, dev)
+    record["quickstart"] = qs
 
     # phase 7: times
-    tm = timings(torch, cd, pcd, da, bsm, fd, dev, xa, ca)
+    tm = timings(torch, cd, pcd, da, bsm, fd, dev)
     record["times"] = tm
     fmt = lambda v: "None" if v is None else f"{v:.4f}"    # noqa: E731
     for name, v in tm.items():
         say(f"[{smi}] {name}: kernel_ms {v['ms']:.4f} (device) call_ms "
             f"{v['call_ms']:.4f} plain_ms {fmt(v['plain_ms'])} library_ms "
             f"{fmt(v['library_ms'])} (device) bound_ms {v['bound_ms']:.4f} "
-            f"({v['bound_by']})")
+            f"({v['bound_by']})"
+            + (f" at {v['shape']}" if "shape" in v else ""))
     per_step = {mode: rec["launches"]["bitserial_median"]
                 / rec["engine_steps"]
                 for mode, rec in (("dense", serve), ("paged", paged))}
@@ -1231,6 +1320,12 @@ def main() -> int:
         f"which launched bitserial_median {km['median_launches']} times; "
         f"flash_decode {serve['launches']['flash_decode']} in the dense "
         "serve (no model calls it, as in the reference)")
+    b4_ms = km["launches"] * tm["distance_argmin l1"]["ms"]
+    say(f"[{smi}] k-medians fit: {km['seconds']:.4f} s for {km['iters']} "
+        f"iterations, {km['seconds'] / km['iters'] * 1e3:.3f} ms an "
+        f"iteration; distance_argmin {km['launches']} x "
+        f"{tm['distance_argmin l1']['ms']:.4f} ms = {b4_ms:.3f} ms of device "
+        f"time, {b4_ms / (km['seconds'] * 1e3) * 100:.2f} % of the fit")
     record["seconds"] = time.perf_counter() - t_all
 
     kernels = [
@@ -1252,15 +1347,21 @@ def main() -> int:
              bound_ms=tm["paged_clustered_decode"]["bound_ms"],
              bound_by=tm["paged_clustered_decode"]["bound_by"],
              library_ms=tm["paged_clustered_decode"]["library_ms"]),
-        dict(name="distance_argmin", route="cuda",
-             source="src/repro_torch/csrc/distance_argmin.cu",
-             replaces="src/repro/kernels/distance_argmin.py:36",
-             launches=km["launches"], max_abs_err=da_err,
-             ms=tm["distance_argmin"]["ms"],
-             plain_ms=tm["distance_argmin"]["plain_ms"],
-             bound_ms=tm["distance_argmin"]["bound_ms"],
-             bound_by=tm["distance_argmin"]["bound_by"],
-             library_ms=None),
+        *(dict(name=f"distance_argmin {metric}", route="cuda",
+               source="src/repro_torch/csrc/distance_argmin.cu",
+               replaces=f"src/repro/kernels/distance_argmin.py:{line}",
+               launches=launches, max_abs_err=da_err[metric],
+               ms=tm[f"distance_argmin {metric}"]["ms"],
+               plain_ms=tm[f"distance_argmin {metric}"]["plain_ms"],
+               bound_ms=tm[f"distance_argmin {metric}"]["bound_ms"],
+               bound_by=tm[f"distance_argmin {metric}"]["bound_by"],
+               library_ms=tm[f"distance_argmin {metric}"]["library_ms"],
+               shape=tm[f"distance_argmin {metric}"]["shape"])
+          # L1 (_kernel_l1) in the k-medians fit, L2 (_kernel_l2) in the
+          # quickstart's k-means fit and k sweep
+          for metric, line, launches in (
+              ("l1", 36, km["launches"]),
+              ("l2", 24, qs["launches"]["distance_argmin l2"]))),
         dict(name="bitserial_median", route="cuda",
              source="src/repro_torch/csrc/bitserial_median.cu",
              replaces="src/repro/kernels/bitserial_median.py:35",

@@ -56,6 +56,8 @@ SIGNATURES = {
 QUERIES = {
     "bitserial_median_scratch_bytes": ("bitserial_median", ctypes.c_longlong,
                                        [_c_int] * 5),
+    "distance_argmin_shared_bytes": ("distance_argmin", ctypes.c_longlong,
+                                     []),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,6 +1,6 @@
 """Blocked distance + argmin (the clustering assignment step): the CUDA
-kernel's wrapper and its plain PyTorch version (port of
-``repro.kernels.distance_argmin``; kernel source
+kernel's wrapper, its plain PyTorch version and a sequential twin of its
+arithmetic (port of ``repro.kernels.distance_argmin``; kernel source
 ``csrc/distance_argmin.cu``).
 
 L2 is the squared distance by the expansion ‖x‖² − 2·x·cᵀ + ‖c‖² clamped at
@@ -13,8 +13,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-
-POINTS_PER_BLOCK = 256
 
 
 def distance_argmin_plain(x: torch.Tensor, cents: torch.Tensor, *,
@@ -40,9 +38,49 @@ def distance_argmin_plain(x: torch.Tensor, cents: torch.Tensor, *,
     return best_i, best_d
 
 
-def shared_bytes(k: int, d: int) -> int:
-    """Dynamic shared memory of one block: centroids, ‖c‖², staged points."""
-    return 4 * (k * d + k + POINTS_PER_BLOCK * (d | 1))
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf(a, b, c) of f32 tensors: the product is exact in f64, then one
+    rounding to f64 and one to f32 (equal to a fused multiply-add except
+    where the two roundings meet a tie)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def distance_argmin_sequential(x: torch.Tensor, cents: torch.Tensor, *,
+                               metric: str = "l2"):
+    """Plain twin of the kernel's arithmetic, for the tests: each (point,
+    centroid) distance is one chain over d = 0 … D−1 in order, of
+    elementwise f32 operations — L1 ``dist += |x − c|``; L2 x·c, ‖x‖² and
+    ‖c‖² as multiply-add chains (``_fma``), then max(‖x‖² − 2·x·c + ‖c‖², 0)
+    — and the first strictly smaller distance wins: ties keep the first
+    index, a NaN never wins (L2's clamp turns it into 0 first, as the
+    kernel's ``fmaxf`` does), and a row with no finite distance gives (inf,
+    0).  L1 takes only IEEE subtract, abs and add, so on either device it
+    equals the kernel bit for bit."""
+    x = x.to(torch.float32)
+    cents = cents.to(torch.float32)
+    n, d = x.shape
+    dist = torch.zeros((n, cents.shape[0]), dtype=torch.float32,
+                       device=x.device)
+    if metric == "l1":
+        for j in range(d):
+            dist = dist + (x[:, j, None] - cents[None, :, j]).abs()
+    elif metric == "l2":
+        x2 = torch.zeros((n, 1), dtype=torch.float32, device=x.device)
+        c2 = torch.zeros((1, cents.shape[0]), dtype=torch.float32,
+                         device=x.device)
+        for j in range(d):
+            xj, cj = x[:, j, None], cents[None, :, j]
+            dist = _fma(xj, cj, dist)
+            x2 = _fma(xj, xj, x2)
+            c2 = _fma(cj, cj, c2)
+        # fmax, as the kernel's fmaxf: a NaN becomes 0
+        dist = torch.fmax((x2 - 2.0 * dist) + c2, dist.new_zeros(()))
+    else:
+        raise ValueError(f"unknown metric {metric}")
+    # a NaN never wins: it is no smaller than the starting inf
+    dist = torch.where(torch.isnan(dist), float("inf"), dist)
+    first = torch.argmin(dist, 1)          # the first of equal minima
+    return first.to(torch.int32), dist.gather(1, first[:, None])[:, 0]
 
 
 def distance_argmin_cuda(x: torch.Tensor, cents: torch.Tensor, *,
@@ -62,10 +100,6 @@ def distance_argmin_cuda(x: torch.Tensor, cents: torch.Tensor, *,
         raise ValueError("distance_argmin kernel needs contiguous inputs")
     n, d = x.shape
     k = cents.shape[0]
-    if shared_bytes(k, d) > _build.MAX_SHARED_BYTES:
-        raise ValueError(f"centroid bank K={k} x D={d} does not fit the "
-                         f"{_build.MAX_SHARED_BYTES}-byte shared memory of a "
-                         "block")
     assign = torch.empty((n,), dtype=torch.int32, device=x.device)
     mind = torch.empty((n,), dtype=torch.float32, device=x.device)
     _build.launch("distance_argmin", 1 if metric == "l1" else 0,

@@ -8,8 +8,9 @@ fallback from the card to the plain version.  This is the counterpart of
 the reference's ``interpret_default``.
 
 Each wrapper carries a plain integer ``launches`` that it bumps where it
-launches its kernel and nowhere else, so a run can show that its main path
-went through the kernels (``reset_launches`` / ``launch_counts``).
+launches its kernel and nowhere else (``distance_argmin``: one integer per
+metric), so a run can show that its main path went through the kernels
+(``reset_launches`` / ``launch_counts``).
 """
 
 from __future__ import annotations
@@ -53,10 +54,13 @@ def grouped_median_bits(u: torch.Tensor, assign: torch.Tensor, k: int,
 
 def distance_argmin(x: torch.Tensor, cents: torch.Tensor, *,
                     metric: str = "l2"):
-    """Closest-centroid assignment: (assign (N,) int32, mindist (N,))."""
+    """Closest-centroid assignment: (assign (N,) int32, mindist (N,)).
+    Launches are counted per metric (``distance_argmin l1`` and
+    ``distance_argmin l2`` in ``launch_counts``, beside their sum)."""
     if use_kernel_for(x):
-        distance_argmin.launches += 1
-        return _da.distance_argmin_cuda(x, cents, metric=metric)
+        out = _da.distance_argmin_cuda(x, cents, metric=metric)
+        distance_argmin.launches[metric] += 1
+        return out
     return _da.distance_argmin_plain(x, cents, metric=metric)
 
 
@@ -118,16 +122,21 @@ def flash_decode(q, k, v, t, *, scale: float, softcap: Optional[float] = None,
 _WRAPPERS = {"clustered_decode": clustered_decode,
              "paged_clustered_decode": paged_clustered_decode,
              "bitserial_median": grouped_median_bits,
-             "distance_argmin": distance_argmin,
              "flash_decode": flash_decode}
-for _fn in _WRAPPERS.values():
-    _fn.launches = 0
 
 
 def reset_launches() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    distance_argmin.launches = {"l1": 0, "l2": 0}
+
+
+reset_launches()
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+    counts = {name: fn.launches for name, fn in _WRAPPERS.items()}
+    counts["distance_argmin"] = sum(distance_argmin.launches.values())
+    counts.update({f"distance_argmin {m}": n
+                   for m, n in distance_argmin.launches.items()})
+    return counts

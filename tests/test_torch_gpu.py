@@ -77,6 +77,97 @@ def test_distance_argmin_kernel_matches_plain(cuda, metric):
     torch.testing.assert_close(m, m0, rtol=1e-5, atol=1e-5)
 
 
+def _check_distance(x, c, tag):
+    """L1 bit for bit with the sequential twin on the card; L2 as the
+    phase-3 gate holds it: >= 99.99 % of assignments equal the plain
+    version's, mindist within 1e-5."""
+    a, m = da.distance_argmin_cuda(x, c, metric="l1")
+    a_t, m_t = da.distance_argmin_sequential(x, c, metric="l1")
+    a2, m2 = da.distance_argmin_cuda(x, c, metric="l2")
+    a0, m0 = da.distance_argmin_plain(x, c, metric="l2")
+    torch.cuda.synchronize()
+    assert torch.equal(a, a_t), tag
+    assert torch.equal(m.view(torch.int32), m_t.view(torch.int32)), tag
+    agree = (a2 == a0).float().mean().item()
+    assert agree >= 0.9999, (tag, agree)
+    torch.testing.assert_close(m2, m0, rtol=1e-5, atol=1e-5)
+    return a, a2
+
+
+def _points(dev, n, d, k, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.randn(n, d, generator=g).to(dev),
+            torch.randn(k, d, generator=g).to(dev))
+
+
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 1000])
+@pytest.mark.parametrize("d", [1, 8, 12, 16, 17, 128, 300])
+def test_distance_argmin_widths_and_banks(cuda, d, k):
+    """Widths of one 16-dim chunk and of several (a ragged last chunk at
+    17 and 300) against banks on either side of the 64-centroid tile, N not
+    a multiple of the 128-point block."""
+    x, c = _points(cuda, 3001, d, k, seed=d * 7 + k)
+    _check_distance(x, c, (d, k))
+
+
+def test_distance_argmin_bank_the_old_kernel_refused(cuda):
+    """K = 4,096 x D = 128: 2 MB of centroids, over the 232,448 bytes of
+    shared memory the first design needed the whole bank to fit in."""
+    x, c = _points(cuda, 5000, 128, 4096, seed=3)
+    _check_distance(x, c, "4096 x 128")
+
+
+@pytest.mark.parametrize("d", [16, 17])
+def test_distance_argmin_duplicates_across_tiles(cuda, d):
+    """Duplicated centroids in one thread's group, in two groups of one
+    tile and across tiles (c[70] = c[40] = c[3], c[129] = c[100]), with
+    points placed on them: the first index wins in both metrics."""
+    x, c = _points(cuda, 1000, d, 130, seed=5)
+    c[40] = c[3]
+    c[70] = c[3]
+    c[129] = c[100]
+    x[:300] = c[3]
+    x[300:400] = c[100]
+    a, a2 = _check_distance(x, c, d)
+    for got in (a, a2):
+        assert (got[:300] == 3).all() and (got[300:400] == 100).all()
+
+
+def test_distance_argmin_rows_without_a_finite_distance(cuda):
+    """Rows of inf or NaN: (inf, 0) in L1, as the sequential rule gives;
+    L2 as its twin (the clamp's fmaxf turns a NaN into 0)."""
+    x, c = _points(cuda, 300, 12, 70, seed=6)
+    x[5, 3] = float("inf")
+    x[6] = float("nan")
+    x[7, 0] = float("-inf")
+    for metric in ("l1", "l2"):
+        a, m = da.distance_argmin_cuda(x, c, metric=metric)
+        a_t, m_t = da.distance_argmin_sequential(x, c, metric=metric)
+        torch.cuda.synchronize()
+        assert torch.equal(a[5:8], a_t[5:8]), metric
+        assert torch.equal(m[5:8], m_t[5:8]), metric
+    a, m = da.distance_argmin_cuda(x, c, metric="l1")
+    assert a[5:8].tolist() == [0, 0, 0]
+    assert torch.isinf(m[5:8]).all()
+
+
+def test_distance_argmin_two_runs_equal(cuda):
+    x, c = _points(cuda, 1 << 16, 16, 64, seed=7)
+    for metric in ("l1", "l2"):
+        a, m = da.distance_argmin_cuda(x, c, metric=metric)
+        b, n = da.distance_argmin_cuda(x, c, metric=metric)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        assert torch.equal(m.view(torch.int32), n.view(torch.int32))
+
+
+def test_distance_argmin_shared_memory_fits_a_block(cuda):
+    from repro_torch.kernels import _build
+
+    assert (0 < _build.query("distance_argmin_shared_bytes")
+            < _build.MAX_SHARED_BYTES)
+
+
 def _paged_view(dev, dense, t, cl, cov, bs, seed=0):
     """The dense kernel's inputs as packed paged rows: each slot's ring
     scattered into pool blocks through a shuffled block table, unmapped
@@ -148,7 +239,9 @@ def test_wrappers_count_launches(cuda):
     ops.reset_launches()
     x = torch.randn(100, 4, device=cuda)
     ops.distance_argmin(x, x[:3].contiguous())
-    assert ops.launch_counts()["distance_argmin"] == 1
+    counts = ops.launch_counts()
+    assert counts["distance_argmin"] == counts["distance_argmin l2"] == 1
+    assert counts["distance_argmin l1"] == 0
 
 
 @pytest.mark.parametrize("lead,n,d,k,bits,weighted", [

@@ -288,7 +288,10 @@ def test_distance_argmin_tie_takes_first(metric):
     np.testing.assert_array_equal(a.numpy(), np.zeros((4,), np.int32))
 
 
-def test_cpu_tensors_never_launch_the_kernel():
+@pytest.mark.parametrize("metric", ["l1", "l2"])
+def test_cpu_tensors_never_launch_the_kernel(metric):
     ops_t.reset_launches()
-    ops_t.distance_argmin(torch.zeros(3, 2), torch.zeros(2, 2))
-    assert ops_t.launch_counts()["distance_argmin"] == 0
+    ops_t.distance_argmin(torch.zeros(3, 2), torch.zeros(2, 2), metric=metric)
+    counts = ops_t.launch_counts()
+    assert counts["distance_argmin"] == 0
+    assert counts["distance_argmin l1"] == counts["distance_argmin l2"] == 0

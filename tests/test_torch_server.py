@@ -174,8 +174,9 @@ def test_reference_value_gates_kept(weights):
 @pytest.mark.parametrize("batch", [2, 3])
 def test_batch_plans_match(batch):
     """Admission order: the small-queue length sort and FIFO plans (and
-    their padding waste) equal the reference's; large queues run a
-    k-means++ fit whose draws differ (ROADMAP Queue C 2)."""
+    their padding waste) equal the reference's.  Large queues, not built
+    here, cluster through a k-means++ fit whose draws equal the
+    reference's since the threefry port (ROADMAP Queue C 2, closed)."""
     reqs, reqs_t, _ = _requests(PIECES, 0)
     for fn, fn_t in ((request_cluster.plan_batches,
                       request_cluster_t.plan_batches),
