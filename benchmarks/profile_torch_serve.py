@@ -2,7 +2,7 @@
 """Where the time of the port's qwen3-4b clustered-KV serve goes, on one
 CUDA card.
 
-    python3 benchmarks/profile_torch_serve.py [--paged]
+    python3 benchmarks/profile_torch_serve.py [--paged] [--blocking]
 
 Serves the workload of ``chip_smoke.py`` (its ``serve_workload``:
 qwen3-4b, random weights from seed 0, bf16, 8 requests through a
@@ -13,8 +13,11 @@ launches, streaming absorbs and compactions (each wrapped in a
 the CUDA kernels and host ops that take the most time, and the device
 time and launches of each of the repository's own kernels.  With
 ``--paged`` the same requests go through the paged engine
-(``PagedKVConfig(block_size=16)``, packed ragged launches).  The full
-tables go to ``chiprun_out/profile_torch_serve[_paged].txt``.
+(``PagedKVConfig(block_size=16)``, packed ragged launches); with
+``--blocking`` they are admitted by blocking prefill (``prefill_chunk=0``),
+whose prefills and ``_clusterize`` calls get ranges of their own.  The
+full tables go to
+``chiprun_out/profile_torch_serve[_paged][_blocking].txt``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--paged", action="store_true",
                     help="serve through the paged engine")
-    paged = ap.parse_args().paged
+    ap.add_argument("--blocking", action="store_true",
+                    help="admit by blocking prefill (prefill_chunk=0)")
+    args = ap.parse_args()
+    paged, blocking = args.paged, args.blocking
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -47,13 +53,20 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
-    cfg, srv, reqs, prompts = serve_workload(
-        torch, torch.device("cuda"),
-        PagedKVConfig(block_size=16) if paged else None)
+    try:
+        cfg, srv, reqs, prompts = serve_workload(
+            torch, torch.device("cuda"),
+            PagedKVConfig(block_size=16) if paged else None,
+            chunk=0 if blocking else 64)
+    except NotImplementedError as e:
+        print(f"profile_torch_serve: skipped, this tree refuses it: {e}")
+        return 0
     step = "decode_step_packed" if paged else "decode_step"
 
-    # label the three kinds of device work the engine issues
+    # label the kinds of device work the engine issues
     host_s = {step: 0.0, "absorb": 0.0, "compact": 0.0}
+    if blocking:
+        host_s.update(prefill=0.0, clusterize=0.0)
 
     def wrap(obj, name, label):
         fn = getattr(obj, name)
@@ -70,6 +83,9 @@ def main() -> int:
     wrap(server_mod.tfm, step, step)
     wrap(srv, "_absorb", "absorb")
     wrap(srv, "compact_kv", "compact")
+    if blocking:
+        wrap(server_mod.tfm, "prefill", "prefill")
+        wrap(srv, "_clusterize", "clusterize")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -86,7 +102,8 @@ def main() -> int:
                  and e.key not in host_s)
     lines = [f"card: {smi}", f"torch {torch.__version__}",
              f"qwen3-4b {cfg.n_layers} layers, "
-             f"{'paged' if paged else 'dense'} serve wall {wall:.3f} s, "
+             f"{'paged' if paged else 'dense'}"
+             f"{' blocking' if blocking else ''} serve wall {wall:.3f} s, "
              f"{int(st['decode_steps'])} engine steps, "
              f"{int(st['kv_absorbs'])} absorbs, "
              f"{int(st['kv_compactions'])} compactions",
@@ -109,7 +126,9 @@ def main() -> int:
     print(events.table(sort_by="self_device_time_total", row_limit=12))
     out = ROOT / "chiprun_out"
     out.mkdir(parents=True, exist_ok=True)
-    (out / f"profile_torch_serve{'_paged' if paged else ''}.txt").write_text(
+    name = ("profile_torch_serve" + ("_paged" if paged else "")
+            + ("_blocking" if blocking else ""))
+    (out / f"{name}.txt").write_text(
         "\n".join(lines) + "\n\nby device time\n" + by_dev
         + "\n\nby host time\n" + by_cpu + "\n")
     return 0

@@ -22,13 +22,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    5,000 x 8, K 2-8), L1 also bit for bit against its sequential twin;
    bitserial_median: ``torch.equal`` on medians and totals at the serve's
    compaction (1,152 members x 320 points x 128 dims, K=64, 16 bits,
-   count weights with zeros) and absorb (288 members, K=32) shapes and the
-   fit's streamed shape (2^20 x 16, K=64, 32 bits), each twice;
+   count weights with zeros) and absorb (288 members, K=32) shapes, a
+   blocking admission's (288 members x 2,048 points x 128 dims, K=64,
+   16 bits, 0/1 weights below the frontier) and the fit's streamed shape
+   (2^20 x 16, K=64, 32 bits), each twice;
    flash_decode: B=4, S=2048, Hq=32, Hkv=8, Dh=128, t=1500, 0 and 2500 in
    bf16, f32 and f32 + softcap 50, and against
    ``attention.decode_attention``);
 4. model agreement: the reduced qwen3 in f32 decodes (mixed and plain
-   steps, clustered cache) with the same logits on the card as on the CPU;
+   steps, clustered cache) and prefills (logits at ``last_pos`` and the
+   exact B=1 cache) with the same numbers on the card as on the CPU;
 5. serve: qwen3-4b at full width (random weights, seed 0, bf16) answers 8
    requests through the continuous engine with chunked admission and a
    clustered KV cache; the clustered_decode launch count must equal
@@ -39,6 +42,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    paged_clustered_decode launch count must equal layers x engine steps,
    bitserial_median gated as in 5, and the pool must recycle blocks and
    drain to zero;
+5c. blocking serve: the same requests and weights with ``prefill_chunk=0``
+   (the reference's default): one bucket-padded prefill an admission,
+   then ``_clusterize`` — ``compress_cache_batched`` for the 5 prompts
+   longer than R - refresh = 224, the ring alone for the other 3; no
+   absorbs, compactions > 0, clustered_decode launches = layers x engine
+   steps, bitserial_median >= compress admissions + compactions,
+   0 < prefill_pad_frac < 1; token agreement with phase 5 is printed, not
+   gated;
+5d. paged blocking serve: phase 5c's gates with paged_clustered_decode,
+   plus phase 5b's pool gates; agreement with 5c printed, not gated;
+5e. static serve: ``engine="static"`` with exact KV, the 8 requests at
+   batch 4 (left-padded prefill, plain decode attention): well-formed
+   tokens and no kernel launch, as in the reference;
 6. clustering: ``clustering.fit`` at its default, L1 medians, k=64 on
    2^20 x 16 points from a threefry k-means++ start: both of its kernels,
    distance_argmin (assignment) and bitserial_median (median update),
@@ -104,6 +120,11 @@ DA_L2_TIMED = (5000, 8, 5)
 N_LAYERS = 36
 MED_CASES = [("compaction", N_LAYERS * B * HKV, C, 16),
              ("absorb", N_LAYERS * HKV, C // 2, 16)]
+# bitserial_median at a blocking admission's clustering: _clusterize fits
+# the B=1 prefill cache of every layer at once, (36 layers x 8 kv heads)
+# members of max_seq points each, weight 1 below the frontier cov of the
+# longest prompt (1,321 - (R - refresh)) and 0 on the tail and the pad
+ADM_S, ADM_COV = 2048, 1321 - (R - 32)
 # flash_decode: qwen3-4b under the smoke's max_seq, t not a chunk multiple;
 # phase 3 also checks t = 0 (all masked) and t > S
 FD_S, FD_T = 2048, 1500
@@ -529,6 +550,28 @@ def stream_inputs(torch, dev, seed=1):
     return u, a
 
 
+def admission_inputs(torch, dev, seed=2):
+    """Words as ``_clusterize`` hands them to the median update: (layer,
+    head) members of ``ADM_S`` keys at the fit's 16-bit scale, taken over
+    the weighted points only (the pad past the prompt is drawn 8x wider, so
+    its words saturate as the pad tokens' keys may); 0/1 weights
+    ``pos < ADM_COV`` broadcast over the heads; random assignments to
+    C clusters."""
+    from repro_torch.core import quantizer
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pos = torch.arange(ADM_S, device=dev)
+    x = torch.randn(N_LAYERS, HKV, ADM_S, DH, generator=g, device=dev)
+    x = x * torch.where(pos < 1321, 1.0, 8.0)[:, None]
+    w = (pos < ADM_COV).to(torch.float32).expand(N_LAYERS, HKV, ADM_S)
+    spec = quantizer.FixedPointSpec(bits=16, scale=quantizer.auto_scale(
+        x * w[..., None], 16).unsqueeze(-2))
+    u = quantizer.to_unsigned_order(quantizer.quantize(x, spec), 16)
+    a = torch.randint(0, C, (N_LAYERS, HKV, ADM_S), generator=g, device=dev,
+                      dtype=torch.int32)
+    return u, a, w
+
+
 def check_bitserial_median(torch, bsm, dev):
     """Medians and totals bit for bit (``torch.equal``) against the plain
     version: integer weights keep every f32 vote sum exact.  Returns the
@@ -555,6 +598,23 @@ def check_bitserial_median(torch, bsm, dev):
         say(f"bitserial_median {name} ({m} members x {C + R} points x {DH} "
             f"dims, K={k}, {bits} bits, count weights): kernel == plain bit "
             "for bit (medians and totals), two runs equal")
+    u, a, w = admission_inputs(torch, dev)
+    runs = [bsm.grouped_median_bits_cuda(u, a, C, w, bits=16)
+            for _ in range(2)]
+    med0, tot0 = bsm.grouped_median_bits_plain(u, a, C, weights=w, bits=16)
+    torch.cuda.synchronize()
+    for med, tot in runs:
+        max_err = max(max_err, err(med, tot, med0, tot0))
+        if not (torch.equal(med, med0) and torch.equal(tot, tot0)):
+            raise AssertionError("bitserial_median admission: kernel != "
+                                 "plain")
+    form = ("resident" if bsm.resident_bytes(ADM_S, DH, C)
+            <= bsm.RESIDENT_MAX_BYTES else "streamed")
+    say(f"bitserial_median admission ({N_LAYERS} x {HKV} members x {ADM_S} "
+        f"points x {DH} dims, K={C}, 16 bits, weights pos < {ADM_COV}, "
+        f"{form} form): kernel == plain bit for bit (medians and totals), "
+        "two runs equal")
+    del u, a, w, runs, med0, tot0
     u, a = stream_inputs(torch, dev)
     runs = [bsm.grouped_median_bits_cuda(u, a, K_PTS, bits=32)
             for _ in range(2)]
@@ -669,6 +729,22 @@ def check_small_model(torch, dev):
         worst = max(worst, (outs[1] - outs[0]).abs().max().item())
     say(f"reduced qwen3 f32 decode: card == CPU logits (max abs err "
         f"{worst:.3e}) over 2 mixed + 4 decode steps")
+    # blocking admission's prefill: a right-padded prompt, logits of its
+    # last real position, and the exact B=1 cache padded to max_seq
+    tok = rng.integers(0, cfg.vocab, size=(1, 48)).astype(np.int32)
+    outs = [tfm.prefill(params, cfg, torch.from_numpy(tok).to(d), max_seq=64,
+                        last_pos=37)
+            for params, d in ((p_cpu, "cpu"), (p_gpu, dev))]
+    torch.testing.assert_close(outs[1][0].cpu(), outs[0][0], rtol=1e-4,
+                               atol=1e-4)
+    worst = (outs[1][0].cpu() - outs[0][0]).abs().max().item()
+    for lc, lg in zip(outs[0][1]["layers"], outs[1][1]["layers"]):
+        for key in ("k", "v"):
+            torch.testing.assert_close(lg[key].cpu(), lc[key], rtol=1e-4,
+                                       atol=1e-4)
+            worst = max(worst, (lg[key].cpu() - lc[key]).abs().max().item())
+    say(f"reduced qwen3 f32 prefill (48 tokens, last_pos 37): card == CPU "
+        f"logits and B=1 cache (max abs err {worst:.3e})")
 
 
 # ---------------------------------------------------------------------------
@@ -676,12 +752,15 @@ def check_small_model(torch, dev):
 # ---------------------------------------------------------------------------
 
 
-def serve_workload(torch, dev, paged=None, params=None):
+def serve_workload(torch, dev, paged=None, params=None, chunk=64,
+                   engine="continuous"):
     """The smoke's serve: qwen3-4b at full width (random weights from seed
     0, bf16) behind a clustered-KV Server — paged when ``paged`` is a
-    ``PagedKVConfig`` — and 8 requests.  ``params`` reuses weights made by
-    an earlier call.  Returns ``(cfg, server, requests, prompts)``;
-    benchmarks/profile_torch_serve.py profiles the same workload."""
+    ``PagedKVConfig``, with blocking admission when ``chunk`` is 0 — or,
+    with ``engine="static"``, the static engine over exact KV; and 8
+    requests.  ``params`` reuses weights made by an earlier call.  Returns
+    ``(cfg, server, requests, prompts)``; benchmarks/profile_torch_serve.py
+    and serve_times.py serve the same workload."""
     from repro_torch import configs
     from repro_torch.core.kv_compress import KVCompressConfig
     from repro_torch.core.request_cluster import Request
@@ -700,8 +779,11 @@ def serve_workload(torch, dev, paged=None, params=None):
             f"{cfg.dtype}) initialised in {time.perf_counter() - t0:.1f} s")
     ccfg = KVCompressConfig(n_clusters=64, iters=4, bits=16, keep_recent=256,
                             refresh_every=32, prompt_clusters=32)
-    scfg = ServerConfig(batch_size=4, max_seq=2048, prefill_chunk=64,
-                        kv_compress=ccfg, paged=paged)
+    if engine == "static":
+        scfg = ServerConfig(batch_size=4, max_seq=2048, engine="static")
+    else:
+        scfg = ServerConfig(batch_size=4, max_seq=2048, prefill_chunk=chunk,
+                            kv_compress=ccfg, paged=paged)
     srv = Server(cfg, scfg, params, device=dev)
     rng = np.random.default_rng(0)
     lens = rng.integers(96, 1537, size=8)
@@ -712,12 +794,25 @@ def serve_workload(torch, dev, paged=None, params=None):
     return cfg, srv, reqs, prompts
 
 
-def serve_qwen3(torch, dev, smi, paged=None, params=None):
-    """Serve the workload once, dense or paged, and hold it to its gates.
-    Returns (record, params)."""
+def check_tokens(cfg, reqs, outs, mode):
+    """Every request got its max_new_tokens tokens, all in range."""
+    for o in outs:
+        want = reqs[o.uid].max_new_tokens
+        if len(o.tokens) != want:
+            raise AssertionError(f"{mode} uid {o.uid}: {len(o.tokens)} "
+                                 f"tokens, want {want}")
+        if not all(0 <= t < cfg.padded_vocab for t in o.tokens):
+            raise AssertionError(f"{mode} uid {o.uid}: token out of range")
+
+
+def serve_qwen3(torch, dev, smi, paged=None, params=None, chunk=64):
+    """Serve the workload once, dense or paged, with chunked (``chunk``
+    > 0) or blocking admission, and hold it to its gates.  Returns
+    (record, params)."""
     from repro_torch.kernels import ops
 
-    cfg, srv, reqs, prompts = serve_workload(torch, dev, paged, params)
+    cfg, srv, reqs, prompts = serve_workload(torch, dev, paged, params,
+                                             chunk)
     lens = np.array([r.prompt_len for r in reqs])
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -726,26 +821,42 @@ def serve_qwen3(torch, dev, smi, paged=None, params=None):
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     st = srv.last_stats
-    mode = "paged" if paged is not None else "dense"
-    for o in outs:
-        want = reqs[o.uid].max_new_tokens
-        if len(o.tokens) != want:
-            raise AssertionError(f"{mode} uid {o.uid}: {len(o.tokens)} "
-                                 f"tokens, want {want}")
-        if not all(0 <= t < cfg.padded_vocab for t in o.tokens):
-            raise AssertionError(f"{mode} uid {o.uid}: token out of range")
-    if not (st["kv_absorbs"] > 0 and st["kv_compactions"] > 0):
-        raise AssertionError(f"{mode}: absorbs {st['kv_absorbs']}, "
-                             f"compactions {st['kv_compactions']}: the "
-                             "clustered path did not run")
+    mode = ("paged" if paged is not None else "dense") + (
+        "" if chunk else " blocking")
+    check_tokens(cfg, reqs, outs, mode)
+    ccfg = srv.scfg.kv_compress
+    if chunk:
+        if not (st["kv_absorbs"] > 0 and st["kv_compactions"] > 0):
+            raise AssertionError(f"{mode}: absorbs {st['kv_absorbs']}, "
+                                 f"compactions {st['kv_compactions']}: the "
+                                 "clustered path did not run")
+        need = int(st["kv_absorbs"]) + int(st["kv_compactions"])
+        what = "absorbs + compactions"
+    else:
+        # prompts longer than R - refresh build centroids at admission
+        n_comp = int((lens > ccfg.keep_recent - ccfg.refresh).sum())
+        got = (int(st["kv_admit_compress"]), int(st["kv_admit_tail"]))
+        if got != (n_comp, len(lens) - n_comp):
+            raise AssertionError(
+                f"{mode}: {got[0]} admissions through "
+                f"compress_cache_batched and {got[1]} tail-only, want "
+                f"{n_comp} and {len(lens) - n_comp}")
+        if not (st["kv_absorbs"] == 0 and st["kv_compactions"] > 0):
+            raise AssertionError(f"{mode}: absorbs {st['kv_absorbs']} "
+                                 f"(want 0), compactions "
+                                 f"{st['kv_compactions']} (want > 0)")
+        if not 0.0 < st["prefill_pad_frac"] < 1.0:
+            raise AssertionError(f"{mode}: prefill_pad_frac "
+                                 f"{st['prefill_pad_frac']}")
+        need = n_comp + int(st["kv_compactions"])
+        what = "compress admissions + compactions"
     steps = int(st["decode_steps"])
     n_med = launches["bitserial_median"]
-    need = int(st["kv_absorbs"]) + int(st["kv_compactions"])
     if not (n_med >= need and n_med > 0):
         raise AssertionError(
             f"{mode}: grouped_median_bits launched bitserial_median {n_med} "
-            f"times, want >= absorbs + compactions = {need}: the memory "
-            "manager's medians did not run on the kernel")
+            f"times, want >= {what} = {need}: the memory manager's medians "
+            "did not run on the kernel")
     kernel, other = (("paged_clustered_decode", "clustered_decode")
                      if paged is not None else
                      ("clustered_decode", "paged_clustered_decode"))
@@ -768,41 +879,76 @@ def serve_qwen3(torch, dev, smi, paged=None, params=None):
                 f"{st['launch_pad_frac']:.4f}")
     tokens = {o.uid: list(map(int, o.tokens)) for o in outs}
     digest = hashlib.sha256(json.dumps(tokens, sort_keys=True).encode())
+    admit = ("" if chunk else
+             f", {int(st['kv_admit_compress'])} compress + "
+             f"{int(st['kv_admit_tail'])} tail-only admissions, "
+             f"_clusterize {st['clusterize_s']:.3f} s, prefill_pad_frac "
+             f"{st['prefill_pad_frac']:.4f}")
     say(f"{mode} serve: 8 requests ({int(lens.sum())} prompt tokens, "
         f"{int(st['gen_tokens'])} generated) in {wall:.1f} s wall; "
         f"{steps} engine steps, {int(st['kv_absorbs'])} absorbs, "
-        f"{int(st['kv_compactions'])} compactions; {kernel} launches "
-        f"{launches[kernel]} = {cfg.n_layers} x {steps}{pool}; "
-        f"bitserial_median launches {n_med} (>= {need} absorbs + "
-        f"compactions; {n_med / steps:.3f} per engine step); tokens "
-        f"sha256 {digest.hexdigest()[:16]} (one-walk kernels: "
-        f"{SHA_ONE_WALK})")
-    say(f"[{smi}] {mode}: tokens_per_s {st['tokens_per_s']:.1f}  "
-        f"tokens_per_s_wall {st['tokens_per_s_wall']:.1f}  "
-        f"ttft_p50_ms {st['ttft_p50_ms']:.1f}  ttft_p95_ms "
-        f"{st['ttft_p95_ms']:.1f}  itl_p50_ms {st['itl_p50_ms']:.2f}  "
-        f"itl_p95_ms {st['itl_p95_ms']:.2f}")
+        f"{int(st['kv_compactions'])} compactions{admit}; {kernel} "
+        f"launches {launches[kernel]} = {cfg.n_layers} x {steps}{pool}; "
+        f"bitserial_median launches {n_med} (>= {need} {what}; "
+        f"{n_med / steps:.3f} per engine step); tokens sha256 "
+        f"{digest.hexdigest()[:16]} (one-walk kernels: {SHA_ONE_WALK})")
+    say(f"[{smi}] {mode}: wall_s {wall:.3f}  tokens_per_s "
+        f"{st['tokens_per_s']:.1f}  tokens_per_s_wall "
+        f"{st['tokens_per_s_wall']:.1f}  ttft_p50_ms "
+        f"{st['ttft_p50_ms']:.1f}  ttft_p95_ms {st['ttft_p95_ms']:.1f}  "
+        f"itl_p50_ms {st['itl_p50_ms']:.2f}  itl_p95_ms "
+        f"{st['itl_p95_ms']:.2f}"
+        + ("" if chunk else f"  clusterize_s {st['clusterize_s']:.3f}  "
+           f"prefill_pad_frac {st['prefill_pad_frac']:.4f}"))
     return ({"n_layers": cfg.n_layers, "stats": st, "wall_s": wall,
              "launches": launches, "engine_steps": steps,
              "tokens": tokens, "tokens_sha256": digest.hexdigest()[:16]},
             srv.params)
 
 
-def compare_tokens(dense, paged):
-    """How many requests' tokens the paged serve shares with the dense
-    serve, and where each other request first differs (not gated: the
-    trunk GEMMs see other row counts, so cuBLAS may round differently)."""
+def compare_tokens(dense, paged, what="paged vs dense"):
+    """How many requests' tokens the second serve shares with the first,
+    and where each other request first differs (not gated: the trunk GEMMs
+    see other row counts, so cuBLAS may round differently)."""
     first = {}
     for uid, want in dense["tokens"].items():
         got = paged["tokens"][uid]
         diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
         if diff:
             first[uid] = diff[0]
-    say(f"paged vs dense tokens: {len(dense['tokens']) - len(first)} of "
+    say(f"{what} tokens: {len(dense['tokens']) - len(first)} of "
         f"{len(dense['tokens'])} requests equal"
         + ("" if not first else "; first differing position by uid "
            + json.dumps(first)))
     return first
+
+
+def serve_static(torch, dev, smi, params):
+    """Phase 5e: the static engine over exact KV (the reference's
+    baseline): the batcher's batches one at a time, each a left-padded
+    prefill then plain decode.  It runs none of the kernels."""
+    from repro_torch.kernels import ops
+
+    cfg, srv, reqs, prompts = serve_workload(torch, dev, params=params,
+                                             engine="static")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = srv.serve(reqs, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check_tokens(cfg, reqs, outs, "static")
+    if any(launches.values()):
+        raise AssertionError(f"static: kernels launched {launches}, want "
+                             "none (static decode is plain attention)")
+    tokens = {o.uid: list(map(int, o.tokens)) for o in outs}
+    digest = hashlib.sha256(json.dumps(tokens, sort_keys=True).encode())
+    st = srv.last_stats
+    say(f"[{smi}] static serve: 8 requests at batch 4 in {wall:.3f} s "
+        f"wall, plan_waste {st['plan_waste']:.4f}, no kernel launch; "
+        f"tokens sha256 {digest.hexdigest()[:16]}")
+    return {"wall_s": wall, "stats": st, "launches": launches,
+            "tokens": tokens, "tokens_sha256": digest.hexdigest()[:16]}
 
 
 # ---------------------------------------------------------------------------
@@ -1229,6 +1375,10 @@ def timings(torch, cd, pcd, da, bsm, fd, dev):
     tm["bitserial_median"] = time_median(torch, bsm, u, a, k, w, bits,
                                          plain_n=10)
     del u, a, w
+    u, a, w = admission_inputs(torch, dev)
+    tm["bitserial_median admission"] = time_median(torch, bsm, u, a, C, w,
+                                                   16, plain_n=3)
+    del u, a, w
     u, a = stream_inputs(torch, dev)
     tm["bitserial_median streamed"] = time_median(torch, bsm, u, a, K_PTS,
                                                   None, 32, plain_n=3)
@@ -1287,9 +1437,25 @@ def main() -> int:
     # phase 5b: the same requests through the paged engine
     paged = serve_qwen3(torch, dev, smi, PagedKVConfig(block_size=16),
                         params)[0]
-    del params
     record["serve_paged"] = paged
     record["paged_vs_dense_first_diff"] = compare_tokens(serve, paged)
+
+    # phase 5c: blocking admission, dense
+    blocking = serve_qwen3(torch, dev, smi, None, params, chunk=0)[0]
+    record["serve_blocking"] = blocking
+    record["blocking_vs_chunked_first_diff"] = compare_tokens(
+        serve, blocking, "blocking vs chunked (dense)")
+
+    # phase 5d: blocking admission, paged
+    paged_blk = serve_qwen3(torch, dev, smi, PagedKVConfig(block_size=16),
+                            params, chunk=0)[0]
+    record["serve_paged_blocking"] = paged_blk
+    record["paged_vs_dense_blocking_first_diff"] = compare_tokens(
+        blocking, paged_blk, "paged vs dense (blocking)")
+
+    # phase 5e: the static engine over exact KV
+    record["serve_static"] = serve_static(torch, dev, smi, params)
+    del params
 
     # phase 6: k-medians through both clustering kernels, the pipeline
     km = kmedians(torch, dev)
@@ -1309,11 +1475,14 @@ def main() -> int:
             + (f" at {v['shape']}" if "shape" in v else ""))
     per_step = {mode: rec["launches"]["bitserial_median"]
                 / rec["engine_steps"]
-                for mode, rec in (("dense", serve), ("paged", paged))}
+                for mode, rec in (("dense", serve), ("paged", paged),
+                                  ("dense blocking", blocking),
+                                  ("paged blocking", paged_blk))}
     say(f"launches per engine step: clustered_decode (dense) and "
         f"paged_clustered_decode (paged) {serve['n_layers']}; "
-        f"bitserial_median {per_step['dense']:.3f} dense, "
-        f"{per_step['paged']:.3f} paged (the memory manager's k-medians); "
+        f"bitserial_median "
+        + ", ".join(f"{v:.3f} {k}" for k, v in per_step.items())
+        + " (the memory manager's k-medians); "
         f"distance_argmin {serve['launches']['distance_argmin']} in the "
         f"dense serve (the memory manager assigns with the plain distance, "
         f"as the reference does) and {km['launches']} in the k-medians fit, "
@@ -1333,6 +1502,7 @@ def main() -> int:
              source="src/repro_torch/csrc/clustered_decode.cu",
              replaces="src/repro/kernels/clustered_decode.py:107",
              launches=serve["launches"]["clustered_decode"],
+             launches_blocking=blocking["launches"]["clustered_decode"],
              max_abs_err=cd_err, ms=tm["clustered_decode"]["ms"],
              plain_ms=tm["clustered_decode"]["plain_ms"],
              bound_ms=tm["clustered_decode"]["bound_ms"],
@@ -1342,6 +1512,8 @@ def main() -> int:
              source="src/repro_torch/csrc/paged_clustered_decode.cu",
              replaces="src/repro/kernels/paged_clustered_decode.py:53",
              launches=paged["launches"]["paged_clustered_decode"],
+             launches_blocking=paged_blk["launches"][
+                 "paged_clustered_decode"],
              max_abs_err=pcd_err, ms=tm["paged_clustered_decode"]["ms"],
              plain_ms=tm["paged_clustered_decode"]["plain_ms"],
              bound_ms=tm["paged_clustered_decode"]["bound_ms"],
@@ -1366,11 +1538,15 @@ def main() -> int:
              source="src/repro_torch/csrc/bitserial_median.cu",
              replaces="src/repro/kernels/bitserial_median.py:35",
              launches=serve["launches"]["bitserial_median"],
+             launches_blocking=blocking["launches"]["bitserial_median"],
              max_abs_err=bsm_err, ms=tm["bitserial_median"]["ms"],
              plain_ms=tm["bitserial_median"]["plain_ms"],
              bound_ms=tm["bitserial_median"]["bound_ms"],
              bound_by=tm["bitserial_median"]["bound_by"],
-             library_ms=None),
+             library_ms=None,
+             # the blocking serve's admission shape (admission_inputs)
+             admission={k: tm["bitserial_median admission"][k] for k in
+                        ("ms", "plain_ms", "bound_ms", "bound_by")}),
         dict(name="flash_decode", route="cuda",
              source="src/repro_torch/csrc/flash_decode.cu",
              replaces="src/repro/kernels/flash_decode.py:29",

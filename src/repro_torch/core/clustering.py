@@ -102,41 +102,56 @@ def assign_points(x: torch.Tensor, cents: torch.Tensor, metric: str,
 # ---------------------------------------------------------------------------
 
 
+def _take(x: torch.Tensor, idx) -> torch.Tensor:
+    """Row ``idx`` of every member: x (..., n, D), idx an int or (...,)
+    → (..., D)."""
+    lead, d = x.shape[:-2], x.shape[-1]
+    idx = torch.as_tensor(idx, device=x.device).long().expand(lead)
+    return torch.gather(x, -2, idx[..., None, None].expand(lead + (1, d))
+                        )[..., 0, :]
+
+
 def init_random(rng: torch.Tensor, x: torch.Tensor, k: int):
-    """k distinct points drawn by the ``prng`` key ``rng``."""
-    idx = prng.choice(rng, x.shape[0], (k,), replace=False)
-    return x[idx.to(x.device).long()]
+    """k distinct points drawn by the ``prng`` key ``rng``; x (..., n, D),
+    every member taking the same indices (a vmap over one key)."""
+    idx = prng.choice(rng, x.shape[-2], (k,), replace=False)
+    return x[..., idx.to(x.device).long(), :]
 
 
 def init_kmeanspp(rng: torch.Tensor, x: torch.Tensor, k: int,
                   metric: str = "l2", weights=None):
-    """k-means++ (D^2 sampling; D^1 for L1/k-medians) on one point set
-    (N, D), drawn by the ``prng`` key ``rng``.  Optional point ``weights``
-    scale the sampling probabilities — zero-weight points are never chosen
-    as seeds."""
-    n, d = x.shape
+    """k-means++ (D^2 sampling; D^1 for L1/k-medians) drawn by the
+    ``prng`` key ``rng``.  Optional point ``weights`` scale the sampling
+    probabilities — zero-weight points are never chosen as seeds.
+
+    x (..., n, D), weights (..., n): leading axes are members drawn with
+    the one key, as the reference's fit is when vmapped over members (its
+    batched compaction calls every member with seed 0).  Picks stay on
+    the device: no host sync per draw."""
+    n, d = x.shape[-2:]
     r0, key = prng.split(rng)
 
     def probs_of(w):
-        wsum = w.sum()
+        wsum = w.sum(-1, keepdim=True)
         return torch.where(wsum > 0, w / torch.clamp(wsum, min=1e-30),
-                           torch.full((n,), 1.0 / n, device=x.device))
+                           torch.full_like(w, 1.0 / n))
 
     if weights is None:
-        first = x[int(prng.randint(r0, (), 0, n))]
+        first = _take(x, prng.randint(r0, (), 0, n))
     else:
-        first = x[int(prng.choice(r0, n, p=probs_of(weights)))]
-    cents = torch.zeros((k, d), dtype=x.dtype, device=x.device)
-    cents[0] = first
-    mind = pairwise_dist(x, first[None, :], metric)[:, 0]
+        first = _take(x, prng.choice(r0, n, p=probs_of(weights)))
+    cents = torch.zeros(x.shape[:-2] + (k, d), dtype=x.dtype, device=x.device)
+    cents[..., 0, :] = first
+    mind = pairwise_dist(x, first[..., None, :], metric)[..., 0]
     for i in range(1, k):
         key, sub = prng.split(key)
         w = mind if metric == "l2" else torch.clamp(mind, min=0.0)
         if weights is not None:
             w = w * weights
-        c = x[int(prng.choice(sub, n, p=probs_of(w)))]
-        cents[i] = c
-        mind = torch.minimum(mind, pairwise_dist(x, c[None, :], metric)[:, 0])
+        c = _take(x, prng.choice(sub, n, p=probs_of(w)))
+        cents[..., i, :] = c
+        mind = torch.minimum(mind,
+                             pairwise_dist(x, c[..., None, :], metric)[..., 0])
     return cents
 
 
@@ -226,12 +241,11 @@ def fit(x: torch.Tensor, cfg: ClusterConfig, init_centroids=None, *,
     zero-weight points never influence centroids, counts, inertia or the
     fixed-point scale; integer weights > 1 treat a point as a summary of
     that many originals.  Without ``init_centroids`` the start is drawn by
-    ``cfg.init`` from ``prng.PRNGKey(cfg.seed)``, as the reference draws it;
-    batched inputs need ``init_centroids``.
+    ``cfg.init`` from ``prng.PRNGKey(cfg.seed)``, as the reference draws it
+    — for batched inputs (..., N, D) with that one key for every member, as
+    the reference's vmapped fits do.
     """
     if init_centroids is None:
-        if x.dim() != 2:
-            raise ValueError("a batched fit needs init_centroids")
         rng = prng.PRNGKey(cfg.seed)
         init_centroids = (
             init_kmeanspp(rng, x, cfg.k, cfg.metric, weights=weights)

@@ -1,5 +1,5 @@
 """KV-cache memory management via bit-serial k-medians clustering (port of
-the serving subset of ``repro.core.kv_compress``).
+``repro.core.kv_compress`` without its mesh (``axis_name``) paths).
 
 A slot's KV is kept as C key centroids per head (bit-serial medians of the
 keys, weighted by how many keys each stands for), the mean value of each
@@ -15,6 +15,7 @@ The (slot, head) members are batch dimensions of one k-medians fit.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -51,6 +52,14 @@ def coverage_frontier(pos: int, cfg: KVCompressConfig) -> int:
     return max(0, min(pos, pos - cfg.keep_recent + cfg.refresh))
 
 
+class CompressedKV(NamedTuple):
+    k_cents: torch.Tensor     # (H, C, Dh) key centroids (bit-serial medians)
+    v_cents: torch.Tensor     # (H, C, Dh) mean value per cluster
+    counts: torch.Tensor      # (H, C)
+    k_tail: torch.Tensor      # (H, R, Dh) exact recent keys
+    v_tail: torch.Tensor      # (H, R, Dh)
+
+
 def ring_positions(r: int, t) -> torch.Tensor:
     """Absolute position held by each of the r ring slots at time t (next
     write goes to slot t % r).  t scalar or (B,) → (..., r).  The mod is a
@@ -82,6 +91,62 @@ def compress_head(keys, values, cfg: KVCompressConfig, seed: int = 0,
     counts = onehot.sum(-2)
     v_cents = vsum / torch.clamp(counts, min=1.0).unsqueeze(-1)
     return res.centroids, v_cents, counts
+
+
+def compress_cache(k_cache, v_cache, cfg: KVCompressConfig) -> CompressedKV:
+    """k/v (S, H, Dh) → CompressedKV.  The most recent ``keep_recent``
+    positions stay exact; the older ones are clustered per head (the heads
+    are members of one fit)."""
+    s = k_cache.shape[0]
+    r = min(cfg.keep_recent, s)
+    head = s - r
+    k_cents, v_cents, counts = compress_head(
+        k_cache[:head].permute(1, 0, 2), v_cache[:head].permute(1, 0, 2), cfg)
+    return CompressedKV(k_cents=k_cents, v_cents=v_cents, counts=counts,
+                        k_tail=k_cache[head:].permute(1, 0, 2),
+                        v_tail=v_cache[head:].permute(1, 0, 2))
+
+
+def _tail_ring_slice(kb, vb, lb, r: int):
+    """Last r positions of a slot's chronological cache, laid out in ring
+    order (position p at slot p % r).  kb/vb (..., S, H, Dh), lb the valid
+    length: a scalar, or (...,) for a batch of slots."""
+    lb = torch.as_tensor(lb, device=kb.device)
+    start = torch.clamp(lb - r, min=0)[..., None]
+    s = torch.arange(r, device=kb.device)
+    src = start + torch.remainder(s - start, r)             # (..., r)
+    idx = src.long()[..., None, None].expand(src.shape + kb.shape[-2:])
+    return torch.gather(kb, -3, idx), torch.gather(vb, -3, idx)
+
+
+def compress_cache_batched(k, v, lengths, cfg: KVCompressConfig):
+    """Exact slot caches → clustered layout in one batched fit.
+
+    k/v (B, S, H, Dh) chronological slot buffers, lengths (B,) valid
+    counts.  Every (slot, head) is a member of one k-medians fit started
+    by k-means++ from seed 0, as the reference's vmap over batch ⊕ head
+    starts each; positions at or past a slot's frontier (its tail, and
+    padding) carry weight 0."""
+    b, s, h, _ = k.shape
+    r = min(cfg.keep_recent, s)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=k.device)
+    cov = torch.minimum(torch.clamp(lengths - r + cfg.refresh, min=0),
+                        lengths)
+    pos = torch.arange(s, device=k.device)
+    w = (pos[None, :] < cov[:, None]).to(torch.float32)      # (B, S)
+    f32 = torch.float32
+    k_cents, v_cents, counts = compress_head(
+        k.to(f32).permute(0, 2, 1, 3), v.to(f32).permute(0, 2, 1, 3), cfg,
+        weights=w[:, None, :].expand(b, h, s))
+    k_tail, v_tail = _tail_ring_slice(k, v, lengths, r)
+    return {
+        "k_cents": k_cents.permute(0, 2, 1, 3).to(k.dtype).contiguous(),
+        "v_cents": v_cents.permute(0, 2, 1, 3).to(v.dtype).contiguous(),
+        "counts": counts.permute(0, 2, 1).contiguous(),      # (B, C, H)
+        "k_tail": k_tail.to(k.dtype),
+        "v_tail": v_tail.to(v.dtype),
+        "cov": cov.to(torch.int32),
+    }
 
 
 def _members(cache):
@@ -183,3 +248,34 @@ def absorb_chunk(cache, lengths, target_cov, cfg: KVCompressConfig):
     ncnt = torch.cat([ncnt, torch.zeros((b, h, c - budget),
                                         dtype=ncnt.dtype, device=dev)], dim=2)
     return _merge(cache, new_cov > cov, nk, nv, ncnt, new_cov)
+
+
+def clustered_attention(q, ckv: CompressedKV, *, scale: float):
+    """q (H, Dh) → out (H, Dh) by attention over [centroids ⊕ exact tail]:
+    centroid c with m keys gets a +log(m) logit bias (it stands for m
+    keys of the same score); empty centroids are masked."""
+    f32 = torch.float32
+    qf = q.to(f32)
+    s_c = torch.einsum("hd,hcd->hc", qf, ckv.k_cents.to(f32))
+    s_c = s_c * scale + torch.log(torch.clamp(ckv.counts, min=1e-9))
+    s_c = torch.where(ckv.counts > 0, s_c, torch.full_like(s_c, -1e30))
+    s_t = torch.einsum("hd,hrd->hr", qf, ckv.k_tail.to(f32)) * scale
+    s = torch.cat([s_c, s_t], dim=1)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    v_all = torch.cat([ckv.v_cents.to(f32), ckv.v_tail.to(f32)], dim=1)
+    return torch.einsum("hc,hcd->hd", p, v_all).to(q.dtype)
+
+
+def exact_attention(q, k_cache, v_cache, *, scale: float):
+    """Oracle for quality evaluation: q (H, Dh), caches (S, H, Dh)."""
+    qf = q.to(torch.float32)
+    s = torch.einsum("hd,shd->hs", qf, k_cache.to(torch.float32)) * scale
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("hs,shd->hd", p,
+                        v_cache.to(torch.float32)).to(q.dtype)
+
+
+def memory_ratio(s: int, cfg: KVCompressConfig) -> float:
+    return s / float(cfg.n_clusters + cfg.keep_recent)

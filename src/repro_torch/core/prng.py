@@ -106,38 +106,42 @@ def randint(key: torch.Tensor, shape: Shape, minval: int,
 
 
 def xla_cumsum(p: torch.Tensor) -> torch.Tensor:
-    """1-D float32 inclusive cumsum in the order XLA's CPU backend adds
-    (``jnp.cumsum``): rows of 16 summed left to right, each row offset by
-    the cumsum of the row totals before it, recursively."""
-    n = p.shape[0]
+    """float32 inclusive cumsum along the last axis in the order XLA's CPU
+    backend adds (``jnp.cumsum``): rows of 16 summed left to right, each
+    row offset by the cumsum of the row totals before it, recursively.
+    Leading axes are independent members (a vmapped cumsum)."""
+    n = p.shape[-1]
+    lead = p.shape[:-1]
     m = -(-n // _SCAN_BASE)
-    rows = torch.zeros(m * _SCAN_BASE, dtype=p.dtype, device=p.device)
-    rows[:n] = p
-    rows = rows.reshape(m, _SCAN_BASE)
-    acc = torch.zeros(m, dtype=p.dtype, device=p.device)
+    rows = torch.zeros(lead + (m * _SCAN_BASE,), dtype=p.dtype,
+                       device=p.device)
+    rows[..., :n] = p
+    rows = rows.reshape(lead + (m, _SCAN_BASE))
+    acc = torch.zeros(lead + (m,), dtype=p.dtype, device=p.device)
     cols = []
     for j in range(_SCAN_BASE):
-        acc = acc + rows[:, j]
+        acc = acc + rows[..., j]
         cols.append(acc)
-    inner = torch.stack(cols, 1)
+    inner = torch.stack(cols, -1)
     if m == 1:
-        return inner[0, :n]
-    pre = xla_cumsum(inner[:, -1])
-    excl = torch.cat([pre.new_zeros(1), pre[:-1]])
-    return (inner + excl[:, None]).reshape(-1)[:n]
+        return inner[..., 0, :n]
+    pre = xla_cumsum(inner[..., -1])
+    excl = torch.cat([pre.new_zeros(lead + (1,)), pre[..., :-1]], -1)
+    return (inner + excl[..., None]).reshape(lead + (-1,))[..., :n]
 
 
 def searchsorted_left(sorted_arr: torch.Tensor,
                       query: torch.Tensor) -> torch.Tensor:
     """Left insertion index by jax's fixed-depth binary search
     (``jnp.searchsorted(method='scan')``), so the answer matches jax's
-    even where ``sorted_arr`` is not monotone."""
-    n = sorted_arr.shape[0]
+    even where ``sorted_arr`` is not monotone.  sorted_arr (..., n),
+    query (..., q) with the same leading axes → (..., q) int32."""
+    n = sorted_arr.shape[-1]
     low = torch.zeros(query.shape, dtype=torch.int64, device=query.device)
     high = torch.full(query.shape, n, dtype=torch.int64, device=query.device)
     for _ in range(int(math.ceil(math.log2(n + 1)))):
         mid = (low + high) // 2
-        go_left = query <= sorted_arr[mid]
+        go_left = query <= torch.gather(sorted_arr, -1, mid)
         low, high = torch.where(go_left, low, mid), torch.where(go_left, mid,
                                                                 high)
     return high.to(torch.int32)
@@ -159,7 +163,9 @@ def choice(key: torch.Tensor, n: int, shape: Shape = (), replace: bool = True,
            p=None) -> torch.Tensor:
     """Draws from range(n) (int32 of ``shape``): uniform with or without
     replacement, or by probabilities ``p`` (n,) with replacement — a
-    cumsum and a search of p_cuml[-1] · (1 - uniform)."""
+    cumsum and a search of p_cuml[-1] · (1 - uniform).  ``p`` (..., n)
+    draws for every leading member with the one key, as a vmap over
+    members does (→ (..., *shape))."""
     shape = _shape(shape)
     n_draws = math.prod(shape)
     if p is None:
@@ -173,8 +179,9 @@ def choice(key: torch.Tensor, n: int, shape: Shape = (), replace: bool = True,
         raise NotImplementedError("choice(p=..., replace=False) (the Gumbel "
                                   "top-k draw) is not ported")
     p = p.to(torch.float32)
-    if p.shape != (n,):
-        raise ValueError(f"p has shape {tuple(p.shape)}, want ({n},)")
+    if p.shape[-1] != n:
+        raise ValueError(f"p has shape {tuple(p.shape)}, want (..., {n})")
+    lead = p.shape[:-1]
     cum = xla_cumsum(p)
-    r = cum[-1] * (1.0 - uniform(key, shape).to(p.device))
-    return searchsorted_left(cum, r.reshape(-1)).reshape(shape)
+    r = cum[..., -1:] * (1.0 - uniform(key, shape).to(p.device).reshape(-1))
+    return searchsorted_left(cum, r).reshape(lead + shape)

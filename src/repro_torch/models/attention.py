@@ -1,8 +1,10 @@
 """Attention for the decoder-only GQA serving path (port of the 'G' subset
-of ``repro.models.attention``): the exact decode cache and the clustered
+of ``repro.models.attention``): chunked online-softmax prefill, the exact
+decode cache (optionally int8 with per-head scales) and the clustered
 [median centroids ⊕ exact tail ring] cache of the paper's memory manager.
 
-Cache leaves keep the reference's layouts: exact k/v (B, Sc, Hkv, Dh);
+Cache leaves keep the reference's layouts: exact k/v (B, Sc, Hkv, Dh)
+(int8: plus k/v_scale (Hkv,) f32);
 clustered k/v_cents (B, C, Hkv, Dh), counts (B, C, Hkv) f32, k/v_tail
 (B, R, Hkv, Dh) in ring order, cov (B,) int32.  Decode writes the new keys
 and values into the cache IN PLACE (and returns the cache): an engine step
@@ -30,6 +32,57 @@ def _softcap(s, cap: Optional[float]):
     if cap is None:
         return s
     return torch.tanh(s / cap) * cap
+
+
+def chunked_attention(q, k, v, *, causal: bool, scale: float,
+                      window: Optional[int] = None,
+                      softcap: Optional[float] = None,
+                      q_offset: int = 0, chunk_kv: int = 1024):
+    """Online-softmax attention over ``chunk_kv``-key chunks, in the
+    reference's f32 order: no (Sq, Skv) score tensor is ever built.
+
+    q (B, Sq, Hq, Dh), k (B, Skv, Hkv, Dh), v (B, Skv, Hkv, Dv)
+    → (B, Sq, Hq, Dv).  Hq must be a multiple of Hkv (GQA grouping)."""
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = hq // hkv
+    chunk_kv = min(chunk_kv, skv)
+    dev = q.device
+    f32 = torch.float32
+    qh = q.to(f32).reshape(b, sq, hkv, g, dh).permute(0, 2, 3, 1, 4)
+    qpos = q_offset + torch.arange(sq, device=dev)              # (Sq,)
+    m = torch.full((b, hkv, g, sq), NEG, dtype=f32, device=dev)
+    lsum = torch.zeros((b, hkv, g, sq), dtype=f32, device=dev)
+    acc = torch.zeros((b, hkv, g, sq, dv), dtype=f32, device=dev)
+    for c0 in range(0, skv, chunk_kv):
+        # the reference zero-pads the last chunk; its pad keys are masked
+        kb = k[:, c0:c0 + chunk_kv].to(f32).permute(0, 2, 1, 3)
+        vb = v[:, c0:c0 + chunk_kv].to(f32).permute(0, 2, 1, 3)
+        s = torch.matmul(qh, kb[:, :, None].transpose(-1, -2)) * scale
+        s = _softcap(s, softcap)
+        kpos = c0 + torch.arange(kb.shape[2], device=dev)        # (C,)
+        ok = torch.ones((sq, kpos.shape[0]), dtype=torch.bool, device=dev)
+        if causal:
+            ok = ok & (qpos[:, None] >= kpos[None, :])
+        if window is not None:
+            ok = ok & (qpos[:, None] - kpos[None, :] < window)
+        s = torch.where(ok, s, torch.full_like(s, NEG))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        lsum = lsum * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.matmul(p, vb[:, :, None])
+        m = m_new
+    out = acc / torch.clamp(lsum, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv).to(q.dtype)
+
+
+def ring_slot_positions(cache_size: int, t):
+    """Absolute position stored in each ring slot at time t (next write =
+    t); t scalar → (W,), or (B,) → (B, W).  Delegates to the canonical
+    ring math in core.kv_compress."""
+    return ring_positions(cache_size, t)
 
 
 def decode_attention(q, k_cache, v_cache, *, t, scale: float,
@@ -113,13 +166,48 @@ def _scale(cfg: ModelConfig) -> float:
             else cfg.head_dim ** -0.5)
 
 
+def attn_prefill(p, x, cfg: ModelConfig, *, layer_kind: str, positions,
+                 kv_repeat: int = 1, chunk_kv: int = 1024):
+    """Causal prefill of a global-attention ('G') layer: returns (y, cache)
+    with the exact k/v of every position, (B, S, Hkv, Dh)."""
+    if layer_kind != "G":
+        raise NotImplementedError(
+            f"layer kind {layer_kind!r}: only global attention ('G') is "
+            "ported (ROADMAP Queue A item 3)")
+    q, k, v = _qkv(p, x, cfg, positions, kv_repeat)
+    out = chunked_attention(q, k, v, causal=True, scale=_scale(cfg),
+                            softcap=cfg.attn_logit_softcap,
+                            chunk_kv=chunk_kv)
+    b, s = out.shape[:2]
+    y = out.reshape(b, s, -1) @ p["wo"]
+    return y, {"k": k, "v": v}
+
+
 def init_cache_attn(cfg: ModelConfig, batch: int, max_seq: int,
-                    kv_repeat: int = 1, device=None):
-    """Exact KV cache of a global-attention layer."""
+                    kv_repeat: int = 1, device=None, quantized: bool = False):
+    """Exact KV cache of a global-attention layer; ``quantized``: int8 with
+    a static per-head scale (the reference starts it at 1; a caller
+    calibrates it)."""
     dt = cdtype(cfg)
-    shape = (batch, max_seq, cfg.n_kv_heads * kv_repeat, cfg.head_dim)
+    hkv = cfg.n_kv_heads * kv_repeat
+    shape = (batch, max_seq, hkv, cfg.head_dim)
+    if quantized:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.ones(hkv, device=device),
+                "v_scale": torch.ones(hkv, device=device)}
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _cache_read(cache, cfg: ModelConfig):
+    """Dequantize-on-read for int8 caches; identity otherwise."""
+    if "k_scale" not in cache:
+        return cache["k"], cache["v"]
+    dt = cdtype(cfg)
+    k = cache["k"].to(dt) * cache["k_scale"][None, None, :, None].to(dt)
+    v = cache["v"].to(dt) * cache["v_scale"][None, None, :, None].to(dt)
+    return k, v
 
 
 def _ring_write_(buf: torch.Tensor, new: torch.Tensor,
@@ -151,7 +239,16 @@ def _ring_write_(buf: torch.Tensor, new: torch.Tensor,
 
 def _cache_write(cache, k_new, v_new, slot):
     """k/v_new (B, L, Hkv, Dh) into the exact cache at ``slot`` (B, L),
-    in place; out-of-range slots (masked chunk rows) are dropped."""
+    in place; out-of-range slots (masked chunk rows) are dropped.  An int8
+    cache takes round(x / scale) clipped to ±127 (``torch.round`` rounds
+    half to even, as ``jnp.round`` does)."""
+    if "k_scale" in cache:
+        def quant(x, sc):
+            x = x.to(torch.float32) / sc[None, None, :, None]
+            return torch.clamp(torch.round(x), -127, 127).to(torch.int8)
+
+        k_new = quant(k_new, cache["k_scale"])
+        v_new = quant(v_new, cache["v_scale"])
     _ring_write_(cache["k"], k_new, slot)
     _ring_write_(cache["v"], v_new, slot)
     return cache["k"], cache["v"]
@@ -327,7 +424,7 @@ def attn_decode(p, x, cfg: ModelConfig, *, layer_kind: str, cache, t,
     if layer_kind != "G":
         raise NotImplementedError(
             f"layer kind {layer_kind!r}: only global attention ('G') is "
-            "ported (ROADMAP Queue A item 9)")
+            "ported (ROADMAP Queue A items 3 and 8)")
     b, l = x.shape[0], x.shape[1]
     dev = x.device
     tb = per_slot(t, b, dev)
@@ -340,12 +437,13 @@ def attn_decode(p, x, cfg: ModelConfig, *, layer_kind: str, cache, t,
     slot = torch.clamp(positions, max=sc - 1)
     slot = torch.where(ri < cl[:, None], slot, torch.full_like(slot, sc))
     _cache_write(cache, k, v, slot)
+    k_read, v_read = _cache_read(cache, cfg)
     if chunked:
-        out = decode_attention(q, cache["k"], cache["v"], t=tb, chunk_len=cl,
+        out = decode_attention(q, k_read, v_read, t=tb, chunk_len=cl,
                                scale=_scale(cfg),
                                softcap=cfg.attn_logit_softcap)
     else:
-        out = decode_attention(q[:, 0], cache["k"], cache["v"], t=tb + 1,
+        out = decode_attention(q[:, 0], k_read, v_read, t=tb + 1,
                                scale=_scale(cfg),
                                softcap=cfg.attn_logit_softcap)
     y = out.reshape(b, l, -1) @ p["wo"]

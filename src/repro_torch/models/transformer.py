@@ -1,5 +1,5 @@
 """Model assembly for serving a decoder-only, all-'G' GQA stack (port of
-the decode subset of ``repro.models.transformer``).
+the prefill and decode subset of ``repro.models.transformer``).
 
 Parameters: ``{"embed": {"table"}, "layers": [per-layer dict], "final_norm"}``
 where each layer dict has the reference's keys ("norm1", "attn", "norm2",
@@ -7,7 +7,8 @@ where each layer dict has the reference's keys ("norm1", "attn", "norm2",
 with a leading layer axis; the port keeps one entry per layer and runs a
 Python loop over them (``bridge`` converts between the two).  The decode
 cache is ``{"layers": [per-layer leaf]}`` with the reference's leaf
-layouts, and is updated in place by :func:`decode_step`.
+layouts; :func:`prefill` builds an exact one and :func:`decode_step`
+updates a cache in place.
 """
 
 from __future__ import annotations
@@ -46,18 +47,18 @@ def check_supported(cfg: ModelConfig) -> None:
     problems = []
     if set(layer_kinds(cfg)) - {"G"}:
         problems.append(f"layer pattern {cfg.layer_pattern!r} (only 'G' is "
-                        "ported; ROADMAP Queue A item 9)")
+                        "ported; ROADMAP Queue A items 3 and 8)")
     if cfg.moe is not None:
-        problems.append("MoE layers (ROADMAP Queue A item 9)")
+        problems.append("MoE layers (ROADMAP Queue A item 8)")
     if cfg.attn_kind != "gqa":
         problems.append(f"attn_kind {cfg.attn_kind!r} (ROADMAP Queue A "
-                        "item 9)")
+                        "item 8)")
     if cfg.is_encdec or cfg.frontend is not None:
         problems.append("encoder-decoder / modality frontends (ROADMAP "
-                        "Queue A item 9)")
+                        "Queue A item 8)")
     if cfg.pos_kind != "rope":
         problems.append(f"pos_kind {cfg.pos_kind!r} (ROADMAP Queue A "
-                        "item 9)")
+                        "item 8)")
     if problems:
         raise NotImplementedError(f"model '{cfg.name}': " + "; ".join(problems))
 
@@ -122,10 +123,10 @@ def init_sublayer_cache(cfg: ModelConfig, kind: str, batch: int,
             cfg, batch, n_clusters=kv_clusters, tail=kv_tail,
             kv_repeat=kv_repeat, device=device, pool_blocks=kv_pool_blocks,
             block_size=kv_block_size)
-    if kv_mode != "exact":
-        raise NotImplementedError(f"kv_mode {kv_mode!r} is not ported")
+    if kv_mode not in ("exact", "int8"):
+        raise ValueError(f"kv_mode {kv_mode!r}")
     return attn.init_cache_attn(cfg, batch, max_seq, kv_repeat,
-                                device=device)
+                                device=device, quantized=kv_mode == "int8")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -143,6 +144,42 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                             kv_clusters, kv_tail, kv_pool_blocks,
                             kv_block_size, dev)
         for k in layer_kinds(cfg)]}
+
+
+def sublayer_prefill(p, h, cfg: ModelConfig, kind: str, *, positions,
+                     kv_repeat: int, max_seq: int):
+    """h (B, S, d) → (h, cache): the layer's exact k/v, zero-padded out to
+    ``max_seq`` positions for decode."""
+    x = apply_norm(p["norm1"], h, cfg)
+    y, cache = attn.attn_prefill(p["attn"], x, cfg, layer_kind=kind,
+                                 positions=positions, kv_repeat=kv_repeat)
+    s = cache["k"].shape[1]
+    if s < max_seq:
+        pad = (0, 0, 0, 0, 0, max_seq - s)
+        cache = {k: torch.nn.functional.pad(v, pad) for k, v in cache.items()}
+    if cfg.post_norms:
+        y = apply_norm(p["post_attn_norm"], y, cfg)
+    h = h + y
+    return _ffn(p, h, cfg), cache
+
+
+def prefill(params, cfg: ModelConfig, tokens, *, max_seq: int,
+            kv_repeat: int = 1, last_pos=None):
+    """Full-sequence prefill of tokens (B, S).  Returns (logits (B, V) f32
+    of position ``last_pos`` (default the last), cache): with prompts
+    right-padded to a bucket, the causal mask keeps position last_pos
+    exact whatever the padding behind it.  The cache is exact,
+    ``{"layers": [{"k", "v"}]}`` of (B, max(S, max_seq), Hkv, Dh)."""
+    h = embed_tokens(params["embed"], tokens, cfg)
+    positions = torch.arange(h.shape[1], device=h.device)
+    layers = []
+    for lp, kind in zip(params["layers"], layer_kinds(cfg)):
+        h, c = sublayer_prefill(lp, h, cfg, kind, positions=positions,
+                                kv_repeat=kv_repeat, max_seq=max_seq)
+        layers.append(c)
+    h = apply_norm(params["final_norm"], h, cfg)
+    h_last = h[:, -1:] if last_pos is None else h[:, last_pos:last_pos + 1]
+    return lm_logits(params["embed"], h_last, cfg)[:, 0], {"layers": layers}
 
 
 def sublayer_decode(p, h, cfg: ModelConfig, kind: str, cache, t, *,
@@ -218,7 +255,7 @@ def decode_step_packed(params, cfg: ModelConfig, cache, tokens, row_slot,
     stand in for the batch exactly."""
     kinds = layer_kinds(cfg)
     for kind in sorted(set(kinds) - {"G"}):
-        item = "8.1" if kind == "L" else "9"
+        item = "3" if kind == "L" else "8"
         raise NotImplementedError(
             f"layer kind {kind!r} over packed rows (ROADMAP Queue A item "
             f"{item})")

@@ -1,38 +1,55 @@
-"""Serving runtime: the continuous-batching engine with chunked admission
-and device-resident clustered-KV compaction, on one device, with a dense
-cache or a paged block pool (port of the dense and paged parts of
+"""Serving runtime: the continuous-batching engine with chunked or
+blocking admission and device-resident clustered-KV compaction, on one
+device, with a dense cache or a paged block pool, and the static
+batch-at-a-time baseline (port of the single-device parts of
 ``repro.runtime.server``).
 
 Requests are ordered by the clustering batcher (core/request_cluster.py);
 a slot-based continuous batcher admits a request the moment a slot frees.
-Admission is chunked and decode-interleaved: each engine step feeds one
-prompt chunk of at most ``prefill_chunk`` tokens for at most one admitting
-slot, fused into the same launch that advances every decoding slot by one
-token (mixed-mode ``decode_step``).  With a ``KVCompressConfig`` the cache
-is clustered end to end: a prompt longer than the tail ring streams in
-through ``kv_compress.absorb_chunk``, and each slot is re-compacted after
-``refresh_every`` of its own decode tokens (slots whose frontier does not
-move keep their summaries bit-identical).  Once the queue drains, the
-launch bucket shrinks by powers of two.
+Admission runs in one of two modes:
+
+  * chunked, decode-interleaved (``prefill_chunk > 0``): each engine step
+    feeds one prompt chunk of at most ``prefill_chunk`` tokens for at most
+    one admitting slot, fused into the same launch that advances every
+    decoding slot by one token (mixed-mode ``decode_step``).  With a
+    ``KVCompressConfig`` a prompt longer than the tail ring streams in
+    through ``kv_compress.absorb_chunk``;
+  * blocking (``prefill_chunk == 0``, the reference's default): one
+    ``prefill`` of the prompt right-padded to a multiple of
+    ``prefill_bucket``, then a write of the B=1 cache into the slot.  With
+    a ``KVCompressConfig`` the prefill cache is first put in clustered
+    form (``_clusterize``): a prompt that fits the ring less ``refresh``
+    positions goes in as the ring alone, a longer one through
+    ``kv_compress.compress_cache_batched``.
+
+Each slot is re-compacted after ``refresh_every`` of its own decode tokens
+(slots whose frontier does not move keep their summaries bit-identical).
+Once the queue drains, the dense launch bucket shrinks by powers of two.
 
 With ``paged=PagedKVConfig(...)`` the exact tail rings live in a block
 pool behind per-slot block tables (runtime/kv_pool.py).  Blocks are
-allocated right before the write that first touches them, given back
-once compaction or a streaming absorb covers every position they hold,
-and recycled when a request exits.  Each engine step is one packed
-ragged launch (``decode_step_packed``): one row per real (slot, position)
-pair, padded to a power-of-two row bucket, so mixed prefill + decode
-compute scales with real tokens.  A slot whose next write finds the pool
-empty even after a sweep of covered blocks stalls for the step; when
-every slot stalls twice with nothing to reclaim the serve raises
-``PoolExhausted``.  The launch bucket never shrinks in paged mode.
+allocated right before the write that first touches them (a blocking
+admission claims its live prompt blocks before its prefill, and is put
+back in the queue when the pool cannot supply them), given back once
+compaction or a streaming absorb covers every position they hold, and
+recycled when a request exits.  Each engine step is one packed ragged
+launch (``decode_step_packed``): one row per real (slot, position) pair,
+padded to a power-of-two row bucket, so mixed prefill + decode compute
+scales with real tokens.  A slot whose next write finds the pool empty
+even after a sweep of covered blocks stalls for the step; when every
+slot stalls twice with nothing to reclaim, or an idle engine cannot admit
+twice, the serve raises ``PoolExhausted``.  The launch bucket never
+shrinks in paged mode.
+
+``engine="static"`` serves the batcher's batches one at a time: a
+left-padded prefill of the batch, then decode steps over its exact cache
+until its longest request is done.
 
 Per-slot host bookkeeping (``pos`` / ``cur`` / ``fed``, the coverage
 frontier mirror) replays the reference engine step for step, so greedy
-tokens match it.  Blocking admission, the static engine, paged serving
-of exact KV, prefix sharing (and with it copy-on-write of shared
-blocks), the template store, SLO scheduling, mesh serving and tracing
-are later slices of the port; asking for one raises
+tokens match it.  Paged serving of exact KV, prefix sharing (and with it
+copy-on-write of shared blocks), the template store, SLO scheduling, mesh
+serving and tracing are later slices of the port; asking for one raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -65,22 +82,28 @@ class ServerConfig:
     max_seq: int = 256
     use_clustered_batching: bool = True
     n_request_clusters: int = 4
-    engine: str = "continuous"     # "continuous" ("static": later slice)
+    engine: str = "continuous"     # "continuous" | "static"
+    prefill_bucket: int = 16       # blocking admission right-pads prompts
+                                   # to a multiple of this (the causal mask
+                                   # keeps the logits of the last real
+                                   # position exact)
     prefill_chunk: int = 0         # >0: chunked prefill interleaved with
-                                   # decode; must be <= keep_recent when
-                                   # serving clustered
+                                   # decode, at most this many prompt
+                                   # tokens a step (<= keep_recent when
+                                   # serving clustered); 0: blocking
+                                   # admission
     kv_compress: Optional[kv_compress.KVCompressConfig] = None
     # when set, the engine serves from a clustered KV cache end to end and
     # re-compacts every kv_compress.refresh decode steps per slot
     paged: Optional[kv_pool.PagedKVConfig] = None
     # paged clustered-KV memory manager: tail rings in a block pool behind
     # per-slot block tables, decoded by packed ragged launches; requires
-    # kv_compress and prefill_chunk in this slice
-    prefix_share: Optional[object] = None    # later slice (item 8.2)
-    template_store: Optional[object] = None  # later slice (item 8.3)
-    scheduler: Optional[object] = None       # later slice (item 8.4)
+    # kv_compress in this port (exact paged KV is ROADMAP Queue A item 3)
+    prefix_share: Optional[object] = None    # later slice (item 4)
+    template_store: Optional[object] = None  # later slice (item 5)
+    scheduler: Optional[object] = None       # later slice (item 6)
     telemetry: Optional[TelemetryConfig] = None
-    mesh: Optional[object] = None            # later slice (item 11)
+    mesh: Optional[object] = None            # later slice (item 10)
 
 
 @dataclasses.dataclass
@@ -96,8 +119,33 @@ def _pow2ceil(x: int) -> int:
     return 1 << max(x - 1, 0).bit_length()
 
 
+def _is_exact_kv(node) -> bool:
+    return (isinstance(node, dict) and "k" in node and "v" in node
+            and "k_scale" not in node)
+
+
 def _is_clustered_kv(node) -> bool:
     return isinstance(node, dict) and "k_cents" in node
+
+
+def _compress_exact_layers(leaves, lengths, ccfg):
+    """Exact (B, S, H, Dh) leaves → clustered leaves, every layer in one
+    ``compress_cache_batched`` fit whose members are (layer, slot, head),
+    as the reference's per-layer calls are (a member's fit depends on its
+    own points only); ``lengths`` (B,) valid counts per slot."""
+    b = leaves[0]["k"].shape[0]
+    out = kv_compress.compress_cache_batched(
+        torch.cat([leaf["k"] for leaf in leaves]),
+        torch.cat([leaf["v"] for leaf in leaves]),
+        lengths.repeat(len(leaves)), ccfg)
+    return [{k: v[i * b:(i + 1) * b] for k, v in out.items()}
+            for i in range(len(leaves))]
+
+
+def _sync(device) -> None:
+    """Wait for the card's queue (host timers around device work)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _gather_tail_rows(pool_arr: torch.Tensor, bt: torch.Tensor):
@@ -160,32 +208,27 @@ class Server:
                     "prefill_chunk must fit the exact tail ring "
                     "(<= kv_compress.keep_recent): a chunk's K/V lands in "
                     "the ring before absorb_chunk can cover it")
+        if scfg.mesh is not None and scfg.engine != "continuous":
+            raise ValueError("mesh serving requires the continuous "
+                             "engine (static batches are per-device)")
         # what this slice of the port does not serve yet
         missing = []
-        if scfg.engine != "continuous":
-            missing.append(f"engine={scfg.engine!r} (ROADMAP Queue A "
-                           "item 6)")
-        if not self._chunk:
-            missing.append("prefill_chunk == 0: blocking admission needs "
-                           "prefill and _clusterize"
-                           + (" and, paged, _write_slot_paged_impl"
-                              if paged is not None else "")
-                           + " (ROADMAP Queue A item 6)")
         if paged is not None and scfg.kv_compress is None:
             missing.append("paged= without kv_compress: exact KV under "
-                           "QuotaRetention (ROADMAP Queue A item 8.1)")
-        for name, item in (("prefix_share", "Queue A item 8.2"),
-                           ("template_store", "Queue A item 8.3"),
-                           ("scheduler", "Queue A item 8.4"),
-                           ("mesh", "Queue A item 11")):
+                           "QuotaRetention (ROADMAP Queue A item 3)")
+        for name, item in (("prefix_share", "Queue A item 4"),
+                           ("template_store", "Queue A item 5"),
+                           ("scheduler", "Queue A item 6"),
+                           ("mesh", "Queue A item 10")):
             if getattr(scfg, name) is not None:
                 missing.append(f"{name}= (ROADMAP {item})")
         if scfg.telemetry is not None and (scfg.telemetry.trace
                                            or scfg.telemetry.jax_profiler):
-            missing.append("telemetry tracing (ROADMAP Queue A item 8.5)")
+            missing.append("telemetry tracing (ROADMAP Queue A item 7)")
         if set(tfm.layer_kinds(cfg)) - {"G"}:
             missing.append(f"layer pattern {cfg.layer_pattern!r}: only 'G' "
-                           "layers are ported (ROADMAP Queue A item 9)")
+                           "layers are ported (ROADMAP Queue A items 3 "
+                           "and 8)")
         if missing:
             raise NotImplementedError("repro_torch Server: " +
                                       "; ".join(missing))
@@ -193,6 +236,9 @@ class Server:
         self.params = _to_device(params, self.device)
         self.last_stats: Dict[str, float] = {}
         self.metrics = tele_mod.MetricsRegistry()
+        # bucket-padded prefill is exact for global attention (causal mask,
+        # masked decode), the only kind ported
+        self._bucket = scfg.prefill_bucket
 
     # ------------------------------------------------------------------
     # entry
@@ -202,7 +248,9 @@ class Server:
               prompts: Dict[int, np.ndarray]) -> List[Completion]:
         """prompts: uid -> token array.  Returns completions per request."""
         with torch.inference_mode():
-            return self._serve_continuous(requests, prompts)
+            if self.scfg.engine == "continuous":
+                return self._serve_continuous(requests, prompts)
+            return self._serve_static(requests, prompts)
 
     def _plan(self, requests: Sequence[Request]) -> BatchPlan:
         scfg = self.scfg
@@ -277,7 +325,10 @@ class Server:
         kv_live_sum = kv_alloc_sum = 0
         kv_alloc_peak = 0
         tail_bpt = self._tail_bytes_per_token(cache) if layout else 0
-        stall_retries = 0
+        stall_retries = idle_retries = 0
+        # blocking clustered admissions by _clusterize form, and its time
+        n_admit_compress = n_admit_tail = 0
+        clusterize_s = 0.0
         bt_cache = [None]
 
         def bt_device():
@@ -342,17 +393,96 @@ class Server:
                 # centroids; ring entries are hidden by the position mask
                 self._reset_slot(cache, j)
 
+        def admit_blocking(j, uid) -> bool:
+            """One prefill of the whole (bucket-padded) prompt, then the
+            B=1 cache goes into slot j.  False: the pool cannot supply the
+            prompt's live blocks now, and the request stays queued."""
+            nonlocal pad_toks, useful_toks, clusterize_s
+            nonlocal n_admit_compress, n_admit_tail
+            r = by_uid[uid]
+            p = np.asarray(prompts[uid], np.int32)[-scfg.max_seq:]
+            plen = len(p)
+            cov0 = fr.target(plen) if fr is not None else 0
+            if pool is not None and r.max_new_tokens > 1:
+                # claim the blocks of the live (uncovered) prompt positions
+                # before the prefill, so an exhausted pool defers the
+                # request instead of wasting its prefill; covered offsets
+                # stay unmapped and the slot write drops them
+                pool.free_slot(j)
+                if not try_ensure(j, kv_pool.live_blocks(
+                        plen, cov0, R, paged.block_size)):
+                    pool.free_slot(j)
+                    return False
+            bkt = min(scfg.max_seq, -(-plen // self._bucket) * self._bucket)
+            padded = np.zeros((1, bkt), np.int32)
+            padded[0, :plen] = p
+            logits1, c1 = tfm.prefill(self.params, cfg,
+                                      torch.from_numpy(padded).to(dev),
+                                      max_seq=scfg.max_seq,
+                                      last_pos=plen - 1)
+            first = int(torch.argmax(logits1, -1)[0])
+            now = time.perf_counter()
+            pre_ms[uid] = (now - t0_serve) * 1e3        # TTFT
+            toks[uid] = [first]
+            token_t[uid] = [now]
+            pad_toks += bkt - plen
+            useful_toks += plen
+            if r.max_new_tokens <= 1:
+                if pool is not None:
+                    pool.free_slot(j)   # done at prefill; slot stays free
+                return True
+            if layout is not None:
+                t_c = time.perf_counter()
+                c1 = self._clusterize(c1, plen, layout)
+                _sync(dev)
+                clusterize_s += time.perf_counter() - t_c
+                if plen <= R - layout.refresh:
+                    n_admit_tail += 1
+                else:
+                    n_admit_compress += 1
+            if fr is not None:
+                fr.set_frontier(j, cov0)
+                kv_retired["frontier"] += cov0
+            if pool is not None:
+                self._write_slot_paged(cache, c1, j, pool.row_for_write(j),
+                                       paged.block_size)
+            else:
+                self._write_slot(cache, c1, j)
+            cur[j], pos[j] = first, plen
+            active[j] = True
+            since_tok[j] = 0
+            slot_uid[j] = uid
+            return True
+
         while True:
-            # ---- admission: at most one chunked prefill in flight --------
-            while qi < len(order) and not admitting.any():
+            # ---- admission into the lowest free slot: chunked mode keeps
+            # at most one prefill in flight, blocking mode fills every free
+            # slot (a pool-deferred request stays at the queue head) -------
+            while qi < len(order) and not (chunk and admitting.any()):
                 free = [j for j in range(n)
                         if not (active[j] or admitting[j])]
                 if not free:
                     break
-                start_admission(free[0], order[qi])
+                if chunk:
+                    start_admission(free[0], order[qi])
+                elif not admit_blocking(free[0], order[qi]):
+                    break
                 qi += 1
             if not (active.any() or admitting.any()):
-                break
+                if qi >= len(order):
+                    break
+                # an admission deferred on an idle engine: sweep covered
+                # blocks and retry; twice with nothing freed is no progress
+                freed = sweep_covered() if pool is not None else 0
+                idle_retries += 1
+                if idle_retries > 1 and freed == 0:
+                    raise kv_pool.PoolExhausted(
+                        "zero forward progress: an idle engine cannot "
+                        "admit the next request even with every "
+                        "reclaimable block returned — raise pool_blocks "
+                        "(one slot's live window no longer fits)")
+                continue
+            idle_retries = 0
 
             # ---- bucketed launch: shrink to live occupancy ----------------
             if pool is None and qi >= len(order) and not admitting.any():
@@ -634,6 +764,17 @@ class Server:
                     ).add(n_absorbs)
         reg.counter("kv_compactions", "batched compaction passes"
                     ).add(n_compacts)
+        if layout is not None and not chunk:
+            # port-only: the reference's stats do not split its blocking
+            # admissions by _clusterize form
+            reg.counter("kv_admit_compress",
+                        "blocking admissions through compress_cache_batched"
+                        ).add(n_admit_compress)
+            reg.counter("kv_admit_tail",
+                        "blocking admissions in tail-only clustered form"
+                        ).add(n_admit_tail)
+            reg.gauge("clusterize_s", "seconds in _clusterize"
+                      ).set(clusterize_s)
         reg.counter("kv_retired_frontier",
                     "positions retired behind the coverage frontier"
                     ).add(kv_retired["frontier"])
@@ -754,35 +895,178 @@ class Server:
             for k in ("k_cents", "v_cents", "counts", "cov"):
                 leaf[k][j] = got[k][li]
 
+    # ------------------------------------------------------------------
+    # blocking admission: the B=1 prefill cache into a slot
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _clusterize(c1, plen: int, ccfg):
+        """A fresh B=1 exact prefill cache in the engine's clustered
+        layout.  A prompt that fits the ring with ``refresh`` positions to
+        spare goes in as the ring alone (cov 0: every position survives
+        until the first compaction); a longer one builds centroids now,
+        every layer in one fit (``_compress_exact_layers``)."""
+        C, R = ccfg.n_clusters, ccfg.keep_recent
+        leaves = c1["layers"]
+        if plen <= R - ccfg.refresh:
+            out = []
+            for leaf in leaves:
+                k, v = leaf["k"], leaf["v"]
+                if k.shape[1] < R:
+                    # the pad sits at offsets >= plen, masked until
+                    # decode writes them
+                    pad = (0, 0, 0, 0, 0, R - k.shape[1])
+                    k = torch.nn.functional.pad(k, pad)
+                    v = torch.nn.functional.pad(v, pad)
+                b, _, h, dh = k.shape
+                z = lambda shape, dt: torch.zeros(  # noqa: E731
+                    shape, dtype=dt, device=k.device)
+                out.append({"k_cents": z((b, C, h, dh), k.dtype),
+                            "v_cents": z((b, C, h, dh), k.dtype),
+                            "counts": z((b, C, h), torch.float32),
+                            # positions 0..plen-1 sit at ring slots 0..plen-1
+                            "k_tail": k[:, :R], "v_tail": v[:, :R],
+                            "cov": z((b,), torch.int32)})
+            return {"layers": out}
+        lengths = torch.tensor([plen], dtype=torch.int32,
+                               device=leaves[0]["k"].device)
+        return {"layers": _compress_exact_layers(leaves, lengths, ccfg)}
+
+    @staticmethod
+    def _write_slot(cache, c1, j: int) -> None:
+        """Write a B=1 cache into slot j of the engine cache, in place."""
+        for dst, src in zip(cache["layers"], c1["layers"]):
+            for key, val in dst.items():
+                val[j] = src[key][0].to(val.dtype)
+
+    @staticmethod
+    def _write_slot_paged(cache, c1, j: int, bt_row: np.ndarray,
+                          blk: int) -> None:
+        """Paged twin of ``_write_slot``, in place: centroids, counts and
+        cov go to slot j, and the B=1 dense ring goes block by block into
+        the pool blocks of the slot's write row ``bt_row`` (T,).  Unmapped
+        entries (covered ring blocks, ``n_blocks``) are left out here: the
+        reference's scatter drops them, and an index past the pool would
+        raise."""
+        first = cache["layers"][0]["k_tail"]
+        keep = np.nonzero((bt_row >= 0) & (bt_row < first.shape[0]))[0]
+        ids = torch.from_numpy(bt_row[keep].astype(np.int64)).to(first.device)
+        sel = torch.from_numpy(keep).to(first.device)
+        for dst, src in zip(cache["layers"], c1["layers"]):
+            for key in ("k_cents", "v_cents", "counts", "cov"):
+                dst[key][j] = src[key][0].to(dst[key].dtype)
+            for key in ("k_tail", "v_tail"):
+                pool_arr = dst[key]
+                blocks = src[key][0].reshape((-1, blk) + pool_arr.shape[2:])
+                pool_arr[ids] = blocks[sel].to(pool_arr.dtype)
+
+    # ------------------------------------------------------------------
+    # memory management: batched clustered-KV compaction
+    # ------------------------------------------------------------------
+
     def compact_kv(self, cache, t, ccfg: kv_compress.KVCompressConfig,
                    bt=None):
-        """Re-compact every clustered layer with warm-started k-medians in
-        one batched call over (layer, slot, head); ``t`` is a scalar length
-        or a per-slot (B,) vector (0 = leave the slot alone).  Returns the
-        cache with new centroid banks; tail rings are untouched.  Paged
-        (``bt`` (B, T) the read-sanitized block table): every slot's
-        blocks are gathered into ring order first."""
-        leaves = [leaf for leaf in cache["layers"] if _is_clustered_kv(leaf)]
-        if not leaves:
-            return cache
-        b = leaves[0]["cov"].shape[0]
-        dev = leaves[0]["cov"].device
-        lengths = torch.broadcast_to(
-            torch.as_tensor(t, dtype=torch.int32, device=dev), (b,))
+        """Compress every global-attention layer's KV into clustered form;
+        ``t`` is a scalar length or a per-slot (B,) vector (0 = leave the
+        slot alone).  Returns a new ``{"layers": [...]}``; tail rings and
+        the input's leaves are not modified.
+
+        Already-clustered leaves are re-compacted with warm-started
+        k-medians, all of them in one batched call over (layer, slot,
+        head); paged (``bt`` (B, T) the read-sanitized block table), every
+        slot's blocks are gathered into ring order first.  Exact leaves
+        longer than C + R positions are compressed from scratch, all in
+        one ``compress_cache_batched`` call; shorter ones, and int8
+        leaves, pass through."""
+        layers = list(cache["layers"])
+        dev = self.device
+
+        def lengths_for(b):
+            return torch.broadcast_to(
+                torch.as_tensor(t, dtype=torch.int32, device=dev), (b,))
 
         def rows(leaf, k):
             if bt is not None and k in ("k_tail", "v_tail"):
                 return _gather_tail_rows(leaf[k], bt)
             return leaf[k]
 
-        flat = {k: torch.cat([rows(leaf, k) for leaf in leaves])
-                for k in leaves[0]}
-        out = kv_compress.recompact_clustered(
-            flat, lengths.repeat(len(leaves)), ccfg)
-        for li, leaf in enumerate(leaves):
-            for k in ("k_cents", "v_cents", "counts", "cov"):
-                leaf[k] = out[k][li * b:(li + 1) * b]
-        return cache
+        clus = [i for i, leaf in enumerate(layers) if _is_clustered_kv(leaf)]
+        if clus:
+            b = layers[clus[0]]["cov"].shape[0]
+            keys = list(layers[clus[0]])
+            flat = {k: torch.cat([rows(layers[i], k) for i in clus])
+                    for k in keys}
+            out = kv_compress.recompact_clustered(
+                flat, lengths_for(b).repeat(len(clus)), ccfg)
+            for n_i, i in enumerate(clus):
+                layers[i] = dict(layers[i], **{
+                    k: out[k][n_i * b:(n_i + 1) * b]
+                    for k in ("k_cents", "v_cents", "counts", "cov")})
+        exact = [i for i, leaf in enumerate(layers)
+                 if _is_exact_kv(leaf) and leaf["k"].dim() == 4
+                 and leaf["k"].shape[1] > ccfg.n_clusters + ccfg.keep_recent]
+        if exact:
+            b = layers[exact[0]]["k"].shape[0]
+            out = _compress_exact_layers([layers[i] for i in exact],
+                                         lengths_for(b), ccfg)
+            for i, leaf in zip(exact, out):
+                layers[i] = leaf
+        return {"layers": layers}
+
+    # ------------------------------------------------------------------
+    # static batch-at-a-time path (baseline for the serve benchmark)
+    # ------------------------------------------------------------------
+
+    def _serve_static(self, requests, prompts) -> List[Completion]:
+        plan = self._plan(requests)
+        by_uid = {r.uid: r for r in requests}
+        out: List[Completion] = []
+        for batch_uids in plan.batches:
+            out.extend(self._serve_batch(batch_uids, by_uid, prompts))
+        self.metrics.begin_serve()
+        self.metrics.gauge(
+            "plan_waste", "padding waste of the static batch plan"
+        ).set(plan.waste)
+        self.last_stats = self.metrics.flat_view()
+        return out
+
+    def _serve_batch(self, uids, by_uid, prompts) -> List[Completion]:
+        """One static batch: prompts left-padded with token 0 to the
+        longest (the pad is context, as in the reference), one prefill,
+        then decode steps until the longest budget is spent."""
+        cfg, dev = self.cfg, self.device
+        reqs = [by_uid[u] for u in uids]
+        plen = max(r.prompt_len for r in reqs)
+        gen = max(r.max_new_tokens for r in reqs)
+        b = len(reqs)
+        toks = np.zeros((b, plen), np.int32)
+        for i, r in enumerate(reqs):
+            p = prompts[r.uid][-plen:]
+            toks[i, plen - len(p):] = p  # left-pad
+
+        t0 = time.perf_counter()
+        logits, cache = tfm.prefill(self.params, cfg,
+                                    torch.from_numpy(toks).to(dev),
+                                    max_seq=self.scfg.max_seq,
+                                    last_pos=plen - 1)
+        _sync(dev)
+        t1 = time.perf_counter()
+
+        new = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        gen_toks = [new]
+        for i in range(gen - 1):
+            logits, cache = tfm.decode_step(self.params, cfg, cache, new,
+                                            plen + i)
+            new = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            gen_toks.append(new)
+        gen_arr = torch.cat(gen_toks, dim=1).cpu().numpy()
+        t2 = time.perf_counter()
+
+        return [Completion(uid=r.uid,
+                           tokens=gen_arr[i, :r.max_new_tokens].tolist(),
+                           prefill_ms=(t1 - t0) * 1e3 / b,
+                           decode_ms=(t2 - t1) * 1e3 / b)
+                for i, r in enumerate(reqs)]
 
 
 def _to_device(tree, device):

@@ -3,6 +3,7 @@ the card (sm_90).  Marked ``gpu``; without a Hopper card every test skips
 (decided inside the fixture, never at import).  Run on the card with
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -534,3 +535,174 @@ def test_paged_slot_spanning_groups(cuda, dtype, tol):
     t, cl, cov = _edge_slots(cuda, b, l, r)
     _check_dense_and_paged(cuda, dtype, tol, dense, t, cl, cov,
                            split=[3, 4, 1, 1, 1])
+
+
+# ---------------------------------------------------------------------------
+# blocking admission and the static engine on the card
+# ---------------------------------------------------------------------------
+
+
+def _tiny():
+    from repro_torch.models.config import ModelConfig
+
+    return ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
+                       n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
+                       vocab=64, pad_vocab_multiple=16, dtype="float32")
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def test_prefill_card_matches_cpu(cuda):
+    """The reduced qwen3 in f32: a right-padded prompt's logits at
+    last_pos and the exact B=1 cache, card against CPU."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(configs.get_reduced("qwen3-4b"),
+                              dtype="float32")
+    params = tfm.init_params(0, cfg, device="cpu")
+    tok = torch.randint(0, cfg.vocab, (2, 40),
+                        generator=torch.Generator().manual_seed(0))
+    want, cache = tfm.prefill(params, cfg, tok, max_seq=64, last_pos=29)
+    got, cache_c = tfm.prefill(_to(params, cuda), cfg, tok.to(cuda),
+                               max_seq=64, last_pos=29)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for lc, lg in zip(cache["layers"], cache_c["layers"]):
+        for key in ("k", "v"):
+            torch.testing.assert_close(lg[key].cpu(), lc[key], rtol=1e-4,
+                                       atol=1e-4)
+
+
+def test_write_slot_paged_drops_covered_offsets(cuda):
+    """A blocking admission's ring goes into the slot's mapped blocks
+    only: covered ring blocks (n_blocks in the write row) are dropped, and
+    every block outside the row keeps its bytes."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.server import Server
+
+    cfg, bs, r = _tiny(), 4, 16
+    cache = tfm.init_cache(cfg, 2, 64, kv_mode="clustered", kv_clusters=4,
+                           kv_tail=r, kv_pool_blocks=9, kv_block_size=bs,
+                           device=cuda)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    for leaf in cache["layers"]:
+        for key in ("k_tail", "v_tail"):
+            leaf[key].copy_(torch.randn(leaf[key].shape, generator=g))
+    before = [{k: v.clone() for k, v in leaf.items()}
+              for leaf in cache["layers"]]
+    src = tfm.init_cache(cfg, 1, 64, kv_mode="clustered", kv_clusters=4,
+                         kv_tail=r, device=cuda)
+    for leaf in src["layers"]:
+        for key, val in leaf.items():
+            val.copy_(torch.randn(val.shape, generator=g).to(val.dtype)
+                      if val.is_floating_point() else
+                      torch.full(val.shape, 5, dtype=val.dtype))
+    row = np.array([9, 6, 9, 2], np.int32)          # ring blocks 1 and 3
+    Server._write_slot_paged(cache, src, 1, row, bs)
+    for leaf, old, s in zip(cache["layers"], before, src["layers"]):
+        for key in ("k_cents", "v_cents", "counts", "cov"):
+            assert torch.equal(leaf[key][1], s[key][0])
+            assert torch.equal(leaf[key][0], old[key][0])
+        for key in ("k_tail", "v_tail"):
+            ring = s[key][0].reshape(-1, bs, *s[key].shape[2:])
+            assert torch.equal(leaf[key][6], ring[1])
+            assert torch.equal(leaf[key][2], ring[3])
+            for blk in set(range(9)) - {6, 2}:
+                assert torch.equal(leaf[key][blk], old[key][blk]), blk
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_tiny_blocking_serve_on_card(cuda, paged):
+    """A blocking clustered serve of TINY on the card: the decode kernel
+    of its engine launches once a layer an engine step, and the greedy
+    tokens equal the CPU serve's."""
+    from repro_torch.core.kv_compress import KVCompressConfig
+    from repro_torch.core.request_cluster import Request
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.kv_pool import PagedKVConfig
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg = _tiny()
+    params = tfm.init_params(0, cfg, device="cpu")
+    rng = np.random.default_rng(9)
+    spec = [(60, 12), (9, 10), (48, 9), (21, 14)]
+    reqs = [Request(i, l, gn) for i, (l, gn) in enumerate(spec)]
+    prompts = {i: rng.integers(0, 64, size=l).astype(np.int32)
+               for i, (l, _) in enumerate(spec)}
+    scfg = ServerConfig(batch_size=2, max_seq=96, kv_compress=KVCompressConfig(
+        n_clusters=8, iters=4, keep_recent=16, refresh_every=8),
+        paged=PagedKVConfig(block_size=4) if paged else None)
+    toks = {}
+    for dev in ("cpu", cuda):
+        srv = Server(cfg, scfg, params, device=dev)
+        ops.reset_launches()
+        toks[str(dev)] = {o.uid: o.tokens for o in srv.serve(reqs, prompts)}
+        counts = ops.launch_counts()
+    st = srv.last_stats
+    kernel = "paged_clustered_decode" if paged else "clustered_decode"
+    assert counts[kernel] == cfg.n_layers * st["decode_steps"]
+    assert counts["bitserial_median"] >= (st["kv_admit_compress"]
+                                          + st["kv_compactions"]) > 0
+    assert toks["cpu"] == toks[str(cuda)]
+    if paged:
+        assert st["pool_blocks_end"] == 0.0
+
+
+def test_tiny_static_serve_on_card(cuda):
+    """The static engine on the card: the CPU's tokens, and no kernel."""
+    from repro_torch.core.request_cluster import Request
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg = _tiny()
+    params = tfm.init_params(0, cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    spec = [(5, 4), (23, 6), (9, 3), (17, 5), (6, 1), (21, 4)]
+    reqs = [Request(i, l, gn) for i, (l, gn) in enumerate(spec)]
+    prompts = {i: rng.integers(0, 64, size=l).astype(np.int32)
+               for i, (l, _) in enumerate(spec)}
+    scfg = ServerConfig(batch_size=4, max_seq=64, engine="static")
+    want = {o.uid: o.tokens for o in
+            Server(cfg, scfg, params, device="cpu").serve(reqs, prompts)}
+    ops.reset_launches()
+    got = {o.uid: o.tokens for o in
+           Server(cfg, scfg, params, device=cuda).serve(reqs, prompts)}
+    assert not any(ops.launch_counts().values())
+    assert got == want
+
+
+def test_int8_decode_on_card(cuda):
+    """Decode over an int8 exact cache (per-head scales 0.05): card logits
+    equal the CPU's within 1e-4, and the quantised cache bytes agree."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(configs.get_reduced("qwen3-4b"),
+                              dtype="float32")
+    params = tfm.init_params(0, cfg, device="cpu")
+    caches = [tfm.init_cache(cfg, 2, 32, kv_mode="int8", device=d)
+              for d in ("cpu", cuda)]
+    for c in caches:
+        for leaf in c["layers"]:
+            leaf["k_scale"].fill_(0.05)
+            leaf["v_scale"].fill_(0.05)
+    pg = _to(params, cuda)
+    tok = torch.randint(0, cfg.vocab, (2, 8),
+                        generator=torch.Generator().manual_seed(2))
+    for t in range(8):
+        want, _ = tfm.decode_step(params, cfg, caches[0], tok[:, t:t + 1], t)
+        got, _ = tfm.decode_step(pg, cfg, caches[1], tok[:, t:t + 1].to(cuda),
+                                 t)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for lc, lg in zip(caches[0]["layers"], caches[1]["layers"]):
+        assert (lg["k"].cpu().int() - lc["k"].int()).abs().max() <= 1

@@ -6,6 +6,8 @@ frontier per head.  The reference runs with exact power-of-two scales
 (see tests/_torch_ref.py), except in one case held against it as it
 stands."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -172,3 +174,141 @@ def test_frontier_retention_and_ring_bytes_match():
     assert layer_state_t.ring_state_bytes(
         {"layers": [{k: T(v) for k, v in cache.items()}]}, 3) == \
         layer_state.ring_state_bytes({"tail": [cache]}, 3)
+
+
+def _kv(rng, *shape):
+    return (rng.normal(size=shape).astype(np.float32),
+            rng.normal(size=shape).astype(np.float32))
+
+
+def _batched(k, v, lengths, cfg):
+    want = jax.tree.map(np.asarray, kv.compress_cache_batched.__wrapped__(
+        jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
+        kv.KVCompressConfig(**cfg)))
+    got = kv_t.compress_cache_batched(T(k), T(v), T(lengths),
+                                      kv_t.KVCompressConfig(**cfg))
+    return want, {key: val.numpy() for key, val in got.items()}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_compress_cache_batched_matches(exact_pow2_reference, seed):
+    """Ragged slots, two of them shorter than the ring (one with nothing
+    to cover): centroids, counts, tails and cov bit for bit, value
+    centroids within 1e-6.  Every member covers at least n_clusters
+    positions or none (see the next test for the band in between)."""
+    rng = np.random.default_rng(seed)
+    k, v = _kv(rng, 4, 96, 2, 16)
+    lengths = np.array([96, 80, 14, 5], np.int32)
+    cfg = dict(n_clusters=4, iters=4, keep_recent=16, refresh_every=8)
+    want, got = _batched(k, v, lengths, cfg)
+    np.testing.assert_array_equal(got["cov"], [88, 72, 6, 0])
+    for key in ("k_cents", "counts", "k_tail", "v_tail", "cov"):
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    np.testing.assert_allclose(got["v_cents"], want["v_cents"], rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_compress_cache_batched_degenerate_band(exact_pow2_reference):
+    """ROADMAP Queue C 7: a member with fewer positions to cover than
+    centroids (0 < cov < n_clusters).  Once every weighted key is a seed,
+    k-means++ draws by the L2 expansion's rounding residue at the chosen
+    keys, which XLA and PyTorch round differently (where no residue is
+    left, the draw is uniform over all keys): the empty (count 0) rows
+    then sit on another key.  Counts, cov, tails and every live centroid
+    stay bit for bit; in both packages every empty row is a copy of one of
+    the member's keys."""
+    rng = np.random.default_rng(1)
+    k, v = _kv(rng, 3, 96, 2, 16)
+    lengths = np.array([96, 40, 12], np.int32)
+    cfg = dict(n_clusters=8, iters=4, keep_recent=16, refresh_every=8)
+    want, got = _batched(k, v, lengths, cfg)
+    np.testing.assert_array_equal(got["cov"], [88, 32, 4])
+    for key in ("counts", "k_tail", "v_tail", "cov"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    live = want["counts"] > 0                              # (B, C, H)
+    np.testing.assert_array_equal(got["k_cents"][live], want["k_cents"][live])
+    for cents in (want["k_cents"], got["k_cents"]):
+        for h in range(2):
+            for c in np.nonzero(~live[2, :, h])[0]:
+                assert (cents[2, c, h] == k[2, :, h]).all(-1).any(), (c, h)
+
+
+@pytest.mark.parametrize("lb", [5, 16, 50, 96])
+def test_tail_ring_slice_matches(lb):
+    rng = np.random.default_rng(lb)
+    k, v = _kv(rng, 96, 2, 8)
+    want = kv._tail_ring_slice(jnp.asarray(k), jnp.asarray(v), lb, 16)
+    got = kv_t._tail_ring_slice(T(k), T(v), lb, 16)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # the batched form: one slot a row, each its own length
+    kb, vb = np.stack([k, v]), np.stack([v, k])
+    got_b = kv_t._tail_ring_slice(T(kb), T(vb), torch.tensor([lb, 96 - lb]),
+                                  16)
+    for i, l_i in enumerate((lb, 96 - lb)):
+        w = kv._tail_ring_slice(jnp.asarray(kb[i]), jnp.asarray(vb[i]), l_i,
+                                16)
+        np.testing.assert_array_equal(got_b[0][i].numpy(), np.asarray(w[0]))
+        np.testing.assert_array_equal(got_b[1][i].numpy(), np.asarray(w[1]))
+
+
+def test_compress_cache_and_attention_oracles(exact_pow2_reference):
+    """compress_cache of one (S, H, Dh) cache, then clustered and exact
+    attention of a query over it, and memory_ratio."""
+    rng = np.random.default_rng(4)
+    k, v = _kv(rng, 80, 2, 16)
+    # a config no other test traces (compress_cache jits compress_head
+    # per config: the trace must be taken under the exact-power patch)
+    cfg = dict(n_clusters=6, iters=5, keep_recent=24)
+    want = kv.compress_cache(jnp.asarray(k), jnp.asarray(v),
+                             kv.KVCompressConfig(**cfg))
+    got = kv_t.compress_cache(T(k), T(v), kv_t.KVCompressConfig(**cfg))
+    for key in ("k_cents", "counts", "k_tail", "v_tail"):
+        np.testing.assert_array_equal(getattr(got, key).numpy(),
+                                      np.asarray(getattr(want, key)),
+                                      err_msg=key)
+    np.testing.assert_allclose(got.v_cents.numpy(), np.asarray(want.v_cents),
+                               rtol=1e-6, atol=1e-6)
+    q = rng.normal(size=(2, 16)).astype(np.float32)
+    np.testing.assert_allclose(
+        kv_t.clustered_attention(T(q), got, scale=0.25).numpy(),
+        np.asarray(kv.clustered_attention(jnp.asarray(q), want, scale=0.25)),
+        rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(
+        kv_t.exact_attention(T(q), T(k), T(v), scale=0.25).numpy(),
+        np.asarray(kv.exact_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), scale=0.25)),
+        rtol=1e-6, atol=1e-6)
+    assert kv_t.memory_ratio(32768, kv_t.KVCompressConfig(**CFG)) == \
+        kv.memory_ratio(32768, kv.KVCompressConfig(**CFG))
+
+
+def test_clusterize_folds_layers_like_per_layer_calls(exact_pow2_reference):
+    """The port's blocking admission clusters every layer of a B=1 prefill
+    cache in one fit of (layer, head) members; each layer comes out with
+    the bits of its own compress_cache_batched call (the reference calls
+    one a layer), and the ring-only form for short prompts."""
+    from repro_torch.runtime.server import Server
+
+    rng = np.random.default_rng(6)
+    layers = [dict(zip("kv", _kv(rng, 1, 64, 2, 16))) for _ in range(3)]
+    c1 = {"layers": [{key: T(val) for key, val in leaf.items()}
+                     for leaf in layers]}
+    cfg = kv_t.KVCompressConfig(n_clusters=4, iters=4, keep_recent=16,
+                                refresh_every=8)
+    got = Server._clusterize(c1, 45, cfg)
+    for leaf, out in zip(layers, got["layers"]):
+        one = kv_t.compress_cache_batched(T(leaf["k"]), T(leaf["v"]),
+                                          torch.tensor([45]), cfg)
+        ref = kv.compress_cache_batched.__wrapped__(
+            jnp.asarray(leaf["k"]), jnp.asarray(leaf["v"]), jnp.asarray([45]),
+            kv.KVCompressConfig(**dataclasses.asdict(cfg)))
+        for key in one:
+            assert torch.equal(out[key], one[key]), key
+            if key != "v_cents":
+                np.testing.assert_array_equal(out[key].numpy(),
+                                              np.asarray(ref[key]))
+    short = Server._clusterize(c1, 8, cfg)["layers"][0]
+    assert torch.equal(short["k_tail"], c1["layers"][0]["k"][:, :16])
+    assert short["counts"].abs().sum() == 0 and short["cov"].item() == 0
