@@ -20,15 +20,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    distance_argmin: L1 and L2 at N=2^20, D=16, K=64, at N=2^16,
    D=128, K=1,024 and at the quickstart's shapes (4,595 x 12, K=3;
    5,000 x 8, K 2-8), L1 also bit for bit against its sequential twin;
-   bitserial_median: ``torch.equal`` on medians and totals at the serve's
-   compaction (1,152 members x 320 points x 128 dims, K=64, 16 bits,
-   count weights with zeros) and absorb (288 members, K=32) shapes, a
-   blocking admission's (288 members x 2,048 points x 128 dims, K=64,
-   16 bits, 0/1 weights below the frontier) and the fit's streamed shape
-   (2^20 x 16, K=64, 32 bits), each twice;
+   bitserial_median: ``torch.equal`` on medians and totals at the
+   qwen3-4b serve's compaction (1,152 members x 320 points x 128 dims,
+   K=64, 16 bits, count weights with zeros) and absorb (288 members,
+   K=32) shapes, a blocking admission's (288 members x 2,048 points x 128
+   dims, K=64, 16 bits, 0/1 weights below the frontier), the gemma2-27b
+   serve's (compaction 1,472 members, absorb 368, admission 368 members x
+   8,192 points) and the fit's streamed shape (2^20 x 16, K=64, 32 bits),
+   each twice;
    flash_decode: B=4, S=2048, Hq=32, Hkv=8, Dh=128, t=1500, 0 and 2500 in
    bf16, f32 and f32 + softcap 50, and against
-   ``attention.decode_attention``);
+   ``attention.decode_attention``; clustered_decode and
+   paged_clustered_decode also at gemma2-27b's heads (32 over 16 kv heads,
+   query scale 1/12, softcap 50), paged bit-equal to dense, and
+   paged_clustered_decode in 5h's quota layout (one centroid of count 0,
+   a ring of 2,048 positions in 128 blocks of 16, rows at 96-2,048
+   positions) against its plain version and, in f32, exact attention);
 4. model agreement: the reduced qwen3 in f32 decodes (mixed and plain
    steps, clustered cache) and prefills (logits at ``last_pos`` and the
    exact B=1 cache) with the same numbers on the card as on the CPU;
@@ -55,6 +62,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
 5e. static serve: ``engine="static"`` with exact KV, the 8 requests at
    batch 4 (left-padded prefill, plain decode attention): well-formed
    tokens and no kernel launch, as in the reference;
+5h. quota serve: the 8 requests through paged exact KV under
+   QuotaRetention (no ``kv_compress``, blocking admission, blocks of 16,
+   a pool one block short of the two largest reservations): every request
+   complete, refused reservations > 0 (admissions deferred),
+   ``kv_retired_quota`` > 0, ``kv_retired_frontier`` 0, ``pool_blocks_end``
+   0, ``pool_occupancy_peak`` <= 1, paged_clustered_decode launched layers
+   x engine steps, clustered_decode and bitserial_median 0; agreement with
+   5e printed, not gated; then qwen3's weights are freed;
+5f. gemma2-27b at full width and depth (46 layers 'LG', window 4,096,
+   d_model 4608, 32/16 heads of 128, d_ff 36864, vocab 256000; bf16
+   weights from ``init_params`` seed 0, 54.5 GB), ``max_seq`` 8,192,
+   batch 4, blocking admission, the same KVCompressConfig: 6 requests,
+   three prompts past the window (4,352-6,144) and three of 256-3,072,
+   48-80 new tokens each: ``kv_retired_window`` and
+   ``kv_retired_frontier`` > 0, clustered_decode launched 'G' layers (23)
+   x engine steps and paged_clustered_decode 0, bitserial_median >=
+   compress admissions + compactions; the peak of
+   ``torch.cuda.max_memory_allocated()`` printed;
+5g. the same paged (``PagedKVConfig(block_size=16)``): paged_clustered_
+   decode 23 x engine steps, clustered_decode 0, ``pool_frees ==
+   pool_allocs``, ``pool_blocks_end`` 0; agreement with 5f printed, not
+   gated;
 6. clustering: ``clustering.fit`` at its default, L1 medians, k=64 on
    2^20 x 16 points from a threefry k-means++ start: both of its kernels,
    distance_argmin (assignment) and bitserial_median (median update),
@@ -66,7 +95,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the wrapper call's CUDA-event time, its plain version, a library
    yardstick (device time too) and the card's bound; clustered_decode in
    its mixed, serve-like mixed (chunk_len [64, 1, 1, 1]) and one-token
-   forms, paged_clustered_decode mixed and decode-only, distance_argmin
+   forms, paged_clustered_decode mixed, decode-only and in 5h's quota
+   layout (SDPA over each row's gathered entries), distance_argmin
    in L1 at the fit's shape and L2 at the quickstart's k sweep (5,000 x
    8, K=5), one row each in the kernels line with its ``shape``, and L2
    at the fit's shape too (``torch.cdist`` then ``.min(1)`` as the
@@ -75,9 +105,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 It imports ``repro_torch`` only.  The second-to-last line is the kernels
 JSON, ``{"kernels": [{"name": ..., ...}, ...]}`` with one object per
-kernel (``chiprun_out/chip_smoke.json`` keys the same objects by name),
+kernel (``chiprun_out/chip_smoke.json`` keys the same objects by name;
+B1's and B2's carry ``launches_windowed`` from 5f / 5g, B2's
+``launches_quota`` from 5h and its quota form's times under ``quota``),
 and the last line ``{"ok": true, "device": {...}}``; the full record goes
-to ``chiprun_out/chip_smoke.json``.
+to ``chiprun_out/chip_smoke.json``.  Each phase's seconds are printed as
+it ends.
 """
 
 from __future__ import annotations
@@ -114,17 +147,28 @@ N_PTS, D_PTS, K_PTS = 1 << 20, 16, 64
 # the sweep's true k
 DA_QUICKSTART = [(4595, 12, 3)] + [(5000, 8, k) for k in range(2, 9)]
 DA_L2_TIMED = (5000, 8, 5)
+# gemma2-27b's attention (5f, 5g): 32 query heads over 16 kv heads of 128,
+# query scale (4608 / 32)^-0.5, logit softcap 50; 23 of its 46 layers are
+# 'G' (clustered), and it serves at max_seq 8,192
+GEMMA_HQ, GEMMA_HKV, GEMMA_SCALE, GEMMA_CAP = 32, 16, 144 ** -0.5, 50.0
+GEMMA_G_LAYERS, GEMMA_MAX_SEQ = 23, 8192
 # bitserial_median members of the serve's memory manager over C + R points:
-# a compaction clusters (36 layers x 4 slots x 8 kv heads) at once, an
-# absorb (36 layers x 8 kv heads) of one slot into the prompt budget
+# a compaction clusters (layers x 4 slots x kv heads) at once, an absorb
+# (layers x kv heads) of one slot into the prompt budget; qwen3-4b's 36
+# layers of 8 kv heads, then gemma2-27b's 23 'G' layers of 16
 N_LAYERS = 36
 MED_CASES = [("compaction", N_LAYERS * B * HKV, C, 16),
-             ("absorb", N_LAYERS * HKV, C // 2, 16)]
+             ("absorb", N_LAYERS * HKV, C // 2, 16),
+             ("gemma2 compaction", GEMMA_G_LAYERS * B * GEMMA_HKV, C, 16),
+             ("gemma2 absorb", GEMMA_G_LAYERS * GEMMA_HKV, C // 2, 16)]
 # bitserial_median at a blocking admission's clustering: _clusterize fits
-# the B=1 prefill cache of every layer at once, (36 layers x 8 kv heads)
-# members of max_seq points each, weight 1 below the frontier cov of the
-# longest prompt (1,321 - (R - refresh)) and 0 on the tail and the pad
-ADM_S, ADM_COV = 2048, 1321 - (R - 32)
+# the B=1 prefill cache of every clustered layer at once, (layers x kv
+# heads) members of max_seq points each, weight 1 below the frontier cov of
+# the longest prompt (plen - (R - refresh)) and 0 on the tail and the pad;
+# qwen3-4b's longest prompt is 1,321 (5c, 5d), gemma2-27b's comes from
+# gemma2_lengths (5f, 5g)
+ADM_S, ADM_PLEN = 2048, 1321
+ADM_COV = ADM_PLEN - (R - 32)
 # flash_decode: qwen3-4b under the smoke's max_seq, t not a chunk multiple;
 # phase 3 also checks t = 0 (all masked) and t > S
 FD_S, FD_T = 2048, 1500
@@ -133,6 +177,13 @@ FD_TS = (FD_T, 0, FD_S + 452)
 # C + R entries alone (before the warps split them), printed beside this
 # run's: the new reduction order may move a greedy token
 SHA_ONE_WALK = "5d59b931804a1476"
+# 5h's quota layout (qwen3-4b, max_seq 2,048, blocks of BS): one dead
+# centroid (count 0) and a ring of Q_R positions, T = Q_R / BS blocks a
+# row; the checked and timed decode rows sit at Q_POS, from a short ring to
+# a full one, and each slot maps the blocks of Q_AHEAD positions beyond
+# its row, as a reservation does
+Q_R, Q_AHEAD = 2048, 64
+Q_POS = [1536, 2047, 95, 700]
 
 
 def say(*a):
@@ -275,17 +326,17 @@ def device_ms(torch, fn, match=None, n=50, warm=5, tries=3):
 # ---------------------------------------------------------------------------
 
 
-def decode_inputs(torch, dev, dtype):
+def decode_inputs(torch, dev, dtype, hq=HQ, hkv=HKV):
     g = torch.Generator(device="cpu").manual_seed(0)
     rnd = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
-    counts = torch.randint(0, 5, (B, C, HKV), generator=g).float()
+    counts = torch.randint(0, 5, (B, C, hkv), generator=g).float()
     return dict(
-        q=rnd(B, L, HQ, DH).to(dev, dtype),
-        k_cents=rnd(B, C, HKV, DH).to(dev, dtype),
-        v_cents=rnd(B, C, HKV, DH).to(dev, dtype),
+        q=rnd(B, L, hq, DH).to(dev, dtype),
+        k_cents=rnd(B, C, hkv, DH).to(dev, dtype),
+        v_cents=rnd(B, C, hkv, DH).to(dev, dtype),
         counts=counts.to(dev),                  # ~20% empty clusters
-        k_tail=rnd(B, R, HKV, DH).to(dev, dtype),
-        v_tail=rnd(B, R, HKV, DH).to(dev, dtype),
+        k_tail=rnd(B, R, hkv, DH).to(dev, dtype),
+        v_tail=rnd(B, R, hkv, DH).to(dev, dtype),
         t=torch.tensor(T_SLOTS, dtype=torch.int32, device=dev),
         cov=torch.tensor(COV_SLOTS, dtype=torch.int32, device=dev),
         chunk_len=torch.tensor(CL_SLOTS, dtype=torch.int32, device=dev))
@@ -339,6 +390,7 @@ def paged_inputs(torch, x, cl, bucket, seed=1):
     from repro_torch.runtime.kv_pool import live_blocks
 
     dev = x["q"].device
+    hq, hkv = x["q"].shape[-2], x["k_tail"].shape[2]
     nt = R // BS
     g = torch.Generator(device="cpu").manual_seed(seed)
     mapped = [(b, bi) for b in range(B)
@@ -348,8 +400,8 @@ def paged_inputs(torch, x, cl, bucket, seed=1):
     table = torch.zeros(B, nt, dtype=torch.int32)
     pools = {}
     for key in ("k_tail", "v_tail"):
-        pool = torch.randn(nb, BS, HKV, DH, generator=g).to(dev, x[key].dtype)
-        blocks = x[key].reshape(B, nt, BS, HKV, DH)
+        pool = torch.randn(nb, BS, hkv, DH, generator=g).to(dev, x[key].dtype)
+        blocks = x[key].reshape(B, nt, BS, hkv, DH)
         for (b, bi), gid in zip(mapped, ids):
             pool[gid] = blocks[b, bi]
             table[b, bi] = gid
@@ -360,7 +412,7 @@ def paged_inputs(torch, x, cl, bucket, seed=1):
         vec[:, k] = torch.tensor([b, T_SLOTS[b] + i + 1, T_SLOTS[b] + cl[b],
                                   COV_SLOTS[b]])
     vec = vec.to(dev)
-    q = torch.zeros(bucket, HQ, DH, dtype=x["q"].dtype, device=dev)
+    q = torch.zeros(bucket, hq, DH, dtype=x["q"].dtype, device=dev)
     q[:len(rows)] = x["q"][[b for b, _ in rows], [i for _, i in rows]]
     args = dict(q=q, k_cents=x["k_cents"], v_cents=x["v_cents"],
                 counts=x["counts"], k_pool=pools["k_tail"],
@@ -442,6 +494,122 @@ def check_paged_decode(torch, cd, pcd, dev):
             raise AssertionError("paged wlo: the window floor masked nothing")
         say("paged_clustered_decode f32 window floor: (cov, wlo) == "
             "(max(cov, wlo), 0) bit for bit on every real row")
+    return max_err
+
+
+def check_gemma_decode(torch, cd, pcd, dev):
+    """B1 and B2 at the shapes of gemma2-27b's 'G' layers in 5f and 5g: 32
+    query heads over 16 kv heads, query scale 1/12, logit softcap 50, on
+    phase 3's cache and rows; each against its plain version (bf16: 2 bf16
+    ulps, f32: 1e-5) and B2 bit-equal to B1 on every real row."""
+    max_err = 0.0
+    kw = dict(scale=GEMMA_SCALE, softcap=GEMMA_CAP)
+    for name, dtype, tol in (("bf16", torch.bfloat16, 1.6e-2),
+                             ("f32", torch.float32, 1e-5)):
+        x = decode_inputs(torch, dev, dtype, GEMMA_HQ, GEMMA_HKV)
+        args, rows, _ = paged_inputs(torch, x, CL_SLOTS, N_BUCKET)
+        args = with_groups(torch, pcd, args)
+        fl = lambda d: {k: (v.float() if v.is_floating_point()  # noqa: E731
+                            else v) for k, v in d.items()}
+        got = cd.clustered_decode_cuda(**x, **kw)
+        want = cd.clustered_decode_plain(**fl(x), **kw).to(dtype)
+        pg = pcd.paged_clustered_decode_cuda(**args, **kw)
+        pw = pcd.paged_clustered_decode_plain(**fl(args), **kw).to(dtype)
+        torch.cuda.synchronize()
+        n = len(rows)
+        sel = ([b for b, _ in rows], [i for _, i in rows])
+        for got_r, want_r in ((got[sel], want[sel]), (pg[:n], pw[:n])):
+            torch.testing.assert_close(got_r.float(), want_r.float(),
+                                       rtol=tol, atol=tol)
+            max_err = max(max_err, (got_r.float() - want_r.float()).abs()
+                          .max().item())
+        if not torch.equal(bits(torch, pg[:n]), bits(torch, got[sel])):
+            raise AssertionError(f"gemma2 heads {name}: paged rows differ "
+                                 "from clustered_decode bit for bit")
+        say(f"gemma2 heads ({GEMMA_HQ}/{GEMMA_HKV}, softcap {GEMMA_CAP:g}) "
+            f"{name}: clustered_decode and paged_clustered_decode == plain "
+            f"within {tol}, paged bit-equal to dense on all {n} real rows "
+            f"(max abs err so far {max_err:.3e})")
+    return max_err
+
+
+def quota_inputs(torch, dev, dtype, seed=4):
+    """B2's inputs in 5h's quota layout at qwen3-4b's heads: slot b's one
+    decode row at position Q_POS[b] (qpos1 = tw = Q_POS[b] + 1, cov 0),
+    one centroid of count 0 whose payload is garbage, a ring of Q_R
+    positions in Q_R / BS blocks a row, the blocks of positions below
+    Q_POS[b] + 1 + Q_AHEAD mapped through a shuffled table and the rest
+    at base block 0, which holds garbage.  Returns (kernel args, the
+    dense rings (B, Q_R, Hkv, Dh) of k and v, the count of blocks holding
+    a position a row can see)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    nt = Q_R // BS
+    depth = [min(p + 1 + Q_AHEAD, Q_R) for p in Q_POS]
+    mapped = [(b, bi) for b in range(B) for bi in range(-(-depth[b] // BS))]
+    nb = 1 + len(mapped) + 8
+    ids = (1 + torch.randperm(nb - 1, generator=g)[:len(mapped)]).tolist()
+    table = torch.zeros(B, nt, dtype=torch.int32)
+    rings, pools = {}, {}
+    for key in ("k", "v"):
+        pool = torch.randn(nb, BS, HKV, DH, generator=g)
+        ring = torch.randn(B, Q_R, HKV, DH, generator=g)
+        blocks = ring.reshape(B, nt, BS, HKV, DH)
+        for (b, bi), gid in zip(mapped, ids):
+            pool[gid] = blocks[b, bi]
+            table[b, bi] = gid
+        # the ring as the pool holds it: unmapped blocks read block 0
+        rings[key] = pool[table.long()].reshape(B, Q_R, HKV, DH).to(dev, dtype)
+        pools[key] = pool.to(dev, dtype)
+    pos1 = torch.tensor([p + 1 for p in Q_POS], dtype=torch.int32,
+                        device=dev)
+    args = dict(q=torch.randn(B, HQ, DH, generator=g).to(dev, dtype),
+                k_cents=torch.randn(B, 1, HKV, DH, generator=g).to(dev, dtype),
+                v_cents=torch.randn(B, 1, HKV, DH, generator=g).to(dev, dtype),
+                counts=torch.zeros(B, 1, HKV, device=dev),
+                k_pool=pools["k"], v_pool=pools["v"],
+                row_slot=torch.arange(B, dtype=torch.int32, device=dev),
+                row_bt=table.to(dev).contiguous(), qpos1=pos1,
+                tw=pos1.clone(), cov=torch.zeros_like(pos1))
+    needed = sum(-(-(p + 1) // BS) for p in Q_POS)
+    return args, rings, needed
+
+
+def check_paged_quota(torch, attention, pcd, dev):
+    """B2 in 5h's quota layout (one dead centroid, a ring of Q_R positions
+    through Q_R / BS blocks a row): against its plain version (bf16: 2 bf16
+    ulps; f32 and f32 with softcap 50: 1e-5), and in f32 against exact
+    attention over each row's visible positions
+    (``attention.decode_attention`` on the gathered ring): the count-0
+    centroid's NEG mask leaves no weight behind."""
+    max_err = 0.0
+    for name, dtype, cap, tol in (("bf16", torch.bfloat16, None, 1.6e-2),
+                                  ("f32", torch.float32, None, 1e-5),
+                                  ("f32_softcap50", torch.float32, 50.0,
+                                   1e-5)):
+        args, rings, _ = quota_inputs(torch, dev, dtype)
+        args = with_groups(torch, pcd, args)
+        kw = dict(scale=DH ** -0.5, softcap=cap)
+        got = pcd.paged_clustered_decode_cuda(**args, **kw)
+        f32 = {k: (v.float() if v.is_floating_point() else v)
+               for k, v in args.items()}
+        want = pcd.paged_clustered_decode_plain(**f32, **kw).to(dtype)
+        exact = attention.decode_attention(
+            args["q"].float(), rings["k"].float(), rings["v"].float(),
+            t=args["qpos1"], **kw).to(dtype)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, exact, rtol=tol, atol=tol)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"quota {name}: non-finite output")
+        max_err = max(max_err, (got.float() - want.float()).abs().max()
+                      .item())
+        say(f"paged_clustered_decode quota {name} (C 1 of count 0, ring "
+            f"{Q_R} in {Q_R // BS} blocks of {BS}, rows at {Q_POS}): kernel "
+            f"== plain within {tol}"
+            + (" and == exact attention" if dtype == torch.float32 else "")
+            + f" (max abs err so far {max_err:.3e})")
     return max_err
 
 
@@ -550,26 +718,38 @@ def stream_inputs(torch, dev, seed=1):
     return u, a
 
 
-def admission_inputs(torch, dev, seed=2):
+def admission_inputs(torch, dev, seed=2, layers=N_LAYERS, heads=HKV,
+                     s=ADM_S, plen=ADM_PLEN):
     """Words as ``_clusterize`` hands them to the median update: (layer,
-    head) members of ``ADM_S`` keys at the fit's 16-bit scale, taken over
-    the weighted points only (the pad past the prompt is drawn 8x wider, so
-    its words saturate as the pad tokens' keys may); 0/1 weights
-    ``pos < ADM_COV`` broadcast over the heads; random assignments to
-    C clusters."""
+    head) members of ``s`` keys at the fit's 16-bit scale, taken over the
+    weighted points only (the pad past the ``plen``-token prompt is drawn
+    8x wider, so its words saturate as the pad tokens' keys may); 0/1
+    weights ``pos < plen - (R - refresh)`` broadcast over the heads; random
+    assignments to C clusters.  The defaults are qwen3-4b's longest
+    prompt."""
     from repro_torch.core import quantizer
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    pos = torch.arange(ADM_S, device=dev)
-    x = torch.randn(N_LAYERS, HKV, ADM_S, DH, generator=g, device=dev)
-    x = x * torch.where(pos < 1321, 1.0, 8.0)[:, None]
-    w = (pos < ADM_COV).to(torch.float32).expand(N_LAYERS, HKV, ADM_S)
+    pos = torch.arange(s, device=dev)
+    x = torch.randn(layers, heads, s, DH, generator=g, device=dev)
+    x = x * torch.where(pos < plen, 1.0, 8.0)[:, None]
+    w = (pos < plen - (R - 32)).to(torch.float32).expand(layers, heads, s)
     spec = quantizer.FixedPointSpec(bits=16, scale=quantizer.auto_scale(
         x * w[..., None], 16).unsqueeze(-2))
     u = quantizer.to_unsigned_order(quantizer.quantize(x, spec), 16)
-    a = torch.randint(0, C, (N_LAYERS, HKV, ADM_S), generator=g, device=dev,
+    a = torch.randint(0, C, (layers, heads, s), generator=g, device=dev,
                       dtype=torch.int32)
     return u, a, w
+
+
+def admission_cases():
+    """(name, layers, kv heads, points, longest prompt) of the blocking
+    admissions' fits: qwen3-4b's in 5c / 5d, gemma2-27b's 'G' layers in 5f
+    / 5g."""
+    lens, _ = gemma2_lengths(np.random.default_rng(0))
+    return [("admission", N_LAYERS, HKV, ADM_S, ADM_PLEN),
+            ("gemma2 admission", GEMMA_G_LAYERS, GEMMA_HKV, GEMMA_MAX_SEQ,
+             int(lens.max()))]
 
 
 def check_bitserial_median(torch, bsm, dev):
@@ -598,23 +778,27 @@ def check_bitserial_median(torch, bsm, dev):
         say(f"bitserial_median {name} ({m} members x {C + R} points x {DH} "
             f"dims, K={k}, {bits} bits, count weights): kernel == plain bit "
             "for bit (medians and totals), two runs equal")
-    u, a, w = admission_inputs(torch, dev)
-    runs = [bsm.grouped_median_bits_cuda(u, a, C, w, bits=16)
-            for _ in range(2)]
-    med0, tot0 = bsm.grouped_median_bits_plain(u, a, C, weights=w, bits=16)
-    torch.cuda.synchronize()
-    for med, tot in runs:
-        max_err = max(max_err, err(med, tot, med0, tot0))
-        if not (torch.equal(med, med0) and torch.equal(tot, tot0)):
-            raise AssertionError("bitserial_median admission: kernel != "
-                                 "plain")
-    form = ("resident" if bsm.resident_bytes(ADM_S, DH, C)
-            <= bsm.RESIDENT_MAX_BYTES else "streamed")
-    say(f"bitserial_median admission ({N_LAYERS} x {HKV} members x {ADM_S} "
-        f"points x {DH} dims, K={C}, 16 bits, weights pos < {ADM_COV}, "
-        f"{form} form): kernel == plain bit for bit (medians and totals), "
-        "two runs equal")
-    del u, a, w, runs, med0, tot0
+        del u, a, w, runs, med0, tot0
+    for name, layers, heads, s, plen in admission_cases():
+        u, a, w = admission_inputs(torch, dev, layers=layers, heads=heads,
+                                   s=s, plen=plen)
+        runs = [bsm.grouped_median_bits_cuda(u, a, C, w, bits=16)
+                for _ in range(2)]
+        med0, tot0 = bsm.grouped_median_bits_plain(u, a, C, weights=w,
+                                                   bits=16)
+        torch.cuda.synchronize()
+        for med, tot in runs:
+            max_err = max(max_err, err(med, tot, med0, tot0))
+            if not (torch.equal(med, med0) and torch.equal(tot, tot0)):
+                raise AssertionError(f"bitserial_median {name}: kernel != "
+                                     "plain")
+        form = ("resident" if bsm.resident_bytes(s, DH, C)
+                <= bsm.RESIDENT_MAX_BYTES else "streamed")
+        say(f"bitserial_median {name} ({layers} x {heads} members x {s} "
+            f"points x {DH} dims, K={C}, 16 bits, weights pos < "
+            f"{plen - (R - 32)}, {form} form): kernel == plain bit for bit "
+            "(medians and totals), two runs equal")
+        del u, a, w, runs, med0, tot0
     u, a = stream_inputs(torch, dev)
     runs = [bsm.grouped_median_bits_cuda(u, a, K_PTS, bits=32)
             for _ in range(2)]
@@ -753,17 +937,17 @@ def check_small_model(torch, dev):
 
 
 def serve_workload(torch, dev, paged=None, params=None, chunk=64,
-                   engine="continuous"):
+                   engine="continuous", compress=True):
     """The smoke's serve: qwen3-4b at full width (random weights from seed
     0, bf16) behind a clustered-KV Server — paged when ``paged`` is a
-    ``PagedKVConfig``, with blocking admission when ``chunk`` is 0 — or,
-    with ``engine="static"``, the static engine over exact KV; and 8
+    ``PagedKVConfig``, with blocking admission when ``chunk`` is 0, over
+    exact KV under a block quota when ``compress`` is False — or, with
+    ``engine="static"``, the static engine over exact KV; and 8
     requests.  ``params`` reuses weights made by an earlier call.  Returns
     ``(cfg, server, requests, prompts)``; benchmarks/profile_torch_serve.py
     and serve_times.py serve the same workload."""
     from repro_torch import configs
     from repro_torch.core.kv_compress import KVCompressConfig
-    from repro_torch.core.request_cluster import Request
     from repro_torch.models import transformer as tfm
     from repro_torch.runtime.server import Server, ServerConfig
 
@@ -783,15 +967,25 @@ def serve_workload(torch, dev, paged=None, params=None, chunk=64,
         scfg = ServerConfig(batch_size=4, max_seq=2048, engine="static")
     else:
         scfg = ServerConfig(batch_size=4, max_seq=2048, prefill_chunk=chunk,
-                            kv_compress=ccfg, paged=paged)
+                            kv_compress=ccfg if compress else None,
+                            paged=paged)
     srv = Server(cfg, scfg, params, device=dev)
+    reqs, prompts = qwen3_requests(cfg.vocab)
+    return cfg, srv, reqs, prompts
+
+
+def qwen3_requests(vocab):
+    """The 8 requests of ``serve_workload`` (prompts of 96-1,536 tokens,
+    40-72 new tokens) and their prompts, from ``default_rng(0)``."""
+    from repro_torch.core.request_cluster import Request
+
     rng = np.random.default_rng(0)
     lens = rng.integers(96, 1537, size=8)
     gens = rng.integers(40, 73, size=8)
     reqs = [Request(i, int(lens[i]), int(gens[i])) for i in range(8)]
-    prompts = {i: rng.integers(0, cfg.vocab, size=int(lens[i]))
+    prompts = {i: rng.integers(0, vocab, size=int(lens[i]))
                .astype(np.int32) for i in range(8)}
-    return cfg, srv, reqs, prompts
+    return reqs, prompts
 
 
 def check_tokens(cfg, reqs, outs, mode):
@@ -949,6 +1143,239 @@ def serve_static(torch, dev, smi, params):
         f"tokens sha256 {digest.hexdigest()[:16]}")
     return {"wall_s": wall, "stats": st, "launches": launches,
             "tokens": tokens, "tokens_sha256": digest.hexdigest()[:16]}
+
+
+def serve_quota(torch, dev, smi, params, static):
+    """Phase 5h: the 8 requests through paged exact KV under
+    QuotaRetention (no kv_compress, blocking admission), with a pool one
+    block short of the two largest reservations: every request completes,
+    an admission the pool cannot reserve defers (counted where the pool
+    refuses it: every ring write was reserved at admission, so only
+    admissions are refused), positions retire only at request exit,
+    paged_clustered_decode runs every layer of every engine step over the
+    one dead centroid and the 2,048-position ring, and nothing clusters
+    (clustered_decode and bitserial_median at 0).  Token agreement with
+    5e's static engine (exact KV too) is printed, not gated."""
+    from repro_torch.core.retention import QuotaRetention
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import kv_pool
+
+    from repro_torch import configs
+
+    # the quota layout's ring is max_seq (Q_R) positions
+    quota = QuotaRetention(BS, Q_R // BS)
+    reqs, _ = qwen3_requests(configs.get_config("qwen3-4b").vocab)
+    need = sorted(quota.admit_blocks(min(r.prompt_len, Q_R),
+                                     r.max_new_tokens) for r in reqs)
+    pool_blocks = need[-1] + need[-2] - 1
+    paged = kv_pool.PagedKVConfig(block_size=BS, pool_blocks=pool_blocks)
+    cfg, srv, reqs, prompts = serve_workload(torch, dev, paged, params,
+                                             chunk=0, compress=False)
+    refused = [0]
+    ensure = kv_pool.BlockPool.ensure
+
+    def counting_ensure(self, *a, **k):
+        try:
+            return ensure(self, *a, **k)
+        except kv_pool.PoolExhausted:
+            refused[0] += 1
+            raise
+
+    ops.reset_launches()
+    kv_pool.BlockPool.ensure = counting_ensure
+    try:
+        t0 = time.perf_counter()
+        outs = srv.serve(reqs, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        kv_pool.BlockPool.ensure = ensure
+    launches = ops.launch_counts()
+    st = srv.last_stats
+    check_tokens(cfg, reqs, outs, "quota")
+    steps = int(st["decode_steps"])
+    want = {"paged_clustered_decode": cfg.n_layers * steps,
+            "clustered_decode": 0, "bitserial_median": 0}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"quota: launches {got}, want {want} "
+                             f"(layers x steps = {cfg.n_layers} x {steps})")
+    if not (st["kv_retired_quota"] > 0 and st["kv_retired_frontier"] == 0
+            and st["pool_blocks_end"] == 0
+            and st["pool_occupancy_peak"] <= 1.0 and refused[0] > 0):
+        raise AssertionError(
+            f"quota: kv_retired_quota {st['kv_retired_quota']} (want > 0), "
+            f"kv_retired_frontier {st['kv_retired_frontier']} (want 0), "
+            f"pool_blocks_end {st['pool_blocks_end']} (want 0), "
+            f"pool_occupancy_peak {st['pool_occupancy_peak']} (want <= 1), "
+            f"refused reservations {refused[0]} (want > 0)")
+    tokens = {o.uid: list(map(int, o.tokens)) for o in outs}
+    digest = hashlib.sha256(json.dumps(tokens, sort_keys=True).encode())
+    say(f"[{smi}] quota serve: 8 requests in {wall:.3f} s wall, {steps} "
+        f"engine steps; pool {pool_blocks} blocks of {BS} (reservations "
+        f"{need}, the two largest {need[-1]} + {need[-2]}), peak "
+        f"{int(st['pool_blocks_peak'])}, occupancy "
+        f"{st['pool_occupancy_peak']:.4f}, {refused[0]} refused "
+        f"reservations, kv_retired_quota {int(st['kv_retired_quota'])}, end "
+        f"{int(st['pool_blocks_end'])}; paged_clustered_decode launches "
+        f"{launches['paged_clustered_decode']} = {cfg.n_layers} x {steps}; "
+        f"tokens sha256 {digest.hexdigest()[:16]}; tokens_per_s "
+        f"{st['tokens_per_s']:.1f} ttft_p50_ms {st['ttft_p50_ms']:.1f} "
+        f"itl_p50_ms {st['itl_p50_ms']:.2f}")
+    rec = {"n_layers": cfg.n_layers, "stats": st, "wall_s": wall,
+           "launches": launches, "engine_steps": steps,
+           "pool_blocks": pool_blocks, "reservations": need,
+           "refused_reservations": refused[0], "tokens": tokens,
+           "tokens_sha256": digest.hexdigest()[:16]}
+    rec["vs_static_first_diff"] = compare_tokens(static, rec,
+                                                 "quota vs static (exact KV)")
+    return rec
+
+
+# 5f and 5g: gemma2-27b at full width and depth, max_seq GEMMA_MAX_SEQ
+# (prompts past the 4,096 window), the smoke's KVCompressConfig
+
+
+def gemma2_workload(torch, dev, paged=None, params=None):
+    """gemma2-27b (46 layers, 'LG', window 4,096; bf16 weights from
+    ``init_params`` seed 0) behind a clustered-KV Server with blocking
+    admission, paged when ``paged`` is a ``PagedKVConfig``; 6 requests
+    from ``default_rng(0)``: three prompts in [4352, 6144], so each window
+    ring has wrapped at admission, three in [256, 3072], each with 48-80
+    new tokens.  Returns ``(cfg, server, requests, prompts)``."""
+    from repro_torch import configs
+    from repro_torch.core.kv_compress import KVCompressConfig
+    from repro_torch.core.request_cluster import Request
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg = configs.get_config("gemma2-27b")
+    if params is None:
+        t0 = time.perf_counter()
+        params = tfm.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 cfg, device=dev)
+        torch.cuda.synchronize()
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(params))
+        say(f"gemma2-27b params ({cfg.n_layers} layers "
+            f"'{cfg.layer_pattern}', window {cfg.sliding_window}, d_model "
+            f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+            f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+            f"{cfg.dtype}, {n_bytes / 1e9:.2f} GB) initialised in "
+            f"{time.perf_counter() - t0:.1f} s")
+    ccfg = KVCompressConfig(n_clusters=64, iters=4, bits=16, keep_recent=256,
+                            refresh_every=32, prompt_clusters=32)
+    srv = Server(cfg, ServerConfig(batch_size=4, max_seq=GEMMA_MAX_SEQ,
+                                   kv_compress=ccfg, paged=paged),
+                 params, device=dev)
+    rng = np.random.default_rng(0)
+    lens, gens = gemma2_lengths(rng)
+    reqs = [Request(i, int(lens[i]), int(gens[i])) for i in range(6)]
+    prompts = {i: rng.integers(0, cfg.vocab, size=int(lens[i]))
+               .astype(np.int32) for i in range(6)}
+    return cfg, srv, reqs, prompts
+
+
+def gemma2_lengths(rng):
+    """The 6 requests' prompt lengths (three in [4352, 6144], three in
+    [256, 3072]) and new tokens (48-80), the first draws from ``rng``."""
+    lens = np.concatenate([rng.integers(4352, 6145, size=3),
+                           rng.integers(256, 3073, size=3)])
+    return lens, rng.integers(48, 81, size=6)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def serve_gemma2(torch, dev, smi, paged=None, params=None):
+    """Phases 5f (dense) and 5g (paged): serve gemma2-27b's workload once
+    and hold it to its gates: every request complete, both retention
+    policies retired positions (windows slid, the coverage frontier
+    advanced), the decode kernel of the mode launched once for each of the
+    23 'G' layers of every engine step and the other one not at all (the
+    'L' layers run plain windowed attention, as in the reference),
+    bitserial_median at least once for each compress admission and
+    compaction, and (paged) every block back.  Returns (record, params)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+
+    cfg, srv, reqs, prompts = gemma2_workload(torch, dev, paged, params)
+    mode = "gemma2 " + ("paged" if paged is not None else "dense")
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = srv.serve(reqs, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = ops.launch_counts()
+    st = srv.last_stats
+    check_tokens(cfg, reqs, outs, mode)
+    ccfg = srv.scfg.kv_compress
+    lens = np.array([r.prompt_len for r in reqs])
+    n_g = tfm.layer_kinds(cfg).count("G")
+    steps = int(st["decode_steps"])
+    kernel, other = (("paged_clustered_decode", "clustered_decode")
+                     if paged is not None else
+                     ("clustered_decode", "paged_clustered_decode"))
+    if launches[kernel] != n_g * steps or launches[other] != 0:
+        raise AssertionError(
+            f"{mode}: {kernel} launched {launches[kernel]} times, want 'G' "
+            f"layers x steps = {n_g} x {steps}; {other} {launches[other]}, "
+            "want 0")
+    if not (st["kv_retired_window"] > 0 and st["kv_retired_frontier"] > 0):
+        raise AssertionError(
+            f"{mode}: kv_retired_window {st['kv_retired_window']}, "
+            f"kv_retired_frontier {st['kv_retired_frontier']}: want both "
+            "> 0")
+    n_comp = int((lens > ccfg.keep_recent - ccfg.refresh).sum())
+    if int(st["kv_admit_compress"]) != n_comp:
+        raise AssertionError(f"{mode}: {int(st['kv_admit_compress'])} "
+                             f"compress admissions, want {n_comp}")
+    need = n_comp + int(st["kv_compactions"])
+    n_med = launches["bitserial_median"]
+    if not (n_med >= need and n_med > 0):
+        raise AssertionError(
+            f"{mode}: bitserial_median launched {n_med} times, want >= "
+            f"compress admissions + compactions = {need}")
+    pool = ""
+    if paged is not None:
+        allocs, frees = int(st["pool_allocs"]), int(st["pool_frees"])
+        if not (frees == allocs and int(st["pool_blocks_end"]) == 0):
+            raise AssertionError(
+                f"{mode} pool: allocs {allocs}, frees {frees}, end "
+                f"{int(st['pool_blocks_end'])}: want frees == allocs, end 0")
+        pool = (f"; pool peak {int(st['pool_blocks_peak'])} of "
+                f"{int(st['pool_blocks_total'])} blocks, {allocs} allocs = "
+                f"{frees} frees")
+    tokens = {o.uid: list(map(int, o.tokens)) for o in outs}
+    digest = hashlib.sha256(json.dumps(tokens, sort_keys=True).encode())
+    say(f"[{smi}] {mode} serve: 6 requests (prompts {lens.tolist()}, "
+        f"{int(st['gen_tokens'])} generated) in {wall:.3f} s wall; {steps} "
+        f"engine steps, {int(st['kv_compactions'])} compactions, "
+        f"{int(st['kv_admit_compress'])} compress + "
+        f"{int(st['kv_admit_tail'])} tail-only admissions; kv_retired_window "
+        f"{int(st['kv_retired_window'])}, kv_retired_frontier "
+        f"{int(st['kv_retired_frontier'])}; {kernel} launches "
+        f"{launches[kernel]} = {n_g} x {steps}; bitserial_median {n_med} "
+        f"(>= {need}){pool}; peak memory allocated {peak / 2**30:.2f} GiB; "
+        f"tokens_per_s {st['tokens_per_s']:.1f} ttft_p50_ms "
+        f"{st['ttft_p50_ms']:.1f} itl_p50_ms {st['itl_p50_ms']:.2f} "
+        f"clusterize_s {st['clusterize_s']:.3f}; tokens sha256 "
+        f"{digest.hexdigest()[:16]}")
+    return ({"n_layers": cfg.n_layers, "g_layers": n_g, "stats": st,
+             "wall_s": wall, "launches": launches, "engine_steps": steps,
+             "peak_bytes": peak, "max_seq": srv.scfg.max_seq,
+             "prompt_lens": lens.tolist(), "tokens": tokens,
+             "tokens_sha256": digest.hexdigest()[:16]}, srv.params)
 
 
 # ---------------------------------------------------------------------------
@@ -1164,13 +1591,15 @@ def paged_sdpa_yardstick(torch, args):
     outside the timed call), every row of the bucket a batch entry."""
     import torch.nn.functional as F
 
-    g = HQ // HKV
-    n = args["q"].shape[0]
+    n, hq, dh = args["q"].shape
+    hkv = args["k_cents"].shape[2]
+    g = hq // hkv
+    r = args["row_bt"].shape[1] * args["k_pool"].shape[1]
     rs = args["row_slot"].long()
     dev = args["q"].device
 
     def entries(cents, pool):
-        ring = pool[args["row_bt"].long()].reshape(n, R, HKV, DH)
+        ring = pool[args["row_bt"].long()].reshape(n, r, hkv, dh)
         kv = torch.cat([cents[rs], ring], 1).transpose(1, 2)   # (N, Hkv, E, Dh)
         return kv.repeat_interleave(g, 1).contiguous()
 
@@ -1181,14 +1610,14 @@ def paged_sdpa_yardstick(torch, args):
     bias_c = torch.where(cnt > 0, torch.log(cnt.clamp_min(1e-9)),
                          torch.full_like(cnt, -1e30))[:, :, None, :]
     tw = args["tw"].long()[:, None]
-    s = torch.arange(R, device=dev)[None]
-    pos = torch.where(tw <= R, s, tw - R + torch.remainder(s - tw, R))
+    s = torch.arange(r, device=dev)[None]
+    pos = torch.where(tw <= r, s, tw - r + torch.remainder(s - tw, r))
     ok = ((pos < args["qpos1"].long()[:, None])
           & (pos >= args["cov"].long()[:, None]))
-    bias_t = torch.where(ok, 0.0, -1e30)[:, None, None, :].expand(n, HQ, 1, R)
+    bias_t = torch.where(ok, 0.0, -1e30)[:, None, None, :].expand(n, hq, 1, r)
     mask = torch.cat([bias_c, bias_t], -1).to(q.dtype)
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                  scale=DH ** -0.5)
+                                                  scale=dh ** -0.5)
 
 
 def with_groups(torch, pcd, args):
@@ -1199,7 +1628,8 @@ def with_groups(torch, pcd, args):
         return args
     grp = pcd.group_rows(args["row_slot"].cpu().numpy(),
                          args["qpos1"].cpu().numpy(),
-                         args["tw"].cpu().numpy(), HQ // HKV)
+                         args["tw"].cpu().numpy(),
+                         args["q"].shape[1] // args["k_cents"].shape[2])
     return dict(args, row_group=torch.from_numpy(grp).to(args["q"].device))
 
 
@@ -1242,6 +1672,37 @@ def time_paged(torch, pcd, x, cl, bucket, plain=False):
     return out
 
 
+def time_paged_quota(torch, pcd, dev, plain=True):
+    """B2 in 5h's quota layout, bf16 (``quota_inputs``' four decode rows):
+    kernel device time, wrapper call time, the plain version's call time
+    (unless not ``plain``), SDPA device time over each row's gathered
+    entries, and the bound.  Bytes: each row's q and output once, each
+    slot's centroid and count once, the blocks holding a position some
+    row can see once (not the reserved blocks past it), the row vectors
+    and block-table rows once; flops: each row against its visible
+    positions (the count-0 centroid is masked)."""
+    args, _, needed = quota_inputs(torch, dev, torch.bfloat16)
+    args = with_groups(torch, pcd, args)
+    kw = dict(scale=DH ** -0.5)
+    run = lambda: pcd.paged_clustered_decode_cuda(**args, **kw)  # noqa: E731
+    el = args["q"].element_size()
+    nbytes = (2 * B * HQ * DH * el + B * HKV * (2 * DH * el + 4)
+              + 2 * needed * BS * HKV * DH * el + B * 4 * (6 + Q_R // BS))
+    flops = sum(p + 1 for p in Q_POS) * HQ * DH * 2
+    b_ms, b_by = decode_bound(nbytes, flops, flops)
+    out = dict(ms=device_ms(torch, run, "paged_clustered_decode_kernel"),
+               call_ms=time_ms(torch, run),
+               library_ms=device_ms(torch,
+                                    paged_sdpa_yardstick(torch, args)),
+               bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops_qk=flops,
+               flops_pv=flops, rows=B, needed_blocks=needed,
+               shape=f"{B} decode rows at {Q_POS}, C 1 (count 0), ring "
+                     f"{Q_R} in {Q_R // BS} blocks of {BS}")
+    out["plain_ms"] = (time_ms(torch, lambda: (
+        pcd.paged_clustered_decode_plain(**args, **kw))) if plain else None)
+    return out
+
+
 def decode_times(torch, cd, pcd, dev, plain=True):
     """B1 in its mixed (chunk_len CL_SLOTS), serve-like mixed (CL_SERVE:
     what the engine launches while one prompt is admitted) and one-token
@@ -1263,6 +1724,8 @@ def decode_times(torch, cd, pcd, dev, plain=True):
                                              N_BUCKET, plain),
         "paged_clustered_decode decode_only": time_paged(
             torch, pcd, x, [1] * B, B, plain),
+        "paged_clustered_decode quota": time_paged_quota(torch, pcd, dev,
+                                                         plain),
     }
 
 
@@ -1406,11 +1869,20 @@ def main() -> int:
     from repro_torch.kernels import distance_argmin as da
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import paged_clustered_decode as pcd
+    from repro_torch.models import attention
     from repro_torch.runtime.kv_pool import PagedKVConfig
 
     record = {"card": smi, "kind": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda}
     t_all = time.perf_counter()
+    phase_s = {}
+    mark = [time.perf_counter()]
+
+    def done(name):
+        now = time.perf_counter()
+        phase_s[name] = now - mark[0]
+        mark[0] = now
+        say(f"phase {name}: {phase_s[name]:.1f} s")
 
     # phase 2: build
     t0 = time.perf_counter()
@@ -1419,16 +1891,24 @@ def main() -> int:
         + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
     record["build_s"] = built
     record["ptxas"] = dict(_build.BUILD_LOG)
+    done("2 build")
 
-    # phase 3: kernels vs plain
+    # phase 3: kernels vs plain (B1 and B2 also at gemma2's heads and in
+    # the quota layout)
     cd_err = check_clustered_decode(torch, cd, dev)
     pcd_err = check_paged_decode(torch, cd, pcd, dev)
+    gemma_err = check_gemma_decode(torch, cd, pcd, dev)
+    quota_err = check_paged_quota(torch, attention, pcd, dev)
+    cd_err = max(cd_err, gemma_err)
+    pcd_err = max(pcd_err, gemma_err, quota_err)
     da_err = check_distance_argmin(torch, da, dev)
     bsm_err = check_bitserial_median(torch, bsm, dev)
     fd_err = check_flash_decode(torch, fd, dev)
+    done("3 kernels vs plain")
 
     # phase 4: small model, card vs CPU
     check_small_model(torch, dev)
+    done("4 small model")
 
     # phase 5: serve
     serve, params = serve_qwen3(torch, dev, smi)
@@ -1454,18 +1934,42 @@ def main() -> int:
         blocking, paged_blk, "paged vs dense (blocking)")
 
     # phase 5e: the static engine over exact KV
-    record["serve_static"] = serve_static(torch, dev, smi, params)
+    static = serve_static(torch, dev, smi, params)
+    record["serve_static"] = static
+    done("5-5e qwen3-4b serves")
+
+    # phase 5h: paged exact KV under QuotaRetention, qwen3's weights still
+    # resident
+    quota = serve_quota(torch, dev, smi, params, static)
+    record["serve_quota"] = quota
+    done("5h quota serve")
     del params
+    torch.cuda.empty_cache()
+
+    # phases 5f and 5g: gemma2-27b at full width and depth, dense then paged
+    windowed, gparams = serve_gemma2(torch, dev, smi)
+    record["serve_gemma2"] = windowed
+    done("5f gemma2 dense (weights included)")
+    windowed_pg = serve_gemma2(torch, dev, smi, PagedKVConfig(block_size=BS),
+                               gparams)[0]
+    record["serve_gemma2_paged"] = windowed_pg
+    record["gemma2_paged_vs_dense_first_diff"] = compare_tokens(
+        windowed, windowed_pg, "gemma2 paged vs dense")
+    done("5g gemma2 paged")
+    del gparams
+    torch.cuda.empty_cache()
 
     # phase 6: k-medians through both clustering kernels, the pipeline
     km = kmedians(torch, dev)
     record["kmedians"] = km
     qs = quickstart(torch, dev)
     record["quickstart"] = qs
+    done("6 clustering")
 
     # phase 7: times
     tm = timings(torch, cd, pcd, da, bsm, fd, dev)
     record["times"] = tm
+    done("7 times")
     fmt = lambda v: "None" if v is None else f"{v:.4f}"    # noqa: E731
     for name, v in tm.items():
         say(f"[{smi}] {name}: kernel_ms {v['ms']:.4f} (device) call_ms "
@@ -1496,6 +2000,11 @@ def main() -> int:
         f"{tm['distance_argmin l1']['ms']:.4f} ms = {b4_ms:.3f} ms of device "
         f"time, {b4_ms / (km['seconds'] * 1e3) * 100:.2f} % of the fit")
     record["seconds"] = time.perf_counter() - t_all
+    record["phase_s"] = phase_s
+    say("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in phase_s.items())
+        + f"; total {record['seconds']:.1f}")
+    tq = tm["paged_clustered_decode quota"]
 
     kernels = [
         dict(name="clustered_decode", route="cuda",
@@ -1503,6 +2012,7 @@ def main() -> int:
              replaces="src/repro/kernels/clustered_decode.py:107",
              launches=serve["launches"]["clustered_decode"],
              launches_blocking=blocking["launches"]["clustered_decode"],
+             launches_windowed=windowed["launches"]["clustered_decode"],
              max_abs_err=cd_err, ms=tm["clustered_decode"]["ms"],
              plain_ms=tm["clustered_decode"]["plain_ms"],
              bound_ms=tm["clustered_decode"]["bound_ms"],
@@ -1514,11 +2024,17 @@ def main() -> int:
              launches=paged["launches"]["paged_clustered_decode"],
              launches_blocking=paged_blk["launches"][
                  "paged_clustered_decode"],
+             launches_windowed=windowed_pg["launches"][
+                 "paged_clustered_decode"],
+             launches_quota=quota["launches"]["paged_clustered_decode"],
              max_abs_err=pcd_err, ms=tm["paged_clustered_decode"]["ms"],
              plain_ms=tm["paged_clustered_decode"]["plain_ms"],
              bound_ms=tm["paged_clustered_decode"]["bound_ms"],
              bound_by=tm["paged_clustered_decode"]["bound_by"],
-             library_ms=tm["paged_clustered_decode"]["library_ms"]),
+             library_ms=tm["paged_clustered_decode"]["library_ms"],
+             # 5h's quota layout (time_paged_quota)
+             quota={k: tq[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}),
         *(dict(name=f"distance_argmin {metric}", route="cuda",
                source="src/repro_torch/csrc/distance_argmin.cu",
                replaces=f"src/repro/kernels/distance_argmin.py:{line}",

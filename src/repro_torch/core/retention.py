@@ -1,14 +1,26 @@
 """Retention policies: *what* the KV cache must keep, decoupled from
-*where* the bytes live (port of the frontier subset of
-``repro.core.retention``).
+*where* the bytes live (port of ``repro.core.retention`` without its
+recurrent policy).
 
 A :class:`RetentionPolicy` answers one question — which claimed positions
 must survive? — through a per-slot lower bound ``retire_lo(slot, t)``:
-positions in [retire_lo, t) are live, positions below it are retired.
-:class:`FrontierRetention` is the clustered coverage frontier: positions
-below ``cov`` were absorbed into k-medians centroids, so dropping their
-exact bytes is loss-free.  The window, quota and recurrent policies come
-with the paged engine.
+positions in [retire_lo, t) are live, positions below it are retired, and
+positions at or after ``t`` (claimed but never written) are dead unless
+the policy sets ``keep_unwritten``.
+
+* :class:`FrontierRetention` — the clustered coverage frontier: positions
+  below ``cov`` were absorbed into k-medians centroids, so dropping their
+  exact bytes is loss-free.
+* :class:`WindowRetention` — sliding-window ('L') layers: retire_lo is
+  ``t - window``; a ring of at least ``window`` entries never overwrites
+  an in-window entry.
+* :class:`QuotaRetention` — paged exact KV with a per-slot block budget:
+  nothing retires mid-stream; a request's whole depth is reserved at
+  admission and returned at slot exit, so an oversubscribed pool defers
+  admissions instead of running dry mid-decode.
+
+``RecurrentRetention`` comes with the recurrent layers (ROADMAP Queue A
+item 8).
 """
 
 from __future__ import annotations
@@ -78,3 +90,68 @@ class FrontierRetention(RetentionPolicy):
     def on_slot_free(self, slot: int) -> None:
         super().on_slot_free(slot)
         self.cov[slot] = 0
+
+
+class WindowRetention(RetentionPolicy):
+    """Sliding-window local attention: keep the last ``window`` positions.
+
+    A local layer at stream length ``t`` attends ``[max(0, t - window),
+    t)`` only, so anything older is dead by the model's own mask.
+    ``advance(slot, t)`` moves the slot's stream head and returns how many
+    positions newly crossed the window edge (the ``kv_retired_window``
+    counter), in positions: local rings are dense per slot, never in the
+    pool, and a retired entry's storage is reclaimed when the ring
+    overwrites it."""
+
+    kind = "window"
+
+    def __init__(self, window: int, n_slots: int = 0):
+        if window <= 0:
+            raise ValueError("WindowRetention needs a positive window")
+        self.window = int(window)
+        self._head = np.zeros(n_slots, np.int64)
+
+    def retire_lo(self, slot: int, t: int) -> int:
+        return max(0, int(t) - self.window)
+
+    def advance(self, slot: int, t: int) -> int:
+        """Move slot's stream head to ``t``; return newly retired count."""
+        old = int(self._head[slot])
+        t = max(old, int(t))
+        self._head[slot] = t
+        return max(0, t - self.window) - max(0, old - self.window)
+
+    def on_slot_free(self, slot: int) -> None:
+        super().on_slot_free(slot)
+        if slot < self._head.shape[0]:
+            self._head[slot] = 0
+
+
+class QuotaRetention(RetentionPolicy):
+    """Paged exact KV with a per-slot block budget.
+
+    Every written position of an exact cache may be attended until the
+    request exits, so nothing retires (``retire_lo`` 0) and reserved but
+    unwritten positions keep their blocks (``keep_unwritten``).  The
+    engine reserves ``admit_blocks`` before a request's first token and
+    defers the request when the pool cannot supply them; the blocks go
+    back at slot exit."""
+
+    kind = "quota"
+    keep_unwritten = True
+
+    def __init__(self, block_size: int, blocks_per_slot: int):
+        self.block_size = int(block_size)
+        self.blocks_per_slot = int(blocks_per_slot)
+
+    def retire_lo(self, slot: int, t: int) -> int:
+        return 0
+
+    def admit_blocks(self, plen: int, max_new: int) -> int:
+        """Blocks for a request's whole written depth: the prompt's
+        ``plen`` positions and ``max_new - 1`` generated tokens (the last
+        sampled token is never written back), rounded up to blocks and
+        clamped to the per-slot budget."""
+        depth = int(plen) + max(1, int(max_new)) - 1
+        need = -(-depth // self.block_size)
+        return min(self.blocks_per_slot, max(1, need))

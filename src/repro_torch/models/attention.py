@@ -1,10 +1,13 @@
-"""Attention for the decoder-only GQA serving path (port of the 'G' subset
-of ``repro.models.attention``): chunked online-softmax prefill, the exact
-decode cache (optionally int8 with per-head scales) and the clustered
-[median centroids ⊕ exact tail ring] cache of the paper's memory manager.
+"""Attention for the decoder-only GQA serving path (port of the global
+('G') and sliding-window ('L') subset of ``repro.models.attention``):
+chunked online-softmax prefill, the exact decode cache (optionally int8
+with per-head scales), the sliding-window ring of 'L' layers and the
+clustered [median centroids ⊕ exact tail ring] cache of the paper's
+memory manager.
 
 Cache leaves keep the reference's layouts: exact k/v (B, Sc, Hkv, Dh)
-(int8: plus k/v_scale (Hkv,) f32);
+(int8: plus k/v_scale (Hkv,) f32), where an 'L' layer's Sc is
+min(max_seq, window) and position p sits at ring slot p % Sc;
 clustered k/v_cents (B, C, Hkv, Dh), counts (B, C, Hkv) f32, k/v_tail
 (B, R, Hkv, Dh) in ring order, cov (B,) int32.  Decode writes the new keys
 and values into the cache IN PLACE (and returns the cache): an engine step
@@ -86,15 +89,19 @@ def ring_slot_positions(cache_size: int, t):
 
 
 def decode_attention(q, k_cache, v_cache, *, t, scale: float,
-                     softcap: Optional[float] = None, chunk_len=None):
-    """One-token (or chunked mixed-mode) attention over an exact cache
-    (position p at index p).
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None,
+                     ring: bool = False, chunk_len=None):
+    """One-token (or chunked mixed-mode) attention over an exact cache:
+    position p at index p, or with ``ring`` at slot p % Sc (the ring's
+    positions at its watermark come from ``ring_slot_positions``).
 
     Decode form — q (B, Hq, Dh), caches (B, Sc, Hkv, Dh); ``t`` = the
     query's position + 1 (entries with position < t participate).  Mixed
     form — q (B, L, Hq, Dh) with per-slot ``chunk_len`` and ``t`` = cache
-    length before the chunk: row i sees positions < t + i + 1.  Rows at
-    index >= chunk_len are garbage.  Returns like q."""
+    length before the chunk: row i sees positions < t + i + 1.  With
+    ``window`` a row also drops positions below its qpos1 - window.  Rows
+    at index >= chunk_len are garbage.  Returns like q."""
     squeeze = q.dim() == 3
     if squeeze:
         q = q[:, None]
@@ -109,10 +116,18 @@ def decode_attention(q, k_cache, v_cache, *, t, scale: float,
     tb = per_slot(t, b, dev)
     if squeeze:
         qpos1 = tb[:, None]
+        tw = tb                                          # writes included
     else:
         qpos1 = tb[:, None] + torch.arange(l, device=dev)[None, :] + 1
-    pos = torch.arange(sc, device=dev)[None, :]
-    ok = pos[:, None, :] < qpos1[:, :, None]                 # (B, L, Sc)
+        tw = tb + per_slot(chunk_len, b, dev)            # ring holds t + cl
+    pos = (ring_slot_positions(sc, tw) if ring
+           else torch.arange(sc, device=dev)[None, :].expand(b, sc))
+    ok = ((pos >= 0)[:, None, :]
+          & (pos[:, None, :] < qpos1[:, :, None]))        # (B, L, Sc)
+    if window is not None:
+        # the query sits at qpos1 - 1; the training mask qpos - kpos <
+        # window keeps kpos >= qpos1 - window
+        ok = ok & (pos[:, None, :] >= qpos1[:, :, None] - window)
     s = torch.where(ok[:, None, :, None, :], s, torch.full_like(s, NEG))
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
@@ -143,8 +158,16 @@ def init_attn(generator, cfg: ModelConfig, device=None):
     return p
 
 
-def _qkv(p, x, cfg: ModelConfig, positions, kv_repeat: int):
-    """Projections, qk-norm and RoPE (global-attention theta)."""
+def _theta(cfg: ModelConfig, layer_kind: str) -> float:
+    if layer_kind == "L" and cfg.rope_theta_local is not None:
+        return cfg.rope_theta_local
+    return cfg.rope_theta
+
+
+def _qkv(p, x, cfg: ModelConfig, positions, layer_kind: str,
+         kv_repeat: int):
+    """Projections, qk-norm and RoPE (local layers take
+    ``rope_theta_local`` where the config has one)."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(b, s, hq, dh)
@@ -153,8 +176,9 @@ def _qkv(p, x, cfg: ModelConfig, positions, kv_repeat: int):
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    th = _theta(cfg, layer_kind)
+    q = apply_rope(q, positions, th)
+    k = apply_rope(k, positions, th)
     if kv_repeat > 1:
         k = torch.repeat_interleave(k, kv_repeat, dim=2)
         v = torch.repeat_interleave(v, kv_repeat, dim=2)
@@ -168,29 +192,43 @@ def _scale(cfg: ModelConfig) -> float:
 
 def attn_prefill(p, x, cfg: ModelConfig, *, layer_kind: str, positions,
                  kv_repeat: int = 1, chunk_kv: int = 1024):
-    """Causal prefill of a global-attention ('G') layer: returns (y, cache)
-    with the exact k/v of every position, (B, S, Hkv, Dh)."""
-    if layer_kind != "G":
-        raise NotImplementedError(
-            f"layer kind {layer_kind!r}: only global attention ('G') is "
-            "ported (ROADMAP Queue A item 3)")
-    q, k, v = _qkv(p, x, cfg, positions, kv_repeat)
+    """Causal prefill: returns (y, cache).  A 'G' layer's cache holds the
+    exact k/v of every position, (B, S, Hkv, Dh); an 'L' layer's holds
+    only the last ``window`` keys at their ring slots p % window (zero
+    padded up to ``window`` when S is shorter)."""
+    q, k, v = _qkv(p, x, cfg, positions, layer_kind, kv_repeat)
+    window = cfg.sliding_window if layer_kind == "L" else None
     out = chunked_attention(q, k, v, causal=True, scale=_scale(cfg),
-                            softcap=cfg.attn_logit_softcap,
+                            window=window, softcap=cfg.attn_logit_softcap,
                             chunk_kv=chunk_kv)
     b, s = out.shape[:2]
     y = out.reshape(b, s, -1) @ p["wo"]
+    if window is not None and s > window:
+        # tail key j (0-based) is position s - window + j, at ring slot
+        # (s - window + j) % window: a rotation of the last window keys
+        shift = (s - window) % window
+        inv = torch.remainder(torch.arange(window, device=k.device) - shift,
+                              window)
+        return y, {"k": k[:, -window:][:, inv], "v": v[:, -window:][:, inv]}
+    if window is not None and s < window:
+        pad = (0, 0, 0, 0, 0, window - s)
+        k = torch.nn.functional.pad(k, pad)
+        v = torch.nn.functional.pad(v, pad)
     return y, {"k": k, "v": v}
 
 
-def init_cache_attn(cfg: ModelConfig, batch: int, max_seq: int,
-                    kv_repeat: int = 1, device=None, quantized: bool = False):
-    """Exact KV cache of a global-attention layer; ``quantized``: int8 with
+def init_cache_attn(cfg: ModelConfig, layer_kind: str, batch: int,
+                    max_seq: int, kv_repeat: int = 1, device=None,
+                    quantized: bool = False):
+    """Exact KV cache of an attention layer: ``max_seq`` positions for
+    'G', a ring of min(max_seq, window) for 'L'; ``quantized``: int8 with
     a static per-head scale (the reference starts it at 1; a caller
     calibrates it)."""
     dt = cdtype(cfg)
+    window = cfg.sliding_window if layer_kind == "L" else None
+    sc = min(max_seq, window) if window else max_seq
     hkv = cfg.n_kv_heads * kv_repeat
-    shape = (batch, max_seq, hkv, cfg.head_dim)
+    shape = (batch, sc, hkv, cfg.head_dim)
     if quantized:
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -307,7 +345,7 @@ def attn_decode_clustered(p, x, cfg: ModelConfig, *, cache, t,
     cl = per_slot(chunk_len, b, dev, fill=1)
     ri = torch.arange(l, device=dev)[None, :]                # (1, L)
     positions = tb[:, None] + ri
-    q, k, v = _qkv(p, x, cfg, positions, kv_repeat)
+    q, k, v = _qkv(p, x, cfg, positions, "G", kv_repeat)
     tail = cache["k_tail"].shape[1]
     # masked chunk rows write out of range (dropped)
     slot = torch.where(ri < cl[:, None], torch.remainder(positions, tail),
@@ -381,7 +419,7 @@ def attn_decode_clustered_packed(p, x, cfg: ModelConfig, *, cache,
     dense ring's live bytes and the outputs equal the dense engine's."""
     n = x.shape[0]
     positions = row_pos[:, None]                          # (N, 1)
-    q, k, v = _qkv(p, x, cfg, positions, kv_repeat)
+    q, k, v = _qkv(p, x, cfg, positions, "G", kv_repeat)
     t_blocks = block_tables.shape[1]
     nb = cache["k_tail"].shape[0]
     rs = row_slot.long()
@@ -412,6 +450,45 @@ def attn_decode_clustered_packed(p, x, cfg: ModelConfig, *, cache,
     return y, cache
 
 
+def attn_decode_window_packed(p, x, cfg: ModelConfig, *, cache, row_slot,
+                              row_pos, row_cidx, width: int,
+                              kv_repeat: int = 1):
+    """Sliding-window ('L') attention over packed ragged rows, the local
+    twin of ``attn_decode_clustered_packed``: the ring stays the dense
+    per-slot {'k', 'v'} (B, W, Hkv, Dh) leaf, never in the pool.
+
+    ``row_cidx`` (N,) is each row's index in its admission chunk (decode
+    rows 0) and ``width`` the launch's longest chunk: round jj writes the
+    K/V of every row with index jj into its slot's ring (in place), then
+    scores those rows at watermark row_pos + 1, the blocking engine's
+    one-token-at-a-time schedule.  Two rows of one slot never share an
+    index, so each round's writes do not collide."""
+    n = x.shape[0]
+    f32 = torch.float32
+    q, k, v = _qkv(p, x, cfg, row_pos[:, None], "L", kv_repeat)
+    kc, vc = cache["k"], cache["v"]
+    b, sc = kc.shape[0], kc.shape[1]
+    valid = row_pos >= 0
+    rs = row_slot.long()
+    ring_slot = rs * sc + torch.remainder(row_pos, sc).long()
+    out = torch.zeros((n, cfg.n_heads, cfg.head_dim), dtype=f32,
+                      device=x.device)
+    for jj in range(width):
+        sel = valid & (row_cidx == jj)
+        # rows outside this round point past the flattened rings and drop
+        flat = torch.where(sel, ring_slot, torch.full_like(ring_slot, b * sc))
+        for buf, new in ((kc, k), (vc, v)):
+            _ring_write_(buf.view(1, b * sc, *buf.shape[2:]),
+                         new[:, 0][None], flat[None])
+        out_jj = decode_attention(q[:, 0], kc[rs], vc[rs], t=row_pos + 1,
+                                  scale=_scale(cfg),
+                                  window=cfg.sliding_window,
+                                  softcap=cfg.attn_logit_softcap, ring=True)
+        out = torch.where(sel[:, None, None], out_jj.to(f32), out)
+    y = out.reshape(n, 1, -1).to(x.dtype) @ p["wo"]
+    return y, cache
+
+
 def attn_decode(p, x, cfg: ModelConfig, *, layer_kind: str, cache, t,
                 kv_repeat: int = 1, chunk_len=None):
     """x (B, 1, d) decode, or (B, L, d) mixed mode with per-slot
@@ -421,10 +498,6 @@ def attn_decode(p, x, cfg: ModelConfig, *, layer_kind: str, cache, t,
         return attn_decode_clustered(p, x, cfg, cache=cache, t=t,
                                      kv_repeat=kv_repeat,
                                      chunk_len=chunk_len)
-    if layer_kind != "G":
-        raise NotImplementedError(
-            f"layer kind {layer_kind!r}: only global attention ('G') is "
-            "ported (ROADMAP Queue A items 3 and 8)")
     b, l = x.shape[0], x.shape[1]
     dev = x.device
     tb = per_slot(t, b, dev)
@@ -432,19 +505,42 @@ def attn_decode(p, x, cfg: ModelConfig, *, layer_kind: str, cache, t,
     cl = per_slot(chunk_len, b, dev, fill=1)
     ri = torch.arange(l, device=dev)[None, :]
     positions = tb[:, None] + ri                          # (B, L)
-    q, k, v = _qkv(p, x, cfg, positions, kv_repeat)
+    q, k, v = _qkv(p, x, cfg, positions, layer_kind, kv_repeat)
+    window = cfg.sliding_window if layer_kind == "L" else None
     sc = cache["k"].shape[1]
-    slot = torch.clamp(positions, max=sc - 1)
+    scale, softcap = _scale(cfg), cfg.attn_logit_softcap
+    if chunked and window is not None:
+        # WindowRetention's staging rule: a whole chunk written into a
+        # W-entry ring at once would overwrite positions t + i - W still in
+        # earlier rows' windows, and no frontier covers them.  So row i is
+        # written at its ring slot and then scored at watermark t + i + 1,
+        # the schedule the blocking engine runs one step at a time; its
+        # victim (position t + i - W) is outside every later row's window.
+        outs = []
+        for i in range(l):
+            slot_i = torch.where(i < cl, torch.remainder(tb + i, sc),
+                                 torch.full_like(tb, sc))[:, None]
+            _cache_write(cache, k[:, i:i + 1], v[:, i:i + 1], slot_i)
+            k_read, v_read = _cache_read(cache, cfg)
+            outs.append(decode_attention(q[:, i], k_read, v_read,
+                                         t=tb + i + 1, scale=scale,
+                                         window=window, softcap=softcap,
+                                         ring=True))
+        out = torch.stack(outs, dim=1)
+        return out.reshape(b, l, -1) @ p["wo"], cache
+    slot = (torch.remainder(positions, sc) if window
+            else torch.clamp(positions, max=sc - 1))
     slot = torch.where(ri < cl[:, None], slot, torch.full_like(slot, sc))
     _cache_write(cache, k, v, slot)
     k_read, v_read = _cache_read(cache, cfg)
+    ring = window is not None
     if chunked:
         out = decode_attention(q, k_read, v_read, t=tb, chunk_len=cl,
-                               scale=_scale(cfg),
-                               softcap=cfg.attn_logit_softcap)
+                               scale=scale, window=window, softcap=softcap,
+                               ring=ring)
     else:
         out = decode_attention(q[:, 0], k_read, v_read, t=tb + 1,
-                               scale=_scale(cfg),
-                               softcap=cfg.attn_logit_softcap)
+                               scale=scale, window=window, softcap=softcap,
+                               ring=ring)
     y = out.reshape(b, l, -1) @ p["wo"]
     return y, cache

@@ -1,9 +1,10 @@
-"""Model assembly for serving a decoder-only, all-'G' GQA stack (port of
-the prefill and decode subset of ``repro.models.transformer``).
+"""Model assembly for serving a decoder-only GQA stack of global ('G')
+and sliding-window ('L') layers (port of the prefill and decode subset of
+``repro.models.transformer``).
 
 Parameters: ``{"embed": {"table"}, "layers": [per-layer dict], "final_norm"}``
 where each layer dict has the reference's keys ("norm1", "attn", "norm2",
-"mlp").  The reference stacks repeated layers under ``params["scan"]``
+"mlp", and "post_attn_norm" / "post_mlp_norm" under ``post_norms``).  The reference stacks repeated layers under ``params["scan"]``
 with a leading layer axis; the port keeps one entry per layer and runs a
 Python loop over them (``bridge`` converts between the two).  The decode
 cache is ``{"layers": [per-layer leaf]}`` with the reference's leaf
@@ -42,12 +43,18 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves decoder-only dense stacks of 'G' layers; anything
-    else names the ROADMAP item that brings it."""
+    """The port serves decoder-only dense stacks of 'G' layers and 'L'
+    layers with a ``sliding_window``; anything else names the ROADMAP item
+    that brings it."""
+    kinds = set(layer_kinds(cfg))
+    if "L" in kinds and not cfg.sliding_window:
+        raise ValueError(f"model '{cfg.name}': 'L' layers need a "
+                         "sliding_window")
     problems = []
-    if set(layer_kinds(cfg)) - {"G"}:
-        problems.append(f"layer pattern {cfg.layer_pattern!r} (only 'G' is "
-                        "ported; ROADMAP Queue A items 3 and 8)")
+    if kinds - {"G", "L"}:
+        problems.append(f"layer pattern {cfg.layer_pattern!r} (the "
+                        "recurrent kinds 'M' and 'R' are ROADMAP Queue A "
+                        "item 8)")
     if cfg.moe is not None:
         problems.append("MoE layers (ROADMAP Queue A item 8)")
     if cfg.attn_kind != "gqa":
@@ -69,14 +76,20 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def init_sublayer(generator, cfg: ModelConfig, kind: str, device=None):
-    if kind != "G":
-        raise NotImplementedError(f"layer kind {kind!r} is not ported")
-    return {
-        "norm1": init_norm(cfg, cfg.d_model, device),
-        "attn": attn.init_attn(generator, cfg, device),
-        "norm2": init_norm(cfg, cfg.d_model, device),
-        "mlp": init_mlp(generator, cfg, cfg.d_ff, device),
-    }
+    """One attention sublayer's parameters, with the sandwich norms
+    ("post_attn_norm", "post_mlp_norm") when ``cfg.post_norms`` is set."""
+    if kind not in ("G", "L"):
+        raise NotImplementedError(f"layer kind {kind!r} is not ported "
+                                  "(ROADMAP Queue A item 8)")
+    p = {"norm1": init_norm(cfg, cfg.d_model, device),
+         "attn": attn.init_attn(generator, cfg, device)}
+    if cfg.post_norms:
+        p["post_attn_norm"] = init_norm(cfg, cfg.d_model, device)
+    p["norm2"] = init_norm(cfg, cfg.d_model, device)
+    p["mlp"] = init_mlp(generator, cfg, cfg.d_ff, device)
+    if cfg.post_norms:
+        p["post_mlp_norm"] = init_norm(cfg, cfg.d_model, device)
+    return p
 
 
 def init_params(generator, cfg: ModelConfig, device=None):
@@ -116,16 +129,19 @@ def init_sublayer_cache(cfg: ModelConfig, kind: str, batch: int,
                         kv_clusters: int = 512, kv_tail: int = 256,
                         kv_pool_blocks: int = 0, kv_block_size: int = 0,
                         device=None):
-    if kind != "G":
-        raise NotImplementedError(f"layer kind {kind!r} is not ported")
-    if kv_mode == "clustered":
+    """A layer's decode cache.  In ``kv_mode="clustered"`` only 'G' layers
+    take the clustered layout; an 'L' layer keeps its dense window ring."""
+    if kind not in ("G", "L"):
+        raise NotImplementedError(f"layer kind {kind!r} is not ported "
+                                  "(ROADMAP Queue A item 8)")
+    if kind == "G" and kv_mode == "clustered":
         return attn.init_cache_attn_clustered(
             cfg, batch, n_clusters=kv_clusters, tail=kv_tail,
             kv_repeat=kv_repeat, device=device, pool_blocks=kv_pool_blocks,
             block_size=kv_block_size)
-    if kv_mode not in ("exact", "int8"):
+    if kv_mode not in ("exact", "int8", "clustered"):
         raise ValueError(f"kv_mode {kv_mode!r}")
-    return attn.init_cache_attn(cfg, batch, max_seq, kv_repeat,
+    return attn.init_cache_attn(cfg, kind, batch, max_seq, kv_repeat,
                                 device=device, quantized=kv_mode == "int8")
 
 
@@ -148,13 +164,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def sublayer_prefill(p, h, cfg: ModelConfig, kind: str, *, positions,
                      kv_repeat: int, max_seq: int):
-    """h (B, S, d) → (h, cache): the layer's exact k/v, zero-padded out to
-    ``max_seq`` positions for decode."""
+    """h (B, S, d) → (h, cache): a 'G' layer's exact k/v zero-padded out
+    to ``max_seq`` positions for decode, an 'L' layer's window ring."""
     x = apply_norm(p["norm1"], h, cfg)
     y, cache = attn.attn_prefill(p["attn"], x, cfg, layer_kind=kind,
                                  positions=positions, kv_repeat=kv_repeat)
     s = cache["k"].shape[1]
-    if s < max_seq:
+    if s < max_seq and kind == "G":
         pad = (0, 0, 0, 0, 0, max_seq - s)
         cache = {k: torch.nn.functional.pad(v, pad) for k, v in cache.items()}
     if cfg.post_norms:
@@ -169,7 +185,8 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_seq: int,
     of position ``last_pos`` (default the last), cache): with prompts
     right-padded to a bucket, the causal mask keeps position last_pos
     exact whatever the padding behind it.  The cache is exact,
-    ``{"layers": [{"k", "v"}]}`` of (B, max(S, max_seq), Hkv, Dh)."""
+    ``{"layers": [{"k", "v"}]}``: (B, max(S, max_seq), Hkv, Dh) for a 'G'
+    layer, the (B, window, Hkv, Dh) ring for an 'L' layer."""
     h = embed_tokens(params["embed"], tokens, cfg)
     positions = torch.arange(h.shape[1], device=h.device)
     layers = []
@@ -235,6 +252,21 @@ def _sublayer_decode_packed(p, h, cfg: ModelConfig, cache, *, row_slot,
     return _ffn(p, h, cfg), cache
 
 
+def _sublayer_decode_window_packed(p, h, cfg: ModelConfig, cache, *,
+                                   row_slot, row_pos, row_cidx, width,
+                                   kv_repeat):
+    """One 'L' sublayer over packed rows: the dense window ring, written
+    in row_cidx order (``attention.attn_decode_window_packed``)."""
+    x = apply_norm(p["norm1"], h, cfg)
+    y, cache = attn.attn_decode_window_packed(
+        p["attn"], x, cfg, cache=cache, row_slot=row_slot, row_pos=row_pos,
+        row_cidx=row_cidx, width=width, kv_repeat=kv_repeat)
+    if cfg.post_norms:
+        y = apply_norm(p["post_attn_norm"], y, cfg)
+    h = h + y
+    return _ffn(p, h, cfg), cache
+
+
 def decode_step_packed(params, cfg: ModelConfig, cache, tokens, row_slot,
                        row_pos, row_tw, row_cidx, block_tables, *,
                        block_size: int, width: int = 1, kv_repeat: int = 1,
@@ -245,8 +277,8 @@ def decode_step_packed(params, cfg: ModelConfig, cache, tokens, row_slot,
     slot, row_pos (N,) absolute position (−1: padding row), row_tw (N,)
     the slot's ring watermark t + chunk_len this step, row_cidx (N,) the
     row's index within its admission chunk and ``width`` the step's
-    longest chunk (both sequence sliding-window and recurrent layers,
-    which are later slices), block_tables (B, T) global tail-block ids,
+    longest chunk (both sequence the 'L' layers' ring writes),
+    block_tables (B, T) global tail-block ids,
     row_group (N,) the attention kernel's row groups
     (``kernels.paged_clustered_decode.group_rows``; None: one row each).
     Returns (logits (N, V) f32, cache), every row's next-token
@@ -254,14 +286,14 @@ def decode_step_packed(params, cfg: ModelConfig, cache, tokens, row_slot,
     pools in place.  MLP, norms and embeddings are row-wise, so rows
     stand in for the batch exactly."""
     kinds = layer_kinds(cfg)
-    for kind in sorted(set(kinds) - {"G"}):
-        item = "3" if kind == "L" else "8"
-        raise NotImplementedError(
-            f"layer kind {kind!r} over packed rows (ROADMAP Queue A item "
-            f"{item})")
     tokens = torch.where(row_pos >= 0, tokens, torch.zeros_like(tokens))
     h = embed_tokens(params["embed"], tokens[:, None], cfg)   # (N, 1, d)
-    for lp, c in zip(params["layers"], cache["layers"]):
+    for lp, kind, c in zip(params["layers"], kinds, cache["layers"]):
+        if kind == "L":
+            h, _ = _sublayer_decode_window_packed(
+                lp, h, cfg, c, row_slot=row_slot, row_pos=row_pos,
+                row_cidx=row_cidx, width=width, kv_repeat=kv_repeat)
+            continue
         h, _ = _sublayer_decode_packed(
             lp, h, cfg, c, row_slot=row_slot, row_pos=row_pos,
             row_tw=row_tw, block_tables=block_tables,

@@ -26,8 +26,19 @@ Each slot is re-compacted after ``refresh_every`` of its own decode tokens
 (slots whose frontier does not move keep their summaries bit-identical).
 Once the queue drains, the dense launch bucket shrinks by powers of two.
 
-With ``paged=PagedKVConfig(...)`` the exact tail rings live in a block
-pool behind per-slot block tables (runtime/kv_pool.py).  Blocks are
+Sliding-window ('L') layers keep a dense ring of their last ``window``
+positions per slot, exact in every mode (only 'G' layers are clustered),
+and retire behind the window (``WindowRetention``); a model with 'L'
+layers admits prompts at their exact length (bucket 1).
+
+With ``paged=PagedKVConfig(...)`` the 'G' layers' exact tail rings live
+in a block pool behind per-slot block tables (runtime/kv_pool.py).  With
+``kv_compress`` the pool serves the clustered cache; without it, the
+cache keeps the clustered layout with one dead centroid (count 0) and a
+ring of ``max_seq`` positions, ``cov`` pinned at 0, so every position
+stays exact (``QuotaRetention``): an admission reserves the request's
+whole block depth up front and is put back in the queue when the pool
+cannot supply it, and the blocks return only at slot exit.  Blocks are
 allocated right before the write that first touches them (a blocking
 admission claims its live prompt blocks before its prefill, and is put
 back in the queue when the pool cannot supply them), given back once
@@ -47,9 +58,9 @@ until its longest request is done.
 
 Per-slot host bookkeeping (``pos`` / ``cur`` / ``fed``, the coverage
 frontier mirror) replays the reference engine step for step, so greedy
-tokens match it.  Paged serving of exact KV, prefix sharing (and with it
-copy-on-write of shared blocks), the template store, SLO scheduling, mesh
-serving and tracing are later slices of the port; asking for one raises
+tokens match it.  Prefix sharing (and with it copy-on-write of shared
+blocks), the template store, SLO scheduling, mesh serving, tracing and the
+recurrent layer kinds are later slices of the port; asking for one raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -96,9 +107,9 @@ class ServerConfig:
     # when set, the engine serves from a clustered KV cache end to end and
     # re-compacts every kv_compress.refresh decode steps per slot
     paged: Optional[kv_pool.PagedKVConfig] = None
-    # paged clustered-KV memory manager: tail rings in a block pool behind
-    # per-slot block tables, decoded by packed ragged launches; requires
-    # kv_compress in this port (exact paged KV is ROADMAP Queue A item 3)
+    # paged KV memory manager: tail rings in a block pool behind per-slot
+    # block tables, decoded by packed ragged launches; clustered under
+    # kv_compress, else exact KV under a per-slot block quota
     prefix_share: Optional[object] = None    # later slice (item 4)
     template_store: Optional[object] = None  # later slice (item 5)
     scheduler: Optional[object] = None       # later slice (item 6)
@@ -180,12 +191,18 @@ class Server:
             if scfg.engine != "continuous":
                 raise ValueError("paged serving requires the continuous "
                                  "engine")
-            if (scfg.kv_compress is not None
-                    and scfg.kv_compress.keep_recent % paged.block_size):
+            if scfg.kv_compress is not None:
+                if scfg.kv_compress.keep_recent % paged.block_size:
+                    raise ValueError(
+                        f"block_size {paged.block_size} must divide "
+                        f"keep_recent {scfg.kv_compress.keep_recent} (ring "
+                        "offsets map to whole blocks)")
+            elif scfg.max_seq % paged.block_size:
                 raise ValueError(
-                    f"block_size {paged.block_size} must divide "
-                    f"keep_recent {scfg.kv_compress.keep_recent} (ring "
-                    "offsets map to whole blocks)")
+                    f"block_size {paged.block_size} must divide max_seq "
+                    f"{scfg.max_seq}: paged serving without kv_compress is "
+                    "exact KV under QuotaRetention, the full sequence "
+                    "backed by whole blocks reserved at admission")
             report = cfg.serving_gate_report()
             if report is not None:
                 raise ValueError("paged serving: " + report)
@@ -211,11 +228,15 @@ class Server:
         if scfg.mesh is not None and scfg.engine != "continuous":
             raise ValueError("mesh serving requires the continuous "
                              "engine (static batches are per-device)")
+        # paged without kv_compress: exact KV under a block quota, in the
+        # clustered layout with one dead centroid and a ring of max_seq
+        # positions (cov stays 0, so every position stays exact)
+        self._kv_layout = scfg.kv_compress
+        if paged is not None and scfg.kv_compress is None:
+            self._kv_layout = kv_compress.KVCompressConfig(
+                n_clusters=1, keep_recent=scfg.max_seq, refresh_every=0)
         # what this slice of the port does not serve yet
         missing = []
-        if paged is not None and scfg.kv_compress is None:
-            missing.append("paged= without kv_compress: exact KV under "
-                           "QuotaRetention (ROADMAP Queue A item 3)")
         for name, item in (("prefix_share", "Queue A item 4"),
                            ("template_store", "Queue A item 5"),
                            ("scheduler", "Queue A item 6"),
@@ -225,10 +246,10 @@ class Server:
         if scfg.telemetry is not None and (scfg.telemetry.trace
                                            or scfg.telemetry.jax_profiler):
             missing.append("telemetry tracing (ROADMAP Queue A item 7)")
-        if set(tfm.layer_kinds(cfg)) - {"G"}:
-            missing.append(f"layer pattern {cfg.layer_pattern!r}: only 'G' "
-                           "layers are ported (ROADMAP Queue A items 3 "
-                           "and 8)")
+        if set(tfm.layer_kinds(cfg)) - {"G", "L"}:
+            missing.append(f"layer pattern {cfg.layer_pattern!r}: the "
+                           "recurrent kinds 'M' and 'R' (ROADMAP Queue A "
+                           "item 8)")
         if missing:
             raise NotImplementedError("repro_torch Server: " +
                                       "; ".join(missing))
@@ -236,9 +257,11 @@ class Server:
         self.params = _to_device(params, self.device)
         self.last_stats: Dict[str, float] = {}
         self.metrics = tele_mod.MetricsRegistry()
-        # bucket-padded prefill is exact for global attention (causal mask,
-        # masked decode), the only kind ported
-        self._bucket = scfg.prefill_bucket
+        # bucket-padded prefill is exact only for global attention (causal
+        # mask, masked decode): a sliding-window ring would take the pad
+        # tokens in, so such models admit at the exact prompt length
+        self._kinds = tfm.layer_kinds(cfg)
+        self._bucket = 1 if "L" in self._kinds else scfg.prefill_bucket
 
     # ------------------------------------------------------------------
     # entry
@@ -270,7 +293,10 @@ class Server:
         reg = self.metrics
         reg.begin_serve()
         ccfg = scfg.kv_compress
-        layout = ccfg
+        # the cache layout (clustered leaves, ring geometry) is apart from
+        # the retention policy on top of it: ccfg means FrontierRetention,
+        # paged without ccfg QuotaRetention over a full-depth ring
+        layout = self._kv_layout
         chunk = self._chunk
         n = scfg.batch_size
         plan = self._plan(requests)
@@ -285,7 +311,8 @@ class Server:
         # block tables; the launch bucket never shrinks (packed rows
         # already make compute follow real tokens)
         paged = scfg.paged
-        pool = (kv_pool.BlockPool(n, layout.keep_recent, paged)
+        pool = (kv_pool.BlockPool(n, layout.keep_recent, paged,
+                                  full_tail_resident=ccfg is not None)
                 if paged is not None else None)
         cache = tfm.init_cache(
             cfg, n, scfg.max_seq,
@@ -300,10 +327,23 @@ class Server:
         active = np.zeros(n, bool)        # decoding
         admitting = np.zeros(n, bool)     # chunked prefill in flight
         fed = np.zeros(n, np.int32)       # prompt tokens streamed so far
-        # 'G' layers, clustered: retire behind the coverage frontier (the
-        # host cov mirror replays the device formulas step for step)
+        # retention policies (core/retention.py):
+        #   fr     'G' layers, clustered: retire behind the coverage
+        #          frontier (the host cov mirror replays the device
+        #          formulas step for step)
+        #   quota  'G' layers, exact paged: nothing retires mid-flight; a
+        #          per-slot block budget reserved at admission
+        #   wr     'L' layers: retire behind the sliding window (the dense
+        #          ring's overwrite reclaims the storage; wr keeps the
+        #          kv_retired_window count)
         fr = (retention.FrontierRetention(n, ccfg)
               if ccfg is not None else None)
+        quota = (retention.QuotaRetention(paged.block_size,
+                                          pool.blocks_per_slot)
+                 if pool is not None and ccfg is None else None)
+        wr = (retention.WindowRetention(cfg.sliding_window, n)
+              if "L" in cfg.layer_pattern and cfg.sliding_window else None)
+        sweep_policy = fr if fr is not None else quota
         cov_of = fr.frontier if fr is not None else (lambda j: 0)
         kv_retired = {"frontier": 0, "window": 0, "quota": 0}
         slot_uid = [-1] * n
@@ -340,11 +380,13 @@ class Server:
             return bt_cache[0]
 
         def sweep_covered():
-            """Give back every block the frontier has already retired
-            (normally absorb and compaction do this the moment ``cov``
-            advances, so a sweep only recovers blocks under pool
-            pressure).  Each slot's upcoming write blocks are protected:
-            allocated but not yet written, they look dead."""
+            """Give back every block the retention policy has already
+            retired (under FrontierRetention absorb and compaction do this
+            the moment ``cov`` advances, so a sweep only recovers blocks
+            under pool pressure; under QuotaRetention nothing retires
+            mid-flight and the sweep frees nothing).  Each slot's upcoming
+            write blocks are protected: allocated but not yet written,
+            they look dead."""
             freed = 0
             for j in range(n):
                 if admitting[j]:
@@ -355,10 +397,10 @@ class Server:
                     cl, t_j = 1, int(pos[j])
                 else:
                     continue
-                fr.protect_write(j, kv_pool.write_blocks(
+                sweep_policy.protect_write(j, kv_pool.write_blocks(
                     t_j, cl, R, paged.block_size))
-                freed += pool.free_retired(j, t_j, fr)
-                fr.clear_protection(j)
+                freed += pool.free_retired(j, t_j, sweep_policy)
+                sweep_policy.clear_protection(j)
             return freed
 
         def try_ensure(j, blocks):
@@ -378,20 +420,34 @@ class Server:
                         continue
                     return False
 
-        def start_admission(j, uid):
+        def start_admission(j, uid) -> bool:
+            """Start a chunked admission into slot j.  False: the pool
+            cannot supply a quota request's blocks now, and the request
+            stays queued."""
             p = np.asarray(prompts[uid], np.int32)[-scfg.max_seq:]
             prompt_np[uid] = p
             if pool is not None:
                 pool.free_slot(j)   # recycle the previous occupant's blocks
+            if quota is not None:
+                # QuotaRetention's contract: reserve the whole block budget
+                # up front (admitted means completable, since nothing
+                # retires mid-flight) and defer the request on shortage
+                if not try_ensure(j, range(quota.admit_blocks(
+                        len(p), by_uid[uid].max_new_tokens))):
+                    pool.free_slot(j)
+                    return False
             admitting[j] = True
             fed[j] = 0
             if fr is not None:
                 fr.set_frontier(j, 0)
+            if wr is not None:
+                wr.on_slot_free(j)
             slot_uid[j] = uid
             if layout is not None:
                 # the previous occupant's counts would unmask its stale
                 # centroids; ring entries are hidden by the position mask
                 self._reset_slot(cache, j)
+            return True
 
         def admit_blocking(j, uid) -> bool:
             """One prefill of the whole (bucket-padded) prompt, then the
@@ -404,13 +460,18 @@ class Server:
             plen = len(p)
             cov0 = fr.target(plen) if fr is not None else 0
             if pool is not None and r.max_new_tokens > 1:
-                # claim the blocks of the live (uncovered) prompt positions
-                # before the prefill, so an exhausted pool defers the
-                # request instead of wasting its prefill; covered offsets
-                # stay unmapped and the slot write drops them
+                # claim blocks before the prefill, so an exhausted pool
+                # defers the request instead of wasting its prefill: under
+                # FrontierRetention those of the live (uncovered) prompt
+                # positions (covered offsets stay unmapped and the slot
+                # write drops them), under QuotaRetention the request's
+                # whole block budget
                 pool.free_slot(j)
-                if not try_ensure(j, kv_pool.live_blocks(
-                        plen, cov0, R, paged.block_size)):
+                need = (range(quota.admit_blocks(plen, r.max_new_tokens))
+                        if quota is not None else
+                        kv_pool.live_blocks(plen, cov0, R,
+                                            paged.block_size))
+                if not try_ensure(j, need):
                     pool.free_slot(j)
                     return False
             bkt = min(scfg.max_seq, -(-plen // self._bucket) * self._bucket)
@@ -433,7 +494,7 @@ class Server:
                 return True
             if layout is not None:
                 t_c = time.perf_counter()
-                c1 = self._clusterize(c1, plen, layout)
+                c1 = self._clusterize(c1, plen, layout, self._kinds)
                 _sync(dev)
                 clusterize_s += time.perf_counter() - t_c
                 if plen <= R - layout.refresh:
@@ -443,6 +504,9 @@ class Server:
             if fr is not None:
                 fr.set_frontier(j, cov0)
                 kv_retired["frontier"] += cov0
+            if wr is not None:
+                wr.on_slot_free(j)
+                kv_retired["window"] += wr.advance(j, plen)
             if pool is not None:
                 self._write_slot_paged(cache, c1, j, pool.row_for_write(j),
                                        paged.block_size)
@@ -463,10 +527,10 @@ class Server:
                         if not (active[j] or admitting[j])]
                 if not free:
                     break
-                if chunk:
-                    start_admission(free[0], order[qi])
-                elif not admit_blocking(free[0], order[qi]):
-                    break
+                ok = (start_admission(free[0], order[qi]) if chunk
+                      else admit_blocking(free[0], order[qi]))
+                if not ok:
+                    break       # pool-deferred: retry after a give-back
                 qi += 1
             if not (active.any() or admitting.any()):
                 if qi >= len(order):
@@ -644,6 +708,8 @@ class Server:
                         continue        # pool-stalled this step
                     cl = step_chunks[j]
                     fed[j] += cl
+                    if wr is not None:
+                        kv_retired["window"] += wr.advance(j, int(fed[j]))
                     plen = len(prompt_np[uid])
                     useful_toks += cl
                     if fed[j] < plen:
@@ -669,6 +735,10 @@ class Server:
                     if by_uid[uid].max_new_tokens <= 1:
                         slot_uid[j] = -1
                         if pool is not None:
+                            if quota is not None:
+                                kv_retired["quota"] += (
+                                    int((pool.table[j] >= 0).sum())
+                                    * paged.block_size)
                             pool.free_slot(j)   # recycling on early exit
                     else:
                         active[j] = True
@@ -679,11 +749,19 @@ class Server:
                     toks[uid].append(int(nxt_of(j)))
                     token_t[uid].append(now)
                     pos[j] += 1
+                    if wr is not None:
+                        kv_retired["window"] += wr.advance(j, int(pos[j]))
                     cur[j] = nxt_of(j)
                     if len(toks[uid]) >= by_uid[uid].max_new_tokens:
                         active[j] = False
                         since_tok[j] = 0
                         if pool is not None:
+                            if quota is not None:
+                                # an exact-KV slot retires its whole
+                                # footprint at once, at request exit
+                                kv_retired["quota"] += (
+                                    int((pool.table[j] >= 0).sum())
+                                    * paged.block_size)
                             pool.free_slot(j)   # recycling on exit
 
             # ---- compaction: per-slot cadence -----------------------------
@@ -900,14 +978,19 @@ class Server:
     # ------------------------------------------------------------------
 
     @staticmethod
-    def _clusterize(c1, plen: int, ccfg):
+    def _clusterize(c1, plen: int, ccfg, kinds):
         """A fresh B=1 exact prefill cache in the engine's clustered
-        layout.  A prompt that fits the ring with ``refresh`` positions to
-        spare goes in as the ring alone (cov 0: every position survives
-        until the first compaction); a longer one builds centroids now,
-        every layer in one fit (``_compress_exact_layers``)."""
+        layout: the leaves of 'G' layers (``kinds``: each layer's kind)
+        are clustered, an 'L' leaf's window ring passes through.  A prompt
+        that fits the ring with ``refresh`` positions to spare goes in as
+        the ring alone (cov 0: every position survives until the first
+        compaction; a quota layout's ring of max_seq takes every prompt
+        so); a longer one builds centroids now, every 'G' layer in one fit
+        (``_compress_exact_layers``)."""
         C, R = ccfg.n_clusters, ccfg.keep_recent
-        leaves = c1["layers"]
+        layers = list(c1["layers"])
+        idx = [i for i, kind in enumerate(kinds) if kind == "G"]
+        leaves = [layers[i] for i in idx]
         if plen <= R - ccfg.refresh:
             out = []
             for leaf in leaves:
@@ -927,10 +1010,13 @@ class Server:
                             # positions 0..plen-1 sit at ring slots 0..plen-1
                             "k_tail": k[:, :R], "v_tail": v[:, :R],
                             "cov": z((b,), torch.int32)})
-            return {"layers": out}
-        lengths = torch.tensor([plen], dtype=torch.int32,
-                               device=leaves[0]["k"].device)
-        return {"layers": _compress_exact_layers(leaves, lengths, ccfg)}
+        else:
+            lengths = torch.tensor([plen], dtype=torch.int32,
+                                   device=leaves[0]["k"].device)
+            out = _compress_exact_layers(leaves, lengths, ccfg)
+        for i, leaf in zip(idx, out):
+            layers[i] = leaf
+        return {"layers": layers}
 
     @staticmethod
     def _write_slot(cache, c1, j: int) -> None:
@@ -942,17 +1028,23 @@ class Server:
     @staticmethod
     def _write_slot_paged(cache, c1, j: int, bt_row: np.ndarray,
                           blk: int) -> None:
-        """Paged twin of ``_write_slot``, in place: centroids, counts and
-        cov go to slot j, and the B=1 dense ring goes block by block into
-        the pool blocks of the slot's write row ``bt_row`` (T,).  Unmapped
-        entries (covered ring blocks, ``n_blocks``) are left out here: the
-        reference's scatter drops them, and an index past the pool would
-        raise."""
-        first = cache["layers"][0]["k_tail"]
+        """Paged twin of ``_write_slot``, in place: a clustered leaf's
+        centroids, counts and cov go to slot j, and its B=1 dense ring
+        goes block by block into the pool blocks of the slot's write row
+        ``bt_row`` (T,); any other leaf (an 'L' window ring) takes the
+        dense slot write.  Unmapped entries (covered ring blocks,
+        ``n_blocks``) are left out here: the reference's scatter drops
+        them, and an index past the pool would raise."""
+        first = next(leaf["k_tail"] for leaf in cache["layers"]
+                     if _is_clustered_kv(leaf))
         keep = np.nonzero((bt_row >= 0) & (bt_row < first.shape[0]))[0]
         ids = torch.from_numpy(bt_row[keep].astype(np.int64)).to(first.device)
         sel = torch.from_numpy(keep).to(first.device)
         for dst, src in zip(cache["layers"], c1["layers"]):
+            if not _is_clustered_kv(dst):
+                for key, val in dst.items():
+                    val[j] = src[key][0].to(val.dtype)
+                continue
             for key in ("k_cents", "v_cents", "counts", "cov"):
                 dst[key][j] = src[key][0].to(dst[key].dtype)
             for key in ("k_tail", "v_tail"):
@@ -966,7 +1058,8 @@ class Server:
 
     def compact_kv(self, cache, t, ccfg: kv_compress.KVCompressConfig,
                    bt=None):
-        """Compress every global-attention layer's KV into clustered form;
+        """Compress every global-attention ('G') layer's KV into clustered
+        form (an 'L' layer's window ring is never touched);
         ``t`` is a scalar length or a per-slot (B,) vector (0 = leave the
         slot alone).  Returns a new ``{"layers": [...]}``; tail rings and
         the input's leaves are not modified.
@@ -1003,7 +1096,8 @@ class Server:
                     k: out[k][n_i * b:(n_i + 1) * b]
                     for k in ("k_cents", "v_cents", "counts", "cov")})
         exact = [i for i, leaf in enumerate(layers)
-                 if _is_exact_kv(leaf) and leaf["k"].dim() == 4
+                 if self._kinds[i] == "G"
+                 and _is_exact_kv(leaf) and leaf["k"].dim() == 4
                  and leaf["k"].shape[1] > ccfg.n_clusters + ccfg.keep_recent]
         if exact:
             b = layers[exact[0]]["k"].shape[0]

@@ -706,3 +706,122 @@ def test_int8_decode_on_card(cuda):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     for lc, lg in zip(caches[0]["layers"], caches[1]["layers"]):
         assert (lg["k"].cpu().int() - lc["k"].int()).abs().max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# sliding-window layers and quota-paged exact KV on the card
+# ---------------------------------------------------------------------------
+
+
+def _glwin():
+    from repro_torch.models.config import ModelConfig
+
+    return ModelConfig(name="tiny-gl", family="dense", n_layers=2,
+                       d_model=32, n_heads=2, n_kv_heads=2, head_dim=16,
+                       d_ff=64, vocab=64, pad_vocab_multiple=16,
+                       dtype="float32", layer_pattern="GL",
+                       sliding_window=16)
+
+
+@pytest.mark.parametrize("mode", ["dense", "paged", "quota"])
+def test_glwin_chunked_serve_on_card(cuda, mode):
+    """GLWIN (the reference's tiny 'GL' config, window 16) served chunked
+    on the card gives the CPU port's tokens: dense and paged clustered KV
+    (the decode kernel of the mode once for the 'G' layer of every engine
+    step), and paged exact KV under QuotaRetention (paged_clustered_decode
+    over one dead centroid and a ring of max_seq, clustered_decode and
+    bitserial_median never)."""
+    from repro_torch.core.kv_compress import KVCompressConfig
+    from repro_torch.core.request_cluster import Request
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.kv_pool import PagedKVConfig
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg = _glwin()
+    params = tfm.init_params(7, cfg, device="cpu")
+    rng = np.random.default_rng(13)
+    spec = [(26, 10), (12, 6), (20, 8), (8, 5)]
+    reqs = [Request(i, l, gn) for i, (l, gn) in enumerate(spec)]
+    prompts = {i: rng.integers(0, 64, size=l).astype(np.int32)
+               for i, (l, _) in enumerate(spec)}
+    ccfg = (None if mode == "quota" else KVCompressConfig(
+        n_clusters=4, iters=2, keep_recent=32, refresh_every=4))
+    paged = {"dense": None, "paged": PagedKVConfig(block_size=4),
+             "quota": PagedKVConfig(block_size=4, pool_blocks=12)}[mode]
+    scfg = ServerConfig(batch_size=2, max_seq=64, prefill_chunk=8,
+                        kv_compress=ccfg, paged=paged)
+    toks = {}
+    for dev in ("cpu", cuda):
+        srv = Server(cfg, scfg, params, device=dev)
+        ops.reset_launches()
+        toks[str(dev)] = {o.uid: o.tokens for o in srv.serve(reqs, prompts)}
+        counts = ops.launch_counts()
+    st = srv.last_stats
+    assert toks["cpu"] == toks[str(cuda)]
+    kernel, other = (("clustered_decode", "paged_clustered_decode")
+                     if mode == "dense" else
+                     ("paged_clustered_decode", "clustered_decode"))
+    assert counts[kernel] == st["decode_steps"]     # one 'G' layer
+    assert counts[other] == 0
+    assert st["kv_retired_window"] > 0
+    if mode == "quota":
+        assert counts["bitserial_median"] == 0
+        assert st["kv_retired_quota"] > 0 and st["kv_retired_frontier"] == 0
+    else:
+        assert counts["bitserial_median"] > 0
+        assert st["kv_retired_frontier"] > 0
+    if paged is not None:
+        assert st["pool_blocks_end"] == 0.0
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1.6e-2)])
+def test_paged_decode_quota_layout(cuda, dtype, tol):
+    """paged_clustered_decode in the quota layout: one centroid of count 0
+    (garbage payload), a ring of 64 positions in 16 blocks of 4 behind a
+    shuffled table, decode rows and a 5-row chunk: the kernel equals its
+    plain version, and in f32 exact attention over the visible positions
+    (the dead centroid takes no weight)."""
+    from repro_torch.models import attention
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    b, hq, hkv, dh, bs, r = 3, 4, 2, 16, 4, 64
+    nt = r // bs
+    ring = {k: torch.randn(b, r, hkv, dh, generator=g) for k in "kv"}
+    perm = 1 + torch.randperm(b * nt, generator=g)
+    table = perm.reshape(b, nt).to(torch.int32)
+    pools = {}
+    for k in "kv":
+        pool = torch.randn(1 + b * nt, bs, hkv, dh, generator=g)
+        pool[table.long()] = ring[k].reshape(b, nt, bs, hkv, dh)
+        pools[k] = pool.to(cuda, dtype)
+    # slot 0: a chunk of 5 rows ending at position 40; slots 1, 2: decode
+    rows = [(0, p) for p in range(36, 41)] + [(1, 63), (2, 0)]
+    slot = torch.tensor([s for s, _ in rows], dtype=torch.int32)
+    qpos1 = torch.tensor([p + 1 for _, p in rows], dtype=torch.int32)
+    tw = torch.tensor([41 if s == 0 else p + 1 for s, p in rows],
+                      dtype=torch.int32)
+    n = len(rows)
+    args = dict(q=torch.randn(n, hq, dh, generator=g).to(cuda, dtype),
+                k_cents=torch.randn(b, 1, hkv, dh, generator=g).to(cuda,
+                                                                   dtype),
+                v_cents=torch.randn(b, 1, hkv, dh, generator=g).to(cuda,
+                                                                   dtype),
+                counts=torch.zeros(b, 1, hkv, device=cuda),
+                k_pool=pools["k"], v_pool=pools["v"],
+                row_slot=slot.to(cuda), row_bt=table[slot.long()].to(cuda),
+                qpos1=qpos1.to(cuda), tw=tw.to(cuda),
+                cov=torch.zeros(n, dtype=torch.int32, device=cuda))
+    args["row_group"] = torch.from_numpy(pcd.group_rows(
+        slot.numpy(), qpos1.numpy(), tw.numpy(), hq // hkv)).to(cuda)
+    got = pcd.paged_clustered_decode_cuda(**args, scale=dh ** -0.5)
+    f32 = {k: (v.float() if v.is_floating_point() else v)
+           for k, v in args.items()}
+    want = pcd.paged_clustered_decode_plain(**f32, scale=dh ** -0.5)
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    if dtype == torch.float32:
+        exact = attention.decode_attention(
+            args["q"], ring["k"][slot.long()].to(cuda),
+            ring["v"][slot.long()].to(cuda), t=qpos1.to(cuda),
+            scale=dh ** -0.5)
+        torch.testing.assert_close(got, exact, rtol=tol, atol=tol)

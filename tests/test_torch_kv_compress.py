@@ -297,7 +297,7 @@ def test_clusterize_folds_layers_like_per_layer_calls(exact_pow2_reference):
                      for leaf in layers]}
     cfg = kv_t.KVCompressConfig(n_clusters=4, iters=4, keep_recent=16,
                                 refresh_every=8)
-    got = Server._clusterize(c1, 45, cfg)
+    got = Server._clusterize(c1, 45, cfg, "GGG")
     for leaf, out in zip(layers, got["layers"]):
         one = kv_t.compress_cache_batched(T(leaf["k"]), T(leaf["v"]),
                                           torch.tensor([45]), cfg)
@@ -309,6 +309,6 @@ def test_clusterize_folds_layers_like_per_layer_calls(exact_pow2_reference):
             if key != "v_cents":
                 np.testing.assert_array_equal(out[key].numpy(),
                                               np.asarray(ref[key]))
-    short = Server._clusterize(c1, 8, cfg)["layers"][0]
+    short = Server._clusterize(c1, 8, cfg, "GGG")["layers"][0]
     assert torch.equal(short["k_tail"], c1["layers"][0]["k"][:, :16])
     assert short["counts"].abs().sum() == 0 and short["cov"].item() == 0

@@ -1,7 +1,9 @@
 """The port's decode_step against the reference's, in f32: logits of the
 one-token and mixed (chunked prefill + decode) forms agree at atol = rtol
 = 1e-4 over 8 steps with the caches carried along, for exact and
-clustered caches, on TINY and the reduced qwen3 (qk-norm)."""
+clustered caches, on TINY and the reduced qwen3 (qk-norm).  And the
+port's own ``init_params`` on the gemma configs (sandwich norms): the
+reference's leaf names and shapes, and a tree decode can use."""
 
 import dataclasses
 
@@ -114,3 +116,38 @@ def test_mixed_steps_match(model, kv_mode):
                                         T(t + k))
         np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL,
                                    err_msg=f"decode step {k}")
+
+
+@pytest.mark.parametrize("name", ["gemma2-27b", "gemma3-4b"])
+def test_init_params_matches_reference_tree(name):
+    """``post_norms`` configs get "post_attn_norm" and "post_mlp_norm" in
+    every layer: the port's random tree has the leaves (names, shapes,
+    dtypes) of the reference's tree carried over by ``bridge``, and
+    ``decode_step`` runs on it, exact and clustered."""
+    cfg = configs.get_reduced(name)
+    cfg_t = configs_t.get_reduced(name)
+    want = bridge.params_from_numpy(
+        jax.tree.map(np.asarray, tfm.init_params(jax.random.PRNGKey(0), cfg)),
+        cfg_t, "cpu")
+    got = tfm_t.init_params(0, cfg_t, device="cpu")
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], path + (k,))
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                yield from leaves(v, path + (i,))
+        else:
+            yield path, tuple(tree.shape), tree.dtype
+
+    assert list(leaves(got)) == list(leaves(want))
+    assert all("post_attn_norm" in lp and "post_mlp_norm" in lp
+               for lp in got["layers"])
+    toks = torch.zeros((2, 1), dtype=torch.int32)
+    for kv_mode in ("exact", "clustered"):
+        cache = tfm_t.init_cache(cfg_t, 2, 32, kv_mode=kv_mode,
+                                 kv_clusters=4, kv_tail=8, device="cpu")
+        logits, _ = tfm_t.decode_step(got, cfg_t, cache, toks, 3)
+        assert logits.shape == (2, cfg_t.padded_vocab)
+        assert torch.isfinite(logits.float()).all()

@@ -135,8 +135,6 @@ def test_server_defaults_to_cuda(weights):
 
 
 @pytest.mark.parametrize("field,value", [
-    # paged serving of exact KV (no kv_compress): QuotaRetention
-    ("paged", PagedKVConfigT(block_size=4)),
     ("prefix_share", object()),
     ("template_store", object()),
     ("scheduler", object()),
@@ -158,9 +156,12 @@ def test_paged_value_gates_kept(weights):
 
 
 def test_unported_layer_kinds_raise(weights):
-    gl = dataclasses.replace(TINY_T, layer_pattern="GL", sliding_window=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServerT(gl, ServerConfigT(prefill_chunk=8), weights[1], device="cpu")
+    """The recurrent kinds ('M', 'R') are ROADMAP Queue A item 8; 'L'
+    layers serve since the sliding-window slice
+    (tests/test_torch_window_serving.py)."""
+    gm = dataclasses.replace(TINY_T, layer_pattern="GM")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
+        ServerT(gm, ServerConfigT(prefill_chunk=8), weights[1], device="cpu")
 
 
 def test_reference_value_gates_kept(weights):
