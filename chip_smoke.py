@@ -69,7 +69,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``kv_retired_quota`` > 0, ``kv_retired_frontier`` 0, ``pool_blocks_end``
    0, ``pool_occupancy_peak`` <= 1, paged_clustered_decode launched layers
    x engine steps, clustered_decode and bitserial_median 0; agreement with
-   5e printed, not gated; then qwen3's weights are freed;
+   5e printed, not gated;
+5i. prefix sharing: 8 requests, each a 1,024-token template (from
+   ``default_rng(0)``) plus a unique suffix of 8-60 tokens, 40-72 new
+   tokens each, served paged and chunked (blocks of 16, the slots' 64)
+   twice in turns: unshared, then with
+   ``prefix_share=PrefixShareConfig(max_entries=1)``.  Gates: tokens
+   equal the unshared serve's, prefix_hits >= 1 and prefix_tokens_reused
+   = 1,024 x prefix_hits, fewer prefill chunks than unshared,
+   kv_shared_blocks and kv_bytes_saved > 0, pool_blocks_end 0 and allocs
+   = frees in both, and each serve's paged_clustered_decode = layers x
+   engine steps, clustered_decode 0, bitserial_median >= absorbs +
+   compactions;
+5j. template store: one Server with
+   ``template_store=TemplateStoreConfig(max_entries=2)`` over a pool of 96
+   blocks serves two bursts of the template (suffixes from
+   ``default_rng(1)`` and ``(2)``).  Gates: after burst 1 pinned blocks >
+   0 and the pool holds exactly the pins; burst 2's tokens equal a cold
+   Server's (no store), it hits the store and feeds fewer prefill chunks
+   than burst 1; template_hits_total is the sum of both serves'
+   prefix_hits; pool_blocks_end 0 after each serve; invalidate_templates()
+   drains the pool; the kernel gates of 5i for all three serves.  Each
+   Server's construction is timed (the store's epoch hashes the weights'
+   8 GB); then qwen3's weights are freed;
 5f. gemma2-27b at full width and depth (46 layers 'LG', window 4,096,
    d_model 4608, 32/16 heads of 128, d_ff 36864, vocab 256000; bf16
    weights from ``init_params`` seed 0, 54.5 GB), ``max_seq`` 8,192,
@@ -107,7 +129,9 @@ It imports ``repro_torch`` only.  The second-to-last line is the kernels
 JSON, ``{"kernels": [{"name": ..., ...}, ...]}`` with one object per
 kernel (``chiprun_out/chip_smoke.json`` keys the same objects by name;
 B1's and B2's carry ``launches_windowed`` from 5f / 5g, B2's
-``launches_quota`` from 5h and its quota form's times under ``quota``),
+``launches_quota`` from 5h and its quota form's times under ``quota``,
+B2's and B3's ``launches_prefix_share`` from 5i's shared serve and
+``launches_template_store`` from 5j's two store serves),
 and the last line ``{"ok": true, "device": {...}}``; the full record goes
 to ``chiprun_out/chip_smoke.json``.  Each phase's seconds are printed as
 it ends.
@@ -184,6 +208,10 @@ SHA_ONE_WALK = "5d59b931804a1476"
 # its row, as a reservation does
 Q_R, Q_AHEAD = 2048, 64
 Q_POS = [1536, 2047, 95, 700]
+# 5i / 5j's templated bursts: TPL_N requests sharing one TPL_LEN-token
+# template; 5j's pool holds the slots' 4 x 16 blocks and a surplus for the
+# store's pins, as the reference's template_store_bench sizes its pool
+TPL_LEN, TPL_N, TPL_POOL = 1024, 8, 96
 
 
 def say(*a):
@@ -947,7 +975,6 @@ def serve_workload(torch, dev, paged=None, params=None, chunk=64,
     ``(cfg, server, requests, prompts)``; benchmarks/profile_torch_serve.py
     and serve_times.py serve the same workload."""
     from repro_torch import configs
-    from repro_torch.core.kv_compress import KVCompressConfig
     from repro_torch.models import transformer as tfm
     from repro_torch.runtime.server import Server, ServerConfig
 
@@ -961,8 +988,7 @@ def serve_workload(torch, dev, paged=None, params=None, chunk=64,
             f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
             f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
             f"{cfg.dtype}) initialised in {time.perf_counter() - t0:.1f} s")
-    ccfg = KVCompressConfig(n_clusters=64, iters=4, bits=16, keep_recent=256,
-                            refresh_every=32, prompt_clusters=32)
+    ccfg = smoke_kv_compress()
     if engine == "static":
         scfg = ServerConfig(batch_size=4, max_seq=2048, engine="static")
     else:
@@ -972,6 +998,14 @@ def serve_workload(torch, dev, paged=None, params=None, chunk=64,
     srv = Server(cfg, scfg, params, device=dev)
     reqs, prompts = qwen3_requests(cfg.vocab)
     return cfg, srv, reqs, prompts
+
+
+def smoke_kv_compress():
+    """The clustered KV cache of every qwen3-4b serve of the smoke."""
+    from repro_torch.core.kv_compress import KVCompressConfig
+
+    return KVCompressConfig(n_clusters=64, iters=4, bits=16, keep_recent=256,
+                            refresh_every=32, prompt_clusters=32)
 
 
 def qwen3_requests(vocab):
@@ -999,25 +1033,37 @@ def check_tokens(cfg, reqs, outs, mode):
             raise AssertionError(f"{mode} uid {o.uid}: token out of range")
 
 
+def run_serve(torch, srv, reqs, prompts, mode):
+    """One serve, timed to the card's last step: its tokens (each request
+    complete and in range), last_stats and kernel launches."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = srv.serve(reqs, prompts)
+    if srv.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_tokens(srv.cfg, reqs, outs, mode)
+    st = dict(srv.last_stats)
+    tokens = {o.uid: list(map(int, o.tokens)) for o in outs}
+    digest = hashlib.sha256(json.dumps(tokens, sort_keys=True).encode())
+    return {"stats": st, "wall_s": wall, "launches": ops.launch_counts(),
+            "engine_steps": int(st["decode_steps"]), "tokens": tokens,
+            "tokens_sha256": digest.hexdigest()[:16]}
+
+
 def serve_qwen3(torch, dev, smi, paged=None, params=None, chunk=64):
     """Serve the workload once, dense or paged, with chunked (``chunk``
     > 0) or blocking admission, and hold it to its gates.  Returns
     (record, params)."""
-    from repro_torch.kernels import ops
-
     cfg, srv, reqs, prompts = serve_workload(torch, dev, paged, params,
                                              chunk)
     lens = np.array([r.prompt_len for r in reqs])
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    outs = srv.serve(reqs, prompts)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    st = srv.last_stats
     mode = ("paged" if paged is not None else "dense") + (
         "" if chunk else " blocking")
-    check_tokens(cfg, reqs, outs, mode)
+    rec = run_serve(torch, srv, reqs, prompts, mode)
+    st, launches, wall = rec["stats"], rec["launches"], rec["wall_s"]
     ccfg = srv.scfg.kv_compress
     if chunk:
         if not (st["kv_absorbs"] > 0 and st["kv_compactions"] > 0):
@@ -1071,8 +1117,6 @@ def serve_qwen3(torch, dev, smi, paged=None, params=None, chunk=64):
                 f"{paged.block_size}, peak {peak}, {allocs} allocs = "
                 f"{frees} frees, end {end}, launch_pad_frac "
                 f"{st['launch_pad_frac']:.4f}")
-    tokens = {o.uid: list(map(int, o.tokens)) for o in outs}
-    digest = hashlib.sha256(json.dumps(tokens, sort_keys=True).encode())
     admit = ("" if chunk else
              f", {int(st['kv_admit_compress'])} compress + "
              f"{int(st['kv_admit_tail'])} tail-only admissions, "
@@ -1085,7 +1129,7 @@ def serve_qwen3(torch, dev, smi, paged=None, params=None, chunk=64):
         f"launches {launches[kernel]} = {cfg.n_layers} x {steps}{pool}; "
         f"bitserial_median launches {n_med} (>= {need} {what}; "
         f"{n_med / steps:.3f} per engine step); tokens sha256 "
-        f"{digest.hexdigest()[:16]} (one-walk kernels: {SHA_ONE_WALK})")
+        f"{rec['tokens_sha256']} (one-walk kernels: {SHA_ONE_WALK})")
     say(f"[{smi}] {mode}: wall_s {wall:.3f}  tokens_per_s "
         f"{st['tokens_per_s']:.1f}  tokens_per_s_wall "
         f"{st['tokens_per_s_wall']:.1f}  ttft_p50_ms "
@@ -1094,10 +1138,7 @@ def serve_qwen3(torch, dev, smi, paged=None, params=None, chunk=64):
         f"{st['itl_p95_ms']:.2f}"
         + ("" if chunk else f"  clusterize_s {st['clusterize_s']:.3f}  "
            f"prefill_pad_frac {st['prefill_pad_frac']:.4f}"))
-    return ({"n_layers": cfg.n_layers, "stats": st, "wall_s": wall,
-             "launches": launches, "engine_steps": steps,
-             "tokens": tokens, "tokens_sha256": digest.hexdigest()[:16]},
-            srv.params)
+    return dict(rec, n_layers=cfg.n_layers), srv.params
 
 
 def compare_tokens(dense, paged, what="paged vs dense"):
@@ -1232,6 +1273,220 @@ def serve_quota(torch, dev, smi, params, static):
     return rec
 
 
+# 5i and 5j: templated bursts (a long shared prompt, short unique
+# suffixes), prefix-shared and through the template store
+
+
+def templated_stream(vocab, sfx_seed=0):
+    """TPL_N requests, each the one TPL_LEN-token template plus a unique
+    suffix of 8-60 tokens (below one chunk, so the pure-template boundary
+    is the longest reusable prefix) and 40-72 new tokens.  From
+    ``default_rng(0)``: suffix lengths, budgets, the template (over the
+    vocab), then the suffixes; ``sfx_seed`` draws the suffixes and their
+    budgets from ``default_rng(sfx_seed)`` instead (the same template).
+    Every length is drawn before any token, so the schedule does not
+    depend on the vocab."""
+    from repro_torch.core.request_cluster import Request
+
+    def lengths(rng):
+        return rng.integers(8, 61, size=TPL_N), rng.integers(40, 73,
+                                                             size=TPL_N)
+
+    base = np.random.default_rng(0)
+    sfx, gens = lengths(base)
+    template = base.integers(0, vocab, size=TPL_LEN)
+    rng = base
+    if sfx_seed:
+        rng = np.random.default_rng(sfx_seed)
+        sfx, gens = lengths(rng)
+    reqs, prompts = [], {}
+    for i in range(TPL_N):
+        tail = rng.integers(0, vocab, size=int(sfx[i]))
+        prompts[i] = np.concatenate([template, tail]).astype(np.int32)
+        reqs.append(Request(i, len(prompts[i]), int(gens[i])))
+    return reqs, prompts
+
+
+def templated_server(cfg, params, dev, pool_blocks=0, **kw):
+    """A paged chunked Server with the smoke's KV config (5i, 5j):
+    ``batch_size=4``, ``max_seq=2048``, ``prefill_chunk=64``, blocks of
+    BS (``pool_blocks`` 0: the slots' own 4 x 16), and ``kw`` (prefix
+    sharing or the template store)."""
+    from repro_torch.runtime.kv_pool import PagedKVConfig
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    return Server(cfg, ServerConfig(
+        batch_size=4, max_seq=2048, prefill_chunk=64,
+        kv_compress=smoke_kv_compress(),
+        paged=PagedKVConfig(block_size=BS, pool_blocks=pool_blocks), **kw),
+        params, device=dev)
+
+
+def prefix_share_serves(torch, dev, cfg, params):
+    """5i's two serves of the templated stream, in turns: unshared paged,
+    then with ``prefix_share=PrefixShareConfig(max_entries=1)`` (the
+    reference's single-template setting), both over the slots' own 64
+    blocks.  Returns (unshared, shared) records."""
+    from repro_torch.runtime.prefix_cache import PrefixShareConfig
+
+    reqs, prompts = templated_stream(cfg.vocab)
+    unshared = run_serve(torch, templated_server(cfg, params, dev), reqs,
+                         prompts, "5i unshared")
+    shared = run_serve(torch, templated_server(
+        cfg, params, dev, prefix_share=PrefixShareConfig(max_entries=1)),
+        reqs, prompts, "5i prefix-shared")
+    return unshared, shared
+
+
+def template_store_serves(torch, dev, cfg, params):
+    """5j: one Server with ``template_store=TemplateStoreConfig(
+    max_entries=2)`` over a pool of TPL_POOL blocks serves two bursts of
+    the template (suffixes from ``default_rng(1)``, then ``(2)``), then a
+    cold Server (no store) serves burst 2; then ``invalidate_templates``.
+    Each Server's construction is timed: the store's includes the content
+    hash of the weights (its epoch)."""
+    from repro_torch.runtime.template_store import TemplateStoreConfig
+
+    t0 = time.perf_counter()
+    srv = templated_server(cfg, params, dev, TPL_POOL,
+                           template_store=TemplateStoreConfig(max_entries=2))
+    init_store_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold = templated_server(cfg, params, dev, TPL_POOL)
+    init_cold_s = time.perf_counter() - t0
+    bursts = [templated_stream(cfg.vocab, seed) for seed in (1, 2)]
+    first = run_serve(torch, srv, *bursts[0], "5j store serve 1")
+    pins = {"pinned": srv._store.pinned_blocks(),
+            "allocated": srv._tmpl_pool.allocated()}
+    second = run_serve(torch, srv, *bursts[1], "5j store serve 2")
+    cold_rec = run_serve(torch, cold, *bursts[1], "5j cold serve 2")
+    pool = srv._tmpl_pool
+    srv.invalidate_templates()
+    return {"serves": [first, second], "cold": cold_rec,
+            "after_serve_1": pins, "drained": pool.allocated(),
+            "init_store_s": init_store_s, "init_cold_s": init_cold_s}
+
+
+def paged_launch_gate(cfg, rec, mode):
+    """The paged engine's kernels: paged_clustered_decode once a layer an
+    engine step, clustered_decode never, bitserial_median at least once
+    an absorb and a compaction."""
+    st, launches, steps = rec["stats"], rec["launches"], rec["engine_steps"]
+    need = int(st["kv_absorbs"]) + int(st["kv_compactions"])
+    got = (launches["paged_clustered_decode"], launches["clustered_decode"])
+    if (got != (cfg.n_layers * steps, 0)
+            or not launches["bitserial_median"] >= need > 0):
+        raise AssertionError(
+            f"{mode}: paged_clustered_decode {got[0]} (want {cfg.n_layers} "
+            f"x {steps}), clustered_decode {got[1]} (want 0), "
+            f"bitserial_median {launches['bitserial_median']} (want >= "
+            f"absorbs + compactions = {need} > 0)")
+
+
+def share_line(st):
+    return (f"{int(st['prefill_chunks'])} prefill chunks, "
+            f"{int(st.get('prefix_hits', 0))} hits, "
+            f"{int(st.get('prefix_tokens_reused', 0))} tokens reused, "
+            f"kv_shared_blocks {int(st['kv_shared_blocks'])}, kv_bytes_saved "
+            f"{int(st['kv_bytes_saved'])}, pool peak "
+            f"{int(st['pool_blocks_peak'])} of {int(st['pool_blocks_total'])}"
+            f", {int(st['pool_allocs'])} allocs / {int(st['pool_frees'])} "
+            f"frees, {int(st['pool_cow'])} copy-on-write, "
+            f"{int(st['pool_retains'])} retains, end "
+            f"{int(st['pool_blocks_end'])}")
+
+
+def times_line(rec):
+    st = rec["stats"]
+    return (f"wall_s {rec['wall_s']:.3f}  engine steps {rec['engine_steps']}"
+            f"  ttft_p50_ms {st['ttft_p50_ms']:.1f}  ttft_p95_ms "
+            f"{st['ttft_p95_ms']:.1f}  itl_p50_ms {st['itl_p50_ms']:.2f}  "
+            f"tokens_per_s {st['tokens_per_s']:.1f}")
+
+
+def serve_prefix_share(torch, dev, smi, params):
+    """Phase 5i: the templated stream unshared, then prefix-shared, with
+    its gates (see the module docstring)."""
+    from repro_torch import configs
+
+    cfg = configs.get_config("qwen3-4b")
+    unshared, shared = prefix_share_serves(torch, dev, cfg, params)
+    for mode, rec in (("5i unshared", unshared), ("5i shared", shared)):
+        paged_launch_gate(cfg, rec, mode)
+        say(f"[{smi}] {mode}: {times_line(rec)}; {share_line(rec['stats'])}"
+            f"; tokens sha256 {rec['tokens_sha256']}")
+    st, st0 = shared["stats"], unshared["stats"]
+    hits = int(st["prefix_hits"])
+    problems = []
+    if compare_tokens(unshared, shared, "5i shared vs unshared"):
+        problems.append("tokens differ from the unshared serve's")
+    if hits < 1 or st["prefix_tokens_reused"] != TPL_LEN * hits:
+        problems.append(f"{hits} hits reusing {st['prefix_tokens_reused']} "
+                        f"tokens, want >= 1 hit of {TPL_LEN} each")
+    if not st["prefill_chunks"] < st0["prefill_chunks"]:
+        problems.append(f"prefill_chunks {st['prefill_chunks']}, unshared "
+                        f"{st0['prefill_chunks']}")
+    if not (st["kv_shared_blocks"] > 0 and st["kv_bytes_saved"] > 0):
+        problems.append("no block shared")
+    for rec in (unshared, shared):
+        s = rec["stats"]
+        if not (s["pool_blocks_end"] == 0
+                and s["pool_allocs"] == s["pool_frees"]):
+            problems.append(f"pool end {s['pool_blocks_end']}, allocs "
+                            f"{s['pool_allocs']}, frees {s['pool_frees']}")
+    if problems:
+        raise AssertionError("5i prefix sharing: " + "; ".join(problems))
+    return {"unshared": unshared, "shared": shared}
+
+
+def serve_template_store(torch, dev, smi, params):
+    """Phase 5j: two bursts through one Server's template store, a cold
+    Server on burst 2, then invalidation, with its gates (see the module
+    docstring)."""
+    from repro_torch import configs
+
+    cfg = configs.get_config("qwen3-4b")
+    rec = template_store_serves(torch, dev, cfg, params)
+    (first, second), cold = rec["serves"], rec["cold"]
+    for mode, r in (("5j store serve 1", first), ("5j store serve 2", second),
+                    ("5j cold serve 2", cold)):
+        paged_launch_gate(cfg, r, mode)
+        say(f"[{smi}] {mode}: {times_line(r)}; {share_line(r['stats'])}"
+            f"; tokens sha256 {r['tokens_sha256']}")
+    st1, st2 = first["stats"], second["stats"]
+    say(f"[{smi}] 5j Server init: {rec['init_store_s']:.3f} s with the store "
+        f"(its epoch hashes the weights' bytes), {rec['init_cold_s']:.3f} s "
+        f"without; after serve 1 {rec['after_serve_1']['pinned']} pinned "
+        f"blocks, pool allocated {rec['after_serve_1']['allocated']}; "
+        f"template_entries {int(st2['template_entries'])}, "
+        f"template_hits_total {int(st2['template_hits_total'])}, "
+        f"template_clusters {int(st2['template_clusters'])}, "
+        f"template_cohesion_mean {st2['template_cohesion_mean']:.4f}; after "
+        f"invalidate_templates() the pool holds {rec['drained']} blocks")
+    problems = []
+    pins = rec["after_serve_1"]
+    if not (st1["template_pinned_blocks"] > 0
+            and pins["allocated"] == pins["pinned"] > 0):
+        problems.append(f"after serve 1: template_pinned_blocks "
+                        f"{st1['template_pinned_blocks']}, pool {pins}")
+    if compare_tokens(cold, second, "5j warm vs cold (burst 2)"):
+        problems.append("the warm serve's tokens differ from the cold's")
+    if not (st2["prefix_hits"] > 0
+            and st2["prefill_chunks"] < st1["prefill_chunks"]):
+        problems.append(f"serve 2: {st2['prefix_hits']} hits, prefill_chunks "
+                        f"{st2['prefill_chunks']} against serve 1's "
+                        f"{st1['prefill_chunks']}")
+    if st2["template_hits_total"] != st1["prefix_hits"] + st2["prefix_hits"]:
+        problems.append(f"template_hits_total {st2['template_hits_total']}")
+    if st1["pool_blocks_end"] != 0 or st2["pool_blocks_end"] != 0:
+        problems.append("pool_blocks_end beyond the pins")
+    if rec["drained"] != 0:
+        problems.append(f"{rec['drained']} blocks after invalidation")
+    if problems:
+        raise AssertionError("5j template store: " + "; ".join(problems))
+    return rec
+
+
 # 5f and 5g: gemma2-27b at full width and depth, max_seq GEMMA_MAX_SEQ
 # (prompts past the 4,096 window), the smoke's KVCompressConfig
 
@@ -1304,21 +1559,14 @@ def serve_gemma2(torch, dev, smi, paged=None, params=None):
     'L' layers run plain windowed attention, as in the reference),
     bitserial_median at least once for each compress admission and
     compaction, and (paged) every block back.  Returns (record, params)."""
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer as tfm
 
     cfg, srv, reqs, prompts = gemma2_workload(torch, dev, paged, params)
     mode = "gemma2 " + ("paged" if paged is not None else "dense")
-    ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    outs = srv.serve(reqs, prompts)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    rec = run_serve(torch, srv, reqs, prompts, mode)
     peak = torch.cuda.max_memory_allocated()
-    launches = ops.launch_counts()
-    st = srv.last_stats
-    check_tokens(cfg, reqs, outs, mode)
+    st, launches, wall = rec["stats"], rec["launches"], rec["wall_s"]
     ccfg = srv.scfg.kv_compress
     lens = np.array([r.prompt_len for r in reqs])
     n_g = tfm.layer_kinds(cfg).count("G")
@@ -1356,8 +1604,6 @@ def serve_gemma2(torch, dev, smi, paged=None, params=None):
         pool = (f"; pool peak {int(st['pool_blocks_peak'])} of "
                 f"{int(st['pool_blocks_total'])} blocks, {allocs} allocs = "
                 f"{frees} frees")
-    tokens = {o.uid: list(map(int, o.tokens)) for o in outs}
-    digest = hashlib.sha256(json.dumps(tokens, sort_keys=True).encode())
     say(f"[{smi}] {mode} serve: 6 requests (prompts {lens.tolist()}, "
         f"{int(st['gen_tokens'])} generated) in {wall:.3f} s wall; {steps} "
         f"engine steps, {int(st['kv_compactions'])} compactions, "
@@ -1370,12 +1616,10 @@ def serve_gemma2(torch, dev, smi, paged=None, params=None):
         f"tokens_per_s {st['tokens_per_s']:.1f} ttft_p50_ms "
         f"{st['ttft_p50_ms']:.1f} itl_p50_ms {st['itl_p50_ms']:.2f} "
         f"clusterize_s {st['clusterize_s']:.3f}; tokens sha256 "
-        f"{digest.hexdigest()[:16]}")
-    return ({"n_layers": cfg.n_layers, "g_layers": n_g, "stats": st,
-             "wall_s": wall, "launches": launches, "engine_steps": steps,
-             "peak_bytes": peak, "max_seq": srv.scfg.max_seq,
-             "prompt_lens": lens.tolist(), "tokens": tokens,
-             "tokens_sha256": digest.hexdigest()[:16]}, srv.params)
+        f"{rec['tokens_sha256']}")
+    return (dict(rec, n_layers=cfg.n_layers, g_layers=n_g, peak_bytes=peak,
+                 max_seq=srv.scfg.max_seq, prompt_lens=lens.tolist()),
+            srv.params)
 
 
 # ---------------------------------------------------------------------------
@@ -1943,6 +2187,15 @@ def main() -> int:
     quota = serve_quota(torch, dev, smi, params, static)
     record["serve_quota"] = quota
     done("5h quota serve")
+
+    # phases 5i and 5j: templated bursts, prefix-shared and through the
+    # template store, qwen3's weights still resident
+    prefix = serve_prefix_share(torch, dev, smi, params)
+    record["serve_prefix_share"] = prefix
+    done("5i prefix sharing")
+    store = serve_template_store(torch, dev, smi, params)
+    record["serve_template_store"] = store
+    done("5j template store")
     del params
     torch.cuda.empty_cache()
 
@@ -2027,6 +2280,10 @@ def main() -> int:
              launches_windowed=windowed_pg["launches"][
                  "paged_clustered_decode"],
              launches_quota=quota["launches"]["paged_clustered_decode"],
+             launches_prefix_share=prefix["shared"]["launches"][
+                 "paged_clustered_decode"],
+             launches_template_store=[r["launches"]["paged_clustered_decode"]
+                                      for r in store["serves"]],
              max_abs_err=pcd_err, ms=tm["paged_clustered_decode"]["ms"],
              plain_ms=tm["paged_clustered_decode"]["plain_ms"],
              bound_ms=tm["paged_clustered_decode"]["bound_ms"],
@@ -2055,6 +2312,10 @@ def main() -> int:
              replaces="src/repro/kernels/bitserial_median.py:35",
              launches=serve["launches"]["bitserial_median"],
              launches_blocking=blocking["launches"]["bitserial_median"],
+             launches_prefix_share=prefix["shared"]["launches"][
+                 "bitserial_median"],
+             launches_template_store=[r["launches"]["bitserial_median"]
+                                      for r in store["serves"]],
              max_abs_err=bsm_err, ms=tm["bitserial_median"]["ms"],
              plain_ms=tm["bitserial_median"]["plain_ms"],
              bound_ms=tm["bitserial_median"]["bound_ms"],

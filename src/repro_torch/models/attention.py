@@ -325,6 +325,14 @@ def init_cache_attn_clustered(cfg: ModelConfig, batch: int, *,
     }
 
 
+# The per-slot summary state of a clustered cache leaf: everything a slot
+# owns beyond its tail-ring payload, which prefix-shared admission
+# snapshots at chunk boundaries and restores into a fresh slot
+# (runtime/prefix_cache.py); the tail bytes are shared through the block
+# pool instead.
+CLUSTERED_SLOT_KEYS = ("k_cents", "v_cents", "counts", "cov")
+
+
 def attn_decode_clustered(p, x, cfg: ModelConfig, *, cache, t,
                           kv_repeat: int = 1, use_kernel: bool = True,
                           chunk_len=None):

@@ -162,6 +162,35 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
         for k in layer_kinds(cfg)]}
 
 
+def clustered_slot_state(cache, j: int):
+    """Snapshot slot ``j``'s summary rows (``attention.CLUSTERED_SLOT_KEYS``:
+    centroids, counts, coverage frontier) from every clustered leaf of an
+    engine cache, as ``{"layers": [{key: (1, ...)} or None]}`` (None for a
+    leaf that is not clustered: an 'L' window ring is in no snapshot).
+    Tail payloads are not copied: in the paged engine they live in pool
+    blocks that the prefix cache pins by ref count.
+
+    The rows are cloned, not viewed: slot ``j`` goes on absorbing and
+    decoding after the snapshot, and a view would follow it."""
+    return {"layers": [
+        {k: leaf[k][j:j + 1].clone() for k in attn.CLUSTERED_SLOT_KEYS}
+        if "k_cents" in leaf else None
+        for leaf in cache["layers"]]}
+
+
+def restore_clustered_slot_state(cache, snap, j: int):
+    """Write a ``clustered_slot_state`` snapshot into slot ``j`` of every
+    clustered leaf, in place (prefix-shared admission: the reused prompt
+    centroids and coverage frontier land in the fresh slot; its ring
+    blocks are adopted through the block table separately).  Returns the
+    cache."""
+    for leaf, s in zip(cache["layers"], snap["layers"]):
+        if s is not None:
+            for k in attn.CLUSTERED_SLOT_KEYS:
+                leaf[k][j:j + 1] = s[k].to(leaf[k].dtype)
+    return cache
+
+
 def sublayer_prefill(p, h, cfg: ModelConfig, kind: str, *, positions,
                      kv_repeat: int, max_seq: int):
     """h (B, S, d) → (h, cache): a 'G' layer's exact k/v zero-padded out

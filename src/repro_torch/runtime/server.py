@@ -56,17 +56,30 @@ shrinks in paged mode.
 left-padded prefill of the batch, then decode steps over its exact cache
 until its longest request is done.
 
+With ``prefix_share=PrefixShareConfig(...)`` (paged, chunked, clustered,
+'G' layers only) a chunked admission registers its prefix-pure state at
+every chunk boundary (runtime/prefix_cache.py): the live ring blocks,
+retained in the pool, and a snapshot of the slot's centroids, counts and
+frontier (``transformer.clustered_slot_state``).  A later request whose
+prompt starts with a registered prefix adopts the blocks, restores the
+snapshot and streams only the rest; a write into a block that another
+holder still maps copies it first (``kv_pool.ensure``'s copy-on-write
+pairs, ``_cow_impl``).  ``template_store=`` keeps those entries, their
+pinned blocks, the pool and the device cache across ``serve`` calls
+(runtime/template_store.py), under an epoch that stamps the model, the
+KV and pool configs and a content hash of the weights.
+
 Per-slot host bookkeeping (``pos`` / ``cur`` / ``fed``, the coverage
 frontier mirror) replays the reference engine step for step, so greedy
-tokens match it.  Prefix sharing (and with it copy-on-write of shared
-blocks), the template store, SLO scheduling, mesh serving, tracing and the
-recurrent layer kinds are later slices of the port; asking for one raises
+tokens match it.  SLO scheduling, mesh serving, tracing and the recurrent
+layer kinds are later slices of the port; asking for one raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -83,7 +96,9 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import resolve_device
 from repro_torch.runtime import kv_pool
+from repro_torch.runtime import prefix_cache as prefix_mod
 from repro_torch.runtime import telemetry as tele_mod
+from repro_torch.runtime import template_store as template_mod
 from repro_torch.runtime.telemetry import TelemetryConfig
 
 
@@ -110,8 +125,12 @@ class ServerConfig:
     # paged KV memory manager: tail rings in a block pool behind per-slot
     # block tables, decoded by packed ragged launches; clustered under
     # kv_compress, else exact KV under a per-slot block quota
-    prefix_share: Optional[object] = None    # later slice (item 4)
-    template_store: Optional[object] = None  # later slice (item 5)
+    prefix_share: Optional[prefix_mod.PrefixShareConfig] = None
+    # prefix-shared paged admission: chunk-boundary state registered and
+    # adopted across requests of one serve (paged + chunked + kv_compress)
+    template_store: Optional[object] = None
+    # a TemplateStoreConfig or a TemplateStore: prefix sharing whose
+    # entries persist across serve() calls (subsumes prefix_share)
     scheduler: Optional[object] = None       # later slice (item 6)
     telemetry: Optional[TelemetryConfig] = None
     mesh: Optional[object] = None            # later slice (item 10)
@@ -211,6 +230,41 @@ class Server:
                     "paged serving needs at least one ring-family layer: "
                     "recurrent-state layers ('M'/'R') carry fixed-size "
                     "per-slot state that is never pool-backed")
+        # paged without kv_compress: exact KV under a block quota, in the
+        # clustered layout with one dead centroid and a ring of max_seq
+        # positions (cov stays 0, so every position stays exact)
+        self._kv_layout = scfg.kv_compress
+        if paged is not None and scfg.kv_compress is None:
+            self._kv_layout = kv_compress.KVCompressConfig(
+                n_clusters=1, keep_recent=scfg.max_seq, refresh_every=0)
+        self._pshare = scfg.prefix_share
+        self._store: Optional[template_mod.TemplateStore] = None
+        if scfg.template_store is not None:
+            if self._pshare is not None:
+                raise ValueError(
+                    "template_store subsumes prefix_share (same adopting "
+                    "admission path, persistent entries) — set only one")
+            ts = scfg.template_store
+            self._store = (ts if isinstance(ts, template_mod.TemplateStore)
+                           else template_mod.TemplateStore(ts))
+            self._pshare = self._store.share
+        if self._pshare is not None:
+            # 'M'/'R' pass this gate, as in the reference, and meet the
+            # recurrent kinds' refusal below
+            if (paged is None or not scfg.prefill_chunk
+                    or scfg.kv_compress is None
+                    or set(cfg.layer_pattern) - set("GMR")):
+                raise ValueError(
+                    "prefix_share/template_store requires the paged "
+                    "clustered engine with chunked prefill over snapshot-"
+                    "coverable layers ('G' clustered rings plus 'M'/'R' "
+                    "recurrent state; 'L' window rings are not in "
+                    "snapshots) — kv_compress= + paged= + prefill_chunk=: "
+                    "block-granular sharing needs the block pool's ref "
+                    "counts, slot snapshots restore clustered summaries "
+                    "and recurrent state only, and prefix-pure "
+                    "registration points only exist on the chunked "
+                    "admission schedule")
         self._chunk = scfg.prefill_chunk
         if self._chunk:
             if scfg.engine != "continuous":
@@ -228,18 +282,9 @@ class Server:
         if scfg.mesh is not None and scfg.engine != "continuous":
             raise ValueError("mesh serving requires the continuous "
                              "engine (static batches are per-device)")
-        # paged without kv_compress: exact KV under a block quota, in the
-        # clustered layout with one dead centroid and a ring of max_seq
-        # positions (cov stays 0, so every position stays exact)
-        self._kv_layout = scfg.kv_compress
-        if paged is not None and scfg.kv_compress is None:
-            self._kv_layout = kv_compress.KVCompressConfig(
-                n_clusters=1, keep_recent=scfg.max_seq, refresh_every=0)
         # what this slice of the port does not serve yet
         missing = []
-        for name, item in (("prefix_share", "Queue A item 4"),
-                           ("template_store", "Queue A item 5"),
-                           ("scheduler", "Queue A item 6"),
+        for name, item in (("scheduler", "Queue A item 6"),
                            ("mesh", "Queue A item 10")):
             if getattr(scfg, name) is not None:
                 missing.append(f"{name}= (ROADMAP {item})")
@@ -262,10 +307,37 @@ class Server:
         # tokens in, so such models admit at the exact prompt length
         self._kinds = tfm.layer_kinds(cfg)
         self._bucket = 1 if "L" in self._kinds else scfg.prefill_bucket
+        # cross-serve template persistence: the pool and the device cache
+        # that carry the store's pinned blocks between serve() calls.  The
+        # epoch stamps every input a registered snapshot depends on, the
+        # weights by content (a reloaded identical tree keeps a warm
+        # store); nothing else reads it, so it is hashed only for a store
+        self._tmpl_pool: Optional[kv_pool.BlockPool] = None
+        self._tmpl_cache = None
+        self._store_epoch = None
+        if self._store is not None:
+            self._store_epoch = (repr(cfg), repr(scfg.kv_compress),
+                                 repr(scfg.paged), scfg.prefill_chunk,
+                                 scfg.max_seq, scfg.batch_size, 1,
+                                 self._params_digest(self.params))
 
     # ------------------------------------------------------------------
     # entry
     # ------------------------------------------------------------------
+
+    def invalidate_templates(self) -> None:
+        """Drop every persistent template entry, releasing the pool blocks
+        the store pinned across serves: afterwards the pool is drained
+        (``allocated() == 0``; nothing else holds a block between serves)
+        and the warm device cache is dropped, so the next serve starts
+        cold."""
+        if self._store is not None:
+            self._store.invalidate()
+        if self._tmpl_pool is not None:
+            assert self._tmpl_pool.allocated() == 0, \
+                "template pins released but pool still holds blocks"
+        self._tmpl_pool = None
+        self._tmpl_cache = None
 
     def serve(self, requests: Sequence[Request],
               prompts: Dict[int, np.ndarray]) -> List[Completion]:
@@ -311,16 +383,45 @@ class Server:
         # block tables; the launch bucket never shrinks (packed rows
         # already make compute follow real tokens)
         paged = scfg.paged
-        pool = (kv_pool.BlockPool(n, layout.keep_recent, paged,
-                                  full_tail_resident=ccfg is not None)
-                if paged is not None else None)
-        cache = tfm.init_cache(
-            cfg, n, scfg.max_seq,
-            kv_mode="clustered" if layout else "exact",
-            kv_clusters=layout.n_clusters if layout else 512,
-            kv_tail=layout.keep_recent if layout else 256,
-            kv_pool_blocks=pool.n_blocks if pool else 0,
-            kv_block_size=paged.block_size if paged else 0, device=dev)
+        pool = pcache = cache = None
+        store = self._store
+        if paged is not None:
+            parked = store.parked if store is not None else None
+            if parked is not None and parked[2] == self._store_epoch:
+                # warm start: the parked pool and device cache carry the
+                # store's pinned blocks.  They live on the store, keyed by
+                # epoch, so another Server under the same epoch adopts
+                # them too; the slot is taken eagerly, so a serve that dies
+                # mid-flight leaves nothing half-donated (the next serve
+                # comes up cold and bind() drops the orphaned entries)
+                pool, cache = parked[0], parked[1]
+                store.parked = None
+                self._tmpl_pool = self._tmpl_cache = None
+                pool.reset_peaks()
+            else:
+                pool = kv_pool.BlockPool(n, layout.keep_recent, paged,
+                                         full_tail_resident=ccfg is not None)
+            if store is not None:
+                # a store warmed under another epoch or pool is
+                # invalidated here, never adopted
+                store.bind(self._store_epoch, 1, pool)
+                pcache = store
+            elif self._pshare is not None:
+                pcache = prefix_mod.PrefixCache(self._pshare, 1, pool)
+        if cache is None:
+            cache = tfm.init_cache(
+                cfg, n, scfg.max_seq,
+                kv_mode="clustered" if layout else "exact",
+                kv_clusters=layout.n_clusters if layout else 512,
+                kv_tail=layout.keep_recent if layout else 256,
+                kv_pool_blocks=pool.n_blocks if pool else 0,
+                kv_block_size=paged.block_size if paged else 0, device=dev)
+        # per-serve stats are deltas against these marks: a persistent
+        # store and pool carry lifetime counters across serves
+        hits0 = pcache.hits if pcache is not None else 0
+        reused0 = pcache.tokens_reused if pcache is not None else 0
+        pool_mark = ((pool.n_allocs, pool.n_frees, pool.n_retains,
+                      pool.n_cow) if pool is not None else (0, 0, 0, 0))
 
         pos = np.zeros(n, np.int32)       # cache valid length per slot
         cur = np.zeros(n, np.int32)       # pending (unfed) token per slot
@@ -363,7 +464,7 @@ class Server:
         R = layout.keep_recent if layout else 0
         launch_real = launch_padded = 0
         kv_live_sum = kv_alloc_sum = 0
-        kv_alloc_peak = 0
+        kv_alloc_peak = kv_shared_peak = 0
         tail_bpt = self._tail_bytes_per_token(cache) if layout else 0
         stall_retries = idle_retries = 0
         # blocking clustered admissions by _clusterize form, and its time
@@ -403,22 +504,58 @@ class Server:
                 sweep_policy.clear_protection(j)
             return freed
 
-        def try_ensure(j, blocks):
-            """``pool.ensure`` with a sweep of covered blocks on
-            exhaustion.  False: the pool cannot back the write now, and
-            the slot stalls for this step."""
-            pairs = []
+        def reclaim_all():
+            """Last-resort reclaim: sweep covered blocks and drain the
+            prefix cache.  Returns the blocks freed; the zero-progress
+            raises fire only after this comes back empty twice."""
+            held = pool.allocated()
+            sweep_covered()
+            while pcache is not None and pcache.evict_lru(0):
+                pass
+            return held - pool.allocated()
+
+        def try_ensure(j, blocks, pairs):
+            """``pool.ensure`` with reclaim on exhaustion: a sweep of
+            covered blocks, then prefix-cache eviction (a pinned entry is
+            an optimisation, never an obligation).  False: the pool cannot
+            back the write now, and the slot stalls for this step.
+
+            ``pairs`` is the step's shared copy-on-write accumulator: a
+            swap made before a mid-list exhaustion is not emitted again on
+            retry (the fresh block is owned by then), so the pairs of a
+            failed attempt still need their copy this step, even when the
+            slot stalls."""
             while True:
                 try:
                     pool.ensure(j, blocks, pairs)
-                    # copy-on-write pairs come only from shared blocks
-                    # (prefix sharing, a later slice)
-                    assert not pairs, pairs
                     return True
                 except kv_pool.PoolExhausted:
                     if sweep_covered():
                         continue
+                    if pcache is not None and pcache.evict_lru(0):
+                        continue
                     return False
+
+        # per-request candidate digests, hashed once a serve; the memo is
+        # keyed by uid but checks the prompt before reuse (a uid recycled
+        # for another prompt must not steer or adopt with old digests).
+        # The template store assigns a request its cluster on first
+        # hashing, during slot choice, as the reference does.
+        dig_by_uid: Dict[int, tuple] = {}
+        cid_by_uid: Dict[int, int] = {}
+
+        def prefix_digests(uid):
+            po = prompts[uid]
+            memo = dig_by_uid.get(uid)
+            if memo is not None and (memo[0] is po or np.array_equal(
+                    np.asarray(memo[0]), np.asarray(po))):
+                return memo[1]
+            p = np.asarray(po, np.int32)[-scfg.max_seq:]
+            d = pcache.prefix_digests(p, chunk)
+            dig_by_uid[uid] = (po, d)
+            if store is not None:
+                cid_by_uid[uid] = store.assign(p, d)
+            return d
 
         def start_admission(j, uid) -> bool:
             """Start a chunked admission into slot j.  False: the pool
@@ -433,7 +570,7 @@ class Server:
                 # up front (admitted means completable, since nothing
                 # retires mid-flight) and defer the request on shortage
                 if not try_ensure(j, range(quota.admit_blocks(
-                        len(p), by_uid[uid].max_new_tokens))):
+                        len(p), by_uid[uid].max_new_tokens)), []):
                     pool.free_slot(j)
                     return False
             admitting[j] = True
@@ -443,7 +580,24 @@ class Server:
             if wr is not None:
                 wr.on_slot_free(j)
             slot_uid[j] = uid
-            if layout is not None:
+            hit = (pcache.lookup(0, p, chunk, digests=prefix_digests(uid))
+                   if pcache is not None else None)
+            if hit is not None:
+                # prefix hit: adopt the registered ring blocks (a write
+                # into one still shared copies it first) and restore the
+                # prompt centroids and frontier; admission resumes at
+                # hit.fed.  The paged bucket never shrinks, so j is the
+                # slot's physical row.
+                assert pool is not None and bucket == n
+                for bi, gid in hit.blocks.items():
+                    pool.adopt(j, bi, gid)
+                tfm.restore_clustered_slot_state(cache, hit.snap, j)
+                fed[j] = hit.fed
+                fr.set_frontier(j, hit.cov)
+                # the slot holds its own refs now: the entry may be
+                # evicted again
+                pcache.adoption_done(hit)
+            elif layout is not None:
                 # the previous occupant's counts would unmask its stale
                 # centroids; ring entries are hidden by the position mask
                 self._reset_slot(cache, j)
@@ -471,7 +625,10 @@ class Server:
                         if quota is not None else
                         kv_pool.live_blocks(plen, cov0, R,
                                             paged.block_size))
-                if not try_ensure(j, need):
+                # a freed slot maps no shared block: no copy-on-write pair
+                # (blocking admission and prefix sharing exclude each
+                # other)
+                if not try_ensure(j, need, []):
                     pool.free_slot(j)
                     return False
             bkt = min(scfg.max_seq, -(-plen // self._bucket) * self._bucket)
@@ -527,6 +684,10 @@ class Server:
                         if not (active[j] or admitting[j])]
                 if not free:
                     break
+                if pcache is not None:
+                    # slot choice hashes the head request (one shard: no
+                    # steering to do, but the store assigns its cluster)
+                    prefix_digests(order[qi])
                 ok = (start_admission(free[0], order[qi]) if chunk
                       else admit_blocking(free[0], order[qi]))
                 if not ok:
@@ -535,9 +696,10 @@ class Server:
             if not (active.any() or admitting.any()):
                 if qi >= len(order):
                     break
-                # an admission deferred on an idle engine: sweep covered
-                # blocks and retry; twice with nothing freed is no progress
-                freed = sweep_covered() if pool is not None else 0
+                # an admission deferred on an idle engine: reclaim covered
+                # blocks and prefix-cache pins and retry; twice with
+                # nothing freed is no progress
+                freed = reclaim_all() if pool is not None else 0
                 idle_retries += 1
                 if idle_retries > 1 and freed == 0:
                     raise kv_pool.PoolExhausted(
@@ -583,26 +745,32 @@ class Server:
             if pool is not None:
                 # paged packed launch: the blocks this step's ring writes
                 # land in are allocated first; a slot the pool cannot back
-                # even after a sweep stalls for the step (its rows are not
-                # packed) and retries after the next give-back
+                # even after reclaim stalls for the step (its rows are not
+                # packed) and retries after the next give-back.  A shared
+                # block about to be written is swapped for a copy, and the
+                # copies run before the step's ring writes
+                cow_pairs = []
                 for j in range(n):
                     if admitting[j]:
                         if not try_ensure(j, kv_pool.write_blocks(
                                 int(fed[j]), step_chunks[j], R,
-                                paged.block_size)):
+                                paged.block_size), cow_pairs):
                             del step_chunks[j]
                     elif active[j]:
                         if not try_ensure(j, kv_pool.write_blocks(
-                                int(pos[j]), 1, R, paged.block_size)):
+                                int(pos[j]), 1, R, paged.block_size),
+                                cow_pairs):
                             stalled_decode.add(j)
+                if cow_pairs:
+                    self._cow_impl(cache, cow_pairs)
                 mixed = bool(step_chunks)
                 width = chunk if mixed else 1
                 real_rows = (int(active.sum()) - len(stalled_decode)
                              + sum(step_chunks.values()))
                 if real_rows == 0:
                     # every slot is stalled and nothing runs to give blocks
-                    # back: twice with nothing to sweep is no progress
-                    freed = sweep_covered()
+                    # back: twice with nothing to reclaim is no progress
+                    freed = reclaim_all()
                     stall_retries += 1
                     if stall_retries > 1 and freed == 0:
                         raise kv_pool.PoolExhausted(
@@ -699,6 +867,9 @@ class Server:
                 kv_live_sum += live
                 kv_alloc_sum += alloc
                 kv_alloc_peak = max(kv_alloc_peak, alloc)
+                if pool is not None:
+                    kv_shared_peak = max(kv_shared_peak,
+                                         pool.shared_extra())
 
             # ---- host update ---------------------------------------------
             for j in range(min(n, bp)):
@@ -713,6 +884,23 @@ class Server:
                     plen = len(prompt_np[uid])
                     useful_toks += cl
                     if fed[j] < plen:
+                        # chunk-boundary state is prefix-pure (a function
+                        # of tokens[:fed] alone: per-slot compaction keeps
+                        # neighbours out of it), so register it for later
+                        # requests with the same prefix
+                        if (pcache is not None and fed[j] % chunk == 0
+                                and fed[j] >= max(self._pshare.min_prefix,
+                                                  chunk)):
+                            blocks = {
+                                bi: int(pool.table[j, bi])
+                                for bi in kv_pool.live_blocks(
+                                    int(fed[j]), cov_of(j), R,
+                                    paged.block_size)
+                                if pool.table[j, bi] >= 0}
+                            pcache.register(
+                                0, prompt_np[uid], int(fed[j]), cov_of(j),
+                                blocks, tfm.clustered_slot_state(cache, j),
+                                cluster=cid_by_uid.get(uid, -1))
                         continue
                     # final chunk landed: its last row's logits are the
                     # request's first generated token
@@ -788,6 +976,18 @@ class Server:
                     since_tok[j] = 0
                 n_compacts += 1
 
+        if pcache is not None:
+            if store is None:
+                # a per-serve cache: release every pinned block, so the
+                # pool drains with the request stream
+                pcache.clear()
+            else:
+                # the store's entries and pins survive the drain: the pool
+                # and the device cache park on the store (epoch-keyed),
+                # mirrored on the server; the drain target weakens to
+                # allocated() == pinned_blocks()
+                self._tmpl_pool, self._tmpl_cache = pool, cache
+                store.parked = (pool, cache, self._store_epoch, 1)
         wall = time.perf_counter() - t0_serve
         gen_total = sum(len(v) for v in toks.values())
         # each request's first token comes from its last prompt chunk;
@@ -880,20 +1080,33 @@ class Server:
                       ).set(float(kv_alloc_peak))
             if pool is not None:
                 # kv_bytes_peak_per_shard, pool_blocks_*, pool_allocs /
-                # frees / retains / cow
-                pool.publish(reg, bytes_per_block=paged.block_size
-                             * tail_bpt)
-                # no block is shared without prefix sharing (a later
-                # slice): the reference's sharing gauges read 0
+                # frees / retains / cow as deltas against the serve-start
+                # mark (a persistent pool carries lifetime counters)
+                pool.publish(reg, pool_mark, paged.block_size * tail_bpt)
                 reg.gauge("kv_shared_blocks",
                           "peak logical mappings beyond physical blocks"
-                          ).set(0.0)
+                          ).set(float(kv_shared_peak))
                 reg.gauge("kv_bytes_saved",
-                          "tail KV bytes prefix sharing avoided").set(0.0)
-                # every request completed → every block recycled
+                          "tail KV bytes prefix sharing avoided"
+                          ).set(float(kv_shared_peak * paged.block_size
+                                      * tail_bpt))
+                # every request completed → every block recycled, but for
+                # what the template store pins across serves
                 reg.gauge("pool_blocks_end",
                           "blocks live beyond store pins (>0 = leak)"
-                          ).set(float(pool.allocated()))
+                          ).set(float(pool.allocated()
+                                      - (store.pinned_blocks()
+                                         if store is not None else 0)))
+                if pcache is not None:
+                    reg.counter("prefix_hits",
+                                "prefix-cache adoptions this serve"
+                                ).add(pcache.hits - hits0)
+                    reg.counter("prefix_tokens_reused",
+                                "prompt tokens adopted this serve"
+                                ).add(pcache.tokens_reused - reused0)
+                if store is not None:
+                    # lifetime store view and per-cluster traffic
+                    store.publish(reg, paged.block_size * tail_bpt)
             else:
                 reg.gauge("kv_bytes_peak_per_shard",
                           "peak live tail-KV bytes on the busiest shard"
@@ -921,6 +1134,49 @@ class Server:
                     a = leaf[key]
                     total += a.shape[-2] * a.shape[-1] * a.element_size()
         return total
+
+    @staticmethod
+    def _params_digest(params) -> str:
+        """Content hash of the parameter tree: leaf paths, shapes, dtypes
+        and raw bytes (the template store's epoch stamps this, so a new
+        tree with the same bytes keeps a warm store while any change of
+        weights invalidates every snapshot)."""
+        h = hashlib.blake2b(digest_size=16)
+
+        def walk(node, path):
+            if isinstance(node, dict):
+                for k in sorted(node):
+                    walk(node[k], f"{path}/{k}")
+            elif isinstance(node, (list, tuple)):
+                for i, v in enumerate(node):
+                    walk(v, f"{path}/{i}")
+            else:
+                t = node.detach()
+                h.update(path.encode())
+                h.update(repr((tuple(t.shape), str(t.dtype))).encode())
+                # numpy has no bf16: hash the bytes, in place
+                h.update(t.contiguous().reshape(-1).view(torch.uint8)
+                         .cpu().numpy())
+
+        walk(params, "")
+        return h.hexdigest()
+
+    @staticmethod
+    def _cow_impl(cache, pairs) -> None:
+        """Device half of copy-on-write, in place: copy pool blocks
+        ``src → dst`` (``pairs`` [(src, dst)] global ids) in every
+        clustered tail leaf.  The allocator already pointed the writing
+        slot's table at ``dst`` (``kv_pool.ensure``), so the copy must
+        land before the step's ring writes.  Every source is gathered
+        before any write, and a repeated pair writes the same values."""
+        first = next(leaf["k_tail"] for leaf in cache["layers"]
+                     if _is_clustered_kv(leaf))
+        src, dst = torch.tensor(pairs, dtype=torch.long,
+                                device=first.device).T
+        for leaf in cache["layers"]:
+            if _is_clustered_kv(leaf):
+                for key in ("k_tail", "v_tail"):
+                    leaf[key][dst] = leaf[key][src]
 
     @staticmethod
     def _shrink_cache(cache, nb: int):

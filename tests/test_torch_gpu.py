@@ -825,3 +825,120 @@ def test_paged_decode_quota_layout(cuda, dtype, tol):
             ring["v"][slot.long()].to(cuda), t=qpos1.to(cuda),
             scale=dh ** -0.5)
         torch.testing.assert_close(got, exact, rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# prefix-shared admission and the template store on the card
+# ---------------------------------------------------------------------------
+
+SHARE_STATS = ("prefix_hits", "prefix_tokens_reused", "prefill_chunks",
+               "kv_shared_blocks", "kv_bytes_saved", "pool_cow",
+               "pool_allocs", "pool_frees", "pool_blocks_end")
+
+
+def _template_burst(tpl_seed, sfx_seed, n):
+    """One 40-token template and suffixes of 3-8 tokens (the TINY streams
+    of tests/test_torch_prefix_serving.py)."""
+    from repro_torch.core.request_cluster import Request
+
+    template = np.random.default_rng(tpl_seed).integers(0, 64, size=40)
+    rng = np.random.default_rng(sfx_seed)
+    reqs, prompts = [], {}
+    for i in range(n):
+        sfx = rng.integers(0, 64, size=int(rng.integers(3, 9)))
+        prompts[i] = np.concatenate([template, sfx]).astype(np.int32)
+        reqs.append(Request(i, len(prompts[i]), int(rng.integers(6, 12))))
+    return reqs, prompts
+
+
+def _share_scfg(pool_blocks=0, **kw):
+    from repro_torch.core.kv_compress import KVCompressConfig
+    from repro_torch.runtime.kv_pool import PagedKVConfig
+    from repro_torch.runtime.server import ServerConfig
+
+    return ServerConfig(batch_size=2, max_seq=96, prefill_chunk=8,
+                        kv_compress=KVCompressConfig(
+                            n_clusters=8, iters=4, keep_recent=16,
+                            refresh_every=8),
+                        paged=PagedKVConfig(block_size=4,
+                                            pool_blocks=pool_blocks), **kw)
+
+
+def test_tiny_prefix_shared_serve_on_card(cuda):
+    """TINY's templated burst with prefix sharing on the card: the CPU
+    port's tokens and sharing, pool and copy-on-write stats, and
+    paged_clustered_decode once a layer an engine step."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.prefix_cache import PrefixShareConfig
+    from repro_torch.runtime.server import Server
+
+    cfg = _tiny()
+    params = tfm.init_params(0, cfg, device="cpu")
+    reqs, prompts = _template_burst(5, 5, 6)
+    scfg = _share_scfg(prefix_share=PrefixShareConfig())
+    toks, stats = {}, {}
+    for dev in ("cpu", cuda):
+        srv = Server(cfg, scfg, params, device=dev)
+        ops.reset_launches()
+        toks[str(dev)] = {o.uid: o.tokens for o in srv.serve(reqs, prompts)}
+        stats[str(dev)] = srv.last_stats
+        counts = ops.launch_counts()
+    st = stats[str(cuda)]
+    assert toks["cpu"] == toks[str(cuda)]
+    for key in SHARE_STATS:
+        assert st[key] == stats["cpu"][key], key
+    assert st["prefix_hits"] > 0 and st["pool_cow"] > 0
+    assert counts["paged_clustered_decode"] == (cfg.n_layers
+                                                * st["decode_steps"])
+    assert counts["clustered_decode"] == 0 and counts["bitserial_median"] > 0
+
+
+def test_tiny_warm_store_serve_on_card(cuda):
+    """Two bursts of one template through a template store on the card:
+    each serve's tokens, sharing, pool and template stats equal the CPU
+    port's, and the warm serve hits the store."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.server import Server
+    from repro_torch.runtime.template_store import TemplateStoreConfig
+
+    cfg = _tiny()
+    params = tfm.init_params(0, cfg, device="cpu")
+    scfg = _share_scfg(24, template_store=TemplateStoreConfig())
+    bursts = [_template_burst(5, 11, 4), _template_burst(5, 13, 4)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        srv = Server(cfg, scfg, params, device=dev)
+        runs[str(dev)] = [
+            ({o.uid: o.tokens for o in srv.serve(*b)}, dict(srv.last_stats))
+            for b in bursts]
+        srv.invalidate_templates()
+        assert srv._store.pinned_blocks() == 0
+    for (got, st), (want, st_cpu) in zip(runs[str(cuda)], runs["cpu"]):
+        assert got == want
+        keys = SHARE_STATS + tuple(k for k in st_cpu
+                                   if k.startswith("template_"))
+        for key in keys:
+            assert st[key] == st_cpu[key], key
+    assert runs[str(cuda)][1][1]["prefix_hits"] > 0
+
+
+def test_cow_impl_on_card(cuda):
+    """``Server._cow_impl`` copies pool blocks on the card bit for bit as
+    on the CPU, repeated pairs included."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.server import Server
+
+    cache = tfm.init_cache(_tiny(), 2, 64, kv_mode="clustered",
+                           kv_clusters=4, kv_tail=16, kv_pool_blocks=12,
+                           kv_block_size=4, device="cpu")
+    g = torch.Generator(device="cpu").manual_seed(5)
+    for leaf in cache["layers"]:
+        for key in ("k_tail", "v_tail"):
+            leaf[key].copy_(torch.randn(leaf[key].shape, generator=g))
+    card = _to(cache, cuda)
+    pairs = [(3, 9), (0, 7), (3, 9), (5, 11)]
+    Server._cow_impl(cache, pairs)
+    Server._cow_impl(card, pairs)
+    for lc, lg in zip(cache["layers"], card["layers"]):
+        for key, val in lc.items():
+            assert torch.equal(lg[key].cpu(), val), key

@@ -10,8 +10,9 @@ the static engine.  The port keeps the reference's invariants: chunked
 admission gives blocking admission's tokens (exact KV, and clustered
 prompts that fit the ring), paged blocking gives dense blocking's.  Also
 ``compact_kv`` over an exact prefill cache, and the port's gates: no
-device means CUDA, and every ServerConfig feature the port lacks raises
-NotImplementedError."""
+device means CUDA, every ServerConfig feature the port lacks raises
+NotImplementedError, and misused prefix sharing raises the reference's
+ValueErrors."""
 
 import dataclasses
 
@@ -37,6 +38,8 @@ from repro_torch.core.request_cluster import Request as RequestT
 from repro_torch.models import transformer as tfm_t
 from repro_torch.models.config import ModelConfig as ModelConfigT
 from repro_torch.runtime import kv_pool as kv_pool_t
+from repro_torch.runtime import prefix_cache as prefix_cache_t
+from repro_torch.runtime import template_store as template_store_t
 from repro_torch.runtime.kv_pool import PagedKVConfig as PagedKVConfigT
 from repro_torch.runtime.server import Server as ServerT
 from repro_torch.runtime.server import ServerConfig as ServerConfigT
@@ -135,8 +138,6 @@ def test_server_defaults_to_cuda(weights):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("prefix_share", object()),
-    ("template_store", object()),
     ("scheduler", object()),
     ("mesh", object()),
     ("telemetry", TelemetryConfig(trace=True)),
@@ -145,6 +146,41 @@ def test_unported_features_raise(weights, field, value):
     kw = {"prefill_chunk": 8, field: value}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServerT(TINY_T, ServerConfigT(**kw), weights[1], device="cpu")
+
+
+_SHARE_CC = kv_t.KVCompressConfig(n_clusters=8, iters=4, keep_recent=16,
+                                  refresh_every=8)
+
+
+@pytest.mark.parametrize("kw,match", [
+    # tests/test_serving_engine.py::TestPrefixSharing::test_validation
+    (dict(kv_compress=_SHARE_CC, prefill_chunk=8,
+          prefix_share=prefix_cache_t.PrefixShareConfig()), "prefix_share"),
+    (dict(kv_compress=_SHARE_CC, paged=PagedKVConfigT(block_size=4),
+          prefix_share=prefix_cache_t.PrefixShareConfig()), "prefix_share"),
+    (dict(kv_compress=_SHARE_CC, prefill_chunk=8,
+          paged=PagedKVConfigT(block_size=4),
+          prefix_share=prefix_cache_t.PrefixShareConfig(),
+          template_store=template_store_t.TemplateStoreConfig()),
+     "subsumes prefix_share"),
+    # 'L' window rings are in no slot snapshot
+    (dict(kv_compress=_SHARE_CC, prefill_chunk=8,
+          paged=PagedKVConfigT(block_size=4), layer_pattern="GL",
+          prefix_share=prefix_cache_t.PrefixShareConfig()),
+     "'L' window rings are not in snapshots"),
+])
+def test_prefix_share_value_gates(weights, kw, match):
+    """Prefix sharing and the template store serve since the prefix slice
+    (tests/test_torch_prefix_serving.py); their misuse raises the
+    reference's ValueErrors."""
+    kw = dict(kw)
+    cfg = TINY_T
+    if "layer_pattern" in kw:
+        cfg = dataclasses.replace(TINY_T, sliding_window=16,
+                                  layer_pattern=kw.pop("layer_pattern"))
+    with pytest.raises(ValueError, match=match):
+        ServerT(cfg, ServerConfigT(batch_size=2, max_seq=96, **kw),
+                weights[1], device="cpu")
 
 
 def test_paged_value_gates_kept(weights):
