@@ -91,7 +91,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    prefix_hits; pool_blocks_end 0 after each serve; invalidate_templates()
    drains the pool; the kernel gates of 5i for all three serves.  Each
    Server's construction is timed (the store's epoch hashes the weights'
-   8 GB); then qwen3's weights are freed;
+   8 GB);
+5k. SLO scheduler: 16 requests from ``default_rng(3)`` (prompts of
+   96-1,024 tokens, 40-72 new tokens; uids 12-15 priority 1, at the FIFO
+   tail), paged and chunked in arrival order, served (a) over the slots'
+   64 blocks without a scheduler, then (b) over 40 blocks with
+   ``scheduler=SLOConfig(priority_admission=False)`` and
+   ``telemetry=TelemetryConfig(trace=True)``.  Gates on (b): no
+   PoolExhausted; sched_preemptions >= 1, sched_swaps_in >= 1,
+   sched_shed_high 0; every protected request complete and unshed; every
+   unshed request's tokens equal (a)'s; paged_clustered_decode = layers x
+   engine steps, clustered_decode 0, bitserial_median >= absorbs +
+   compactions (in (a) too); pool_frees == pool_allocs and
+   pool_blocks_end 0; ``validate_trace`` against last_stats clean, and
+   the swap_out and resume spans equal sched_swaps_out and
+   sched_swaps_in.  Printed: every sched_* counter, the swap bytes peak,
+   the re-adopted and re-uploaded blocks, ``phase_breakdown``, TTFT p50 /
+   p95 by class in (a) and (b); the Chrome trace goes to
+   ``chiprun_out/slo_trace.json``.  Then one slot of a full-width paged
+   cache (random contents, 3 slots over 40 blocks of 16) is swapped to
+   the host and back into another slot's fresh blocks
+   (``tests/_torch_swap.py``): its state and bytes bit for bit, the
+   re-adopted block and every other block unchanged.  Then qwen3's weights
+   are freed;
 5f. gemma2-27b at full width and depth (46 layers 'LG', window 4,096,
    d_model 4608, 32/16 heads of 128, d_ff 36864, vocab 256000; bf16
    weights from ``init_params`` seed 0, 54.5 GB), ``max_seq`` 8,192,
@@ -125,13 +147,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    yardstick); and the k-medians fit's time per
    iteration beside distance_argmin's share of it.
 
-It imports ``repro_torch`` only.  The second-to-last line is the kernels
+It imports ``repro_torch`` only (5k's round trip is
+``tests/_torch_swap.py``, which does too).  The second-to-last line is the kernels
 JSON, ``{"kernels": [{"name": ..., ...}, ...]}`` with one object per
 kernel (``chiprun_out/chip_smoke.json`` keys the same objects by name;
 B1's and B2's carry ``launches_windowed`` from 5f / 5g, B2's
 ``launches_quota`` from 5h and its quota form's times under ``quota``,
-B2's and B3's ``launches_prefix_share`` from 5i's shared serve and
-``launches_template_store`` from 5j's two store serves),
+B2's and B3's ``launches_prefix_share`` from 5i's shared serve,
+``launches_template_store`` from 5j's two store serves and
+``launches_slo`` from 5k's scheduled serve),
 and the last line ``{"ok": true, "device": {...}}``; the full record goes
 to ``chiprun_out/chip_smoke.json``.  Each phase's seconds are printed as
 it ends.
@@ -212,6 +236,11 @@ Q_POS = [1536, 2047, 95, 700]
 # template; 5j's pool holds the slots' 4 x 16 blocks and a surplus for the
 # store's pins, as the reference's template_store_bench sizes its pool
 TPL_LEN, TPL_N, TPL_POOL = 1024, 8, 96
+# 5k's oversubscribed stream: SLO_N requests, the last SLO_HIGH of them
+# priority 1 at the FIFO tail, served over SLO_POOL blocks (62.5 % of the
+# slots' 4 x 16, the reference slo_bench's 10 of 16); the full-width swap
+# round trip takes a pool of SWAP_POOL blocks over 3 slots
+SLO_N, SLO_HIGH, SLO_POOL, SWAP_POOL = 16, 4, 40, 40
 
 
 def say(*a):
@@ -1487,6 +1516,181 @@ def serve_template_store(torch, dev, smi, params):
     return rec
 
 
+# 5k: the SLO scheduler over an oversubscribed pool, traced
+
+
+def slo_stream(vocab):
+    """SLO_N requests from ``default_rng(3)``: prompts of 96-1,024 tokens
+    and 40-72 new tokens each (every length drawn before any token, so the
+    schedule does not depend on the vocab); the last SLO_HIGH are priority
+    1, at the FIFO tail, the slo_bench's worst case for admission blind to
+    priority."""
+    from repro_torch.core.request_cluster import Request
+
+    rng = np.random.default_rng(3)
+    lens = rng.integers(96, 1025, size=SLO_N)
+    gens = rng.integers(40, 73, size=SLO_N)
+    reqs = [Request(i, int(lens[i]), int(gens[i]),
+                    priority=int(i >= SLO_N - SLO_HIGH))
+            for i in range(SLO_N)]
+    prompts = {i: rng.integers(0, vocab, size=int(lens[i])).astype(np.int32)
+               for i in range(SLO_N)}
+    return reqs, prompts
+
+
+def slo_serves(torch, dev, cfg, params, trace_path=None):
+    """5k's two serves of ``slo_stream``, paged and chunked in arrival
+    order (``use_clustered_batching=False``): (a) over the slots' own 64
+    blocks with no scheduler, untraced; (b) over SLO_POOL blocks with
+    ``SLOConfig(priority_admission=False)`` (priority acts through
+    preemption alone) and ``TelemetryConfig(trace=True)``, its Chrome
+    trace written to ``trace_path`` when given.  Returns (a, b) records,
+    each with its completions' ``shed`` flags and TTFTs and (b) its trace
+    and ``phase_breakdown``."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.kv_pool import PagedKVConfig
+    from repro_torch.runtime.scheduler import SLOConfig
+    from repro_torch.runtime.server import Server, ServerConfig
+    from repro_torch.runtime.telemetry import (TelemetryConfig,
+                                               phase_breakdown)
+
+    reqs, prompts = slo_stream(cfg.vocab)
+    out = []
+    for pool_blocks, kw in ((0, {}), (SLO_POOL, dict(
+            scheduler=SLOConfig(priority_admission=False),
+            telemetry=TelemetryConfig(trace=True)))):
+        srv = Server(cfg, ServerConfig(
+            batch_size=4, max_seq=2048, prefill_chunk=64,
+            kv_compress=smoke_kv_compress(), use_clustered_batching=False,
+            paged=PagedKVConfig(block_size=BS, pool_blocks=pool_blocks),
+            **kw), params, device=dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        outs = srv.serve(reqs, prompts)
+        if srv.device.type == "cuda":
+            torch.cuda.synchronize()
+        rec = {"wall_s": time.perf_counter() - t0,
+               "launches": ops.launch_counts(),
+               "stats": dict(srv.last_stats),
+               "tokens": {o.uid: list(map(int, o.tokens)) for o in outs},
+               "shed": {o.uid: o.shed for o in outs},
+               "ttft_ms": {o.uid: o.prefill_ms for o in outs}}
+        rec["engine_steps"] = int(rec["stats"]["decode_steps"])
+        if srv.tracer is not None:
+            rec["trace"] = srv.last_trace
+            rec["phases_ms"] = phase_breakdown(srv.last_trace)
+            if trace_path is not None:
+                srv.export_trace(str(trace_path))
+        out.append(rec)
+    return reqs, out[0], out[1]
+
+
+def ttft_by_class(reqs, rec):
+    """TTFT p50 / p95 (ms) of each priority class's unshed requests."""
+    out = {}
+    for prio in sorted({r.priority for r in reqs}):
+        v = [rec["ttft_ms"][r.uid] for r in reqs
+             if r.priority == prio and not rec["shed"][r.uid]]
+        out[prio] = ((float(np.percentile(v, 50)),
+                      float(np.percentile(v, 95))) if v else (0.0, 0.0))
+    return out
+
+
+def serve_slo(torch, dev, smi, params):
+    """Phase 5k: the oversubscribed stream unpressured, then scheduled and
+    traced, with its gates (see the module docstring); then the swap
+    protocol round-trips one slot of qwen3-4b's full-width paged cache
+    bit for bit (tests/_torch_swap.py)."""
+    from repro_torch import configs
+    from repro_torch.runtime.telemetry import validate_trace
+
+    cfg = configs.get_config("qwen3-4b")
+    OUT.mkdir(exist_ok=True)
+    trace_path = OUT / "slo_trace.json"
+    reqs, free, sched = slo_serves(torch, dev, cfg, params, trace_path)
+    for mode, rec in (("5k unpressured", free), ("5k scheduled", sched)):
+        paged_launch_gate(cfg, rec, mode)
+    st = sched["stats"]
+    problems = []
+    for r in reqs:
+        toks = free["tokens"][r.uid]
+        if (len(toks) != r.max_new_tokens or free["shed"][r.uid]
+                or not all(0 <= t < cfg.padded_vocab for t in toks)):
+            problems.append(f"unpressured uid {r.uid}: {len(toks)} tokens "
+                            f"(want {r.max_new_tokens}), shed "
+                            f"{free['shed'][r.uid]}")
+    if not (st["sched_preemptions"] >= 1 and st["sched_swaps_in"] >= 1
+            and st["sched_shed_high"] == 0):
+        problems.append(f"preemptions {st['sched_preemptions']}, swaps_in "
+                        f"{st['sched_swaps_in']}, shed_high "
+                        f"{st['sched_shed_high']}")
+    for r in reqs:
+        toks, shed = sched["tokens"][r.uid], sched["shed"][r.uid]
+        if r.priority >= 1 and (shed or len(toks) != r.max_new_tokens):
+            problems.append(f"protected uid {r.uid}: {len(toks)} tokens, "
+                            f"shed {shed}")
+        if not shed and toks != free["tokens"][r.uid]:
+            problems.append(f"uid {r.uid}: tokens differ from the "
+                            "unpressured serve's")
+    if not (st["pool_frees"] == st["pool_allocs"]
+            and st["pool_blocks_end"] == 0):
+        problems.append(f"pool allocs {st['pool_allocs']}, frees "
+                        f"{st['pool_frees']}, end {st['pool_blocks_end']}")
+    trace = sched["trace"]
+    bad = validate_trace(trace, totals=st)
+    if bad:
+        problems.append("trace: " + "; ".join(bad[:5]))
+    spans = {name: sum(e["name"] == name for e in trace)
+             for name in ("swap_out", "resume", "shed", "brownout")}
+    if (spans["swap_out"] != st["sched_swaps_out"]
+            or spans["resume"] != st["sched_swaps_in"]):
+        problems.append(f"spans {spans} against sched_swaps_out "
+                        f"{st['sched_swaps_out']}, sched_swaps_in "
+                        f"{st['sched_swaps_in']}")
+    # kv_bytes_peak_per_shard is the pool's peak blocks x bytes a block
+    block_bytes = int(st["kv_bytes_peak_per_shard"]
+                      // st["pool_blocks_peak"])
+    sched_keys = {k: int(v) for k, v in st.items() if k.startswith("sched_")}
+    say(f"[{smi}] 5k scheduled: {times_line(sched)}; {sched_keys}; swap "
+        f"bytes peak {int(st['sched_swapped_peak_blocks']) * block_bytes} "
+        f"({int(st['sched_swapped_peak_blocks'])} blocks of {block_bytes} "
+        f"B); readopted {int(st['sched_readopted_blocks'])}, re-uploaded "
+        f"{int(st['sched_reuploaded_blocks'])} blocks; pool peak "
+        f"{int(st['pool_blocks_peak'])} of {int(st['pool_blocks_total'])}, "
+        f"{int(st['pool_allocs'])} allocs = {int(st['pool_frees'])} frees, "
+        f"end {int(st['pool_blocks_end'])}; trace {len(trace)} events "
+        f"{spans}, written to chiprun_out/{trace_path.name}")
+    say(f"[{smi}] 5k unpressured: {times_line(free)}; pool peak "
+        f"{int(free['stats']['pool_blocks_peak'])} of "
+        f"{int(free['stats']['pool_blocks_total'])}")
+    say(f"[{smi}] 5k phase_breakdown (ms): " + json.dumps(
+        {k: round(v, 3) for k, v in sched["phases_ms"].items()}))
+    for name, rec in (("unpressured", free), ("scheduled", sched)):
+        say(f"[{smi}] 5k {name} TTFT p50 / p95 ms by priority class: "
+            + ", ".join(f"class {p}: {a:.1f} / {b:.1f}"
+                        for p, (a, b) in ttft_by_class(reqs, rec).items())
+            + f"; wall_s {rec['wall_s']:.3f}")
+    # the swap protocol on the full-width paged cache (random contents)
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_swap import swap_round_trip
+
+    t0 = time.perf_counter()
+    fresh, readopted, nbytes = swap_round_trip(
+        dev, cfg, seed=0, slots=3, blocks=SWAP_POOL, bs=BS, tail=R,
+        clusters=C, max_seq=2048)
+    torch.cuda.synchronize()
+    say(f"[{smi}] 5k full-width swap round trip: {fresh} fresh blocks "
+        f"re-uploaded and {readopted} re-adopted, {nbytes} B of host "
+        f"payload (snapshot and ring), bit for bit, other blocks unchanged "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if problems:
+        raise AssertionError("5k SLO scheduler: " + "; ".join(problems))
+    sched.pop("trace")
+    return {"unpressured": free, "scheduled": sched,
+            "round_trip": {"fresh": fresh, "readopted": readopted,
+                           "bytes": nbytes}}
+
+
 # 5f and 5g: gemma2-27b at full width and depth, max_seq GEMMA_MAX_SEQ
 # (prompts past the 4,096 window), the smoke's KVCompressConfig
 
@@ -2196,6 +2400,12 @@ def main() -> int:
     store = serve_template_store(torch, dev, smi, params)
     record["serve_template_store"] = store
     done("5j template store")
+
+    # phase 5k: the SLO scheduler over an oversubscribed pool, traced, and
+    # the full-width swap round trip
+    slo = serve_slo(torch, dev, smi, params)
+    record["serve_slo"] = slo
+    done("5k SLO scheduler")
     del params
     torch.cuda.empty_cache()
 
@@ -2284,6 +2494,8 @@ def main() -> int:
                  "paged_clustered_decode"],
              launches_template_store=[r["launches"]["paged_clustered_decode"]
                                       for r in store["serves"]],
+             launches_slo=slo["scheduled"]["launches"][
+                 "paged_clustered_decode"],
              max_abs_err=pcd_err, ms=tm["paged_clustered_decode"]["ms"],
              plain_ms=tm["paged_clustered_decode"]["plain_ms"],
              bound_ms=tm["paged_clustered_decode"]["bound_ms"],
@@ -2316,6 +2528,7 @@ def main() -> int:
                  "bitserial_median"],
              launches_template_store=[r["launches"]["bitserial_median"]
                                       for r in store["serves"]],
+             launches_slo=slo["scheduled"]["launches"]["bitserial_median"],
              max_abs_err=bsm_err, ms=tm["bitserial_median"]["ms"],
              plain_ms=tm["bitserial_median"]["plain_ms"],
              bound_ms=tm["bitserial_median"]["bound_ms"],

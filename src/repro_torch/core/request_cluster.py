@@ -26,7 +26,7 @@ class Request:
     uid: int
     prompt_len: int
     max_new_tokens: int
-    priority: int = 0          # SLO class; used by the scheduler (later)
+    priority: int = 0          # SLO class (runtime/scheduler.py)
     deadline_ms: float = 0.0   # soft TTFT deadline (0 = none)
 
 

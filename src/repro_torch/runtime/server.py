@@ -69,15 +69,29 @@ pinned blocks, the pool and the device cache across ``serve`` calls
 (runtime/template_store.py), under an epoch that stamps the model, the
 KV and pool configs and a content hash of the weights.
 
+With ``scheduler=SLOConfig(...)`` (paged, clustered, 'G' layers only)
+requests carry a priority class and a soft TTFT deadline
+(runtime/scheduler.py): under slot or pool pressure the engine preempts
+the cheapest lower-priority decoding slot, gathering its slot snapshot
+and mapped tail blocks to host memory and releasing its blocks; a parked
+request resumes mid-stream when capacity returns, re-adopting the blocks
+whose ``(gid, generation)`` survived and re-uploading the rest, with the
+tokens of an uninterrupted run.  Before the engine would raise
+``PoolExhausted`` it sheds best-effort work; only protected work raises.
+With ``telemetry=TelemetryConfig(trace=True)`` the serve records the
+request lifecycle and every engine step (``last_trace``,
+``export_trace``).
+
 Per-slot host bookkeeping (``pos`` / ``cur`` / ``fed``, the coverage
 frontier mirror) replays the reference engine step for step, so greedy
-tokens match it.  SLO scheduling, mesh serving, tracing and the recurrent
-layer kinds are later slices of the port; asking for one raises
-``NotImplementedError`` naming its ROADMAP item.
+tokens match it.  Mesh serving and the recurrent layer kinds are later
+slices of the port; asking for one raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import time
@@ -99,6 +113,7 @@ from repro_torch.runtime import kv_pool
 from repro_torch.runtime import prefix_cache as prefix_mod
 from repro_torch.runtime import telemetry as tele_mod
 from repro_torch.runtime import template_store as template_mod
+from repro_torch.runtime.scheduler import SLOConfig, SLOScheduler, SwapRecord
 from repro_torch.runtime.telemetry import TelemetryConfig
 
 
@@ -131,7 +146,8 @@ class ServerConfig:
     template_store: Optional[object] = None
     # a TemplateStoreConfig or a TemplateStore: prefix sharing whose
     # entries persist across serve() calls (subsumes prefix_share)
-    scheduler: Optional[object] = None       # later slice (item 6)
+    scheduler: Optional[SLOConfig] = None
+    # SLO-aware preemption, host swap and brownout (paged + kv_compress)
     telemetry: Optional[TelemetryConfig] = None
     mesh: Optional[object] = None            # later slice (item 10)
 
@@ -265,6 +281,22 @@ class Server:
                     "and recurrent state only, and prefix-pure "
                     "registration points only exist on the chunked "
                     "admission schedule")
+        self._slo = scfg.scheduler
+        if self._slo is not None:
+            # 'M'/'R' pass this gate, as in the reference, and meet the
+            # recurrent kinds' refusal below
+            if (paged is None or scfg.kv_compress is None
+                    or set(cfg.layer_pattern) - set("GMR")
+                    or scfg.engine != "continuous"):
+                raise ValueError(
+                    "scheduler= (SLO-aware preemption) requires the "
+                    "paged clustered continuous engine over snapshot-"
+                    "coverable layers ('G' clustered rings plus 'M'/'R' "
+                    "recurrent state; 'L' window rings are not in "
+                    "snapshots) — kv_compress= + paged=: swap snapshots "
+                    "restore clustered summaries and recurrent state "
+                    "only, and preemption frees pool blocks — the dense "
+                    "and exact engines have nothing to swap")
         self._chunk = scfg.prefill_chunk
         if self._chunk:
             if scfg.engine != "continuous":
@@ -284,13 +316,8 @@ class Server:
                              "engine (static batches are per-device)")
         # what this slice of the port does not serve yet
         missing = []
-        for name, item in (("scheduler", "Queue A item 6"),
-                           ("mesh", "Queue A item 10")):
-            if getattr(scfg, name) is not None:
-                missing.append(f"{name}= (ROADMAP {item})")
-        if scfg.telemetry is not None and (scfg.telemetry.trace
-                                           or scfg.telemetry.jax_profiler):
-            missing.append("telemetry tracing (ROADMAP Queue A item 7)")
+        if scfg.mesh is not None:
+            missing.append("mesh= (ROADMAP Queue A item 10)")
         if set(tfm.layer_kinds(cfg)) - {"G", "L"}:
             missing.append(f"layer pattern {cfg.layer_pattern!r}: the "
                            "recurrent kinds 'M' and 'R' (ROADMAP Queue A "
@@ -301,7 +328,13 @@ class Server:
         tfm.check_supported(cfg)
         self.params = _to_device(params, self.device)
         self.last_stats: Dict[str, float] = {}
+        # typed metrics registry and lifecycle tracer: last_stats is a flat
+        # view regenerated from the registry at the end of every serve
         self.metrics = tele_mod.MetricsRegistry()
+        self._tele = scfg.telemetry or TelemetryConfig()
+        self.tracer = (tele_mod.Tracer(self._tele.max_events)
+                       if self._tele.trace else None)
+        self.last_trace: List[dict] = []
         # bucket-padded prefill is exact only for global attention (causal
         # mask, masked decode): a sliding-window ring would take the pad
         # tokens in, so such models admit at the exact prompt length
@@ -347,6 +380,25 @@ class Server:
                 return self._serve_continuous(requests, prompts)
             return self._serve_static(requests, prompts)
 
+    def export_trace(self, path: str, fmt: str = "chrome") -> None:
+        """Write the last serve's lifecycle trace (needs
+        ``ServerConfig.telemetry.trace``): ``fmt="chrome"`` writes Chrome
+        trace-event JSON loadable in Perfetto (spans nested under slot
+        threads, last_stats embedded for offline reconciliation);
+        ``fmt="jsonl"`` the raw event log, one JSON object per line."""
+        if fmt == "chrome":
+            tele_mod.write_chrome_trace(self.last_trace, path, n_shards=1,
+                                        stats=self.last_stats)
+        elif fmt == "jsonl":
+            tele_mod.write_jsonl(
+                self.last_trace, path,
+                meta={"n_shards": 1,
+                      "last_stats": {k: float(v)
+                                     for k, v in self.last_stats.items()}})
+        else:
+            raise ValueError(f"unknown trace format {fmt!r} "
+                             "(expected 'chrome' or 'jsonl')")
+
     def _plan(self, requests: Sequence[Request]) -> BatchPlan:
         scfg = self.scfg
         if scfg.use_clustered_batching:
@@ -364,6 +416,9 @@ class Server:
         t0_serve = time.perf_counter()
         reg = self.metrics
         reg.begin_serve()
+        tr = self.tracer
+        _annot = (tele_mod.annotation if self._tele.jax_profiler
+                  else (lambda _n: contextlib.nullcontext()))
         ccfg = scfg.kv_compress
         # the cache layout (clustered leaves, ring geometry) is apart from
         # the retention policy on top of it: ccfg means FrontierRetention,
@@ -374,6 +429,26 @@ class Server:
         plan = self._plan(requests)
         order = [u for b in plan.batches for u in b]
         by_uid = {r.uid: r for r in requests}
+        slo_cfg = self._slo
+        if slo_cfg is not None and slo_cfg.priority_admission:
+            # admission control: the protected class admits ahead of
+            # best-effort work wherever it queues (stable within a class,
+            # so the batcher's order survives inside each); tokens are
+            # unaffected, only who waits
+            order.sort(key=lambda uid: -by_uid[uid].priority)
+        if tr is not None:
+            tr.begin_serve(t0_serve, 1)
+            fam = layer_state.families_for(cfg)
+            # the layer-state families this serve runs with, so offline
+            # readers can segment span populations by family mix
+            tr.event("state_families", tid="engine", t=t0_serve,
+                     ring="".join(sorted(fam.ring.kinds)),
+                     recurrent="".join(sorted(fam.recurrent_kinds)))
+            for qpos, quid in enumerate(order):
+                qr = by_uid[quid]
+                tr.event("queued", tid="queue", uid=quid, t=t0_serve,
+                         queue_pos=qpos, priority=qr.priority,
+                         prompt_len=qr.prompt_len)
 
         # the cache physically holds ``bucket`` slots: the full batch until
         # the queue drains, then powers of two down to the busiest index
@@ -422,6 +497,10 @@ class Server:
         reused0 = pcache.tokens_reused if pcache is not None else 0
         pool_mark = ((pool.n_allocs, pool.n_frees, pool.n_retains,
                       pool.n_cow) if pool is not None else (0, 0, 0, 0))
+        # SLO scheduler: one per serve (every parked request resumes or
+        # sheds before the serve returns, so the template store's
+        # cross-serve state is untouched by preemption)
+        slo = SLOScheduler(slo_cfg, n) if slo_cfg is not None else None
 
         pos = np.zeros(n, np.int32)       # cache valid length per slot
         cur = np.zeros(n, np.int32)       # pending (unfed) token per slot
@@ -452,6 +531,37 @@ class Server:
         toks: Dict[int, List[int]] = {}
         pre_ms: Dict[int, float] = {}
         token_t: Dict[int, List[float]] = {}
+        # tracer tenancy: one "run" span per (slot, tenancy); admission or
+        # resume opens it, finish, shed or preemption closes it, and its
+        # token deltas sum to the uid's final count
+        seg: List[Optional[tuple]] = [None] * n
+
+        def slot_tid(j):
+            return f"slot{j}"
+
+        def tr_open(j, uid, t, how, p0=0):
+            if tr is None:
+                return
+            seg[j] = (t, how, uid, len(toks.get(uid, ())), int(p0))
+
+        def tr_close(j, t, why):
+            """Close slot j's tenancy span, before its blocks are freed
+            (``blocks_held`` is the tenancy's)."""
+            if tr is None or seg[j] is None:
+                return
+            t0s, how, uid, tok0, p0 = seg[j]
+            seg[j] = None
+            held = pool.mapped_blocks(j) if pool is not None else 0
+            tr.span("run", t0s, t, tid=slot_tid(j), uid=uid, start=how,
+                    end=why, tokens=len(toks.get(uid, ())) - tok0, pos0=p0,
+                    pos1=int(max(int(fed[j]), int(pos[j]))),
+                    blocks_held=held)
+
+        def tr_brownout(rung, why, **args):
+            """Instant event naming the brownout rung taken and why."""
+            if tr is not None:
+                tr.event("brownout", tid="engine", rung=rung, why=why,
+                         **args)
 
         qi = 0
         decode_steps = wasted_slots = 0
@@ -466,6 +576,10 @@ class Server:
         kv_live_sum = kv_alloc_sum = 0
         kv_alloc_peak = kv_shared_peak = 0
         tail_bpt = self._tail_bytes_per_token(cache) if layout else 0
+        # the recurrent family's fixed per-slot state, priced into every
+        # victim's cost and swap payload: none until the port serves the
+        # recurrent kinds (ROADMAP Queue A item 8)
+        rec_state_b = 0
         stall_retries = idle_retries = 0
         # blocking clustered admissions by _clusterize form, and its time
         n_admit_compress = n_admit_tail = 0
@@ -536,6 +650,202 @@ class Server:
                         continue
                     return False
 
+        # ---- SLO preemption, swap and brownout (runtime/scheduler.py) --
+        # All of these run at clean step boundaries (the admission phase,
+        # the post-step pass, the zero-progress backstops): mid-step a
+        # victim's copy-on-write copies may not have landed, and a
+        # swap-out gather would read unwritten fresh blocks.  Victims are
+        # always decoding slots: an admitting slot may hold a prefix-cache
+        # pin between lookup and restore, and waits by deferral instead.
+
+        def victim_candidates():
+            """(priority, swap cost in bytes, slot) for every decoding
+            slot: its mapped tail blocks, plus the recurrent state."""
+            return [(by_uid[slot_uid[j]].priority,
+                     pool.mapped_blocks(j) * paged.block_size * tail_bpt
+                     + rec_state_b, j)
+                    for j in range(n) if active[j]]
+
+        def preempt(j):
+            """Swap slot j out to host memory: its slot snapshot and the
+            tail blocks its table maps, copied off the device before
+            ``release_slot`` hands the blocks on (remembering each
+            block's (gid, generation) for re-adoption); the request parks
+            on the swap backlog.  The slot's state is a function of its
+            own token stream, and the swap carries it exactly, so a
+            resumed request's tokens are an uninterrupted run's."""
+            uid = slot_uid[j]
+            r = by_uid[uid]
+            t_sw0 = time.perf_counter()
+            snap, tails = self._swap_out(cache, j, pool.row_for_read(j))
+            held = pool.release_slot(j)
+            rec = SwapRecord(
+                uid=uid, priority=r.priority, pos=int(pos[j]),
+                cur=int(cur[j]), fed=int(fed[j]),
+                since_tok=int(since_tok[j]), cov=int(cov_of(j)),
+                max_new_tokens=r.max_new_tokens,
+                deadline_ms=r.deadline_ms, held=held, snap=snap,
+                tails=tails, epoch=self._store_epoch, seq=0,
+                n_blocks_swapped=len(held), state_bytes=rec_state_b)
+            slo.record_swap(rec)
+            slo.swap_bytes += (len(held) * paged.block_size * tail_bpt
+                               + rec_state_b)
+            if tr is not None:
+                t_now = time.perf_counter()
+                tr.span("swap_out", t_sw0, t_now, tid=slot_tid(j), uid=uid,
+                        blocks=len(held), pos=int(pos[j]),
+                        state_bytes=rec_state_b)
+                tr_close(j, t_now, "preempt")
+            active[j] = False
+            slot_uid[j] = -1
+            since_tok[j] = 0
+            return rec
+
+        def resume_swapped(j, rec) -> bool:
+            """Re-admit a parked request mid-stream into slot j (any free
+            slot: the host payload is slot-agnostic).  Blocks whose (gid,
+            generation) survived are re-adopted without an upload; the
+            rest are allocated afresh and scattered back from the host
+            copy.  False: the pool cannot back it now (the caller defers
+            the resume; nothing is half-restored)."""
+            assert rec.epoch == self._store_epoch, (
+                "swap record from another config epoch: a parked request "
+                "cannot outlive the serve that preempted it")
+            # headroom gate: a resume that takes the last free blocks
+            # recreates the starvation that parked it (the blocks bounce
+            # straight back and the engine thrashes without decoding), so
+            # resume only when the pool can take the re-upload and still
+            # hand one write block to the resumed slot and to each
+            # decoding slot.  Only truly fresh blocks count: held blocks
+            # whose (gid, gen) survived re-adopt for free
+            t_r0 = time.perf_counter()
+            headroom = 1 + int(active.sum())
+            fresh_demand = pool.resume_demand(j, rec.held)
+            if pool.free_blocks(0) < fresh_demand + headroom:
+                slo.deferrals += 1
+                tr_brownout("defer", "resume_headroom", uid=rec.uid,
+                            free=pool.free_blocks(0), fresh=fresh_demand,
+                            held=len(rec.held), headroom=headroom)
+                return False
+            pool.free_slot(j)   # recycle any previous occupant's blocks
+            readopted, fresh = [], []
+            for bi, (gid, gen) in rec.held.items():
+                (readopted if pool.readopt(j, bi, gid, gen)
+                 else fresh).append(bi)
+            if fresh and not try_ensure(j, fresh, []):
+                pool.free_slot(j)       # drop the re-adoptions too
+                slo.deferrals += 1
+                tr_brownout("defer", "resume_alloc", uid=rec.uid,
+                            fresh=len(fresh))
+                return False
+            slo.readopted_blocks += len(readopted)
+            slo.reuploaded_blocks += len(fresh)
+            # only the fresh blocks take the host bytes: a re-adopted block
+            # may be shared, and writing it (even with equal bytes) would
+            # break copy-on-write
+            row = np.full(pool.blocks_per_slot, pool.n_blocks, np.int32)
+            for bi in fresh:
+                row[bi] = pool.table[j, bi]
+            self._swap_in(cache, rec.snap, rec.tails, j, row)
+            pos[j] = rec.pos
+            cur[j] = rec.cur
+            fed[j] = rec.fed
+            since_tok[j] = rec.since_tok
+            active[j] = True
+            slot_uid[j] = rec.uid
+            fr.set_frontier(j, rec.cov)
+            slo.pop_record(rec)
+            slo.swap_bytes -= (rec.n_blocks_swapped * paged.block_size
+                               * tail_bpt + rec.state_bytes)
+            if tr is not None:
+                t_now = time.perf_counter()
+                tr_open(j, rec.uid, t_r0, "resume", p0=rec.pos)
+                tr.span("resume", t_r0, t_now, tid=slot_tid(j), uid=rec.uid,
+                        readopted=len(readopted), reuploaded=len(fresh),
+                        demand=fresh_demand)
+            return True
+
+        def shed_active(j):
+            """Drop a decoding best-effort request outright (its partial
+            tokens are returned, its blocks freed)."""
+            uid = slot_uid[j]
+            slo.shed_uid(uid, by_uid[uid].priority)
+            if tr is not None:
+                t_now = time.perf_counter()
+                tr.event("shed", tid=slot_tid(j), uid=uid, t=t_now,
+                         where="active", why="brownout")
+                tr_close(j, t_now, "shed")
+            active[j] = False
+            admitting[j] = False
+            slot_uid[j] = -1
+            since_tok[j] = 0
+            pool.free_slot(j)
+
+        def brownout_shed() -> bool:
+            """The last rung before ``PoolExhausted``: shed best-effort
+            work so the engine can progress again, cheapest first (a
+            parked record, whose blocks are already free; the queue head
+            it cannot admit; a decoding slot).  The protected class is
+            never shed: False means only it remains, and the exhaustion
+            is real."""
+            nonlocal qi
+            if not slo_cfg.shed_on_exhaustion:
+                return False
+            rec = slo.pick_shed()
+            if rec is not None:
+                slo.shed_record(rec)
+                slo.swap_bytes -= (rec.n_blocks_swapped * paged.block_size
+                                   * tail_bpt + rec.state_bytes)
+                tr_brownout("shed", "parked_record", uid=rec.uid)
+                if tr is not None:
+                    tr.event("shed", tid="engine", uid=rec.uid,
+                             where="parked", why="pool_exhausted")
+                return True
+            if qi < len(order):
+                r = by_uid[order[qi]]
+                if not slo.is_high(r.priority):
+                    slo.shed_uid(r.uid, r.priority)
+                    tr_brownout("shed", "queue_head", uid=r.uid)
+                    if tr is not None:
+                        tr.event("shed", tid="queue", uid=r.uid,
+                                 where="queue", why="pool_exhausted")
+                    qi += 1
+                    return True
+            v = slo.pick_victim(victim_candidates(), slo_cfg.high_class)
+            if v is not None:
+                tr_brownout("shed", "active_victim", victim=int(v))
+                shed_active(v)
+                return True
+            return False
+
+        def brownout_reclaim() -> bool:
+            """Zero progress: preempt the lowest-priority decoding slot
+            when a higher-priority one needs its blocks (the swap rung),
+            else shed (the last rung).  At zero progress only, a slot of
+            the same class may be preempted too (with at least two
+            decoding: swapping the only one out would resume it into the
+            same wall), held until real tokens decode again."""
+            cands = victim_candidates()
+            if cands and slo.can_swap():
+                v = slo.pick_victim(cands, max(c[0] for c in cands))
+                within_class = v is None
+                if within_class and len(cands) >= 2:
+                    v = slo.pick_victim(cands,
+                                        max(c[0] for c in cands) + 1)
+                if v is not None:
+                    if tr is not None:
+                        vp, vcost, _ = next(c for c in cands if c[2] == v)
+                        tr_brownout("preempt", "zero_progress",
+                                    victim=int(v), victim_priority=vp,
+                                    victim_cost_bytes=int(vcost),
+                                    within_class=within_class)
+                    rec = preempt(v)
+                    # held until real tokens decode again, or the freed
+                    # blocks bounce straight back (live-lock)
+                    rec.hold = within_class
+                    return True
+            return brownout_shed()
+
         # per-request candidate digests, hashed once a serve; the memo is
         # keyed by uid but checks the prompt before reuse (a uid recycled
         # for another prompt must not steer or adopt with old digests).
@@ -601,6 +911,9 @@ class Server:
                 # the previous occupant's counts would unmask its stale
                 # centroids; ring entries are hidden by the position mask
                 self._reset_slot(cache, j)
+            if tr is not None:
+                tr_open(j, uid, time.perf_counter(), "admit",
+                        p0=int(fed[j]))
             return True
 
         def admit_blocking(j, uid) -> bool:
@@ -634,6 +947,7 @@ class Server:
             bkt = min(scfg.max_seq, -(-plen // self._bucket) * self._bucket)
             padded = np.zeros((1, bkt), np.int32)
             padded[0, :plen] = p
+            t0 = time.perf_counter()
             logits1, c1 = tfm.prefill(self.params, cfg,
                                       torch.from_numpy(padded).to(dev),
                                       max_seq=scfg.max_seq,
@@ -641,11 +955,21 @@ class Server:
             first = int(torch.argmax(logits1, -1)[0])
             now = time.perf_counter()
             pre_ms[uid] = (now - t0_serve) * 1e3        # TTFT
+            tr_open(j, uid, t0, "admit", p0=0)
             toks[uid] = [first]
             token_t[uid] = [now]
+            if tr is not None:
+                tr.span("prefill", t0, now, tid=slot_tid(j), uid=uid,
+                        prompt_len=plen)
+                tr.event("first_token", tid=slot_tid(j), uid=uid, t=now,
+                         ttft_ms=pre_ms[uid])
             pad_toks += bkt - plen
             useful_toks += plen
             if r.max_new_tokens <= 1:
+                if tr is not None:
+                    t_done = time.perf_counter()
+                    tr.event("finish", tid=slot_tid(j), uid=uid, t=t_done)
+                    tr_close(j, t_done, "finish")
                 if pool is not None:
                     pool.free_slot(j)   # done at prefill; slot stays free
                 return True
@@ -679,29 +1003,102 @@ class Server:
             # ---- admission into the lowest free slot: chunked mode keeps
             # at most one prefill in flight, blocking mode fills every free
             # slot (a pool-deferred request stays at the queue head) -------
-            while qi < len(order) and not (chunk and admitting.any()):
+            while True:
+                # a parked (preempted) request resumes ahead of any fresh
+                # admission of equal or lower priority: it already paid
+                # for its admission once
+                rec = slo.peek_resume() if slo is not None else None
+                if (rec is not None and qi < len(order)
+                        and by_uid[order[qi]].priority > rec.priority):
+                    rec = None
+                if rec is None and qi >= len(order):
+                    break
                 free = [j for j in range(n)
                         if not (active[j] or admitting[j])]
-                if not free:
+                if rec is not None:
+                    if free:
+                        if resume_swapped(free[0], rec):
+                            continue
+                        break   # pool-deferred resume: retry later
+                    # slot pressure on a resume: preempt a strictly
+                    # lower-priority decoding slot to make room
+                    v = (slo.pick_victim(victim_candidates(), rec.priority)
+                         if slo.can_swap() else None)
+                    if v is not None:
+                        tr_brownout("preempt", "resume_slot_pressure",
+                                    victim=int(v), for_uid=rec.uid)
+                        preempt(v)
+                        continue
                     break
-                if pcache is not None:
+                uid = order[qi]
+                if chunk and admitting.any():
+                    free = []   # one prefill in flight at a time
+                elif free and pcache is not None:
                     # slot choice hashes the head request (one shard: no
                     # steering to do, but the store assigns its cluster)
-                    prefix_digests(order[qi])
-                ok = (start_admission(free[0], order[qi]) if chunk
-                      else admit_blocking(free[0], order[qi]))
-                if not ok:
-                    break       # pool-deferred: retry after a give-back
-                qi += 1
-            if not (active.any() or admitting.any()):
-                if qi >= len(order):
+                    prefix_digests(uid)
+                if not free:
+                    # slot pressure: a higher-priority head preempts the
+                    # cheapest strictly-lower-priority decoding slot (not
+                    # while a prefill is in flight in chunked mode: a
+                    # freed slot could not admit anyway)
+                    if (slo is not None and slo.can_swap()
+                            and not (chunk and admitting.any())):
+                        v = slo.pick_victim(victim_candidates(),
+                                            by_uid[uid].priority)
+                        if v is not None:
+                            tr_brownout("preempt", "slot_pressure",
+                                        victim=int(v), for_uid=uid)
+                            preempt(v)
+                            continue
                     break
-                # an admission deferred on an idle engine: reclaim covered
-                # blocks and prefix-cache pins and retry; twice with
-                # nothing freed is no progress
+                j = free[0]
+                ok = (start_admission(j, uid) if chunk
+                      else admit_blocking(j, uid))
+                if ok:
+                    qi += 1
+                    continue
+                # pool-deferred admission: count it, then walk the
+                # brownout ladder: shed a best-effort request already past
+                # its TTFT deadline (it can no longer meet it; its blocks
+                # serve requests that still can), or preempt a
+                # lower-priority slot
+                if slo is not None:
+                    slo.deferrals += 1
+                    r = by_uid[uid]
+                    if (not slo.is_high(r.priority) and r.deadline_ms > 0
+                            and (time.perf_counter() - t0_serve) * 1e3
+                            > r.deadline_ms):
+                        slo.shed_uid(uid, r.priority)
+                        if tr is not None:
+                            tr.event("shed", tid="queue", uid=uid,
+                                     where="queue", why="deadline")
+                        qi += 1
+                        continue
+                    if slo.can_swap():
+                        v = slo.pick_victim(victim_candidates(), r.priority)
+                        if v is not None:
+                            tr_brownout("preempt", "admission_pool",
+                                        victim=int(v), for_uid=uid)
+                            preempt(v)
+                            continue
+                tr_brownout("defer", "admission_pool", uid=uid)
+                break   # pool-deferred: retry after a give-back
+            if not (active.any() or admitting.any()):
+                if qi >= len(order) and (slo is None
+                                         or slo.backlog_size() == 0):
+                    break
+                # an admission (or a parked request's resume) deferred on
+                # an idle engine: reclaim covered blocks and prefix-cache
+                # pins and retry; then the brownout ladder sheds
+                # best-effort work; twice with nothing freed is no
+                # progress, and only then does protected work raise
                 freed = reclaim_all() if pool is not None else 0
                 idle_retries += 1
                 if idle_retries > 1 and freed == 0:
+                    if slo is not None and brownout_reclaim():
+                        idle_retries = 0
+                        continue
                     raise kv_pool.PoolExhausted(
                         "zero forward progress: an idle engine cannot "
                         "admit the next request even with every "
@@ -730,18 +1127,24 @@ class Server:
                     target = int(np.clip(fed[j] + cl - R + ccfg.refresh,
                                          0, fed[j]))
                     kv_retired["frontier"] += target - fr.frontier(j)
+                    t_ab0 = time.perf_counter()
                     self._absorb(cache, j, int(fed[j]), target, ccfg,
                                  self._row_for_read(pool, j, dev))
                     fr.set_frontier(j, target)
                     if pool is not None:
                         pool.free_retired(j, int(fed[j]), fr)
                     n_absorbs += 1
+                    if tr is not None:
+                        tr.span("absorb", t_ab0, time.perf_counter(),
+                                tid=slot_tid(j), uid=slot_uid[j],
+                                target=int(target))
 
             # ---- build the launch -----------------------------------------
             mixed = bool(step_chunks)
             width = chunk if mixed else 1
             real_rows = int(active.sum()) + sum(step_chunks.values())
             stalled_decode = set()
+            stalled_admit = set()
             if pool is not None:
                 # paged packed launch: the blocks this step's ring writes
                 # land in are allocated first; a slot the pool cannot back
@@ -756,6 +1159,7 @@ class Server:
                                 int(fed[j]), step_chunks[j], R,
                                 paged.block_size), cow_pairs):
                             del step_chunks[j]
+                            stalled_admit.add(j)
                     elif active[j]:
                         if not try_ensure(j, kv_pool.write_blocks(
                                 int(pos[j]), 1, R, paged.block_size),
@@ -767,12 +1171,22 @@ class Server:
                 width = chunk if mixed else 1
                 real_rows = (int(active.sum()) - len(stalled_decode)
                              + sum(step_chunks.values()))
+                if real_rows > 0 and slo is not None:
+                    # progress this step: records parked by a zero-progress
+                    # preemption may resume again
+                    slo.clear_holds()
                 if real_rows == 0:
                     # every slot is stalled and nothing runs to give blocks
                     # back: twice with nothing to reclaim is no progress
                     freed = reclaim_all()
                     stall_retries += 1
                     if stall_retries > 1 and freed == 0:
+                        # brownout before the raise: swap the
+                        # lowest-priority stalled slot out so its blocks
+                        # unstick the others, else shed best-effort work
+                        if slo is not None and brownout_reclaim():
+                            stall_retries = 0
+                            continue
                         raise kv_pool.PoolExhausted(
                             "zero forward progress: every slot's next "
                             "ring write needs a block and no block is "
@@ -808,10 +1222,11 @@ class Server:
                 t0 = time.perf_counter()
                 rslot, tokp, rpos, rtw, rcidx, rgrp = torch.from_numpy(
                     packed).to(dev)
-                logits, cache = tfm.decode_step_packed(
-                    self.params, cfg, cache, tokp, rslot, rpos, rtw, rcidx,
-                    bt_d, block_size=paged.block_size, width=width,
-                    row_group=rgrp)
+                with _annot("decode_packed"):
+                    logits, cache = tfm.decode_step_packed(
+                        self.params, cfg, cache, tokp, rslot, rpos, rtw,
+                        rcidx, bt_d, block_size=paged.block_size,
+                        width=width, row_group=rgrp)
                 nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
                 nxt_of = lambda jj: nxt[last_row[jj]]      # noqa: E731
             else:
@@ -833,12 +1248,14 @@ class Server:
                 tok_d = torch.from_numpy(tok).to(dev)
                 t_d = torch.from_numpy(t_vec).to(dev)
                 if mixed:
-                    logits, cache = tfm.decode_step(
-                        self.params, cfg, cache, tok_d, t_d,
-                        chunk_len=torch.from_numpy(cl_vec).to(dev))
+                    with _annot("mixed_step"):
+                        logits, cache = tfm.decode_step(
+                            self.params, cfg, cache, tok_d, t_d,
+                            chunk_len=torch.from_numpy(cl_vec).to(dev))
                 else:
-                    logits, cache = tfm.decode_step(self.params, cfg, cache,
-                                                    tok_d, t_d)
+                    with _annot("decode_step"):
+                        logits, cache = tfm.decode_step(
+                            self.params, cfg, cache, tok_d, t_d)
                 nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
                 nxt_of = lambda jj: nxt[jj]                # noqa: E731
                 compute_rows = bp * width
@@ -849,6 +1266,19 @@ class Server:
             launch_real += real_rows
             launch_padded += compute_rows
             wasted_slots += int(n - (active | admitting).sum())
+            if tr is not None:
+                kind = ("decode" if not step_chunks else
+                        ("mixed" if real_rows > sum(step_chunks.values())
+                         else "prefill"))
+                tr.span("engine_step", t0, now, tid="engine", kind=kind,
+                        width=int(width), rows=int(compute_rows),
+                        real_rows=int(real_rows),
+                        occupancy=[int((active | admitting).sum())],
+                        pool_free=([pool.free_blocks(0)]
+                                   if pool is not None else []),
+                        pool_live=(int(pool.allocated())
+                                   if pool is not None else 0),
+                        stalled=len(stalled_decode) + len(stalled_admit))
             advanced = active.copy()
             advanced[list(stalled_decode)] = False   # a stalled slot waits
             since_tok[advanced] += 1
@@ -879,6 +1309,9 @@ class Server:
                         continue        # pool-stalled this step
                     cl = step_chunks[j]
                     fed[j] += cl
+                    if tr is not None:
+                        tr.event("prefill_chunk", tid=slot_tid(j), uid=uid,
+                                 t=now, fed=int(fed[j]), chunk=cl)
                     if wr is not None:
                         kv_retired["window"] += wr.advance(j, int(fed[j]))
                     plen = len(prompt_np[uid])
@@ -909,18 +1342,31 @@ class Server:
                         if fr.frontier(j) < target_end:
                             kv_retired["frontier"] += (target_end
                                                        - fr.frontier(j))
+                            t_ab0 = time.perf_counter()
                             self._absorb(cache, j, plen, target_end, ccfg,
                                          self._row_for_read(pool, j, dev))
                             fr.set_frontier(j, target_end)
                             if pool is not None:
                                 pool.free_retired(j, plen, fr)
                             n_absorbs += 1
+                            if tr is not None:
+                                tr.span("absorb", t_ab0,
+                                        time.perf_counter(),
+                                        tid=slot_tid(j), uid=uid,
+                                        target=int(target_end))
                     first = int(nxt_of(j))
                     toks[uid] = [first]
                     token_t[uid] = [now]
                     pre_ms[uid] = (now - t0_serve) * 1e3    # TTFT
+                    if tr is not None:
+                        tr.event("first_token", tid=slot_tid(j), uid=uid,
+                                 t=now, ttft_ms=pre_ms[uid])
                     admitting[j] = False
                     if by_uid[uid].max_new_tokens <= 1:
+                        if tr is not None:
+                            tr.event("finish", tid=slot_tid(j), uid=uid,
+                                     t=now)
+                            tr_close(j, now, "finish")
                         slot_uid[j] = -1
                         if pool is not None:
                             if quota is not None:
@@ -943,6 +1389,10 @@ class Server:
                     if len(toks[uid]) >= by_uid[uid].max_new_tokens:
                         active[j] = False
                         since_tok[j] = 0
+                        if tr is not None:
+                            tr.event("finish", tid=slot_tid(j), uid=uid,
+                                     t=now)
+                            tr_close(j, now, "finish")
                         if pool is not None:
                             if quota is not None:
                                 # an exact-KV slot retires its whole
@@ -963,6 +1413,7 @@ class Server:
                 lengths = np.zeros(bp, np.int32)
                 for j in due:
                     lengths[j] = pos[j]
+                t_c0 = time.perf_counter()
                 cache = self.compact_kv(cache, lengths, ccfg,
                                         bt_device() if pool else None)
                 # compaction is when the paged engine gives back the
@@ -975,6 +1426,22 @@ class Server:
                         pool.free_retired(j, int(pos[j]), fr)
                     since_tok[j] = 0
                 n_compacts += 1
+                if tr is not None:
+                    tr.span("compact", t_c0, time.perf_counter(),
+                            tid="engine", slots=[int(j) for j in due])
+
+            # ---- post-step priority pass ----------------------------------
+            # a pool-stalled slot whose priority exceeds a neighbour's gets
+            # that neighbour's blocks next step: swap the cheapest
+            # lower-priority decoding slot out (one victim a step, at a
+            # clean boundary: this step's copy-on-write copies have landed)
+            if slo is not None and (stalled_decode or stalled_admit):
+                sp = [by_uid[slot_uid[j]].priority
+                      for j in stalled_decode | stalled_admit]
+                if slo.can_swap():
+                    v = slo.pick_victim(victim_candidates(), max(sp))
+                    if v is not None:
+                        preempt(v)
 
         if pcache is not None:
             if store is None:
@@ -1113,10 +1580,18 @@ class Server:
                           ).set(float(n * R * tail_bpt))
                 reg.gauge("pool_occupancy_peak",
                           "peak live blocks / capacity").set(1.0)
+        if slo is not None:
+            # brownout ladder accounting (sched_shed_high must stay 0: the
+            # protected class is raised on, never shed)
+            slo.publish(reg)
         self.last_stats = reg.flat_view()
+        if tr is not None:
+            self.last_trace = tr.finish()
+        shed_uids = slo.shed_uids if slo is not None else ()
         return [Completion(uid=r.uid, tokens=toks.get(r.uid, []),
                            prefill_ms=pre_ms.get(r.uid, 0.0),
-                           decode_ms=dec_ms_tok * len(toks.get(r.uid, [])))
+                           decode_ms=dec_ms_tok * len(toks.get(r.uid, [])),
+                           shed=r.uid in shed_uids)
                 for r in requests]
 
     # ------------------------------------------------------------------
@@ -1177,6 +1652,68 @@ class Server:
             if _is_clustered_kv(leaf):
                 for key in ("k_tail", "v_tail"):
                     leaf[key][dst] = leaf[key][src]
+
+    @staticmethod
+    def _swap_out(cache, j: int, bt_row: np.ndarray):
+        """Preemption's device half: slot j's clustered snapshot and its
+        tail blocks (``bt_row`` (T,) its read-sanitized table row), copied
+        to host memory before the caller releases the blocks.  Returns
+        (snap, tails), trees of CPU tensors."""
+        dev = next(leaf["cov"].device for leaf in cache["layers"]
+                   if _is_clustered_kv(leaf))
+        bt = torch.from_numpy(bt_row.astype(np.int64)).to(dev)
+        return (_to_device(tfm.clustered_slot_state(cache, j), "cpu"),
+                _to_device(Server._gather_swap_tails(cache, bt), "cpu"))
+
+    @staticmethod
+    def _swap_in(cache, snap, tails, j: int, row: np.ndarray) -> None:
+        """Resume's device half, in place: the host snapshot into slot j,
+        then the host tail payloads into the fresh blocks of ``row``
+        (``_scatter_swap_tails``)."""
+        dev = next(leaf["cov"].device for leaf in cache["layers"]
+                   if _is_clustered_kv(leaf))
+        tfm.restore_clustered_slot_state(cache, _to_device(snap, dev), j)
+        Server._scatter_swap_tails(cache, tails, row)
+
+    @staticmethod
+    def _gather_swap_tails(cache, bt_row: torch.Tensor):
+        """Swap-out gather: every clustered leaf's tail blocks for one slot,
+        in ring-block order, as a new tensor (advanced indexing copies, so
+        the blocks may be handed on once it is made).  ``bt_row`` is the
+        slot's (T,) read-sanitized table row on the cache's device
+        (unmapped entries point at the shard base: those rows gather bytes
+        the cov and position masks already exclude, and the swap-in never
+        scatters them back).  A leaf that is not clustered yields None:
+        the swap protocol, like the prefix snapshot it extends, covers
+        FrontierRetention state only."""
+        return {"layers": [
+            {key: leaf[key][bt_row] for key in ("k_tail", "v_tail")}
+            if _is_clustered_kv(leaf) else None
+            for leaf in cache["layers"]]}
+
+    @staticmethod
+    def _scatter_swap_tails(cache, tails, bt_row: np.ndarray) -> None:
+        """Swap-in scatter, in place: a resuming slot's host tail payloads
+        (``_gather_swap_tails``'s, on the CPU) go into its freshly
+        allocated pool blocks.  ``bt_row`` (T,) holds real ids only for
+        fresh allocations; re-adopted and never-mapped ring blocks point
+        past the pool (``n_blocks``) and are left out here, where the
+        reference's scatter drops them: a re-adopted block may be shared
+        (ref > 1) and its bytes already equal the host copy, so writing it
+        would break copy-on-write for nothing.  Only the fresh blocks
+        travel to the device."""
+        first = next(leaf["k_tail"] for leaf in cache["layers"]
+                     if _is_clustered_kv(leaf))
+        keep = np.nonzero((bt_row >= 0) & (bt_row < first.shape[0]))[0]
+        if not len(keep):
+            return
+        ids = torch.from_numpy(bt_row[keep].astype(np.int64)).to(first.device)
+        sel = torch.from_numpy(keep)
+        for leaf, tl in zip(cache["layers"], tails["layers"]):
+            if _is_clustered_kv(leaf):
+                for key in ("k_tail", "v_tail"):
+                    leaf[key][ids] = tl[key][sel].to(leaf[key].device,
+                                                     leaf[key].dtype)
 
     @staticmethod
     def _shrink_cache(cache, nb: int):
@@ -1420,6 +1957,10 @@ class Server:
 
 
 def _to_device(tree, device):
+    """A tree of tensors (dicts, lists, None leaves) on ``device``; a move
+    to the CPU is synchronous."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -1,28 +1,60 @@
-"""Serving telemetry: the typed metrics registry (port of the metrics part
-of ``repro.runtime.telemetry``).
+"""Serving telemetry: the typed metrics registry, the request-lifecycle
+tracer and its exporters (port of ``repro.runtime.telemetry``; all host
+side).
 
-Named counters, gauges and histograms that the engine registers into;
-``Server.last_stats`` is regenerated from the registry as a flat view, so
-the reference's key names carry over.  ``begin_serve()`` drops per-serve
-metrics; lifetime metrics opt out with ``persist=True``.  The lifecycle
-tracer and its exporters come later.
+* :class:`MetricsRegistry` — named counters, gauges and histograms that
+  the engine registers into; ``Server.last_stats`` is regenerated from the
+  registry as a flat view, so the reference's key names carry over.
+  ``begin_serve()`` drops per-serve metrics; lifetime metrics opt out with
+  ``persist=True``.
+
+* :class:`Tracer` — per-request lifecycle spans (queued → admit → prefill
+  chunks → first token → decode → compact/absorb → preempt/swap → resume
+  → finish/shed) and per-engine-step events, stamped with wall-clock,
+  token position and pool-block deltas.  Off by default; when off the
+  engine builds no event dicts.
+
+* Exporters — JSONL event log and Chrome trace-event JSON loadable in
+  Perfetto (one process per data shard, one thread per slot), plus
+  :func:`validate_trace` / :func:`validate_chrome_file` schema checks,
+  also from the command line::
+
+      python -m repro_torch.runtime.telemetry validate <trace.json> ...
+
+Event schema (internal form)::
+
+    {"name": str, "ph": "i" | "X", "ts": float_us, "dur": float_us (X only),
+     "pid": int_data_shard, "tid": "engine" | "queue" | "slot<K>",
+     "uid": int | None, "args": {...}}
+
+``ts`` is microseconds relative to the serve's ``t0``.  The metrics
+reference document (the reference's ``reference_registry`` /
+``reference_doc``) is not ported yet: its reference serve needs the
+recurrent layer kinds.
 """
 
 from __future__ import annotations
 
+import json
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+TRACE_SCHEMA = "repro-serve-trace-v1"
 
 
 @dataclass(frozen=True)
 class TelemetryConfig:
     """Per-server telemetry switches.
 
-    trace:        record lifecycle + engine-step events (not ported yet).
-    jax_profiler: the reference's profiler annotations (not ported).
-    max_events:   tracer ring cap.
+    trace:        record lifecycle + engine-step events (host-side only).
+    jax_profiler: name kept from the reference, so configs stay parallel:
+                  in the port it wraps each engine launch in a
+                  ``torch.profiler.record_function`` range, so device
+                  profiles line up with the host timeline.
+    max_events:   tracer ring cap; events past it are counted as dropped.
     """
 
     trace: bool = False
@@ -185,3 +217,433 @@ class MetricsRegistry:
         for m in self._metrics.values():
             out.update(m.view())
         return out
+
+
+# ---------------------------------------------------------------------------
+# tracer
+# ---------------------------------------------------------------------------
+
+
+class Tracer:
+    """Host-side event recorder for one serve at a time."""
+
+    def __init__(self, max_events: int = 1_000_000):
+        self.max_events = int(max_events)
+        self.events: List[Dict[str, Any]] = []
+        self.dropped = 0
+        self.t0 = 0.0
+        self.n_shards = 1
+
+    def begin_serve(self, t0: float, n_shards: int = 1) -> None:
+        self.events = []
+        self.dropped = 0
+        self.t0 = float(t0)
+        self.n_shards = max(int(n_shards), 1)
+
+    def _push(self, ev: Dict[str, Any]) -> None:
+        if len(self.events) >= self.max_events:
+            self.dropped += 1
+            return
+        self.events.append(ev)
+
+    def event(
+        self,
+        name: str,
+        pid: int = 0,
+        tid: str = "engine",
+        uid: Optional[int] = None,
+        t: Optional[float] = None,
+        **args: Any,
+    ) -> None:
+        """Record an instant event at wall-clock ``t`` (defaults to now)."""
+        if t is None:
+            t = time.perf_counter()
+        self._push(
+            {
+                "name": name,
+                "ph": "i",
+                "ts": (t - self.t0) * 1e6,
+                "pid": int(pid),
+                "tid": tid,
+                "uid": uid,
+                "args": args,
+            }
+        )
+
+    def span(
+        self,
+        name: str,
+        t_start: float,
+        t_end: float,
+        pid: int = 0,
+        tid: str = "engine",
+        uid: Optional[int] = None,
+        **args: Any,
+    ) -> None:
+        self._push(
+            {
+                "name": name,
+                "ph": "X",
+                "ts": (t_start - self.t0) * 1e6,
+                "dur": max((t_end - t_start) * 1e6, 0.0),
+                "pid": int(pid),
+                "tid": tid,
+                "uid": uid,
+                "args": args,
+            }
+        )
+
+    def finish(self) -> List[Dict[str, Any]]:
+        evs = self.events
+        self.events = []
+        return evs
+
+
+# ---------------------------------------------------------------------------
+# validation
+# ---------------------------------------------------------------------------
+
+#: (span/instant name, registry total key) pairs reconciled by validate_trace.
+_TOTALS: Tuple[Tuple[str, str], ...] = (
+    ("swap_out", "sched_swaps_out"),
+    ("resume", "sched_swaps_in"),
+    ("shed", "sched_sheds"),
+    ("prefill_chunk", "prefill_chunks"),
+    ("absorb", "kv_absorbs"),
+    ("compact", "kv_compactions"),
+    ("engine_step", "decode_steps"),
+)
+
+
+def validate_trace(
+    events: Sequence[Dict[str, Any]],
+    totals: Optional[Dict[str, float]] = None,
+) -> List[str]:
+    """Check trace-schema invariants; return a list of problem strings.
+
+    1. every uid that ever ran (has a ``run`` span) emits exactly one terminal
+       event (``finish`` or ``shed``); no uid emits more than one terminal;
+    2. X-spans nest well-formed per (pid, tid) track;
+    3. swap_out / resume events pair up per uid (no double-park, no resume of
+       a non-parked uid; a still-parked uid must have a ``shed`` terminal);
+    4. when ``totals`` is given, event counts reconcile with registry totals
+       and run-span token deltas sum to ``gen_tokens``.
+    """
+    problems: List[str] = []
+
+    ran = {e["uid"] for e in events if e["name"] == "run" and e["uid"] is not None}
+    terminals: Dict[int, int] = {}
+    for e in events:
+        if e["name"] in ("finish", "shed") and e["uid"] is not None:
+            terminals[e["uid"]] = terminals.get(e["uid"], 0) + 1
+    for uid in sorted(ran):
+        c = terminals.get(uid, 0)
+        if c != 1:
+            problems.append(f"uid {uid}: {c} terminal events (expected exactly 1)")
+    for uid, c in sorted(terminals.items()):
+        if uid not in ran and c > 1:
+            problems.append(f"uid {uid}: {c} terminal events without a run span")
+
+    # span nesting per track
+    by_track: Dict[Tuple[int, str], List[Dict[str, Any]]] = {}
+    for e in events:
+        if e["ph"] == "X":
+            by_track.setdefault((e["pid"], e["tid"]), []).append(e)
+    for (pid, tid), evs in sorted(by_track.items()):
+        evs = sorted(evs, key=lambda e: (e["ts"], -e.get("dur", 0.0)))
+        stack: List[float] = []
+        for e in evs:
+            end = e["ts"] + e.get("dur", 0.0)
+            while stack and e["ts"] >= stack[-1]:
+                stack.pop()
+            if stack and end > stack[-1] + 1e-6:
+                problems.append(
+                    f"track ({pid},{tid}): span {e['name']!r} at ts={e['ts']:.1f} "
+                    f"partially overlaps enclosing span"
+                )
+                continue
+            stack.append(end)
+
+    # swap pairing per uid
+    parked: Dict[int, bool] = {}
+    for e in sorted(events, key=lambda e: e["ts"]):
+        uid = e.get("uid")
+        if uid is None:
+            continue
+        if e["name"] == "swap_out":
+            if parked.get(uid):
+                problems.append(f"uid {uid}: swap_out while already parked")
+            parked[uid] = True
+        elif e["name"] == "resume":
+            if not parked.get(uid):
+                problems.append(f"uid {uid}: resume without matching swap_out")
+            parked[uid] = False
+    shed_uids = {e["uid"] for e in events if e["name"] == "shed" and e["uid"] is not None}
+    for uid, p in sorted(parked.items()):
+        if p and uid not in shed_uids:
+            problems.append(f"uid {uid}: still parked at end of trace without shed")
+
+    if totals is not None:
+        counts: Dict[str, int] = {}
+        for e in events:
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+        for ev_name, key in _TOTALS:
+            if key in totals:
+                got, want = counts.get(ev_name, 0), int(totals[key])
+                if got != want:
+                    problems.append(
+                        f"count({ev_name})={got} != {key}={want}"
+                    )
+        if "gen_tokens" in totals:
+            toks = sum(
+                int(e["args"].get("tokens", 0))
+                for e in events
+                if e["name"] == "run"
+            )
+            if toks != int(totals["gen_tokens"]):
+                problems.append(
+                    f"run-span token sum {toks} != gen_tokens {int(totals['gen_tokens'])}"
+                )
+
+    return problems
+
+
+def phase_breakdown(events: Sequence[Dict[str, Any]]) -> Dict[str, float]:
+    """Per-phase wall-time breakdown (milliseconds) from a trace."""
+    out: Dict[str, float] = {}
+    for e in events:
+        if e["ph"] != "X":
+            continue
+        ms = e.get("dur", 0.0) / 1e3
+        if e["name"] == "engine_step":
+            kind = e["args"].get("kind", "decode")
+            key = f"phase_{kind}_ms"
+        elif e["name"] in ("compact", "absorb", "swap_out", "resume", "prefill"):
+            key = f"phase_{e['name']}_ms"
+        else:
+            continue
+        out[key] = out.get(key, 0.0) + ms
+    return {k: float(v) for k, v in sorted(out.items())}
+
+
+# ---------------------------------------------------------------------------
+# exporters
+# ---------------------------------------------------------------------------
+
+
+def write_jsonl(
+    events: Sequence[Dict[str, Any]],
+    path: str,
+    meta: Optional[Dict[str, Any]] = None,
+) -> None:
+    with open(path, "w") as f:
+        if meta is not None:
+            f.write(json.dumps({"schema": TRACE_SCHEMA, **meta}) + "\n")
+        for e in events:
+            f.write(json.dumps(e) + "\n")
+
+
+def _tid_num(tid: str) -> int:
+    if tid == "engine":
+        return 0
+    if tid == "queue":
+        return 1
+    if tid.startswith("slot"):
+        return int(tid[4:]) + 2
+    return 999
+
+
+def write_chrome_trace(
+    events: Sequence[Dict[str, Any]],
+    path: str,
+    n_shards: int = 1,
+    stats: Optional[Dict[str, float]] = None,
+) -> None:
+    """Export a Chrome trace-event JSON file loadable in Perfetto.
+
+    One process per data shard, threads ``engine`` / ``queue`` / ``slot<K>``.
+    ``stats`` (typically ``server.last_stats``) is embedded in ``otherData``
+    so :func:`validate_chrome_file` can reconcile counts offline.
+    """
+    traceEvents: List[Dict[str, Any]] = []
+    tids_seen: Dict[int, Dict[str, int]] = {}
+    for e in events:
+        pid = int(e["pid"])
+        tid = _tid_num(e["tid"])
+        tids_seen.setdefault(pid, {})[e["tid"]] = tid
+        args = dict(e.get("args") or {})
+        if e.get("uid") is not None:
+            args["uid"] = e["uid"]
+        out = {
+            "name": e["name"],
+            "cat": "serve",
+            "ph": e["ph"],
+            "ts": e["ts"],
+            "pid": pid,
+            "tid": tid,
+            "args": args,
+        }
+        if e["ph"] == "X":
+            out["dur"] = e.get("dur", 0.0)
+        else:
+            out["s"] = "t"
+        traceEvents.append(out)
+    for pid, tids in sorted(tids_seen.items()):
+        traceEvents.append(
+            {
+                "name": "process_name",
+                "ph": "M",
+                "pid": pid,
+                "tid": 0,
+                "args": {"name": f"data shard {pid}"},
+            }
+        )
+        for tname, tnum in sorted(tids.items(), key=lambda kv: kv[1]):
+            traceEvents.append(
+                {
+                    "name": "thread_name",
+                    "ph": "M",
+                    "pid": pid,
+                    "tid": tnum,
+                    "args": {"name": tname},
+                }
+            )
+            traceEvents.append(
+                {
+                    "name": "thread_sort_index",
+                    "ph": "M",
+                    "pid": pid,
+                    "tid": tnum,
+                    "args": {"sort_index": tnum},
+                }
+            )
+    other: Dict[str, Any] = {"schema": TRACE_SCHEMA, "n_shards": int(n_shards)}
+    if stats is not None:
+        other["last_stats"] = {k: float(v) for k, v in stats.items()}
+    with open(path, "w") as f:
+        json.dump(
+            {
+                "traceEvents": traceEvents,
+                "displayTimeUnit": "ms",
+                "otherData": other,
+            },
+            f,
+        )
+
+
+def events_from_chrome(obj: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Reconstruct internal events from a Chrome trace-event JSON object."""
+    names: Dict[Tuple[int, int], str] = {}
+    for e in obj.get("traceEvents", []):
+        if e.get("ph") == "M" and e.get("name") == "thread_name":
+            names[(int(e["pid"]), int(e["tid"]))] = e["args"]["name"]
+    out: List[Dict[str, Any]] = []
+    for e in obj.get("traceEvents", []):
+        if e.get("ph") not in ("i", "X"):
+            continue
+        args = dict(e.get("args") or {})
+        uid = args.pop("uid", None)
+        ev = {
+            "name": e["name"],
+            "ph": e["ph"],
+            "ts": float(e["ts"]),
+            "pid": int(e["pid"]),
+            "tid": names.get((int(e["pid"]), int(e["tid"])), "engine"),
+            "uid": uid,
+            "args": args,
+        }
+        if e["ph"] == "X":
+            ev["dur"] = float(e.get("dur", 0.0))
+        out.append(ev)
+    return out
+
+
+def validate_chrome_file(path: str, reconcile: bool = True) -> List[str]:
+    """Parse + validate an exported Chrome trace file; return problems."""
+    try:
+        with open(path) as f:
+            obj = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        return [f"unreadable chrome trace {path}: {e}"]
+    problems: List[str] = []
+    other = obj.get("otherData") or {}
+    if other.get("schema") != TRACE_SCHEMA:
+        problems.append(
+            f"schema mismatch: {other.get('schema')!r} != {TRACE_SCHEMA!r}"
+        )
+    events = events_from_chrome(obj)
+    totals = other.get("last_stats") if reconcile else None
+    problems.extend(validate_trace(events, totals=totals))
+    return problems
+
+
+def validate_jsonl_file(path: str, reconcile: bool = True) -> List[str]:
+    try:
+        meta: Optional[Dict[str, Any]] = None
+        events: List[Dict[str, Any]] = []
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                obj = json.loads(line)
+                if "schema" in obj and "ph" not in obj:
+                    meta = obj
+                    continue
+                events.append(obj)
+    except (OSError, json.JSONDecodeError) as e:
+        return [f"unreadable jsonl trace {path}: {e}"]
+    totals = (meta or {}).get("last_stats") if reconcile else None
+    return validate_trace(events, totals=totals)
+
+
+# ---------------------------------------------------------------------------
+# torch.profiler integration
+# ---------------------------------------------------------------------------
+
+
+def annotation(name: str):
+    """A ``torch.profiler.record_function`` range named ``name``: the
+    port's form of the reference's ``jax.profiler`` annotation."""
+    import torch.profiler
+
+    return torch.profiler.record_function(name)
+
+
+# ---------------------------------------------------------------------------
+# CLI: python -m repro_torch.runtime.telemetry validate <trace.json> ...
+# ---------------------------------------------------------------------------
+
+
+def _main(argv: Optional[Sequence[str]] = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="repro_torch.runtime.telemetry")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    v = sub.add_parser("validate", help="validate exported trace files")
+    v.add_argument("paths", nargs="+")
+    v.add_argument(
+        "--no-reconcile",
+        action="store_true",
+        help="skip reconciling event counts against embedded last_stats",
+    )
+    args = ap.parse_args(argv)
+
+    rc = 0
+    for path in args.paths:
+        if path.endswith(".jsonl"):
+            problems = validate_jsonl_file(path, reconcile=not args.no_reconcile)
+        else:
+            problems = validate_chrome_file(path, reconcile=not args.no_reconcile)
+        if problems:
+            rc = 1
+            print(f"{path}: {len(problems)} problem(s)")
+            for p in problems:
+                print(f"  - {p}")
+        else:
+            print(f"{path}: ok")
+    return rc
+
+
+if __name__ == "__main__":
+    raise SystemExit(_main())

@@ -942,3 +942,80 @@ def test_cow_impl_on_card(cuda):
     for lc, lg in zip(cache["layers"], card["layers"]):
         for key, val in lc.items():
             assert torch.equal(lg[key].cpu(), val), key
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_swap_round_trip_on_card(cuda, dtype):
+    """The preemption swap on the card: a slot's state and tail blocks to
+    the host and back into another slot's fresh blocks, bit for bit, the
+    re-adopted and every other block untouched (tests/_torch_swap.py)."""
+    from _torch_swap import swap_round_trip, tiny
+
+    assert swap_round_trip(cuda, tiny(dtype))[:2] == (2, 1)
+
+
+def _slo_stream():
+    """tests/test_scheduler.py's stream: best-effort requests first, three
+    priority-1 requests at the FIFO tail."""
+    from repro_torch.core.request_cluster import Request
+
+    rng = np.random.default_rng(3)
+    reqs, prompts = [], {}
+    for i in range(8):
+        plen = int(rng.integers(6, 30))
+        prompts[i] = rng.integers(0, 64, size=(plen,)).astype(np.int32)
+        reqs.append(Request(i, plen, int(rng.integers(6, 14)),
+                            priority=1 if i >= 5 else 0))
+    return reqs, prompts
+
+
+@pytest.mark.parametrize("chunk", [8, 0], ids=["chunked", "blocking"])
+def test_tiny_slo_serve_on_card(cuda, chunk):
+    """TINY (f32) through a 10-block pool with ``SLOConfig(
+    priority_admission=False)`` and tracing, on the card: best-effort
+    slots are preempted to host memory and resumed, and the tokens equal
+    the CPU port's and an uninterrupted card run's (48 blocks, no
+    scheduler); every sched_* counter equals the CPU's; the trace
+    validates; paged_clustered_decode launched once a layer an engine
+    step."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.kv_pool import PagedKVConfig
+    from repro_torch.runtime.scheduler import SLOConfig
+    from repro_torch.runtime.server import Server
+    from repro_torch.runtime.telemetry import TelemetryConfig, validate_trace
+
+    cfg = _tiny()
+    params = tfm.init_params(0, cfg, device="cpu")
+    reqs, prompts = _slo_stream()
+    scfg = dataclasses.replace(
+        _share_scfg(10), prefill_chunk=chunk, use_clustered_batching=False,
+        scheduler=SLOConfig(priority_admission=False),
+        telemetry=TelemetryConfig(trace=True))
+    whole_cfg = dataclasses.replace(
+        scfg, scheduler=None, telemetry=None,
+        paged=PagedKVConfig(block_size=4, pool_blocks=48))
+    toks, stats = {}, {}
+    for name, dev, sc in (("cpu", "cpu", scfg), ("card", cuda, scfg),
+                          ("whole", cuda, whole_cfg)):
+        srv = Server(cfg, sc, params, device=dev)
+        ops.reset_launches()
+        outs = srv.serve(reqs, prompts)
+        toks[name] = {o.uid: (o.tokens, o.shed) for o in outs}
+        stats[name] = dict(srv.last_stats)
+        if name == "card":
+            counts = ops.launch_counts()
+            trace = srv.last_trace
+    st = stats["card"]
+    assert toks["card"] == toks["cpu"]
+    assert st["sched_preemptions"] >= 1 and st["sched_swaps_in"] >= 1
+    assert st["sched_shed_high"] == 0
+    for key in (k for k in stats["cpu"] if k.startswith("sched_")):
+        assert st[key] == stats["cpu"][key], key
+    for uid, (t, shed) in toks["card"].items():
+        assert not shed and t == toks["whole"][uid][0], uid
+    assert validate_trace(trace, totals=st) == []
+    assert counts["paged_clustered_decode"] == (cfg.n_layers
+                                                * st["decode_steps"])
+    assert counts["clustered_decode"] == 0 and counts["bitserial_median"] > 0
