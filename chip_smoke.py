@@ -26,19 +26,40 @@ Phases, in order; any failure ends the run with a non-zero exit:
    K=32) shapes, a blocking admission's (288 members x 2,048 points x 128
    dims, K=64, 16 bits, 0/1 weights below the frontier), the gemma2-27b
    serve's (compaction 1,472 members, absorb 368, admission 368 members x
-   8,192 points) and the fit's streamed shape (2^20 x 16, K=64, 32 bits),
-   each twice;
+   8,192 points), phase 4b's (absorb 2 and compaction 4 members x 24
+   points x 16 dims, K=8; admission 2 members x 96 points) and the fit's
+   streamed shape (2^20 x 16, K=64, 32 bits), each twice;
    flash_decode: B=4, S=2048, Hq=32, Hkv=8, Dh=128, t=1500, 0 and 2500 in
    bf16, f32 and f32 + softcap 50, and against
    ``attention.decode_attention``; clustered_decode and
    paged_clustered_decode also at gemma2-27b's heads (32 over 16 kv heads,
-   query scale 1/12, softcap 50), paged bit-equal to dense, and
+   query scale 1/12, softcap 50), paged bit-equal to dense, at phase
+   4b's TINY 'G' layer in f32 (2 slots, 4 / 2 heads of 16, C=8, R=16 in
+   blocks of 4, an 8-token chunk in either slot and a decode-only step:
+   within 1e-5 of plain, paged bit-equal to dense), and
    paged_clustered_decode in 5h's quota layout (one centroid of count 0,
    a ring of 2,048 positions in 128 blocks of 16, rows at 96-2,048
    positions) against its plain version and, in f32, exact attention);
 4. model agreement: the reduced qwen3 in f32 decodes (mixed and plain
    steps, clustered cache) and prefills (logits at ``last_pos`` and the
    exact B=1 cache) with the same numbers on the card as on the CPU;
+4b. recurrent state beside the clustered kernels: the reference's TINY
+   'GM' (a 'G' layer and a Mamba2 'M' layer) and 'GR' (an RG-LRU 'R'
+   layer) in f32, port weights from seed 0, batch 2, max_seq 96,
+   ``KVCompressConfig(n_clusters=8, iters=4, keep_recent=16,
+   refresh_every=8)``, TestRecurrentServing's streams: static exact,
+   chunked dense (chunk 8), chunked paged (blocks of 4), blocking dense,
+   and the swap's 8 requests unpressured (48 blocks) and scheduled (10
+   blocks, ``SLOConfig(priority_admission=False)``).  Gates: chunked ==
+   static, paged == chunked, blocking == chunked, scheduled == unpressured
+   token for token; clustered_decode once an engine step (one 'G' layer)
+   in the dense clustered serves and paged_clustered_decode in the paged
+   ones, the other never; bitserial_median >= absorbs + compress
+   admissions + compactions; preemptions and resumes >= 1;
+   state_bytes_recurrent > 0, kv_retired_recurrent 0, pools back to 0;
+   every serve also runs on the CPU, and its card tokens must equal the
+   CPU's, request for request.  Phase 3 checks B1, B2 and B3 at these
+   serves' shapes first;
 5. serve: qwen3-4b at full width (random weights, seed 0, bf16) answers 8
    requests through the continuous engine with chunked admission and a
    clustered KV cache; the clustered_decode launch count must equal
@@ -128,6 +149,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
    decode 23 x engine steps, clustered_decode 0, ``pool_frees ==
    pool_allocs``, ``pool_blocks_end`` 0; agreement with 5f printed, not
    gated;
+5l. recurrentgemma-9b at full width and depth (38 layers 'RRL': 26 RG-LRU
+   'R' layers of width 4,096 and 12 'L' layers, window 2,048; d_model
+   4,096, 16 heads over 1 kv head of 256, d_ff 12,288, vocab 256,000;
+   bf16 weights from ``init_params`` seed 0, the gate weights f32),
+   ``max_seq`` 4,096, batch 4, the smoke's KVCompressConfig (inert: no
+   'G' layer), 4 requests from ``default_rng(5)`` (a 2,112-token prompt
+   past the window and three of 96-128, 24-40 new tokens): chunked dense
+   (chunk 64), chunked paged (blocks of 16) and blocking dense (a
+   sequential prefill, bucket 1).  Gates: every request complete;
+   kv_retired_window > 0, kv_retired_recurrent 0; state_bytes_recurrent
+   26 x (3 x 4,096 x 2 + 4,096 x 4) = 1,064,960 B a slot; B1, B2 and B3
+   never launched; paged: frees == allocs, end 0.  Printed: chunked vs
+   blocking and paged vs dense agreement, the host dispatches (non-view
+   aten ops) and wall of one mixed and one decode step, peak memory;
+5m. mamba2-2.7b at full width and depth (64 'M' layers, d_model 2,560,
+   d_state 128, expand 2, 80 heads of 64, vocab 50,280; bf16 weights from
+   seed 0), ``max_seq`` 2,048, batch 4, 4 requests from
+   ``default_rng(6)`` (prompts of 96-128, 24-40 new tokens): chunked dense
+   and blocking dense; the paged construction must raise the reference's
+   "ring-family" ValueError.  Gates: every request complete; B1, B2 and
+   B3 never launched; state_bytes_recurrent 64 x (3 x 5,376 x 2 + 80 x
+   64 x 128 x 4) = 169,836,544 B a slot.  Printed as in 5l;
 6. clustering: ``clustering.fit`` at its default, L1 medians, k=64 on
    2^20 x 16 points from a threefry k-means++ start: both of its kernels,
    distance_argmin (assignment) and bitserial_median (median update),
@@ -154,8 +197,9 @@ kernel (``chiprun_out/chip_smoke.json`` keys the same objects by name;
 B1's and B2's carry ``launches_windowed`` from 5f / 5g, B2's
 ``launches_quota`` from 5h and its quota form's times under ``quota``,
 B2's and B3's ``launches_prefix_share`` from 5i's shared serve,
-``launches_template_store`` from 5j's two store serves and
-``launches_slo`` from 5k's scheduled serve),
+``launches_template_store`` from 5j's two store serves,
+``launches_slo`` from 5k's scheduled serve and ``launches_recurrent``
+from 4b's chunked serves, by pattern),
 and the last line ``{"ok": true, "device": {...}}``; the full record goes
 to ``chiprun_out/chip_smoke.json``.  Each phase's seconds are printed as
 it ends.
@@ -189,6 +233,22 @@ CL_SERVE = [64, 1, 1, 1]             # the engine's mixed step: one chunk
 COV_SLOTS = [0, 900, 60, 10]         # cov >= t + chunk_len - R everywhere
 BS = 16                              # paged: positions per pool block
 N_BUCKET = 256                       # paged: row bucket of the 130 rows
+QWEN_GEO = dict(b=B, l=L, dh=DH, c=C, r=R, t=T_SLOTS, cov=COV_SLOTS,
+                cl=CL_SLOTS)
+# 4b's TINY 'GM' / 'GR' 'G' layer as its serves hand it to the kernels
+# (batch 2, chunks of 8, 4 / 2 heads of 16, query scale 1/4, no softcap,
+# C 8 over a ring of R 16, blocks of 4, buckets up to 16 rows): a wrapped
+# slot and an unwrapped one, each taking the chunk in turn
+REC_HQ, REC_HKV, REC_BS, REC_BUCKET = 4, 2, 4, 16
+REC_GEO = dict(b=2, l=8, dh=16, c=8, r=16, t=[40, 9], cov=[32, 4],
+               cl=[8, 1])
+# 4b's bitserial_median calls (1 'G' layer, 2 kv heads): an absorb (one
+# slot's 2 heads) and a compaction (2 slots x 2 heads) over C + R = 24
+# points, K = C; a blocking admission's fit over max_seq 96 points of the
+# longest prompt (60 tokens), refresh 8
+REC_MED_CASES = [("4b absorb", 2, 8, 16), ("4b compaction", 4, 8, 16)]
+REC_ADMISSION = ("4b admission", 1, 2, 96, 60)
+REC_REFRESH = 8
 N_PTS, D_PTS, K_PTS = 1 << 20, 16, 64
 # distance_argmin in the quickstart: the wine table's two fits (4,595 x 12,
 # K = 3) and the census table's k sweep (5,000 x 8, K 2-8); L2 is timed at
@@ -383,20 +443,24 @@ def device_ms(torch, fn, match=None, n=50, warm=5, tries=3):
 # ---------------------------------------------------------------------------
 
 
-def decode_inputs(torch, dev, dtype, hq=HQ, hkv=HKV):
+def decode_inputs(torch, dev, dtype, hq=HQ, hkv=HKV, geo=None):
+    """B1's inputs at qwen3-4b's serve shapes, or at ``geo``'s (REC_GEO:
+    4b's TINY 'G' layer) with its chunk lengths ``cl``."""
+    geo = geo or QWEN_GEO
+    b, lw, dh, c, r = geo["b"], geo["l"], geo["dh"], geo["c"], geo["r"]
     g = torch.Generator(device="cpu").manual_seed(0)
     rnd = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
-    counts = torch.randint(0, 5, (B, C, hkv), generator=g).float()
+    counts = torch.randint(0, 5, (b, c, hkv), generator=g).float()
     return dict(
-        q=rnd(B, L, hq, DH).to(dev, dtype),
-        k_cents=rnd(B, C, hkv, DH).to(dev, dtype),
-        v_cents=rnd(B, C, hkv, DH).to(dev, dtype),
+        q=rnd(b, lw, hq, dh).to(dev, dtype),
+        k_cents=rnd(b, c, hkv, dh).to(dev, dtype),
+        v_cents=rnd(b, c, hkv, dh).to(dev, dtype),
         counts=counts.to(dev),                  # ~20% empty clusters
-        k_tail=rnd(B, R, hkv, DH).to(dev, dtype),
-        v_tail=rnd(B, R, hkv, DH).to(dev, dtype),
-        t=torch.tensor(T_SLOTS, dtype=torch.int32, device=dev),
-        cov=torch.tensor(COV_SLOTS, dtype=torch.int32, device=dev),
-        chunk_len=torch.tensor(CL_SLOTS, dtype=torch.int32, device=dev))
+        k_tail=rnd(b, r, hkv, dh).to(dev, dtype),
+        v_tail=rnd(b, r, hkv, dh).to(dev, dtype),
+        t=torch.tensor(geo["t"], dtype=torch.int32, device=dev),
+        cov=torch.tensor(geo["cov"], dtype=torch.int32, device=dev),
+        chunk_len=torch.tensor(geo["cl"], dtype=torch.int32, device=dev))
 
 
 def check_clustered_decode(torch, cd, dev):
@@ -436,10 +500,10 @@ def check_clustered_decode(torch, cd, dev):
     return max_err
 
 
-def paged_inputs(torch, x, cl, bucket, seed=1):
+def paged_inputs(torch, x, cl, bucket, seed=1, bs=BS):
     """The dense kernel's inputs ``x`` as packed paged rows: each slot's
     live ring blocks (positions in [cov, t + cl)) scattered through a
-    shuffled block table into a pool of BS-position blocks; unmapped
+    shuffled block table into a pool of ``bs``-position blocks; unmapped
     entries point at the base block 0, which holds non-zero garbage, as
     ``BlockPool.table_for_read`` maps them; one row per (slot, chunk row
     i < cl[slot]), padded to ``bucket`` rows on slot 0 with qpos1 0.
@@ -447,29 +511,30 @@ def paged_inputs(torch, x, cl, bucket, seed=1):
     from repro_torch.runtime.kv_pool import live_blocks
 
     dev = x["q"].device
-    hq, hkv = x["q"].shape[-2], x["k_tail"].shape[2]
-    nt = R // BS
+    nsl, r, hkv, dh = x["k_tail"].shape
+    hq = x["q"].shape[-2]
+    ts, covs = x["t"].tolist(), x["cov"].tolist()
+    nt = r // bs
     g = torch.Generator(device="cpu").manual_seed(seed)
-    mapped = [(b, bi) for b in range(B)
-              for bi in live_blocks(T_SLOTS[b] + cl[b], COV_SLOTS[b], R, BS)]
+    mapped = [(b, bi) for b in range(nsl)
+              for bi in live_blocks(ts[b] + cl[b], covs[b], r, bs)]
     nb = 1 + len(mapped) + 8                    # base + mapped + spares
     ids = (1 + torch.randperm(nb - 1, generator=g)[:len(mapped)]).tolist()
-    table = torch.zeros(B, nt, dtype=torch.int32)
+    table = torch.zeros(nsl, nt, dtype=torch.int32)
     pools = {}
     for key in ("k_tail", "v_tail"):
-        pool = torch.randn(nb, BS, hkv, DH, generator=g).to(dev, x[key].dtype)
-        blocks = x[key].reshape(B, nt, BS, hkv, DH)
+        pool = torch.randn(nb, bs, hkv, dh, generator=g).to(dev, x[key].dtype)
+        blocks = x[key].reshape(nsl, nt, bs, hkv, dh)
         for (b, bi), gid in zip(mapped, ids):
             pool[gid] = blocks[b, bi]
             table[b, bi] = gid
         pools[key] = pool
-    rows = [(b, i) for b in range(B) for i in range(cl[b])]
+    rows = [(b, i) for b in range(nsl) for i in range(cl[b])]
     vec = torch.zeros(4, bucket, dtype=torch.int32)   # slot, qpos1, tw, cov
     for k, (b, i) in enumerate(rows):
-        vec[:, k] = torch.tensor([b, T_SLOTS[b] + i + 1, T_SLOTS[b] + cl[b],
-                                  COV_SLOTS[b]])
+        vec[:, k] = torch.tensor([b, ts[b] + i + 1, ts[b] + cl[b], covs[b]])
     vec = vec.to(dev)
-    q = torch.zeros(bucket, hq, DH, dtype=x["q"].dtype, device=dev)
+    q = torch.zeros(bucket, hq, dh, dtype=x["q"].dtype, device=dev)
     q[:len(rows)] = x["q"][[b for b, _ in rows], [i for _, i in rows]]
     args = dict(q=q, k_cents=x["k_cents"], v_cents=x["v_cents"],
                 counts=x["counts"], k_pool=pools["k_tail"],
@@ -587,6 +652,53 @@ def check_gemma_decode(torch, cd, pcd, dev):
             f"{name}: clustered_decode and paged_clustered_decode == plain "
             f"within {tol}, paged bit-equal to dense on all {n} real rows "
             f"(max abs err so far {max_err:.3e})")
+    return max_err
+
+
+def check_rec_tiny_decode(torch, cd, pcd, dev):
+    """B1 and B2 at the shapes of 4b's TINY 'G' layer (REC_GEO: 2 slots,
+    4 / 2 heads of 16, C 8, a ring of 16 in blocks of 4, query scale 1/4),
+    f32: the 8-token chunk in either slot beside the other's decode row
+    (a 16-row bucket) and a decode-only step (a 2-row bucket), each
+    against its plain version within 1e-5, B2 bit-equal to B1 on every
+    real row (grouped as the engine groups them and one row per block),
+    and B1's one-token form against its plain version."""
+    max_err, tol = 0.0, 1e-5
+    kw = dict(scale=REC_GEO["dh"] ** -0.5, softcap=None)
+    for cl, bucket in (([8, 1], REC_BUCKET), ([1, 8], REC_BUCKET),
+                       ([1, 1], 2)):
+        x = decode_inputs(torch, dev, torch.float32, REC_HQ, REC_HKV,
+                          dict(REC_GEO, cl=cl))
+        args, rows, n_mapped = paged_inputs(torch, x, cl, bucket, bs=REC_BS)
+        args = with_groups(torch, pcd, args)
+        x1 = dict(x, q=x["q"][:, 0].contiguous(),
+                  chunk_len=torch.ones_like(x["chunk_len"]))
+        got = cd.clustered_decode_cuda(**x, **kw)
+        want = cd.clustered_decode_plain(**x, **kw)
+        got1 = cd.clustered_decode_cuda(**x1, **kw)
+        want1 = cd.clustered_decode_plain(**x1, **kw)
+        pg = pcd.paged_clustered_decode_cuda(**args, **kw)
+        alone = pcd.paged_clustered_decode_cuda(**dict(args, row_group=None),
+                                                **kw)
+        pw = pcd.paged_clustered_decode_plain(**args, **kw)
+        torch.cuda.synchronize()
+        n = len(rows)
+        sel = ([b for b, _ in rows], [i for _, i in rows])
+        for got_r, want_r in ((got[sel], want[sel]), (got1, want1),
+                              (pg[:n], pw[:n])):
+            torch.testing.assert_close(got_r, want_r, rtol=tol, atol=tol)
+            max_err = max(max_err, (got_r - want_r).abs().max().item())
+        for form, out in (("grouped", pg), ("one row per block", alone)):
+            if not torch.equal(bits(torch, out[:n]), bits(torch, got[sel])):
+                raise AssertionError(
+                    f"4b TINY chunk lengths {cl} ({form}): paged rows differ"
+                    " from clustered_decode bit for bit")
+        say(f"4b TINY heads ({REC_HQ}/{REC_HKV} of {REC_GEO['dh']}, chunk "
+            f"lengths {cl}): clustered_decode (and its one-token form) and "
+            f"paged_clustered_decode == plain within {tol}, paged bit-equal "
+            f"to dense on all {n} real rows ({n_mapped} mapped blocks of "
+            f"{REC_BS}, {bucket}-row bucket; max abs err so far "
+            f"{max_err:.3e})")
     return max_err
 
 
@@ -740,23 +852,23 @@ def check_distance_argmin(torch, da, dev):
     return max_err
 
 
-def median_inputs(torch, dev, m, k, bits, seed=0):
-    """Words as the memory manager makes them: m members of C + R normal
-    keys of Dh dims at their 16-bit auto scale; the first C points are
+def median_inputs(torch, dev, m, k, bits, seed=0, c=C, r=R, dh=DH):
+    """Words as the memory manager makes them: m members of c + r normal
+    keys of dh dims at their 16-bit auto scale; the first c points are
     centroid summaries weighted by counts in [0, 2000) (a fifth empty), the
-    R ring points by 0/1 masks; random assignments to k clusters."""
+    r ring points by 0/1 masks; random assignments to k clusters."""
     from repro_torch.core import quantizer
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn(m, C + R, DH, generator=g, device=dev)
+    x = torch.randn(m, c + r, dh, generator=g, device=dev)
     spec = quantizer.FixedPointSpec(
         bits=bits, scale=quantizer.auto_scale(x, bits).unsqueeze(-2))
     u = quantizer.to_unsigned_order(quantizer.quantize(x, spec), bits)
-    a = torch.randint(0, k, (m, C + R), generator=g, device=dev,
+    a = torch.randint(0, k, (m, c + r), generator=g, device=dev,
                       dtype=torch.int32)
-    cnt = torch.randint(0, 2000, (m, C), generator=g, device=dev).float()
-    cnt = cnt * (torch.rand(m, C, generator=g, device=dev) >= 0.2)
-    mask = torch.randint(0, 2, (m, R), generator=g, device=dev).float()
+    cnt = torch.randint(0, 2000, (m, c), generator=g, device=dev).float()
+    cnt = cnt * (torch.rand(m, c, generator=g, device=dev) >= 0.2)
+    mask = torch.randint(0, 2, (m, r), generator=g, device=dev).float()
     return u, a, torch.cat([cnt, mask], 1)
 
 
@@ -776,25 +888,26 @@ def stream_inputs(torch, dev, seed=1):
 
 
 def admission_inputs(torch, dev, seed=2, layers=N_LAYERS, heads=HKV,
-                     s=ADM_S, plen=ADM_PLEN):
+                     s=ADM_S, plen=ADM_PLEN, c=C, r=R, dh=DH, refresh=32):
     """Words as ``_clusterize`` hands them to the median update: (layer,
     head) members of ``s`` keys at the fit's 16-bit scale, taken over the
     weighted points only (the pad past the ``plen``-token prompt is drawn
     8x wider, so its words saturate as the pad tokens' keys may); 0/1
-    weights ``pos < plen - (R - refresh)`` broadcast over the heads; random
-    assignments to C clusters.  The defaults are qwen3-4b's longest
+    weights ``pos < plen - (r - refresh)`` broadcast over the heads; random
+    assignments to c clusters.  The defaults are qwen3-4b's longest
     prompt."""
     from repro_torch.core import quantizer
 
     g = torch.Generator(device=dev).manual_seed(seed)
     pos = torch.arange(s, device=dev)
-    x = torch.randn(layers, heads, s, DH, generator=g, device=dev)
+    x = torch.randn(layers, heads, s, dh, generator=g, device=dev)
     x = x * torch.where(pos < plen, 1.0, 8.0)[:, None]
-    w = (pos < plen - (R - 32)).to(torch.float32).expand(layers, heads, s)
+    w = (pos < plen - (r - refresh)).to(torch.float32).expand(layers, heads,
+                                                               s)
     spec = quantizer.FixedPointSpec(bits=16, scale=quantizer.auto_scale(
         x * w[..., None], 16).unsqueeze(-2))
     u = quantizer.to_unsigned_order(quantizer.quantize(x, spec), 16)
-    a = torch.randint(0, C, (layers, heads, s), generator=g, device=dev,
+    a = torch.randint(0, c, (layers, heads, s), generator=g, device=dev,
                       dtype=torch.int32)
     return u, a, w
 
@@ -820,8 +933,10 @@ def check_bitserial_median(torch, bsm, dev):
         return max((med - med0).abs().max().item(),
                    (tot - tot0).abs().max().item())
 
-    for name, m, k, bits in MED_CASES:
-        u, a, w = median_inputs(torch, dev, m, k, bits)
+    tiny = dict(c=REC_GEO["c"], r=REC_GEO["r"], dh=REC_GEO["dh"])
+    for name, m, k, bits in MED_CASES + REC_MED_CASES:
+        geo = tiny if name.startswith("4b") else dict(c=C, r=R, dh=DH)
+        u, a, w = median_inputs(torch, dev, m, k, bits, **geo)
         runs = [bsm.grouped_median_bits_cuda(u, a, k, w, bits=bits)
                 for _ in range(2)]
         med0, tot0 = bsm.grouped_median_bits_plain(u, a, k, weights=w,
@@ -832,29 +947,33 @@ def check_bitserial_median(torch, bsm, dev):
             if not (torch.equal(med, med0) and torch.equal(tot, tot0)):
                 raise AssertionError(f"bitserial_median {name}: kernel != "
                                      "plain")
-        say(f"bitserial_median {name} ({m} members x {C + R} points x {DH} "
+        say(f"bitserial_median {name} ({m} members x "
+            f"{geo['c'] + geo['r']} points x {geo['dh']} "
             f"dims, K={k}, {bits} bits, count weights): kernel == plain bit "
             "for bit (medians and totals), two runs equal")
         del u, a, w, runs, med0, tot0
-    for name, layers, heads, s, plen in admission_cases():
+    for name, layers, heads, s, plen in admission_cases() + [REC_ADMISSION]:
+        geo = (dict(c=REC_GEO["c"], r=REC_GEO["r"], dh=REC_GEO["dh"],
+                    refresh=REC_REFRESH) if name.startswith("4b") else
+               dict(c=C, r=R, dh=DH, refresh=32))
         u, a, w = admission_inputs(torch, dev, layers=layers, heads=heads,
-                                   s=s, plen=plen)
-        runs = [bsm.grouped_median_bits_cuda(u, a, C, w, bits=16)
+                                   s=s, plen=plen, **geo)
+        runs = [bsm.grouped_median_bits_cuda(u, a, geo["c"], w, bits=16)
                 for _ in range(2)]
-        med0, tot0 = bsm.grouped_median_bits_plain(u, a, C, weights=w,
-                                                   bits=16)
+        med0, tot0 = bsm.grouped_median_bits_plain(u, a, geo["c"],
+                                                   weights=w, bits=16)
         torch.cuda.synchronize()
         for med, tot in runs:
             max_err = max(max_err, err(med, tot, med0, tot0))
             if not (torch.equal(med, med0) and torch.equal(tot, tot0)):
                 raise AssertionError(f"bitserial_median {name}: kernel != "
                                      "plain")
-        form = ("resident" if bsm.resident_bytes(s, DH, C)
+        form = ("resident" if bsm.resident_bytes(s, geo["dh"], geo["c"])
                 <= bsm.RESIDENT_MAX_BYTES else "streamed")
         say(f"bitserial_median {name} ({layers} x {heads} members x {s} "
-            f"points x {DH} dims, K={C}, 16 bits, weights pos < "
-            f"{plen - (R - 32)}, {form} form): kernel == plain bit for bit "
-            "(medians and totals), two runs equal")
+            f"points x {geo['dh']} dims, K={geo['c']}, 16 bits, weights pos "
+            f"< {plen - (geo['r'] - geo['refresh'])}, {form} form): kernel "
+            "== plain bit for bit (medians and totals), two runs equal")
         del u, a, w, runs, med0, tot0
     u, a = stream_inputs(torch, dev)
     runs = [bsm.grouped_median_bits_cuda(u, a, K_PTS, bits=32)
@@ -1078,7 +1197,8 @@ def run_serve(torch, srv, reqs, prompts, mode):
     tokens = {o.uid: list(map(int, o.tokens)) for o in outs}
     digest = hashlib.sha256(json.dumps(tokens, sort_keys=True).encode())
     return {"stats": st, "wall_s": wall, "launches": ops.launch_counts(),
-            "engine_steps": int(st["decode_steps"]), "tokens": tokens,
+            "engine_steps": int(st.get("decode_steps", 0)),
+            "tokens": tokens,
             "tokens_sha256": digest.hexdigest()[:16]}
 
 
@@ -1827,6 +1947,427 @@ def serve_gemma2(torch, dev, smi, paged=None, params=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the clustered kernels beside recurrent state, TINY 'GM' / 'GR'
+# ---------------------------------------------------------------------------
+
+# tests/test_serving_engine.py's TestRecurrentServing: its KVCompressConfig,
+# and its swap's pools (48 blocks unpressured, 10 scheduled)
+REC_CC = dict(n_clusters=8, iters=4, keep_recent=16, refresh_every=8)
+REC_POOL_BIG, REC_POOL_TIGHT = 48, 10
+
+
+def rec_tiny_cfg(pattern):
+    """The reference's pinned GM_REC / GR_REC: f32, 2 layers, d_model 64,
+    4 / 2 heads of 16, d_ff 128, vocab 64; Mamba2 d_state 16, d_conv 4,
+    expand 2, heads of 32, chunk 32; RG-LRU width 64."""
+    from repro_torch.models.config import ModelConfig, SSMConfig
+
+    kw = dict(name=pattern.lower(), family="hybrid", n_layers=2, d_model=64,
+              n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128, vocab=64,
+              pad_vocab_multiple=16, dtype="float32", layer_pattern=pattern)
+    if "M" in pattern:
+        kw["ssm"] = SSMConfig(d_state=16, d_conv=4, expand=2, head_dim=32,
+                              n_groups=1, chunk=32)
+    else:
+        kw["lru_width"] = 64
+    return ModelConfig(**kw)
+
+
+def rec_tiny_streams():
+    """TestRecurrentServing's two streams, copied: ``_rec_stream`` (4
+    requests from ``default_rng(9)``) and the swap case's 8 (from
+    ``default_rng(3)``, the last three priority 1)."""
+    from repro_torch.core.request_cluster import Request
+
+    rng = np.random.default_rng(9)
+    spec = [(60, 12), (9, 10), (48, 9), (21, 14)]
+    rec = ([Request(i, l, g) for i, (l, g) in enumerate(spec)],
+           {i: rng.integers(0, 64, size=(l,)).astype(np.int32)
+            for i, (l, _) in enumerate(spec)})
+    rng = np.random.default_rng(3)
+    reqs, prompts = [], {}
+    for i in range(8):
+        plen = int(rng.integers(6, 30))
+        prompts[i] = rng.integers(0, 64, size=(plen,)).astype(np.int32)
+        reqs.append(Request(i, plen, int(rng.integers(6, 14)),
+                            priority=1 if i >= 5 else 0))
+    return rec, (reqs, prompts)
+
+
+def rec_tiny_serves(torch, dev, cfg, params):
+    """One pattern's 4b serves on ``dev``: static exact, chunked dense,
+    chunked paged (blocks of 4), blocking dense on the stream of 4, then
+    the swap's stream unpressured (48 blocks) and scheduled (10 blocks,
+    ``SLOConfig(priority_admission=False)``).  Returns {name: record}."""
+    from repro_torch.core.kv_compress import KVCompressConfig
+    from repro_torch.runtime.kv_pool import PagedKVConfig
+    from repro_torch.runtime.scheduler import SLOConfig
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    (reqs, prompts), (sreqs, sprompts) = rec_tiny_streams()
+    ccfg = KVCompressConfig(**REC_CC)
+    chunked = dict(batch_size=2, max_seq=96, kv_compress=ccfg,
+                   prefill_chunk=8)
+    swap = dict(chunked, use_clustered_batching=False)
+    serves = {
+        "static": (ServerConfig(batch_size=1, max_seq=96, engine="static",
+                                use_clustered_batching=False), False),
+        "chunked": (ServerConfig(**chunked), False),
+        "paged": (ServerConfig(**chunked, paged=PagedKVConfig(block_size=4)),
+                  False),
+        "blocking": (ServerConfig(batch_size=2, max_seq=96,
+                                  kv_compress=ccfg), False),
+        "swap unpressured": (ServerConfig(**swap, paged=PagedKVConfig(
+            block_size=4, pool_blocks=REC_POOL_BIG)), True),
+        "swap scheduled": (ServerConfig(**swap, paged=PagedKVConfig(
+            block_size=4, pool_blocks=REC_POOL_TIGHT),
+            scheduler=SLOConfig(priority_admission=False)), True),
+    }
+    out = {}
+    for name, (scfg, is_swap) in serves.items():
+        srv = Server(cfg, scfg, params, device=dev)
+        r, p = (sreqs, sprompts) if is_swap else (reqs, prompts)
+        out[name] = run_serve(torch, srv, r, p, f"4b {cfg.layer_pattern} "
+                              f"{name}")
+    return out
+
+
+def check_rec_tiny(torch, dev, smi):
+    """Phase 4b: 'GM' and 'GR' at TINY width on the card, each serve also
+    run on the CPU from the same port weights (seed 0).  Gates on the
+    card: chunked == static, paged == chunked, blocking == chunked and the
+    scheduled swap == unpressured, token for token; clustered_decode once
+    an engine step (one 'G' layer) in every dense clustered serve and
+    paged_clustered_decode once a step in every paged one, the other
+    never; bitserial_median >= absorbs + compress admissions +
+    compactions; at least one preemption and one resume; every serve's
+    state_bytes_recurrent > 0 and kv_retired_recurrent 0; every pool back
+    to 0; every serve's tokens equal the CPU's run of it (f32 at TINY
+    width: the card's and the CPU's GEMMs agree on these tokens)."""
+    from repro_torch.models import transformer as tfm
+
+    record = {}
+    for pattern in ("GM", "GR"):
+        cfg = rec_tiny_cfg(pattern)
+        params = tfm.init_params(0, cfg, device="cpu")
+        card = rec_tiny_serves(torch, dev, cfg, params)
+        cpu = rec_tiny_serves(torch, torch.device("cpu"), cfg, params)
+        problems = []
+        for a, b in (("chunked", "static"), ("paged", "chunked"),
+                     ("blocking", "chunked")):
+            if card[a]["tokens"] != card[b]["tokens"]:
+                problems.append(f"{a} tokens differ from {b}'s")
+        free, sched = card["swap unpressured"], card["swap scheduled"]
+        if sched["tokens"] != free["tokens"]:
+            problems.append("swap scheduled tokens differ from unpressured")
+        st = sched["stats"]
+        if not (st["sched_preemptions"] >= 1 and st["sched_swaps_in"] >= 1):
+            problems.append(f"preemptions {st['sched_preemptions']}, swaps "
+                            f"in {st['sched_swaps_in']}")
+        for name, rec in card.items():
+            st, ln = rec["stats"], rec["launches"]
+            if name == "static":
+                if any(ln.values()):
+                    problems.append(f"static launched {ln}")
+                continue
+            steps = rec["engine_steps"]
+            kernel, other = (
+                ("paged_clustered_decode", "clustered_decode")
+                if "pool_blocks_end" in st else
+                ("clustered_decode", "paged_clustered_decode"))
+            if (ln[kernel], ln[other]) != (steps, 0):
+                problems.append(f"{name}: {kernel} {ln[kernel]} (want 1 x "
+                                f"{steps}), {other} {ln[other]} (want 0)")
+            need = (int(st["kv_absorbs"]) + int(st["kv_compactions"])
+                    + int(st.get("kv_admit_compress", 0)))
+            if not ln["bitserial_median"] >= need > 0:
+                problems.append(f"{name}: bitserial_median "
+                                f"{ln['bitserial_median']}, want >= {need}"
+                                " > 0")
+            if not (st["state_bytes_recurrent"] > 0
+                    and st["kv_retired_recurrent"] == 0):
+                problems.append(f"{name}: state_bytes_recurrent "
+                                f"{st['state_bytes_recurrent']}, "
+                                f"kv_retired_recurrent "
+                                f"{st['kv_retired_recurrent']}")
+            if st.get("pool_blocks_end", 0) != 0:
+                problems.append(f"{name}: pool_blocks_end "
+                                f"{st['pool_blocks_end']}")
+        agree = {name: sum(card[name]["tokens"][u] == cpu[name]["tokens"][u]
+                           for u in card[name]["tokens"])
+                 for name in card}
+        for name, n in agree.items():
+            if n != len(card[name]["tokens"]):
+                problems.append(f"{name}: card tokens equal the CPU's on {n}"
+                                f" of {len(card[name]['tokens'])} requests")
+        sched_st = card["swap scheduled"]["stats"]
+        say(f"[{smi}] 4b {pattern}: "
+            + "; ".join(f"{name} {rec['engine_steps']} steps "
+                        f"{rec['wall_s']:.3f} s, launches "
+                        f"{ {k: v for k, v in rec['launches'].items() if v} }"
+                        for name, rec in card.items())
+            + f"; swap: {int(sched_st['sched_preemptions'])} preemptions, "
+            f"{int(sched_st['sched_swaps_in'])} resumes, state_bytes_"
+            f"recurrent {int(sched_st['state_bytes_recurrent'])} B; card == "
+            f"CPU tokens (requests): {agree}")
+        if problems:
+            raise AssertionError(f"4b {pattern}: " + "; ".join(problems))
+        record[pattern] = {"card": card, "cpu_agree": agree}
+    return record
+
+
+# ---------------------------------------------------------------------------
+# 5l and 5m: recurrentgemma-9b and mamba2-2.7b at full width and depth
+# ---------------------------------------------------------------------------
+
+# recurrentgemma-9b: 38 layers 'RRL' (26 'R', 12 'L', window 2,048);
+# mamba2-2.7b: 64 'M' layers.  Per-slot recurrent state bytes: an 'R'
+# layer's bf16 (3, lru_width) conv tail and f32 h, an 'M' layer's bf16 (3,
+# d_inner + 2 d_state) conv tail and f32 (heads, head_dim, d_state) state
+RG_MAX_SEQ, MAMBA_MAX_SEQ, REC_CHUNK = 4096, 2048, 64
+RG_STATE_B = 26 * (3 * 4096 * 2 + 4096 * 4)
+MAMBA_STATE_B = 64 * (3 * 5376 * 2 + 80 * 64 * 128 * 4)
+
+
+def recurrentgemma_requests(vocab):
+    """5l's 4 requests from ``default_rng(5)``: one prompt of 2,112 tokens
+    (past the 2,048 window) and three of 96-128, 24-40 new tokens each,
+    so every one of the batch's 4 slots holds recurrent state.  (Cut from
+    5 requests of 96-512 beside the long one: a mixed step dispatches
+    ~100k host ops, one prefill is in flight at a time, so a serve's wall
+    follows its prompt tokens; three short prompts cost the 6 chunks that
+    one of 375 did.)"""
+    from repro_torch.core.request_cluster import Request
+
+    rng = np.random.default_rng(5)
+    lens = np.concatenate([[2112], rng.integers(96, 129, size=3)])
+    gens = rng.integers(24, 41, size=4)
+    reqs = [Request(i, int(lens[i]), int(gens[i])) for i in range(4)]
+    prompts = {i: rng.integers(0, vocab, size=int(lens[i])).astype(np.int32)
+               for i in range(4)}
+    return reqs, prompts
+
+
+def mamba2_requests(vocab):
+    """5m's 4 requests from ``default_rng(6)``: prompts of 96-128 tokens,
+    24-40 new tokens each (the issue's 96-384 narrowed, as 5l's are, so 4
+    live slots cost the 8 chunks that 2 prompts of 96-384 did)."""
+    from repro_torch.core.request_cluster import Request
+
+    rng = np.random.default_rng(6)
+    lens = rng.integers(96, 129, size=4)
+    gens = rng.integers(24, 41, size=4)
+    reqs = [Request(i, int(lens[i]), int(gens[i])) for i in range(4)]
+    prompts = {i: rng.integers(0, vocab, size=int(lens[i])).astype(np.int32)
+               for i in range(4)}
+    return reqs, prompts
+
+
+def recurrent_full_params(torch, dev, cfg):
+    """bf16 weights from ``init_params`` seed 0 on ``dev``, timed."""
+    from repro_torch.models import transformer as tfm
+
+    t0 = time.perf_counter()
+    gen = (torch.Generator(device=dev).manual_seed(0) if dev.type == "cuda"
+           else 0)
+    params = tfm.init_params(gen, cfg, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n_par = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    say(f"{cfg.name} params ({cfg.n_layers} layers '{cfg.layer_pattern}', "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}: "
+        f"{n_par:,} parameters, {n_bytes / 1e9:.2f} GB, the gate and SSD "
+        f"scalars f32) initialised in {time.perf_counter() - t0:.1f} s")
+    return params, n_par, n_bytes
+
+
+def recurrent_serves(torch, dev, cfg, params, max_seq, reqs, prompts, modes):
+    """Serve the requests once per mode, with the smoke's KVCompressConfig
+    (inert: no 'G' layer to cluster): "chunked" (chunk 64), "paged" (the
+    same over blocks of 16) and "blocking" (one sequential prefill an
+    admission, bucket 1).  Returns {mode: run_serve record}."""
+    from repro_torch.runtime.kv_pool import PagedKVConfig
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    kw = {"chunked": dict(prefill_chunk=REC_CHUNK),
+          "paged": dict(prefill_chunk=REC_CHUNK,
+                        paged=PagedKVConfig(block_size=BS)),
+          "blocking": {}}
+    out = {}
+    for mode in modes:
+        srv = Server(cfg, ServerConfig(batch_size=4, max_seq=max_seq,
+                                       kv_compress=smoke_kv_compress(),
+                                       **kw[mode]), params, device=dev)
+        out[mode] = run_serve(torch, srv, reqs, prompts, f"{cfg.name} "
+                              f"{mode}")
+    return out
+
+
+class _OpCounter:
+    """Counts the non-view aten ops dispatched in its ``with`` block: the
+    host's dispatches, each of which launches at least one kernel when its
+    tensors are on the card (views launch none)."""
+
+    def __init__(self, torch):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if not func.is_view:
+                    counter.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n = 0
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def step_dispatches(torch, dev, cfg, params, max_seq):
+    """Host dispatches (non-view aten ops) and wall ms of one mixed engine
+    step (4 slots, a 64-token chunk beside 3 decode rows) and of one
+    decode step, on a fresh dense cache of the serve's layout, as
+    ``transformer.decode_step`` runs them.  The counts do not depend on
+    the widths or the device for these models (no kernel wrapper runs)."""
+    from repro_torch.models import transformer as tfm
+
+    ccfg = smoke_kv_compress()
+    cache = tfm.init_cache(cfg, 4, max_seq, kv_mode="clustered",
+                           kv_clusters=ccfg.n_clusters,
+                           kv_tail=ccfg.keep_recent, device=dev)
+    rng = np.random.default_rng(0)
+    out = {}
+    with torch.inference_mode():
+        for name, width, cl in (("mixed", REC_CHUNK, [REC_CHUNK, 1, 1, 1]),
+                                ("decode", 1, None)):
+            tok = torch.from_numpy(rng.integers(
+                0, cfg.vocab, size=(4, width)).astype(np.int32)).to(dev)
+            t = torch.tensor([0, 100, 200, 300], dtype=torch.int32,
+                             device=dev)
+            kw = ({} if cl is None else
+                  {"chunk_len": torch.tensor(cl, dtype=torch.int32,
+                                             device=dev)})
+            with _OpCounter(torch) as c:           # warms the timed run
+                tfm.decode_step(params, cfg, cache, tok, t, **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tfm.decode_step(params, cfg, cache, tok, t, **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out[name] = {"dispatches": c.n,
+                         "ms": (time.perf_counter() - t0) * 1e3}
+    return out
+
+
+def serve_recurrent_full(torch, dev, smi, arch):
+    """Phases 5l (recurrentgemma-9b: chunked dense, chunked paged,
+    blocking dense) and 5m (mamba2-2.7b: chunked dense, blocking dense;
+    the paged construction must raise the reference's "ring-family"
+    ValueError) at full width and depth, bf16 weights from seed 0.
+    Gates: every request complete; B1, B2 and B3 never launched (no 'G'
+    layer, as in the reference); state_bytes_recurrent exactly the
+    per-slot figure (RG_STATE_B, MAMBA_STATE_B) and kv_retired_recurrent
+    0; recurrentgemma: kv_retired_window > 0, paged pool_frees ==
+    pool_allocs and pool_blocks_end 0.  Printed: chunked vs blocking and
+    paged vs dense agreement, host dispatches and wall of one mixed and
+    one decode step, each serve's steps and wall, the peak of
+    ``torch.cuda.max_memory_allocated()``.  Returns the record; the
+    weights are freed."""
+    from repro_torch import configs
+    from repro_torch.runtime.kv_pool import PagedKVConfig
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg = configs.get_config(arch)
+    rg = arch == "recurrentgemma-9b"
+    max_seq = RG_MAX_SEQ if rg else MAMBA_MAX_SEQ
+    want_b = RG_STATE_B if rg else MAMBA_STATE_B
+    reqs, prompts = (recurrentgemma_requests if rg else mamba2_requests)(
+        cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    params, n_par, n_bytes = recurrent_full_params(torch, dev, cfg)
+    problems = []
+    if not rg:
+        try:
+            Server(cfg, ServerConfig(batch_size=4, max_seq=max_seq,
+                                     kv_compress=smoke_kv_compress(),
+                                     prefill_chunk=REC_CHUNK,
+                                     paged=PagedKVConfig(block_size=BS)),
+                   params, device=dev)
+            problems.append("paged construction did not raise")
+        except ValueError as e:
+            if "ring-family" not in str(e):
+                problems.append(f"paged construction raised {e!r}")
+    modes = ("chunked", "paged", "blocking") if rg else ("chunked",
+                                                         "blocking")
+    recs = recurrent_serves(torch, dev, cfg, params, max_seq, reqs, prompts,
+                            modes)
+    steps = step_dispatches(torch, dev, cfg, params, max_seq)
+    peak = torch.cuda.max_memory_allocated()
+    for mode, rec in recs.items():
+        st, ln = rec["stats"], rec["launches"]
+        if any(ln[k] for k in ("clustered_decode", "paged_clustered_decode",
+                               "bitserial_median")):
+            problems.append(f"{mode}: kernels launched {ln}")
+        if not (st["state_bytes_recurrent"] == want_b
+                and st["kv_retired_recurrent"] == 0):
+            problems.append(f"{mode}: state_bytes_recurrent "
+                            f"{st['state_bytes_recurrent']} (want {want_b}),"
+                            f" kv_retired_recurrent "
+                            f"{st['kv_retired_recurrent']}")
+        if rg and not st["kv_retired_window"] > 0:
+            problems.append(f"{mode}: kv_retired_window "
+                            f"{st['kv_retired_window']}")
+        if "pool_blocks_end" in st and not (
+                st["pool_frees"] == st["pool_allocs"]
+                and st["pool_blocks_end"] == 0):
+            problems.append(f"{mode}: pool allocs {st['pool_allocs']}, frees"
+                            f" {st['pool_frees']}, end "
+                            f"{st['pool_blocks_end']}")
+    phase = "5l" if rg else "5m"
+    for mode, rec in recs.items():
+        st = rec["stats"]
+        say(f"[{smi}] {phase} {arch} {mode}: {len(reqs)} requests (prompts "
+            f"{[r.prompt_len for r in reqs]}, {int(st['gen_tokens'])} "
+            f"generated) in {rec['wall_s']:.3f} s wall; "
+            f"{rec['engine_steps']} engine steps, "
+            f"{int(st['prefill_chunks'])} prefill chunks; kv_retired_window"
+            f" {int(st['kv_retired_window'])}, kv_retired_recurrent "
+            f"{int(st['kv_retired_recurrent'])}, state_bytes_recurrent "
+            f"{int(st['state_bytes_recurrent'])} B a slot; kernel launches "
+            f"{ {k: v for k, v in rec['launches'].items() if v} }; "
+            f"{times_line(rec)}; tokens sha256 {rec['tokens_sha256']}")
+    compare_tokens(recs["chunked"], recs["blocking"],
+                   f"{phase} blocking vs chunked")
+    if rg:
+        compare_tokens(recs["chunked"], recs["paged"],
+                       f"{phase} paged vs dense")
+    say(f"[{smi}] {phase} {arch}: one mixed step (a 64-token chunk and 3 "
+        f"decode rows) {steps['mixed']['dispatches']} host dispatches "
+        f"(non-view aten ops) in {steps['mixed']['ms']:.1f} ms, one decode "
+        f"step {steps['decode']['dispatches']} in "
+        f"{steps['decode']['ms']:.1f} ms; clustered_decode, "
+        f"paged_clustered_decode and bitserial_median 0 a step; peak memory"
+        f" allocated {peak / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError(f"{phase} {arch}: " + "; ".join(problems))
+    return {"serves": recs, "steps": steps, "peak_bytes": peak,
+            "n_params": n_par, "param_bytes": n_bytes,
+            "prompt_lens": [r.prompt_len for r in reqs]}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: k-medians through distance_argmin and bitserial_median, and the
 # paper's pipeline
 # ---------------------------------------------------------------------------
@@ -2341,14 +2882,15 @@ def main() -> int:
     record["ptxas"] = dict(_build.BUILD_LOG)
     done("2 build")
 
-    # phase 3: kernels vs plain (B1 and B2 also at gemma2's heads and in
-    # the quota layout)
+    # phase 3: kernels vs plain (B1 and B2 also at gemma2's heads, at 4b's
+    # TINY 'G' layer and in the quota layout)
     cd_err = check_clustered_decode(torch, cd, dev)
     pcd_err = check_paged_decode(torch, cd, pcd, dev)
     gemma_err = check_gemma_decode(torch, cd, pcd, dev)
+    tiny_err = check_rec_tiny_decode(torch, cd, pcd, dev)
     quota_err = check_paged_quota(torch, attention, pcd, dev)
-    cd_err = max(cd_err, gemma_err)
-    pcd_err = max(pcd_err, gemma_err, quota_err)
+    cd_err = max(cd_err, gemma_err, tiny_err)
+    pcd_err = max(pcd_err, gemma_err, tiny_err, quota_err)
     da_err = check_distance_argmin(torch, da, dev)
     bsm_err = check_bitserial_median(torch, bsm, dev)
     fd_err = check_flash_decode(torch, fd, dev)
@@ -2357,6 +2899,12 @@ def main() -> int:
     # phase 4: small model, card vs CPU
     check_small_model(torch, dev)
     done("4 small model")
+
+    # phase 4b: TINY 'GM' / 'GR', the clustered kernels beside recurrent
+    # state, card vs CPU
+    rec_tiny = check_rec_tiny(torch, dev, smi)
+    record["rec_tiny"] = rec_tiny
+    done("4b recurrent TINY")
 
     # phase 5: serve
     serve, params = serve_qwen3(torch, dev, smi)
@@ -2422,6 +2970,14 @@ def main() -> int:
     del gparams
     torch.cuda.empty_cache()
 
+    # phases 5l and 5m: the recurrent families at full width and depth
+    record["serve_recurrentgemma"] = serve_recurrent_full(
+        torch, dev, smi, "recurrentgemma-9b")
+    done("5l recurrentgemma-9b (weights included)")
+    record["serve_mamba2"] = serve_recurrent_full(torch, dev, smi,
+                                                  "mamba2-2.7b")
+    done("5m mamba2-2.7b (weights included)")
+
     # phase 6: k-medians through both clustering kernels, the pipeline
     km = kmedians(torch, dev)
     record["kmedians"] = km
@@ -2476,6 +3032,8 @@ def main() -> int:
              launches=serve["launches"]["clustered_decode"],
              launches_blocking=blocking["launches"]["clustered_decode"],
              launches_windowed=windowed["launches"]["clustered_decode"],
+             launches_recurrent={p: r["card"]["chunked"]["launches"][
+                 "clustered_decode"] for p, r in rec_tiny.items()},
              max_abs_err=cd_err, ms=tm["clustered_decode"]["ms"],
              plain_ms=tm["clustered_decode"]["plain_ms"],
              bound_ms=tm["clustered_decode"]["bound_ms"],
@@ -2496,6 +3054,8 @@ def main() -> int:
                                       for r in store["serves"]],
              launches_slo=slo["scheduled"]["launches"][
                  "paged_clustered_decode"],
+             launches_recurrent={p: r["card"]["paged"]["launches"][
+                 "paged_clustered_decode"] for p, r in rec_tiny.items()},
              max_abs_err=pcd_err, ms=tm["paged_clustered_decode"]["ms"],
              plain_ms=tm["paged_clustered_decode"]["plain_ms"],
              bound_ms=tm["paged_clustered_decode"]["bound_ms"],
@@ -2529,6 +3089,8 @@ def main() -> int:
              launches_template_store=[r["launches"]["bitserial_median"]
                                       for r in store["serves"]],
              launches_slo=slo["scheduled"]["launches"]["bitserial_median"],
+             launches_recurrent={p: r["card"]["chunked"]["launches"][
+                 "bitserial_median"] for p, r in rec_tiny.items()},
              max_abs_err=bsm_err, ms=tm["bitserial_median"]["ms"],
              plain_ms=tm["bitserial_median"]["plain_ms"],
              bound_ms=tm["bitserial_median"]["bound_ms"],

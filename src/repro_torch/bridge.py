@@ -8,7 +8,9 @@ so tests can hand both packages the same weights and caches.
 
 Parameters are cast from the f32 masters to ``cfg.dtype`` once, here —
 the reference casts at every use, and a cast is deterministic — except
-norm scales and biases, which stay f32 as ``apply_norm`` uses them.  bf16
+the leaves the reference reads uncast, which stay f32: norm scales and
+biases (``apply_norm``), an 'M' layer's ``dt_bias``, ``A_log``, ``D``
+and ``norm``, and an 'R' layer's gate weights and biases and ``lam``.  bf16
 arrays from JAX are ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses, so they cross as their uint16 bit patterns.
 """
@@ -23,7 +25,11 @@ from repro_torch.models.layers import cdtype
 from repro_torch.models.transformer import layout
 
 #: parameter leaves kept in f32 whatever the config dtype
-F32_KEYS = frozenset({"scale", "bias", "q_norm", "k_norm"})
+F32_KEYS = frozenset({"scale", "bias", "q_norm", "k_norm",
+                      # models/ssm.py
+                      "dt_bias", "A_log", "D", "norm",
+                      # models/rglru.py
+                      "wa_gate", "wi_gate", "ba_gate", "bi_gate", "lam"})
 
 
 def to_torch(a, device=None) -> torch.Tensor:

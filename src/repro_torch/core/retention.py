@@ -1,6 +1,5 @@
 """Retention policies: *what* the KV cache must keep, decoupled from
-*where* the bytes live (port of ``repro.core.retention`` without its
-recurrent policy).
+*where* the bytes live (port of ``repro.core.retention``).
 
 A :class:`RetentionPolicy` answers one question — which claimed positions
 must survive? — through a per-slot lower bound ``retire_lo(slot, t)``:
@@ -18,9 +17,8 @@ the policy sets ``keep_unwritten``.
   nothing retires mid-stream; a request's whole depth is reserved at
   admission and returned at slot exit, so an oversubscribed pool defers
   admissions instead of running dry mid-decode.
-
-``RecurrentRetention`` comes with the recurrent layers (ROADMAP Queue A
-item 8).
+* :class:`RecurrentRetention` — recurrent-state layers ('M', 'R'): every
+  position is folded into a fixed-size state, so nothing ever retires.
 """
 
 from __future__ import annotations
@@ -125,6 +123,34 @@ class WindowRetention(RetentionPolicy):
         super().on_slot_free(slot)
         if slot < self._head.shape[0]:
             self._head[slot] = 0
+
+
+class RecurrentRetention(RetentionPolicy):
+    """Recurrent-state layers (Mamba2 'M', RG-LRU 'R'): nothing retires.
+
+    Every past token is already folded into ``(conv, ssm)`` / ``(conv,
+    h)``, so there are no claimed positions to retire, protect or sweep.
+    The policy names the family so the engine's per-serve counters carry
+    an explicit ``kv_retired_recurrent`` of 0."""
+
+    kind = "recurrent"
+    #: nothing is position-claimed, so sweeps must not touch these slots
+    keep_unwritten = True
+
+    def __init__(self, kinds=("M", "R")):
+        self.kinds = tuple(kinds)
+
+    def retire_lo(self, slot: int, t: int) -> int:
+        return 0
+
+    def advance(self, slot: int, t: int) -> int:
+        """Move slot's stream head to ``t``: zero positions retire."""
+        return 0
+
+    def diagnostics(self) -> dict:
+        """Named per-family counters for the end-of-serve publish."""
+        return {"kv_retired_recurrent": 0,
+                "retention_recurrent_kinds": "".join(self.kinds)}
 
 
 class QuotaRetention(RetentionPolicy):

@@ -1,29 +1,38 @@
-"""Model assembly for serving a decoder-only GQA stack of global ('G')
-and sliding-window ('L') layers (port of the prefill and decode subset of
+"""Model assembly for serving a decoder-only stack of global ('G') and
+sliding-window ('L') GQA layers, Mamba2 SSD ('M') and RG-LRU ('R')
+recurrent layers (port of the prefill and decode subset of
 ``repro.models.transformer``).
 
 Parameters: ``{"embed": {"table"}, "layers": [per-layer dict], "final_norm"}``
-where each layer dict has the reference's keys ("norm1", "attn", "norm2",
-"mlp", and "post_attn_norm" / "post_mlp_norm" under ``post_norms``).  The reference stacks repeated layers under ``params["scan"]``
-with a leading layer axis; the port keeps one entry per layer and runs a
-Python loop over them (``bridge`` converts between the two).  The decode
-cache is ``{"layers": [per-layer leaf]}`` with the reference's leaf
-layouts; :func:`prefill` builds an exact one and :func:`decode_step`
-updates a cache in place.
+where each layer dict has the reference's keys: "norm1", "attn", "norm2",
+"mlp" (and "post_attn_norm" / "post_mlp_norm" under ``post_norms``) for an
+attention layer, "norm1" and "ssm" for an 'M' layer, "norm1", "rg",
+"norm2" and "mlp" for an 'R' layer.  The reference stacks repeated layers
+under ``params["scan"]`` with a leading layer axis; the port keeps one
+entry per layer and runs a Python loop over them (``bridge`` converts
+between the two).  The decode cache is ``{"layers": [per-layer leaf]}``
+with the reference's leaf layouts; :func:`prefill` builds an exact one and
+:func:`decode_step` updates a cache in place (a recurrent leaf's entries
+are replaced by the stepped state; an attention leaf's tensors are
+written).
 """
 
 from __future__ import annotations
 
 from typing import List
 
+import numpy as np
 import torch
 
+from repro_torch.core import layer_state
 from repro_torch.kernels.clustered_decode import per_slot
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rg_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
-                                       init_embed, init_mlp, init_norm,
-                                       lm_logits, resolve_device)
+from repro_torch.models.layers import (apply_mlp, apply_norm, cdtype,
+                                       embed_tokens, init_embed, init_mlp,
+                                       init_norm, lm_logits, resolve_device)
 
 
 def layout(cfg: ModelConfig):
@@ -43,18 +52,16 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves decoder-only dense stacks of 'G' layers and 'L'
-    layers with a ``sliding_window``; anything else names the ROADMAP item
-    that brings it."""
+    """The port serves decoder-only dense stacks of 'G' layers, 'L' layers
+    with a ``sliding_window``, and 'M' / 'R' recurrent layers; anything
+    else names the ROADMAP item that brings it."""
     kinds = set(layer_kinds(cfg))
     if "L" in kinds and not cfg.sliding_window:
         raise ValueError(f"model '{cfg.name}': 'L' layers need a "
                          "sliding_window")
     problems = []
-    if kinds - {"G", "L"}:
-        problems.append(f"layer pattern {cfg.layer_pattern!r} (the "
-                        "recurrent kinds 'M' and 'R' are ROADMAP Queue A "
-                        "item 8)")
+    if kinds - set("GLMR"):
+        problems.append(f"unknown layer kinds in {cfg.layer_pattern!r}")
     if cfg.moe is not None:
         problems.append("MoE layers (ROADMAP Queue A item 8)")
     if cfg.attn_kind != "gqa":
@@ -76,13 +83,21 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def init_sublayer(generator, cfg: ModelConfig, kind: str, device=None):
-    """One attention sublayer's parameters, with the sandwich norms
-    ("post_attn_norm", "post_mlp_norm") when ``cfg.post_norms`` is set."""
+    """One sublayer's parameters: an attention layer with the sandwich
+    norms ("post_attn_norm", "post_mlp_norm") when ``cfg.post_norms`` is
+    set, an 'M' layer with no FFN, an 'R' layer with "norm2" and "mlp"."""
+    p = {"norm1": init_norm(cfg, cfg.d_model, device)}
+    if kind == "M":
+        p["ssm"] = ssm_mod.init_ssm(generator, cfg, device)
+        return p
+    if kind == "R":
+        p["rg"] = rg_mod.init_rglru(generator, cfg, device)
+        p["norm2"] = init_norm(cfg, cfg.d_model, device)
+        p["mlp"] = init_mlp(generator, cfg, cfg.d_ff, device)
+        return p
     if kind not in ("G", "L"):
-        raise NotImplementedError(f"layer kind {kind!r} is not ported "
-                                  "(ROADMAP Queue A item 8)")
-    p = {"norm1": init_norm(cfg, cfg.d_model, device),
-         "attn": attn.init_attn(generator, cfg, device)}
+        raise ValueError(kind)
+    p["attn"] = attn.init_attn(generator, cfg, device)
     if cfg.post_norms:
         p["post_attn_norm"] = init_norm(cfg, cfg.d_model, device)
     p["norm2"] = init_norm(cfg, cfg.d_model, device)
@@ -130,10 +145,14 @@ def init_sublayer_cache(cfg: ModelConfig, kind: str, batch: int,
                         kv_pool_blocks: int = 0, kv_block_size: int = 0,
                         device=None):
     """A layer's decode cache.  In ``kv_mode="clustered"`` only 'G' layers
-    take the clustered layout; an 'L' layer keeps its dense window ring."""
+    take the clustered layout; an 'L' layer keeps its dense window ring,
+    an 'M' / 'R' layer its fixed-size recurrent state."""
+    if kind == "M":
+        return ssm_mod.init_cache_ssm(cfg, batch, device=device)
+    if kind == "R":
+        return rg_mod.init_cache_rglru(cfg, batch, device=device)
     if kind not in ("G", "L"):
-        raise NotImplementedError(f"layer kind {kind!r} is not ported "
-                                  "(ROADMAP Queue A item 8)")
+        raise ValueError(kind)
     if kind == "G" and kv_mode == "clustered":
         return attn.init_cache_attn_clustered(
             cfg, batch, n_clusters=kv_clusters, tail=kv_tail,
@@ -163,38 +182,74 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def clustered_slot_state(cache, j: int):
-    """Snapshot slot ``j``'s summary rows (``attention.CLUSTERED_SLOT_KEYS``:
-    centroids, counts, coverage frontier) from every clustered leaf of an
-    engine cache, as ``{"layers": [{key: (1, ...)} or None]}`` (None for a
-    leaf that is not clustered: an 'L' window ring is in no snapshot).
-    Tail payloads are not copied: in the paged engine they live in pool
-    blocks that the prefix cache pins by ref count.
+    """Snapshot slot ``j``'s per-slot state from every snapshot-bearing
+    leaf of an engine cache, as ``{"layers": [{key: (1, ...)} or None]}``:
 
-    The rows are cloned, not viewed: slot ``j`` goes on absorbing and
-    decoding after the snapshot, and a view would follow it."""
-    return {"layers": [
-        {k: leaf[k][j:j + 1].clone() for k in attn.CLUSTERED_SLOT_KEYS}
-        if "k_cents" in leaf else None
-        for leaf in cache["layers"]]}
+    * a clustered leaf's summary rows (``attention.CLUSTERED_SLOT_KEYS``:
+      centroids, counts, coverage frontier).  Tail payloads are not
+      copied: in the paged engine they live in pool blocks that the
+      prefix cache pins by ref count;
+    * a recurrent leaf's whole fixed-size state ("conv" and "ssm" or
+      "h"): for the recurrent family the state is the checkpoint, so
+      prefix sharing and the swap carry it in this same snapshot.
+
+    Any other leaf (an 'L' window ring) is None.  The rows are cloned, not
+    viewed: slot ``j`` goes on absorbing and decoding after the snapshot,
+    and a view would follow it."""
+    def leaf_state(leaf):
+        if "k_cents" in leaf:
+            keys = attn.CLUSTERED_SLOT_KEYS
+        elif layer_state.is_recurrent_leaf(leaf):
+            keys = tuple(leaf)
+        else:
+            return None
+        return {k: leaf[k][j:j + 1].clone() for k in keys}
+
+    return {"layers": [leaf_state(leaf) for leaf in cache["layers"]]}
 
 
 def restore_clustered_slot_state(cache, snap, j: int):
     """Write a ``clustered_slot_state`` snapshot into slot ``j`` of every
-    clustered leaf, in place (prefix-shared admission: the reused prompt
-    centroids and coverage frontier land in the fresh slot; its ring
-    blocks are adopted through the block table separately).  Returns the
+    snapshot-bearing leaf, in place (prefix-shared admission and the
+    swap's resume: the reused prompt centroids and coverage frontier, and
+    a recurrent layer's whole state, land in the fresh slot; ring blocks
+    are adopted through the block table separately).  Returns the
     cache."""
     for leaf, s in zip(cache["layers"], snap["layers"]):
         if s is not None:
-            for k in attn.CLUSTERED_SLOT_KEYS:
-                leaf[k][j:j + 1] = s[k].to(leaf[k].dtype)
+            for k, v in s.items():
+                leaf[k][j:j + 1] = v.to(leaf[k].dtype)
     return cache
 
 
 def sublayer_prefill(p, h, cfg: ModelConfig, kind: str, *, positions,
-                     kv_repeat: int, max_seq: int):
+                     kv_repeat: int, max_seq: int,
+                     recurrent_mode: str = "sequential"):
     """h (B, S, d) → (h, cache): a 'G' layer's exact k/v zero-padded out
-    to ``max_seq`` positions for decode, an 'L' layer's window ring."""
+    to ``max_seq`` positions for decode, an 'L' layer's window ring, an
+    'M' / 'R' layer's final recurrent state.
+
+    ``recurrent_mode`` picks how a recurrent layer computes its prefill:
+    "sequential" (the default, what the serving engine runs) steps the
+    one-token decode position by position, so the prefill gives the bits
+    of feeding the prompt through the decode path, as chunked admission
+    does; "scan" runs the parallel forms (chunked SSD, the log-depth
+    linear scan), equal to stepping the decode only within rounding, and
+    is kept for parity with the reference's default."""
+    if kind in ("M", "R"):
+        x = apply_norm(p["norm1"], h, cfg)
+        if recurrent_mode == "sequential":
+            init = (ssm_mod.init_cache_ssm if kind == "M"
+                    else rg_mod.init_cache_rglru)
+            y, cache = _recurrent_prefill_sequential(
+                _recurrent_step_fn(p, cfg, kind), x,
+                init(cfg, x.shape[0], device=x.device))
+        elif kind == "M":
+            y, cache = _ssm_prefill(p["ssm"], x, cfg)
+        else:
+            y, cache = rg_mod.rglru_prefill(p["rg"], x, cfg)
+        h = h + y
+        return (h if kind == "M" else _ffn(p, h, cfg)), cache
     x = apply_norm(p["norm1"], h, cfg)
     y, cache = attn.attn_prefill(p["attn"], x, cfg, layer_kind=kind,
                                  positions=positions, kv_repeat=kv_repeat)
@@ -208,30 +263,95 @@ def sublayer_prefill(p, h, cfg: ModelConfig, kind: str, *, positions,
     return _ffn(p, h, cfg), cache
 
 
+def _recurrent_prefill_sequential(step_fn, x, cache):
+    """Prefill a recurrent layer by stepping its one-token decode.
+
+    x (B, S, d) normed input; ``step_fn(xt (B, 1, d), cache) -> (y,
+    cache)`` is the layer's decode recurrence.  Returns (y (B, S, d),
+    cache): the per-step ops of feeding the S positions through the
+    decode path one at a time, which the engine's mixed launch does."""
+    ys = []
+    for t in range(x.shape[1]):
+        y, cache = step_fn(x[:, t:t + 1], cache)
+        ys.append(y[:, 0])
+    return torch.stack(ys, dim=1), cache
+
+
+def _ssm_prefill(p, x, cfg: ModelConfig):
+    """Chunked SSD forward of x (B, S, d) and the final (conv, ssm) state
+    for decode."""
+    s_cfg = cfg.ssm
+    dt_ = cdtype(cfg)
+    d_in, hh, _ = ssm_mod._dims(cfg)
+    gn = s_cfg.n_groups * s_cfg.d_state
+    z, xbc_raw, dt_raw = ssm_mod._split(p, x, cfg)
+    xbc = ssm_mod._conv_train(p, xbc_raw, cfg)
+    b, s, _ = x.shape
+    xh = xbc[..., :d_in].reshape(b, s, hh, s_cfg.head_dim)
+    Bm = xbc[..., d_in:d_in + gn].reshape(b, s, s_cfg.n_groups,
+                                          s_cfg.d_state)
+    Cm = xbc[..., d_in + gn:].reshape(b, s, s_cfg.n_groups, s_cfg.d_state)
+    dt = ssm_mod._softplus(dt_raw.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, final_state = ssm_mod.ssd_chunked(xh, dt, A, Bm, Cm, p["D"],
+                                         s_cfg.chunk)
+    out = ssm_mod._gated_out(p, y.reshape(b, s, d_in).to(dt_), z, cfg)
+    k1 = s_cfg.d_conv - 1
+    conv_tail = (xbc_raw[:, -k1:] if s >= k1
+                 else torch.nn.functional.pad(xbc_raw, (0, 0, k1 - s, 0)))
+    return out, {"conv": conv_tail.to(dt_), "ssm": final_state}
+
+
 def prefill(params, cfg: ModelConfig, tokens, *, max_seq: int,
-            kv_repeat: int = 1, last_pos=None):
+            kv_repeat: int = 1, last_pos=None,
+            recurrent_mode: str = "sequential"):
     """Full-sequence prefill of tokens (B, S).  Returns (logits (B, V) f32
     of position ``last_pos`` (default the last), cache): with prompts
     right-padded to a bucket, the causal mask keeps position last_pos
     exact whatever the padding behind it.  The cache is exact,
-    ``{"layers": [{"k", "v"}]}``: (B, max(S, max_seq), Hkv, Dh) for a 'G'
-    layer, the (B, window, Hkv, Dh) ring for an 'L' layer."""
+    ``{"layers": [leaf]}``: {"k", "v"} (B, max(S, max_seq), Hkv, Dh) for
+    a 'G' layer, the (B, window, Hkv, Dh) ring for an 'L' layer, the final
+    recurrent state for an 'M' / 'R' layer (``recurrent_mode``: see
+    :func:`sublayer_prefill`)."""
     h = embed_tokens(params["embed"], tokens, cfg)
     positions = torch.arange(h.shape[1], device=h.device)
     layers = []
     for lp, kind in zip(params["layers"], layer_kinds(cfg)):
         h, c = sublayer_prefill(lp, h, cfg, kind, positions=positions,
-                                kv_repeat=kv_repeat, max_seq=max_seq)
+                                kv_repeat=kv_repeat, max_seq=max_seq,
+                                recurrent_mode=recurrent_mode)
         layers.append(c)
     h = apply_norm(params["final_norm"], h, cfg)
     h_last = h[:, -1:] if last_pos is None else h[:, last_pos:last_pos + 1]
     return lm_logits(params["embed"], h_last, cfg)[:, 0], {"layers": layers}
 
 
+def _recurrent_step_fn(p, cfg: ModelConfig, kind: str):
+    """The one-token decode of an 'M' / 'R' layer as ``step(xt, state) ->
+    (y, state')``."""
+    if kind == "M":
+        return lambda xt, c: ssm_mod.ssm_decode(p["ssm"], xt, cfg, c)
+    return lambda xt, c: rg_mod.rglru_decode(p["rg"], xt, cfg, c)
+
+
 def sublayer_decode(p, h, cfg: ModelConfig, kind: str, cache, t, *,
                     kv_repeat: int, chunk_len=None):
     """h (B, 1, d), or (B, L, d) in mixed mode with per-slot
-    ``chunk_len``.  Returns (h, cache); the cache is written in place."""
+    ``chunk_len``.  Ring-family layers stream the chunk into their KV at
+    exact positions (their tensors written in place); an 'M' / 'R' layer
+    advances its state column by column with per-slot masking
+    (:func:`_recurrent_mixed_advance`) and the leaf's entries are replaced
+    by the new state.  Returns (h, cache)."""
+    if kind in ("M", "R"):
+        x = apply_norm(p["norm1"], h, cfg)
+        step = _recurrent_step_fn(p, cfg, kind)
+        if chunk_len is None:
+            y, new = step(x, cache)
+        else:
+            y, new = _recurrent_mixed_advance(step, x, cache, chunk_len)
+        cache.update(new)
+        h = h + y
+        return (h if kind == "M" else _ffn(p, h, cfg)), cache
     x = apply_norm(p["norm1"], h, cfg)
     y, cache = attn.attn_decode(p["attn"], x, cfg, layer_kind=kind,
                                 cache=cache, t=t, kv_repeat=kv_repeat,
@@ -240,6 +360,31 @@ def sublayer_decode(p, h, cfg: ModelConfig, kind: str, cache, t, *,
         y = apply_norm(p["post_attn_norm"], y, cfg)
     h = h + y
     return _ffn(p, h, cfg), cache
+
+
+def _recurrent_mixed_advance(step_fn, x, cache, chunk_len):
+    """Advance recurrent state through a mixed prefill + decode launch.
+
+    x (B, L, d) normed chunk columns; chunk_len (B,) valid columns per
+    slot (decode slots carry 1).  Steps the L columns through the layer's
+    one-token decode ``step_fn`` and keeps each slot's stepped state only
+    while its chunk lasts (``torch.where`` against the previous state), so
+    every slot advances by exactly its own tokens, in order, with the
+    per-step ops of the blocking decode path.  Columns at or after
+    chunk_len give outputs the caller's last-valid-row gather never
+    reads.  Returns (y (B, L, d), new state); ``cache`` is not written."""
+    b, L, _ = x.shape
+    cl = per_slot(chunk_len, b, x.device)
+    state = dict(cache)
+    ys = []
+    for i in range(L):
+        y, new = step_fn(x[:, i:i + 1], state)
+        keep = i < cl                                    # (B,)
+        state = {k: torch.where(keep.reshape((-1,) + (1,) * (v.dim() - 1)),
+                                v, state[k])
+                 for k, v in new.items()}
+        ys.append(y[:, 0])
+    return torch.stack(ys, dim=1), state
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, t, *,
@@ -296,37 +441,95 @@ def _sublayer_decode_window_packed(p, h, cfg: ModelConfig, cache, *,
     return _ffn(p, h, cfg), cache
 
 
+def recurrent_round_plan(row_slot, row_pos, row_cidx, width: int):
+    """The rounds of a packed step's recurrent advance, planned on the
+    host from the numpy rows the engine packs: (idx (2, n_real) int32,
+    sizes), idx's first row the real rows (row_pos >= 0) sorted by chunk
+    index, its second their slots, and sizes[jj] the count of rows with
+    row_cidx == jj < ``width``.  A slot has at most one row in a round,
+    so each round's scatter is conflict-free."""
+    real = np.nonzero(row_pos >= 0)[0]
+    order = real[np.argsort(row_cidx[real], kind="stable")]
+    sizes = np.bincount(row_cidx[real], minlength=width).tolist()
+    return np.stack([order, row_slot[order]]).astype(np.int32), sizes
+
+
+def recurrent_rounds(idx, sizes):
+    """[(rows, slots)] long tensors of each non-empty round, split from
+    :func:`recurrent_round_plan`'s idx (on the rows' device)."""
+    rows, slots = idx.long()
+    return [(r, sl) for r, sl in zip(rows.split(sizes), slots.split(sizes))
+            if len(r)]
+
+
+def _sublayer_decode_recurrent_packed(p, h, cfg: ModelConfig, cache, kind,
+                                      *, rounds):
+    """One recurrent sublayer ('M' / 'R') over packed rows.
+
+    Recurrent state is slot-indexed and fixed-size, and advances one token
+    at a time in position order.  A slot's rows within a packed step carry
+    distinct chunk indices, so the rounds of :func:`recurrent_rounds`
+    sequence them: round jj gathers the state of its rows' slots, steps
+    those rows through the one-token decode, and scatters the new state
+    back to the same slots, in place.  Only a round's own rows are stepped
+    and written (the reference steps every row and drops the writes of the
+    others); padding rows (row_pos < 0) are in no round."""
+    x = apply_norm(p["norm1"], h, cfg)                   # (N, 1, d)
+    step = _recurrent_step_fn(p, cfg, kind)
+    y = torch.zeros_like(h)
+    for rows, slots in rounds:
+        st = {k: v[slots] for k, v in cache.items()}
+        y_j, st_new = step(x[rows], st)
+        for k, v in st_new.items():
+            cache[k][slots] = v.to(cache[k].dtype)
+        y[rows] = y_j.to(y.dtype)
+    h = h + y
+    return (h if kind == "M" else _ffn(p, h, cfg)), cache
+
+
 def decode_step_packed(params, cfg: ModelConfig, cache, tokens, row_slot,
                        row_pos, row_tw, row_cidx, block_tables, *,
                        block_size: int, width: int = 1, kv_repeat: int = 1,
-                       row_group=None):
+                       row_group=None, rounds=None):
     """Packed ragged engine step for the paged clustered-KV path.
 
     Each real (slot, position) pair is one row: tokens (N,), row_slot (N,)
     slot, row_pos (N,) absolute position (−1: padding row), row_tw (N,)
     the slot's ring watermark t + chunk_len this step, row_cidx (N,) the
     row's index within its admission chunk and ``width`` the step's
-    longest chunk (both sequence the 'L' layers' ring writes),
-    block_tables (B, T) global tail-block ids,
-    row_group (N,) the attention kernel's row groups
-    (``kernels.paged_clustered_decode.group_rows``; None: one row each).
-    Returns (logits (N, V) f32, cache), every row's next-token
-    distribution, and writes the new keys and values into the cache's
-    pools in place.  MLP, norms and embeddings are row-wise, so rows
-    stand in for the batch exactly."""
+    longest chunk (both sequence the 'L' layers' ring writes and the 'M'
+    / 'R' layers' state advance), block_tables (B, T) global tail-block
+    ids, row_group (N,) the attention kernel's row groups
+    (``kernels.paged_clustered_decode.group_rows``; None: one row each),
+    ``rounds`` the recurrent layers' rounds (:func:`recurrent_rounds`,
+    planned on the host from the rows; None: planned here from a host
+    copy of the rows).  Returns (logits (N, V) f32, cache), every row's
+    next-token distribution, and writes the new keys and values into the
+    cache's pools and the new recurrent state into its slots, in place.
+    MLP, norms and embeddings are row-wise, so rows stand in for the
+    batch exactly."""
     kinds = layer_kinds(cfg)
+    if rounds is None and set(kinds) & set("MR"):
+        idx, sizes = recurrent_round_plan(
+            *(a.cpu().numpy() for a in (row_slot, row_pos, row_cidx)), width)
+        rounds = recurrent_rounds(torch.from_numpy(idx).to(row_slot.device),
+                                  sizes)
     tokens = torch.where(row_pos >= 0, tokens, torch.zeros_like(tokens))
     h = embed_tokens(params["embed"], tokens[:, None], cfg)   # (N, 1, d)
     for lp, kind, c in zip(params["layers"], kinds, cache["layers"]):
-        if kind == "L":
+        if kind in ("M", "R"):
+            h, _ = _sublayer_decode_recurrent_packed(lp, h, cfg, c, kind,
+                                                     rounds=rounds)
+        elif kind == "L":
             h, _ = _sublayer_decode_window_packed(
                 lp, h, cfg, c, row_slot=row_slot, row_pos=row_pos,
                 row_cidx=row_cidx, width=width, kv_repeat=kv_repeat)
-            continue
-        h, _ = _sublayer_decode_packed(
-            lp, h, cfg, c, row_slot=row_slot, row_pos=row_pos,
-            row_tw=row_tw, block_tables=block_tables,
-            block_size=block_size, kv_repeat=kv_repeat, row_group=row_group)
+        else:
+            h, _ = _sublayer_decode_packed(
+                lp, h, cfg, c, row_slot=row_slot, row_pos=row_pos,
+                row_tw=row_tw, block_tables=block_tables,
+                block_size=block_size, kv_repeat=kv_repeat,
+                row_group=row_group)
     h = apply_norm(params["final_norm"], h, cfg)
     logits = lm_logits(params["embed"], h, cfg)[:, 0]
     return logits, cache

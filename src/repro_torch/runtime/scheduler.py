@@ -119,8 +119,7 @@ class SwapRecord:
     seq: int                    # swap-out order (FIFO within a class)
     n_blocks_swapped: int = 0   # mapped blocks at swap-out (accounting)
     state_bytes: int = 0        # recurrent-family state bytes riding the
-    #                             snapshot (core/layer_state.py): 0 until
-    #                             the port serves the recurrent kinds
+    #                             snapshot (core/layer_state.py)
     hold: bool = False          # parked by a zero-progress (within-class)
     #                             preemption: not resumable until the
     #                             engine decodes real tokens again, or

@@ -28,8 +28,14 @@ Once the queue drains, the dense launch bucket shrinks by powers of two.
 
 Sliding-window ('L') layers keep a dense ring of their last ``window``
 positions per slot, exact in every mode (only 'G' layers are clustered),
-and retire behind the window (``WindowRetention``); a model with 'L'
-layers admits prompts at their exact length (bucket 1).
+and retire behind the window (``WindowRetention``).  Recurrent layers ('M'
+Mamba2 SSD, 'R' RG-LRU) carry a fixed-size state per slot that never
+retires (``RecurrentRetention``): the mixed launch advances it token by
+token, blocking admission prefills it by stepping the same decode
+(``recurrent_mode="sequential"``), a chunked admission zeroes it first,
+and slot snapshots (prefix sharing, the swap) carry it whole.  A model
+with 'L', 'M' or 'R' layers admits prompts at their exact length (bucket
+1): pad tokens would enter a window ring or a recurrent state.
 
 With ``paged=PagedKVConfig(...)`` the 'G' layers' exact tail rings live
 in a block pool behind per-slot block tables (runtime/kv_pool.py).  With
@@ -84,9 +90,8 @@ request lifecycle and every engine step (``last_trace``,
 
 Per-slot host bookkeeping (``pos`` / ``cur`` / ``fed``, the coverage
 frontier mirror) replays the reference engine step for step, so greedy
-tokens match it.  Mesh serving and the recurrent layer kinds are later
-slices of the port; asking for one raises ``NotImplementedError`` naming
-its ROADMAP item.
+tokens match it.  Mesh serving is a later slice of the port; asking for
+it raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -123,6 +128,7 @@ class ServerConfig:
     max_seq: int = 256
     use_clustered_batching: bool = True
     n_request_clusters: int = 4
+    greedy: bool = True            # the engine decodes greedily either way
     engine: str = "continuous"     # "continuous" | "static"
     prefill_bucket: int = 16       # blocking admission right-pads prompts
                                    # to a multiple of this (the causal mask
@@ -245,7 +251,9 @@ class Server:
                 raise ValueError(
                     "paged serving needs at least one ring-family layer: "
                     "recurrent-state layers ('M'/'R') carry fixed-size "
-                    "per-slot state that is never pool-backed")
+                    "per-slot state that is never pool-backed, so a "
+                    "pure-recurrent pattern has nothing to page — serve "
+                    "dense chunked instead (prefill_chunk= without paged=)")
         # paged without kv_compress: exact KV under a block quota, in the
         # clustered layout with one dead centroid and a ring of max_seq
         # positions (cov stays 0, so every position stays exact)
@@ -265,8 +273,6 @@ class Server:
                            else template_mod.TemplateStore(ts))
             self._pshare = self._store.share
         if self._pshare is not None:
-            # 'M'/'R' pass this gate, as in the reference, and meet the
-            # recurrent kinds' refusal below
             if (paged is None or not scfg.prefill_chunk
                     or scfg.kv_compress is None
                     or set(cfg.layer_pattern) - set("GMR")):
@@ -283,8 +289,6 @@ class Server:
                     "admission schedule")
         self._slo = scfg.scheduler
         if self._slo is not None:
-            # 'M'/'R' pass this gate, as in the reference, and meet the
-            # recurrent kinds' refusal below
             if (paged is None or scfg.kv_compress is None
                     or set(cfg.layer_pattern) - set("GMR")
                     or scfg.engine != "continuous"):
@@ -315,16 +319,9 @@ class Server:
             raise ValueError("mesh serving requires the continuous "
                              "engine (static batches are per-device)")
         # what this slice of the port does not serve yet
-        missing = []
         if scfg.mesh is not None:
-            missing.append("mesh= (ROADMAP Queue A item 10)")
-        if set(tfm.layer_kinds(cfg)) - {"G", "L"}:
-            missing.append(f"layer pattern {cfg.layer_pattern!r}: the "
-                           "recurrent kinds 'M' and 'R' (ROADMAP Queue A "
-                           "item 8)")
-        if missing:
-            raise NotImplementedError("repro_torch Server: " +
-                                      "; ".join(missing))
+            raise NotImplementedError("repro_torch Server: mesh= (ROADMAP "
+                                      "Queue A item 10)")
         tfm.check_supported(cfg)
         self.params = _to_device(params, self.device)
         self.last_stats: Dict[str, float] = {}
@@ -335,11 +332,18 @@ class Server:
         self.tracer = (tele_mod.Tracer(self._tele.max_events)
                        if self._tele.trace else None)
         self.last_trace: List[dict] = []
-        # bucket-padded prefill is exact only for global attention (causal
-        # mask, masked decode): a sliding-window ring would take the pad
-        # tokens in, so such models admit at the exact prompt length
+        # layer-state families (core/layer_state.py): ring KV ('G'/'L',
+        # retention-governed) and fixed-size recurrent state ('M'/'R',
+        # checkpointed whole)
         self._kinds = tfm.layer_kinds(cfg)
-        self._bucket = 1 if "L" in self._kinds else scfg.prefill_bucket
+        self._families = layer_state.families_for(cfg)
+        self._has_recurrent = self._families.has_recurrent
+        # bucket-padded prefill is exact only for global attention (causal
+        # mask, masked decode): a sliding-window ring or a recurrent state
+        # would take the pad tokens in, so such models admit at the exact
+        # prompt length
+        self._bucket = (1 if set(self._kinds) & set("LMR")
+                        else scfg.prefill_bucket)
         # cross-serve template persistence: the pool and the device cache
         # that carry the store's pinned blocks between serve() calls.  The
         # epoch stamps every input a registered snapshot depends on, the
@@ -438,12 +442,12 @@ class Server:
             order.sort(key=lambda uid: -by_uid[uid].priority)
         if tr is not None:
             tr.begin_serve(t0_serve, 1)
-            fam = layer_state.families_for(cfg)
+            fam = self._families
             # the layer-state families this serve runs with, so offline
             # readers can segment span populations by family mix
             tr.event("state_families", tid="engine", t=t0_serve,
                      ring="".join(sorted(fam.ring.kinds)),
-                     recurrent="".join(sorted(fam.recurrent_kinds)))
+                     recurrent="".join(sorted(fam.recurrent.kinds)))
             for qpos, quid in enumerate(order):
                 qr = by_uid[quid]
                 tr.event("queued", tid="queue", uid=quid, t=t0_serve,
@@ -516,6 +520,8 @@ class Server:
         #   wr     'L' layers: retire behind the sliding window (the dense
         #          ring's overwrite reclaims the storage; wr keeps the
         #          kv_retired_window count)
+        #   rr     'M'/'R' layers: fixed-size recurrent state folds every
+        #          position, so nothing retires (kv_retired_recurrent 0)
         fr = (retention.FrontierRetention(n, ccfg)
               if ccfg is not None else None)
         quota = (retention.QuotaRetention(paged.block_size,
@@ -523,6 +529,9 @@ class Server:
                  if pool is not None and ccfg is None else None)
         wr = (retention.WindowRetention(cfg.sliding_window, n)
               if "L" in cfg.layer_pattern and cfg.sliding_window else None)
+        rr = (retention.RecurrentRetention(
+                  tuple(sorted(self._families.recurrent.kinds)))
+              if self._has_recurrent else None)
         sweep_policy = fr if fr is not None else quota
         cov_of = fr.frontier if fr is not None else (lambda j: 0)
         kv_retired = {"frontier": 0, "window": 0, "quota": 0}
@@ -576,10 +585,11 @@ class Server:
         kv_live_sum = kv_alloc_sum = 0
         kv_alloc_peak = kv_shared_peak = 0
         tail_bpt = self._tail_bytes_per_token(cache) if layout else 0
-        # the recurrent family's fixed per-slot state, priced into every
-        # victim's cost and swap payload: none until the port serves the
-        # recurrent kinds (ROADMAP Queue A item 8)
-        rec_state_b = 0
+        # the recurrent family's byte price: the whole fixed-size state one
+        # slot carries (constant over the stream, swapped whole, never
+        # pool-backed), added to every victim's cost and swap payload
+        rec_state_b = (layer_state.recurrent_state_bytes(cache, n)
+                       if self._has_recurrent else 0)
         stall_retries = idle_retries = 0
         # blocking clustered admissions by _clusterize form, and its time
         n_admit_compress = n_admit_tail = 0
@@ -907,9 +917,11 @@ class Server:
                 # the slot holds its own refs now: the entry may be
                 # evicted again
                 pcache.adoption_done(hit)
-            elif layout is not None:
+            elif layout is not None or self._has_recurrent:
                 # the previous occupant's counts would unmask its stale
-                # centroids; ring entries are hidden by the position mask
+                # centroids, and a recurrent leaf has no mask at all (its
+                # state feeds the next step); ring entries are hidden by
+                # the position mask
                 self._reset_slot(cache, j)
             if tr is not None:
                 tr_open(j, uid, time.perf_counter(), "admit",
@@ -951,7 +963,8 @@ class Server:
             logits1, c1 = tfm.prefill(self.params, cfg,
                                       torch.from_numpy(padded).to(dev),
                                       max_seq=scfg.max_seq,
-                                      last_pos=plen - 1)
+                                      last_pos=plen - 1,
+                                      recurrent_mode="sequential")
             first = int(torch.argmax(logits1, -1)[0])
             now = time.perf_counter()
             pre_ms[uid] = (now - t0_serve) * 1e3        # TTFT
@@ -1211,22 +1224,31 @@ class Server:
                         rows.append((j, int(cur[j]), int(pos[j]),
                                      int(pos[j]) + 1, 0))
                 compute_rows = _pow2ceil(len(rows))
-                packed = np.zeros((6, compute_rows), np.int32)
+                # rows 6-7: the recurrent layers' rounds, planned here
+                packed = np.zeros((8 if self._has_recurrent else 6,
+                                   compute_rows), np.int32)
                 packed[2] = -1
                 packed[:5, :len(rows)] = np.asarray(rows, np.int32).T
                 packed[5] = pcd.group_rows(packed[0], packed[2] + 1,
                                            packed[3],
                                            cfg.n_heads // cfg.n_kv_heads)
+                if self._has_recurrent:
+                    idx, sizes = tfm.recurrent_round_plan(
+                        packed[0], packed[2], packed[4], width)
+                    packed[6:, :idx.shape[1]] = idx
                 last_row = {r[0]: i for i, r in enumerate(rows)}
                 bt_d = bt_device()
                 t0 = time.perf_counter()
-                rslot, tokp, rpos, rtw, rcidx, rgrp = torch.from_numpy(
-                    packed).to(dev)
+                packed_d = torch.from_numpy(packed).to(dev)
+                rslot, tokp, rpos, rtw, rcidx, rgrp = packed_d[:6]
+                rounds = (tfm.recurrent_rounds(
+                    packed_d[6:, :idx.shape[1]], sizes)
+                    if self._has_recurrent else None)
                 with _annot("decode_packed"):
                     logits, cache = tfm.decode_step_packed(
                         self.params, cfg, cache, tokp, rslot, rpos, rtw,
                         rcidx, bt_d, block_size=paged.block_size,
-                        width=width, row_group=rgrp)
+                        width=width, row_group=rgrp, rounds=rounds)
                 nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
                 nxt_of = lambda jj: nxt[last_row[jj]]      # noqa: E731
             else:
@@ -1532,12 +1554,14 @@ class Server:
         reg.counter("kv_retired_recurrent",
                     "positions retired from recurrent state (0 by "
                     "construction: fixed-size state folds every position)"
-                    ).add(0)
+                    ).add(rr.diagnostics()["kv_retired_recurrent"]
+                          if rr is not None else 0)
         reg.gauge("state_bytes_ring",
                   "dense ring-family state bytes per slot (tails excluded)"
                   ).set(float(layer_state.ring_state_bytes(cache, bucket)))
         reg.gauge("state_bytes_recurrent",
-                  "recurrent-family state bytes per slot").set(0.0)
+                  "recurrent-family state bytes per slot"
+                  ).set(float(rec_state_b))
         if layout is not None:
             reg.gauge("kv_frag",
                       "1 - live ring tokens / allocated ring capacity"
@@ -1655,8 +1679,8 @@ class Server:
 
     @staticmethod
     def _swap_out(cache, j: int, bt_row: np.ndarray):
-        """Preemption's device half: slot j's clustered snapshot and its
-        tail blocks (``bt_row`` (T,) its read-sanitized table row), copied
+        """Preemption's device half: slot j's snapshot (clustered
+        summaries and recurrent state) and its tail blocks (``bt_row`` (T,) its read-sanitized table row), copied
         to host memory before the caller releases the blocks.  Returns
         (snap, tails), trees of CPU tensors."""
         dev = next(leaf["cov"].device for leaf in cache["layers"]
@@ -1684,8 +1708,7 @@ class Server:
         (unmapped entries point at the shard base: those rows gather bytes
         the cov and position masks already exclude, and the swap-in never
         scatters them back).  A leaf that is not clustered yields None:
-        the swap protocol, like the prefix snapshot it extends, covers
-        FrontierRetention state only."""
+        an 'M' / 'R' layer's state rides the slot snapshot whole."""
         return {"layers": [
             {key: leaf[key][bt_row] for key in ("k_tail", "v_tail")}
             if _is_clustered_kv(leaf) else None
@@ -1724,12 +1747,19 @@ class Server:
 
     @staticmethod
     def _reset_slot(cache, j: int) -> None:
-        """Zero slot j's clustered bookkeeping (counts + cov), in place,
-        ahead of a fresh admission."""
+        """Zero slot j's clustered bookkeeping (counts + cov) and its
+        recurrent state, in place, ahead of a fresh chunked admission.
+        Ring and centroid payloads need no wipe (the position mask hides
+        ring entries until the chunks overwrite them, and zero-count
+        centroids are masked); a recurrent leaf has no mask, so the last
+        occupant's (conv, ssm) / (conv, h) is zeroed outright."""
         for leaf in cache["layers"]:
             if _is_clustered_kv(leaf):
                 leaf["counts"][j] = 0.0
                 leaf["cov"][j] = 0
+            elif layer_state.is_recurrent_leaf(leaf):
+                for v in leaf.values():
+                    v[j] = 0
 
     @staticmethod
     def _row_for_read(pool, j: int, device):
@@ -1749,6 +1779,8 @@ class Server:
         blocks are gathered into ring order first; absorb never moves
         tail bytes, so the pool is left as it is."""
         leaves = [leaf for leaf in cache["layers"] if _is_clustered_kv(leaf)]
+        if not leaves:
+            return      # no 'G' layer: the frontier is bookkeeping only
         n_l = len(leaves)
         dev = leaves[0]["cov"].device
 
@@ -1783,6 +1815,8 @@ class Server:
         C, R = ccfg.n_clusters, ccfg.keep_recent
         layers = list(c1["layers"])
         idx = [i for i, kind in enumerate(kinds) if kind == "G"]
+        if not idx:
+            return c1   # no 'G' layer: nothing takes the clustered form
         leaves = [layers[i] for i in idx]
         if plen <= R - ccfg.refresh:
             out = []
@@ -1825,19 +1859,23 @@ class Server:
         centroids, counts and cov go to slot j, and its B=1 dense ring
         goes block by block into the pool blocks of the slot's write row
         ``bt_row`` (T,); any other leaf (an 'L' window ring) takes the
-        dense slot write.  Unmapped entries (covered ring blocks,
-        ``n_blocks``) are left out here: the reference's scatter drops
-        them, and an index past the pool would raise."""
-        first = next(leaf["k_tail"] for leaf in cache["layers"]
-                     if _is_clustered_kv(leaf))
-        keep = np.nonzero((bt_row >= 0) & (bt_row < first.shape[0]))[0]
-        ids = torch.from_numpy(bt_row[keep].astype(np.int64)).to(first.device)
-        sel = torch.from_numpy(keep).to(first.device)
+        dense slot write (an 'M' / 'R' layer's state too).  Unmapped
+        entries (covered ring blocks, ``n_blocks``) are left out here: the
+        reference's scatter drops them, and an index past the pool would
+        raise."""
+        ids = sel = None
         for dst, src in zip(cache["layers"], c1["layers"]):
             if not _is_clustered_kv(dst):
                 for key, val in dst.items():
                     val[j] = src[key][0].to(val.dtype)
                 continue
+            if ids is None:     # every clustered leaf shares the table row
+                first = dst["k_tail"]
+                keep = np.nonzero((bt_row >= 0)
+                                  & (bt_row < first.shape[0]))[0]
+                ids = torch.from_numpy(bt_row[keep].astype(np.int64)).to(
+                    first.device)
+                sel = torch.from_numpy(keep).to(first.device)
             for key in ("k_cents", "v_cents", "counts", "cov"):
                 dst[key][j] = src[key][0].to(dst[key].dtype)
             for key in ("k_tail", "v_tail"):
@@ -1935,7 +1973,8 @@ class Server:
         logits, cache = tfm.prefill(self.params, cfg,
                                     torch.from_numpy(toks).to(dev),
                                     max_seq=self.scfg.max_seq,
-                                    last_pos=plen - 1)
+                                    last_pos=plen - 1,
+                                    recurrent_mode="sequential")
         _sync(dev)
         t1 = time.perf_counter()
 

@@ -29,8 +29,7 @@ Event schema (internal form)::
 
 ``ts`` is microseconds relative to the serve's ``t0``.  The metrics
 reference document (the reference's ``reference_registry`` /
-``reference_doc``) is not ported yet: its reference serve needs the
-recurrent layer kinds.
+``reference_doc``) is not ported yet (ROADMAP Queue A item 7).
 """
 
 from __future__ import annotations

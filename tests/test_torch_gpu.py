@@ -1019,3 +1019,101 @@ def test_tiny_slo_serve_on_card(cuda, chunk):
     assert counts["paged_clustered_decode"] == (cfg.n_layers
                                                 * st["decode_steps"])
     assert counts["clustered_decode"] == 0 and counts["bitserial_median"] > 0
+
+
+def _gm():
+    """The reference's GM_REC (tests/test_serving_engine.py): a 'G' layer
+    and a Mamba2 'M' layer, f32."""
+    from repro_torch.models.config import ModelConfig, SSMConfig
+
+    return ModelConfig(name="gm", family="hybrid", n_layers=2, d_model=64,
+                       n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
+                       vocab=64, pad_vocab_multiple=16, dtype="float32",
+                       layer_pattern="GM",
+                       ssm=SSMConfig(d_state=16, d_conv=4, expand=2,
+                                     head_dim=32, n_groups=1, chunk=32))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_gm_chunked_serve_on_card(cuda, paged):
+    """'GM' served chunked on the card, dense and paged, gives the CPU
+    port's tokens: the clustered kernels run beside recurrent state (the
+    decode kernel of the mode once for the 'G' layer of every engine
+    step, bitserial_median for absorbs and compactions) while the 'M'
+    layer advances its state token by token; the recurrent state is
+    priced and never retires."""
+    import dataclasses
+
+    from repro_torch.core.request_cluster import Request
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.server import Server
+
+    cfg = _gm()
+    params = tfm.init_params(0, cfg, device="cpu")
+    rng = np.random.default_rng(9)
+    spec = [(60, 12), (9, 10), (48, 9), (21, 14)]
+    reqs = [Request(i, l, gn) for i, (l, gn) in enumerate(spec)]
+    prompts = {i: rng.integers(0, 64, size=(l,)).astype(np.int32)
+               for i, (l, _) in enumerate(spec)}
+    scfg = _share_scfg()
+    if not paged:
+        scfg = dataclasses.replace(scfg, paged=None)
+    toks = {}
+    for dev in ("cpu", cuda):
+        srv = Server(cfg, scfg, params, device=dev)
+        ops.reset_launches()
+        toks[str(dev)] = {o.uid: o.tokens for o in srv.serve(reqs, prompts)}
+        counts = ops.launch_counts()
+    st = srv.last_stats
+    assert toks["cpu"] == toks[str(cuda)]
+    kernel, other = (("paged_clustered_decode", "clustered_decode") if paged
+                     else ("clustered_decode", "paged_clustered_decode"))
+    assert counts[kernel] == st["decode_steps"]     # one 'G' layer
+    assert counts[other] == 0
+    assert counts["bitserial_median"] >= st["kv_absorbs"] + \
+        st["kv_compactions"] > 0
+    assert st["state_bytes_recurrent"] > 0 and st["kv_retired_recurrent"] == 0
+    if paged:
+        assert st["pool_blocks_end"] == 0
+
+
+def test_gm_swap_serve_on_card(cuda):
+    """'GM' through a 10-block pool with ``SLOConfig(priority_admission=
+    False)`` on the card: slots are preempted to host memory with their
+    recurrent state and resumed, with the CPU port's tokens and sched_*
+    counters and an unpressured card run's tokens (48 blocks, no
+    scheduler)."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.kv_pool import PagedKVConfig
+    from repro_torch.runtime.scheduler import SLOConfig
+    from repro_torch.runtime.server import Server
+
+    cfg = _gm()
+    params = tfm.init_params(0, cfg, device="cpu")
+    reqs, prompts = _slo_stream()
+    scfg = _share_scfg(10, use_clustered_batching=False,
+                       scheduler=SLOConfig(priority_admission=False))
+    whole_cfg = dataclasses.replace(
+        scfg, scheduler=None, paged=PagedKVConfig(block_size=4,
+                                                  pool_blocks=48))
+    toks, stats = {}, {}
+    for name, dev, sc in (("cpu", "cpu", scfg), ("card", cuda, scfg),
+                          ("whole", cuda, whole_cfg)):
+        srv = Server(cfg, sc, params, device=dev)
+        ops.reset_launches()
+        outs = srv.serve(reqs, prompts)
+        toks[name] = {o.uid: (o.tokens, o.shed) for o in outs}
+        stats[name] = dict(srv.last_stats)
+        if name == "card":
+            counts = ops.launch_counts()
+    st = stats["card"]
+    assert toks["card"] == toks["cpu"]
+    assert st["sched_preemptions"] >= 1 and st["sched_swaps_in"] >= 1
+    for key in (k for k in stats["cpu"] if k.startswith("sched_")):
+        assert st[key] == stats["cpu"][key], key
+    for uid, (t, shed) in toks["card"].items():
+        assert shed or t == toks["whole"][uid][0], uid
+    assert counts["paged_clustered_decode"] == st["decode_steps"]
+    assert st["state_bytes_recurrent"] > 0

@@ -152,8 +152,9 @@ def test_layer_state_families_match(arch):
     f = layer_state.families_for(configs.get_config(arch))
     f_t = layer_state_t.families_for(configs_t.get_config(arch))
     assert f_t.ring.kinds == f.ring.kinds
-    assert f_t.recurrent_kinds == f.recurrent.kinds
-    assert (f_t.has_ring, f_t.has_recurrent) == (f.has_ring, f.has_recurrent)
+    assert f_t.recurrent.kinds == f.recurrent.kinds
+    assert (f_t.has_ring, f_t.has_recurrent, f_t.mixed) == (
+        f.has_ring, f.has_recurrent, f.mixed)
     for kind in "GLMR":
         assert layer_state_t.family_of_kind(kind) == \
             layer_state.family_of_kind(kind)

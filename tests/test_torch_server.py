@@ -192,12 +192,19 @@ def test_paged_value_gates_kept(weights):
 
 
 def test_unported_layer_kinds_raise(weights):
-    """The recurrent kinds ('M', 'R') are ROADMAP Queue A item 8; 'L'
-    layers serve since the sliding-window slice
-    (tests/test_torch_window_serving.py)."""
-    gm = dataclasses.replace(TINY_T, layer_pattern="GM")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
-        ServerT(gm, ServerConfigT(prefill_chunk=8), weights[1], device="cpu")
+    """MoE layers and MLA attention are ROADMAP Queue A item 8; 'L' layers
+    serve since the sliding-window slice (tests/test_torch_window_serving.py)
+    and the recurrent kinds 'M' and 'R' since the recurrent slice
+    (tests/test_torch_recurrent_serving.py), so a 'GM' Server builds."""
+    for arch in ("qwen2-moe-a2.7b", "deepseek-v3-671b"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue A item 8"):
+            ServerT(configs_t.get_reduced(arch), ServerConfigT(), weights[1],
+                    device="cpu")
+    gm = dataclasses.replace(TINY_T, layer_pattern="GM",
+                             ssm=configs_t.get_reduced("mamba2-2.7b").ssm)
+    ServerT(gm, ServerConfigT(prefill_chunk=8),
+            tfm_t.init_params(0, gm, device="cpu"), device="cpu")
 
 
 def test_reference_value_gates_kept(weights):
