@@ -80,11 +80,15 @@ def main() -> int:
         setattr(obj, name, inner)
 
     srv.serve(reqs, prompts)                       # warm-up serve
-    wrap(server_mod.tfm, step, step)
+    # the dense engine calls the model step it bound at construction
+    if paged:
+        wrap(server_mod.tfm, step, step)
+    else:
+        wrap(srv, "_decode", step)
     wrap(srv, "_absorb", "absorb")
     wrap(srv, "compact_kv", "compact")
     if blocking:
-        wrap(server_mod.tfm, "prefill", "prefill")
+        wrap(srv, "_prefill", "prefill")
         wrap(srv, "_clusterize", "clusterize")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,

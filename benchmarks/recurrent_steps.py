@@ -50,7 +50,7 @@ def main() -> int:
         print("narrow", arch, st, flush=True)
         del p
         cfg = configs.get_config(arch)
-        p, _, _ = smoke.recurrent_full_params(torch, dev, cfg)
+        p, _, _ = smoke.full_width_params(torch, dev, cfg)
         for _ in range(2):
             st = smoke.step_dispatches(torch, dev, cfg, p, ms)
             print("full", arch, st, flush=True)

@@ -94,7 +94,8 @@ def main() -> int:
             outs = srv.serve(reqs, prompts)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            st = srv.last_stats
+            st = dict(srv.last_stats)
+            st.update(srv.last_admission)
             tokens = {o.uid: list(map(int, o.tokens)) for o in outs}
             sha = hashlib.sha256(json.dumps(tokens, sort_keys=True)
                                  .encode()).hexdigest()[:16]

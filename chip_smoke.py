@@ -26,15 +26,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    K=32) shapes, a blocking admission's (288 members x 2,048 points x 128
    dims, K=64, 16 bits, 0/1 weights below the frontier), the gemma2-27b
    serve's (compaction 1,472 members, absorb 368, admission 368 members x
-   8,192 points), phase 4b's (absorb 2 and compaction 4 members x 24
-   points x 16 dims, K=8; admission 2 members x 96 points) and the fit's
-   streamed shape (2^20 x 16, K=64, 32 bits), each twice;
+   8,192 points), qwen2-moe-a2.7b's in 5n (compaction 1,536 members,
+   absorb 384, admission 384 members x 2,048 points), phase 4b's (absorb
+   2 and compaction 4 members x 24 points x 16 dims, K=8; admission 2
+   members x 96 points) and the fit's streamed shape (2^20 x 16, K=64, 32
+   bits), each twice;
    flash_decode: B=4, S=2048, Hq=32, Hkv=8, Dh=128, t=1500, 0 and 2500 in
    bf16, f32 and f32 + softcap 50, and against
    ``attention.decode_attention``; clustered_decode and
    paged_clustered_decode also at gemma2-27b's heads (32 over 16 kv heads,
-   query scale 1/12, softcap 50), paged bit-equal to dense, at phase
-   4b's TINY 'G' layer in f32 (2 slots, 4 / 2 heads of 16, C=8, R=16 in
+   query scale 1/12, softcap 50), paged bit-equal to dense, at
+   qwen2-moe-a2.7b's heads in 5n (16 over 16 kv heads of 128, bf16: the
+   mixed step's 64-token chunk beside 3 decode rows in a 128-row bucket
+   and a 4-row decode step, paged bit-equal to dense), at phase 4b's TINY
+   'G' layer in f32 (2 slots, 4 / 2 heads of 16, C=8, R=16 in
    blocks of 4, an 8-token chunk in either slot and a decode-only step:
    within 1e-5 of plain, paged bit-equal to dense), and
    paged_clustered_decode in 5h's quota layout (one centroid of count 0,
@@ -60,6 +65,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    every serve also runs on the CPU, and its card tokens must equal the
    CPU's, request for request.  Phase 3 checks B1, B2 and B3 at these
    serves' shapes first;
+4c. MoE beside the clustered kernels: the reduced qwen2-moe-a2.7b (2 'G'
+   layers, 8 routed experts top-2 and a shared expert) in f32, port
+   weights from seed 0, batch 4, max_seq 96, 4 clusters over a ring of
+   16, 5 requests of 9-40 prompt tokens: chunked dense, chunked paged and
+   blocking dense, on the card and on the CPU.  Gates: card tokens == CPU
+   tokens in every mode; the mode's decode kernel launched layers x
+   engine steps, the other never; bitserial_median >= absorbs + compress
+   admissions + compactions > 0.  Then the metrics reference's battery
+   (``telemetry.reference_registry(device="cuda")``, six tiny serves):
+   its table must equal the committed ``docs/metrics_torch.md``'s;
 5. serve: qwen3-4b at full width (random weights, seed 0, bf16) answers 8
    requests through the continuous engine with chunked admission and a
    clustered KV cache; the clustered_decode launch count must equal
@@ -170,7 +185,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and blocking dense; the paged construction must raise the reference's
    "ring-family" ValueError.  Gates: every request complete; B1, B2 and
    B3 never launched; state_bytes_recurrent 64 x (3 x 5,376 x 2 + 80 x
-   64 x 128 x 4) = 169,836,544 B a slot.  Printed as in 5l;
+   64 x 128 x 4) = 169,836,544 B a slot; blocking tokens == chunked
+   tokens on all 4 requests (every launch steps a recurrent column at the
+   slot count).  Printed as in 5l;
+5n. qwen2-moe-a2.7b at full width and depth (24 'G' layers, d_model
+   2,048, 16 / 16 heads of 128, each FFN a MoE of 60 routed experts of
+   1,408, top-4 softmax, and a shared expert of 5,632; vocab 151,936
+   untied; bf16 weights from seed 0, the routers f32; 14.3 B
+   parameters), ``max_seq`` 2,048, batch 4, chunk 64, the smoke's
+   KVCompressConfig, 4 requests from ``default_rng(7)`` (prompts of
+   96-768 tokens, 24-40 new tokens): chunked dense, chunked paged (blocks
+   of 16) and blocking dense.  First one full-width MoE layer on (4, 64,
+   2,048) bf16 rows against the CPU (in f32 on the same weights): routes
+   equal but near-ties, y within 2^-5 of its largest magnitude.  Gates:
+   every request complete; clustered_decode 24 x engine steps in the
+   dense serves, paged_clustered_decode in the paged one, the other
+   never; bitserial_median >= absorbs + compress admissions +
+   compactions > 0 in every serve; paged frees == allocs, end 0.
+   Printed: chunked vs blocking and paged vs dense agreement (a MoE
+   launch's capacity drops depend on its other rows), each serve's steps,
+   wall and tokens sha256, the host dispatches and wall of one mixed and
+   one decode step, peak memory;
 6. clustering: ``clustering.fit`` at its default, L1 medians, k=64 on
    2^20 x 16 points from a threefry k-means++ start: both of its kernels,
    distance_argmin (assignment) and bitserial_median (median update),
@@ -198,8 +233,9 @@ B1's and B2's carry ``launches_windowed`` from 5f / 5g, B2's
 ``launches_quota`` from 5h and its quota form's times under ``quota``,
 B2's and B3's ``launches_prefix_share`` from 5i's shared serve,
 ``launches_template_store`` from 5j's two store serves,
-``launches_slo`` from 5k's scheduled serve and ``launches_recurrent``
-from 4b's chunked serves, by pattern),
+``launches_slo`` from 5k's scheduled serve, ``launches_recurrent``
+from 4b's chunked serves, by pattern, and ``launches_moe`` from 5n's
+serves, by mode),
 and the last line ``{"ok": true, "device": {...}}``; the full record goes
 to ``chiprun_out/chip_smoke.json``.  Each phase's seconds are printed as
 it ends.
@@ -260,6 +296,12 @@ DA_L2_TIMED = (5000, 8, 5)
 # 'G' (clustered), and it serves at max_seq 8,192
 GEMMA_HQ, GEMMA_HKV, GEMMA_SCALE, GEMMA_CAP = 32, 16, 144 ** -0.5, 50.0
 GEMMA_G_LAYERS, GEMMA_MAX_SEQ = 23, 8192
+# qwen2-moe-a2.7b's attention (5n): 24 'G' layers of 16 query heads over 16
+# kv heads of 128 (GQA group 1), query scale 128^-0.5, no softcap; its
+# engine's mixed step is one 64-token chunk beside 3 decode rows (67 packed
+# rows in a 128-row bucket), its decode-only step 4 rows
+MOE_HQ, MOE_HKV, MOE_LAYERS = 16, 16, 24
+MOE_STEPS = [(CL_SERVE, 128), ([1, 1, 1, 1], 4)]
 # bitserial_median members of the serve's memory manager over C + R points:
 # a compaction clusters (layers x 4 slots x kv heads) at once, an absorb
 # (layers x kv heads) of one slot into the prompt budget; qwen3-4b's 36
@@ -268,7 +310,9 @@ N_LAYERS = 36
 MED_CASES = [("compaction", N_LAYERS * B * HKV, C, 16),
              ("absorb", N_LAYERS * HKV, C // 2, 16),
              ("gemma2 compaction", GEMMA_G_LAYERS * B * GEMMA_HKV, C, 16),
-             ("gemma2 absorb", GEMMA_G_LAYERS * GEMMA_HKV, C // 2, 16)]
+             ("gemma2 absorb", GEMMA_G_LAYERS * GEMMA_HKV, C // 2, 16),
+             ("qwen2-moe compaction", MOE_LAYERS * B * MOE_HKV, C, 16),
+             ("qwen2-moe absorb", MOE_LAYERS * MOE_HKV, C // 2, 16)]
 # bitserial_median at a blocking admission's clustering: _clusterize fits
 # the B=1 prefill cache of every clustered layer at once, (layers x kv
 # heads) members of max_seq points each, weight 1 below the frontier cov of
@@ -655,6 +699,57 @@ def check_gemma_decode(torch, cd, pcd, dev):
     return max_err
 
 
+def check_moe_decode(torch, cd, pcd, dev):
+    """B1 and B2 at the shapes of qwen2-moe-a2.7b's 'G' layers in 5n
+    (MOE_STEPS: 16 query heads over 16 kv heads of 128, bf16, qwen3's C,
+    R and slots): the engine's mixed step (a 64-token chunk in slot 0
+    beside 3 decode rows, a 128-row bucket) and a decode-only step (a
+    4-row bucket), each against its plain version within phase 3's bf16
+    tolerance (2 bf16 ulps), B2 bit-equal to B1 on every real row (grouped
+    as the engine groups them and one row per block), and B1's one-token
+    form against its plain version."""
+    max_err, tol = 0.0, 1.6e-2
+    kw = dict(scale=DH ** -0.5, softcap=None)
+    fl = lambda d: {k: (v.float() if v is not None  # noqa: E731
+                        and v.is_floating_point() else v)
+                    for k, v in d.items()}
+    for cl, bucket in MOE_STEPS:
+        x = decode_inputs(torch, dev, torch.bfloat16, MOE_HQ, MOE_HKV,
+                          dict(QWEN_GEO, cl=cl, l=max(cl)))
+        args, rows, n_mapped = paged_inputs(torch, x, cl, bucket)
+        args = with_groups(torch, pcd, args)
+        x1 = dict(x, q=x["q"][:, 0].contiguous(), chunk_len=None)
+        got = cd.clustered_decode_cuda(**x, **kw)
+        want = cd.clustered_decode_plain(**fl(x), **kw).to(torch.bfloat16)
+        got1 = cd.clustered_decode_cuda(**x1, **kw)
+        want1 = cd.clustered_decode_plain(**fl(x1), **kw).to(torch.bfloat16)
+        pg = pcd.paged_clustered_decode_cuda(**args, **kw)
+        alone = pcd.paged_clustered_decode_cuda(**dict(args, row_group=None),
+                                                **kw)
+        pw = pcd.paged_clustered_decode_plain(**fl(args), **kw).to(
+            torch.bfloat16)
+        torch.cuda.synchronize()
+        n = len(rows)
+        sel = ([b for b, _ in rows], [i for _, i in rows])
+        for got_r, want_r in ((got[sel], want[sel]), (got1, want1),
+                              (pg[:n], pw[:n])):
+            torch.testing.assert_close(got_r.float(), want_r.float(),
+                                       rtol=tol, atol=tol)
+            max_err = max(max_err, (got_r.float() - want_r.float()).abs()
+                          .max().item())
+        for form, out in (("grouped", pg), ("one row per block", alone)):
+            if not torch.equal(bits(torch, out[:n]), bits(torch, got[sel])):
+                raise AssertionError(
+                    f"qwen2-moe heads, chunk lengths {cl} ({form}): paged "
+                    "rows differ from clustered_decode bit for bit")
+        say(f"qwen2-moe heads ({MOE_HQ}/{MOE_HKV} of {DH}, bf16, chunk "
+            f"lengths {cl}): clustered_decode (and its one-token form) and "
+            f"paged_clustered_decode == plain within {tol}, paged bit-equal "
+            f"to dense on all {n} real rows ({n_mapped} mapped blocks of "
+            f"{BS}, {bucket}-row bucket; max abs err so far {max_err:.3e})")
+    return max_err
+
+
 def check_rec_tiny_decode(torch, cd, pcd, dev):
     """B1 and B2 at the shapes of 4b's TINY 'G' layer (REC_GEO: 2 slots,
     4 / 2 heads of 16, C 8, a ring of 16 in blocks of 4, query scale 1/4),
@@ -915,11 +1010,14 @@ def admission_inputs(torch, dev, seed=2, layers=N_LAYERS, heads=HKV,
 def admission_cases():
     """(name, layers, kv heads, points, longest prompt) of the blocking
     admissions' fits: qwen3-4b's in 5c / 5d, gemma2-27b's 'G' layers in 5f
-    / 5g."""
+    / 5g, qwen2-moe-a2.7b's in 5n's blocking serve."""
     lens, _ = gemma2_lengths(np.random.default_rng(0))
+    moe_lens, _ = moe_lengths(np.random.default_rng(7))
     return [("admission", N_LAYERS, HKV, ADM_S, ADM_PLEN),
             ("gemma2 admission", GEMMA_G_LAYERS, GEMMA_HKV, GEMMA_MAX_SEQ,
-             int(lens.max()))]
+             int(lens.max())),
+            ("qwen2-moe admission", MOE_LAYERS, MOE_HKV, ADM_S,
+             int(moe_lens.max()))]
 
 
 def check_bitserial_median(torch, bsm, dev):
@@ -1194,6 +1292,7 @@ def run_serve(torch, srv, reqs, prompts, mode):
     wall = time.perf_counter() - t0
     check_tokens(srv.cfg, reqs, outs, mode)
     st = dict(srv.last_stats)
+    st.update(srv.last_admission)       # blocking admissions by form
     tokens = {o.uid: list(map(int, o.tokens)) for o in outs}
     digest = hashlib.sha256(json.dumps(tokens, sort_keys=True).encode())
     return {"stats": st, "wall_s": wall, "launches": ops.launch_counts(),
@@ -2163,7 +2262,7 @@ def mamba2_requests(vocab):
     return reqs, prompts
 
 
-def recurrent_full_params(torch, dev, cfg):
+def full_width_params(torch, dev, cfg):
     """bf16 weights from ``init_params`` seed 0 on ``dev``, timed."""
     from repro_torch.models import transformer as tfm
 
@@ -2178,8 +2277,9 @@ def recurrent_full_params(torch, dev, cfg):
     n_bytes = sum(t.numel() * t.element_size() for t in leaves)
     say(f"{cfg.name} params ({cfg.n_layers} layers '{cfg.layer_pattern}', "
         f"d_model {cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}: "
-        f"{n_par:,} parameters, {n_bytes / 1e9:.2f} GB, the gate and SSD "
-        f"scalars f32) initialised in {time.perf_counter() - t0:.1f} s")
+        f"{n_par:,} parameters, {n_bytes / 1e9:.2f} GB, the leaves the "
+        f"reference reads uncast f32) initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
     return params, n_par, n_bytes
 
 
@@ -2278,7 +2378,8 @@ def serve_recurrent_full(torch, dev, smi, arch):
     layer, as in the reference); state_bytes_recurrent exactly the
     per-slot figure (RG_STATE_B, MAMBA_STATE_B) and kv_retired_recurrent
     0; recurrentgemma: kv_retired_window > 0, paged pool_frees ==
-    pool_allocs and pool_blocks_end 0.  Printed: chunked vs blocking and
+    pool_allocs and pool_blocks_end 0; mamba2: blocking == chunked on
+    every request.  Printed: recurrentgemma's chunked vs blocking and
     paged vs dense agreement, host dispatches and wall of one mixed and
     one decode step, each serve's steps and wall, the peak of
     ``torch.cuda.max_memory_allocated()``.  Returns the record; the
@@ -2294,7 +2395,7 @@ def serve_recurrent_full(torch, dev, smi, arch):
     reqs, prompts = (recurrentgemma_requests if rg else mamba2_requests)(
         cfg.vocab)
     torch.cuda.reset_peak_memory_stats()
-    params, n_par, n_bytes = recurrent_full_params(torch, dev, cfg)
+    params, n_par, n_bytes = full_width_params(torch, dev, cfg)
     problems = []
     if not rg:
         try:
@@ -2346,8 +2447,14 @@ def serve_recurrent_full(torch, dev, smi, arch):
             f"{int(st['state_bytes_recurrent'])} B a slot; kernel launches "
             f"{ {k: v for k, v in rec['launches'].items() if v} }; "
             f"{times_line(rec)}; tokens sha256 {rec['tokens_sha256']}")
-    compare_tokens(recs["chunked"], recs["blocking"],
-                   f"{phase} blocking vs chunked")
+    differ = compare_tokens(recs["chunked"], recs["blocking"],
+                            f"{phase} blocking vs chunked")
+    if not rg and differ:
+        # every launch steps a recurrent column at the slot count
+        # (ROADMAP Queue C 10), so 5m's serves must agree
+        problems.append(f"blocking vs chunked: {len(differ)} of "
+                        f"{len(reqs)} requests differ (first positions "
+                        f"{differ})")
     if rg:
         compare_tokens(recs["chunked"], recs["paged"],
                        f"{phase} paged vs dense")
@@ -2364,6 +2471,318 @@ def serve_recurrent_full(torch, dev, smi, arch):
         raise AssertionError(f"{phase} {arch}: " + "; ".join(problems))
     return {"serves": recs, "steps": steps, "peak_bytes": peak,
             "n_params": n_par, "param_bytes": n_bytes,
+            "prompt_lens": [r.prompt_len for r in reqs]}
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the reduced qwen2-moe, card vs CPU, and the metrics reference
+# ---------------------------------------------------------------------------
+
+# tests/test_torch_moe_serving.py's serves: batch 4, max_seq 96, 4 clusters
+# over a ring of 16, refresh 8; 5 requests of 9-40 prompt tokens
+MOE_TINY_CC = dict(n_clusters=4, iters=4, keep_recent=16, refresh_every=8)
+
+
+def clustered_launch_problems(rec, mode, n_layers):
+    """The kernel gates of a clustered serve (``run_serve`` record) over
+    ``n_layers`` clustered layers: the mode's decode kernel
+    (paged_clustered_decode when ``mode`` is "paged", else
+    clustered_decode) launched n_layers x engine steps and the other
+    never; bitserial_median >= absorbs + compress admissions +
+    compactions > 0.  Returns the problems found."""
+    st, ln, steps = rec["stats"], rec["launches"], rec["engine_steps"]
+    kernel, other = (("paged_clustered_decode", "clustered_decode")
+                     if mode == "paged" else
+                     ("clustered_decode", "paged_clustered_decode"))
+    problems = []
+    if (ln[kernel], ln[other]) != (n_layers * steps, 0):
+        problems.append(f"{mode}: {kernel} {ln[kernel]} (want {n_layers} x "
+                        f"{steps}), {other} {ln[other]} (want 0)")
+    need = (int(st["kv_absorbs"]) + int(st["kv_compactions"])
+            + int(st.get("kv_admit_compress", 0)))
+    if not ln["bitserial_median"] >= need > 0:
+        problems.append(f"{mode}: bitserial_median {ln['bitserial_median']},"
+                        f" want >= {need} > 0")
+    return problems
+
+
+def moe_tiny_stream():
+    """5 requests of 9-40 prompt tokens, 6-12 new tokens each, from
+    ``default_rng(7)`` (the reduced vocabulary of 256)."""
+    from repro_torch.core.request_cluster import Request
+
+    rng = np.random.default_rng(7)
+    lens = rng.integers(9, 41, size=5)
+    prompts = {i: rng.integers(0, 256, size=int(n)).astype(np.int32)
+               for i, n in enumerate(lens)}
+    return ([Request(i, int(n), int(rng.integers(6, 13)))
+             for i, n in enumerate(lens)], prompts)
+
+
+def check_moe_tiny(torch, dev, smi):
+    """Phase 4c: the reduced qwen2-moe-a2.7b (2 'G' layers, 4 / 4 heads of
+    16, 8 routed experts top-2 and a shared expert) in f32, port weights
+    from seed 0, served chunked dense (chunk 8), chunked paged (blocks of
+    4) and blocking dense on the card and on the CPU.  Gates: card tokens
+    == CPU tokens, request for request, in every mode; clustered_decode
+    launched layers x engine steps in the dense serves and
+    paged_clustered_decode in the paged one, the other never;
+    bitserial_median >= absorbs + compress admissions + compactions > 0.
+    Then ``telemetry.reference_registry(device="cuda")``: its table must
+    equal the committed ``docs/metrics_torch.md``'s."""
+    import dataclasses as dc
+
+    from repro_torch import configs
+    from repro_torch.core.kv_compress import KVCompressConfig
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import telemetry
+    from repro_torch.runtime.kv_pool import PagedKVConfig
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg = dc.replace(configs.get_reduced("qwen2-moe-a2.7b"), dtype="float32")
+    params = tfm.init_params(0, cfg, device="cpu")
+    reqs, prompts = moe_tiny_stream()
+    base = dict(batch_size=4, max_seq=96,
+                kv_compress=KVCompressConfig(**MOE_TINY_CC))
+    modes = {"chunked": dict(base, prefill_chunk=8),
+             "paged": dict(base, prefill_chunk=8,
+                           paged=PagedKVConfig(block_size=4)),
+             "blocking": base}
+    problems, out = [], {}
+    for mode, kw in modes.items():
+        recs = {}
+        for d in ("cpu", dev):
+            srv = Server(cfg, ServerConfig(**kw), params, device=d)
+            recs[str(d)] = run_serve(torch, srv, reqs, prompts,
+                                     f"4c qwen2-moe {mode} {d}")
+        card, cpu = recs[str(dev)], recs["cpu"]
+        out[mode] = {"card": card, "cpu": cpu}
+        if card["tokens"] != cpu["tokens"]:
+            problems.append(f"{mode}: card tokens != CPU tokens")
+        problems += clustered_launch_problems(card, mode, cfg.n_layers)
+        ln, steps = card["launches"], card["engine_steps"]
+        say(f"[{smi}] 4c reduced qwen2-moe {mode}: {steps} engine steps, "
+            f"card == CPU {card['tokens'] == cpu['tokens']}, launches "
+            f"{ {k: v for k, v in ln.items() if v} }, tokens sha256 "
+            f"{card['tokens_sha256']}")
+    t0 = time.perf_counter()
+    table = telemetry.reference_registry(device=dev).reference_table()
+    reg_s = time.perf_counter() - t0
+    doc = (ROOT / "docs" / "metrics_torch.md").read_text(encoding="utf-8")
+    committed = [ln for ln in doc.splitlines() if ln.startswith("|")]
+    if table.splitlines() != committed:
+        problems.append("reference_registry on the card: its table differs "
+                        "from docs/metrics_torch.md")
+    say(f"[{smi}] 4c reference_registry(device=cuda): {len(committed) - 2} "
+        f"metric rows, equal to docs/metrics_torch.md "
+        f"{table.splitlines() == committed}, in {reg_s:.1f} s")
+    if problems:
+        raise AssertionError("4c qwen2-moe: " + "; ".join(problems))
+    out["registry_s"] = reg_s
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 5n: qwen2-moe-a2.7b at full width and depth
+# ---------------------------------------------------------------------------
+
+MOE_MAX_SEQ = 2048
+
+
+def moe_lengths(rng):
+    """5n's 4 prompt lengths (96-768) and new tokens (24-40), the first
+    draws from ``rng``."""
+    return rng.integers(96, 769, size=4), rng.integers(24, 41, size=4)
+
+
+def moe_requests(vocab):
+    """5n's 4 requests and their prompts, from ``default_rng(7)``."""
+    from repro_torch.core.request_cluster import Request
+
+    rng = np.random.default_rng(7)
+    lens, gens = moe_lengths(rng)
+    reqs = [Request(i, int(lens[i]), int(gens[i])) for i in range(4)]
+    prompts = {i: rng.integers(0, vocab, size=int(lens[i])).astype(np.int32)
+               for i in range(4)}
+    return reqs, prompts
+
+
+def moe_kept(torch, idx, cap):
+    """(T, K) bool: which of the assignments ``idx`` (T, K) their experts
+    keep at capacity ``cap``: an assignment's rank among those of its
+    expert, in token-then-k order, is below ``cap`` (the dispatch's rule,
+    recomputed here from the routes alone)."""
+    flat = idx.reshape(-1).long()
+    order = torch.argsort(flat, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(flat.numel())
+    counts = torch.bincount(flat)
+    starts = torch.cumsum(counts, 0) - counts
+    return (rank - starts[flat] < cap).reshape(idx.shape)
+
+
+def check_moe_layer(torch, dev, cfg, p):
+    """One full-width MoE layer (60 experts of 1,408, top-4, the shared
+    expert of 5,632) on (4, 64, 2,048) bf16 rows, on the card against the
+    CPU, which computes it in f32 on the same bf16 weights and rows.
+
+    Gates: every token's set of top-4 experts equals the CPU's, except
+    near-ties (the CPU's 4th and 5th router probabilities within 1e-5).  A
+    token is compared where its experts and those of them that kept it
+    (capacity) equal the CPU's, at least half the tokens: there the routed experts' part
+    (``_dispatch_compute``'s y, without the shared expert, which dominates
+    the layer's magnitude) within 2^-5 of its own largest CPU magnitude,
+    and the layer's output within 2^-5 of its own (8 bf16 ulps: the card
+    rounds each stage to bf16).  With no route differing, expert loads and
+    the drop fraction equal the CPU's; else the loads differ by at most
+    2 x top-k per differing token.  Returns the record."""
+    import dataclasses as dc
+
+    from repro_torch.models import moe as moe_mod
+
+    d, k = cfg.d_model, cfg.moe.top_k
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn(4, 64, d, generator=g).to(torch.bfloat16)
+    cfg32 = dc.replace(cfg, dtype="float32")
+    p32 = {n: ({kk: vv.float().cpu() for kk, vv in v.items()}
+               if isinstance(v, dict) else v.float().cpu())
+           for n, v in p.items()}
+    with torch.inference_mode():
+        xd = x.to(dev)
+        y, m = moe_mod.apply_moe(p, xd, cfg)
+        yr = moe_mod._dispatch_compute(p, xd.reshape(-1, d), cfg)[0]
+        _, idx, _ = moe_mod.route(p, xd.reshape(-1, d), cfg)
+        torch.cuda.synchronize()
+        y, yr, idx = y.float().cpu(), yr.float().cpu(), idx.cpu()
+        y0, m0 = moe_mod.apply_moe(p32, x.float(), cfg32)
+        yr0 = moe_mod._dispatch_compute(p32, x.float().reshape(-1, d),
+                                        cfg32)[0]
+        _, idx0, probs0 = moe_mod.route(p32, x.float().reshape(-1, d), cfg32)
+    t = idx0.shape[0]
+    top = probs0.sort(-1, descending=True).values
+    near = (top[:, k - 1] - top[:, k]) < 1e-5
+    # a token's expert set decides its output; the order within it only
+    # the order of its combine
+    differ = (idx.sort(-1).values != idx0.sort(-1).values).any(-1)
+    cap = moe_mod.capacity(cfg, t)
+    kept = lambda ids: torch.where(                     # noqa: E731
+        moe_kept(torch, ids, cap), ids, -1).sort(-1).values
+    same = ~differ & (kept(idx) == kept(idx0)).all(-1)
+    rec = {"tokens": int(t), "route_differ": int(differ.sum()),
+           "near_ties": int(near.sum()),
+           "route_differ_not_near": int((differ & ~near).sum()),
+           "tokens_compared": int(same.sum()),
+           "drop_frac": float(m["drop_frac"]),
+           "drop_frac_cpu": float(m0["drop_frac"])}
+    if rec["route_differ_not_near"]:
+        raise AssertionError(f"5n MoE layer: {rec['route_differ_not_near']}"
+                             " tokens routed otherwise than on the CPU, not "
+                             "near-ties")
+    if 2 * rec["tokens_compared"] < t:
+        raise AssertionError(f"5n MoE layer: only {rec['tokens_compared']} "
+                             f"of {t} tokens routed and kept as on the CPU")
+    y, y0 = y.reshape(t, d)[same], y0.reshape(t, d)[same]
+    for name, a, a0 in (("routed", yr[same], yr0[same]), ("y", y, y0)):
+        err = (a - a0).abs().max().item()
+        scale = a0.abs().max().item()
+        rec.update({f"{name}_max_abs_err": err, f"{name}_absmax": scale})
+        if err > 2.0 ** -5 * scale:
+            raise AssertionError(f"5n MoE layer: max |{name} - {name}_cpu| "
+                                 f"{err:.3e} > 2^-5 x {scale:.3e}")
+    rec.update(max_abs_err=rec["y_max_abs_err"], y_absmax=rec["y_absmax"])
+    load_diff = (m["expert_load"].cpu() - m0["expert_load"]).abs().sum()
+    if int(load_diff) > 2 * k * rec["route_differ"]:
+        raise AssertionError("5n MoE layer: expert loads differ from the "
+                             "CPU's by more than the differing routes")
+    if not differ.any() and rec["drop_frac"] != rec["drop_frac_cpu"]:
+        raise AssertionError("5n MoE layer: drop fraction differs from the "
+                             "CPU's")
+    return rec
+
+
+def serve_moe_full(torch, dev, smi):
+    """Phase 5n: qwen2-moe-a2.7b at full width and depth (24 'G' layers,
+    d_model 2,048, 16 / 16 heads of 128, MoE FFNs of 60 routed experts of
+    1,408 top-4 and a shared expert of 5,632, vocab 151,936 untied; bf16
+    weights from ``init_params`` seed 0, the routers f32),
+    ``ServerConfig(batch_size=4, max_seq=2048, prefill_chunk=64,
+    kv_compress=smoke_kv_compress())``: 4 requests from ``default_rng(7)``
+    (prompts of 96-768 tokens, 24-40 new tokens) served chunked dense,
+    chunked paged (blocks of 16) and blocking dense.  Gates: every request
+    complete; clustered_decode launched layers x engine steps in the dense
+    serves and paged_clustered_decode in the paged one, the other never;
+    bitserial_median >= absorbs + compress admissions + compactions > 0 in
+    every serve; the paged serve's pool_frees == pool_allocs and
+    pool_blocks_end 0; ``check_moe_layer`` on layer 0.  Printed: chunked
+    vs blocking and paged vs dense agreement (not gated: a MoE launch's
+    capacity drops depend on its other rows), each serve's steps, wall and
+    tokens sha256, the host dispatches and wall of one mixed and one
+    decode step, peak memory.  Returns the record; the weights are
+    freed."""
+    from repro_torch import configs
+    from repro_torch.runtime.kv_pool import PagedKVConfig
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg = configs.get_config("qwen2-moe-a2.7b")
+    reqs, prompts = moe_requests(cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    params, n_par, n_bytes = full_width_params(torch, dev, cfg)
+    layer = check_moe_layer(torch, dev, cfg, params["layers"][0]["moe"])
+    say(f"[{smi}] 5n one MoE layer on (4, 64, {cfg.d_model}) bf16 rows: "
+        f"{layer['tokens'] - layer['route_differ']} of {layer['tokens']} "
+        f"tokens routed as on the CPU ({layer['near_ties']} near-ties, "
+        f"{layer['tokens_compared']} compared), routed part max |err| "
+        f"{layer['routed_max_abs_err']:.3e} (|y_routed| up to "
+        f"{layer['routed_absmax']:.3e}), max |y - y_cpu| "
+        f"{layer['max_abs_err']:.3e} (|y| up to "
+        f"{layer['y_absmax']:.3e}), drop_frac {layer['drop_frac']:.4f} "
+        f"(CPU {layer['drop_frac_cpu']:.4f})")
+    kw = {"chunked": dict(prefill_chunk=REC_CHUNK),
+          "paged": dict(prefill_chunk=REC_CHUNK,
+                        paged=PagedKVConfig(block_size=BS)),
+          "blocking": {}}
+    recs, problems = {}, []
+    for mode, extra in kw.items():
+        srv = Server(cfg, ServerConfig(batch_size=4, max_seq=MOE_MAX_SEQ,
+                                       kv_compress=smoke_kv_compress(),
+                                       **extra), params, device=dev)
+        rec = recs[mode] = run_serve(torch, srv, reqs, prompts,
+                                     f"5n qwen2-moe {mode}")
+        problems += clustered_launch_problems(rec, mode, cfg.n_layers)
+        st, ln, steps = rec["stats"], rec["launches"], rec["engine_steps"]
+        if mode == "paged" and not (st["pool_frees"] == st["pool_allocs"]
+                                    and st["pool_blocks_end"] == 0):
+            problems.append(f"paged: pool allocs {st['pool_allocs']}, frees"
+                            f" {st['pool_frees']}, end "
+                            f"{st['pool_blocks_end']}")
+        say(f"[{smi}] 5n qwen2-moe-a2.7b {mode}: 4 requests (prompts "
+            f"{[r.prompt_len for r in reqs]}, {int(st['gen_tokens'])} "
+            f"generated) in {rec['wall_s']:.3f} s wall; {steps} engine "
+            f"steps, {int(st['prefill_chunks'])} prefill chunks, "
+            f"{int(st['kv_absorbs'])} absorbs, "
+            f"{int(st['kv_compactions'])} compactions"
+            + (f", {int(st['kv_admit_compress'])} compress + "
+               f"{int(st['kv_admit_tail'])} tail-only admissions"
+               if mode == "blocking" else "")
+            + f"; kernel launches {({k: v for k, v in ln.items() if v})}; "
+            f"{times_line(rec)}; tokens sha256 {rec['tokens_sha256']}")
+    compare_tokens(recs["chunked"], recs["blocking"],
+                   "5n blocking vs chunked")
+    compare_tokens(recs["chunked"], recs["paged"], "5n paged vs dense")
+    steps = step_dispatches(torch, dev, cfg, params, MOE_MAX_SEQ)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[{smi}] 5n qwen2-moe-a2.7b: one mixed step (a 64-token chunk and "
+        f"3 decode rows) {steps['mixed']['dispatches']} host dispatches "
+        f"(non-view aten ops) in {steps['mixed']['ms']:.1f} ms, one decode "
+        f"step {steps['decode']['dispatches']} in "
+        f"{steps['decode']['ms']:.1f} ms; peak memory allocated "
+        f"{peak / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("5n qwen2-moe-a2.7b: " + "; ".join(problems))
+    return {"serves": recs, "steps": steps, "peak_bytes": peak,
+            "n_params": n_par, "param_bytes": n_bytes, "moe_layer": layer,
             "prompt_lens": [r.prompt_len for r in reqs]}
 
 
@@ -2888,9 +3307,10 @@ def main() -> int:
     pcd_err = check_paged_decode(torch, cd, pcd, dev)
     gemma_err = check_gemma_decode(torch, cd, pcd, dev)
     tiny_err = check_rec_tiny_decode(torch, cd, pcd, dev)
+    moe_err = check_moe_decode(torch, cd, pcd, dev)
     quota_err = check_paged_quota(torch, attention, pcd, dev)
-    cd_err = max(cd_err, gemma_err, tiny_err)
-    pcd_err = max(pcd_err, gemma_err, tiny_err, quota_err)
+    cd_err = max(cd_err, gemma_err, tiny_err, moe_err)
+    pcd_err = max(pcd_err, gemma_err, tiny_err, moe_err, quota_err)
     da_err = check_distance_argmin(torch, da, dev)
     bsm_err = check_bitserial_median(torch, bsm, dev)
     fd_err = check_flash_decode(torch, fd, dev)
@@ -2905,6 +3325,11 @@ def main() -> int:
     rec_tiny = check_rec_tiny(torch, dev, smi)
     record["rec_tiny"] = rec_tiny
     done("4b recurrent TINY")
+
+    # phase 4c: the reduced qwen2-moe, card vs CPU, and the metrics
+    # reference's battery on the card
+    record["moe_tiny"] = check_moe_tiny(torch, dev, smi)
+    done("4c qwen2-moe reduced + metrics reference")
 
     # phase 5: serve
     serve, params = serve_qwen3(torch, dev, smi)
@@ -2978,6 +3403,11 @@ def main() -> int:
                                                   "mamba2-2.7b")
     done("5m mamba2-2.7b (weights included)")
 
+    # phase 5n: qwen2-moe-a2.7b at full width and depth
+    moe = serve_moe_full(torch, dev, smi)
+    record["serve_qwen2_moe"] = moe
+    done("5n qwen2-moe-a2.7b (weights included)")
+
     # phase 6: k-medians through both clustering kernels, the pipeline
     km = kmedians(torch, dev)
     record["kmedians"] = km
@@ -3034,6 +3464,8 @@ def main() -> int:
              launches_windowed=windowed["launches"]["clustered_decode"],
              launches_recurrent={p: r["card"]["chunked"]["launches"][
                  "clustered_decode"] for p, r in rec_tiny.items()},
+             launches_moe={m: moe["serves"][m]["launches"][
+                 "clustered_decode"] for m in ("chunked", "blocking")},
              max_abs_err=cd_err, ms=tm["clustered_decode"]["ms"],
              plain_ms=tm["clustered_decode"]["plain_ms"],
              bound_ms=tm["clustered_decode"]["bound_ms"],
@@ -3056,6 +3488,8 @@ def main() -> int:
                  "paged_clustered_decode"],
              launches_recurrent={p: r["card"]["paged"]["launches"][
                  "paged_clustered_decode"] for p, r in rec_tiny.items()},
+             launches_moe=moe["serves"]["paged"]["launches"][
+                 "paged_clustered_decode"],
              max_abs_err=pcd_err, ms=tm["paged_clustered_decode"]["ms"],
              plain_ms=tm["paged_clustered_decode"]["plain_ms"],
              bound_ms=tm["paged_clustered_decode"]["bound_ms"],
@@ -3091,6 +3525,8 @@ def main() -> int:
              launches_slo=slo["scheduled"]["launches"]["bitserial_median"],
              launches_recurrent={p: r["card"]["chunked"]["launches"][
                  "bitserial_median"] for p, r in rec_tiny.items()},
+             launches_moe={m: r["launches"]["bitserial_median"]
+                           for m, r in moe["serves"].items()},
              max_abs_err=bsm_err, ms=tm["bitserial_median"]["ms"],
              plain_ms=tm["bitserial_median"]["plain_ms"],
              bound_ms=tm["bitserial_median"]["bound_ms"],

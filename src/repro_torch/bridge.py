@@ -10,7 +10,10 @@ Parameters are cast from the f32 masters to ``cfg.dtype`` once, here —
 the reference casts at every use, and a cast is deterministic — except
 the leaves the reference reads uncast, which stay f32: norm scales and
 biases (``apply_norm``), an 'M' layer's ``dt_bias``, ``A_log``, ``D``
-and ``norm``, and an 'R' layer's gate weights and biases and ``lam``.  bf16
+and ``norm``, an 'R' layer's gate weights and biases and ``lam``, and a
+MoE layer's ``router`` and selection ``bias``.  A model with a dense
+prefix (``moe.n_dense_layers``) has its prefix layers first in the
+port's list, as under the reference's ``params["prefix"]``.  bf16
 arrays from JAX are ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses, so they cross as their uint16 bit patterns.
 """
@@ -29,7 +32,9 @@ F32_KEYS = frozenset({"scale", "bias", "q_norm", "k_norm",
                       # models/ssm.py
                       "dt_bias", "A_log", "D", "norm",
                       # models/rglru.py
-                      "wa_gate", "wi_gate", "ba_gate", "bi_gate", "lam"})
+                      "wa_gate", "wi_gate", "ba_gate", "bi_gate", "lam",
+                      # models/moe.py ("bias" above)
+                      "router"})
 
 
 def to_torch(a, device=None) -> torch.Tensor:

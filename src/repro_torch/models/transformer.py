@@ -1,20 +1,22 @@
 """Model assembly for serving a decoder-only stack of global ('G') and
 sliding-window ('L') GQA layers, Mamba2 SSD ('M') and RG-LRU ('R')
-recurrent layers (port of the prefill and decode subset of
-``repro.models.transformer``).
+recurrent layers, with dense or MoE FFNs (port of the prefill and decode
+subset of ``repro.models.transformer``).
 
 Parameters: ``{"embed": {"table"}, "layers": [per-layer dict], "final_norm"}``
 where each layer dict has the reference's keys: "norm1", "attn", "norm2",
-"mlp" (and "post_attn_norm" / "post_mlp_norm" under ``post_norms``) for an
-attention layer, "norm1" and "ssm" for an 'M' layer, "norm1", "rg",
-"norm2" and "mlp" for an 'R' layer.  The reference stacks repeated layers
-under ``params["scan"]`` with a leading layer axis; the port keeps one
-entry per layer and runs a Python loop over them (``bridge`` converts
-between the two).  The decode cache is ``{"layers": [per-layer leaf]}``
-with the reference's leaf layouts; :func:`prefill` builds an exact one and
-:func:`decode_step` updates a cache in place (a recurrent leaf's entries
-are replaced by the stepped state; an attention leaf's tensors are
-written).
+"mlp" or "moe" (and "post_attn_norm" / "post_mlp_norm" under
+``post_norms``) for an attention layer, "norm1" and "ssm" for an 'M'
+layer, "norm1", "rg", "norm2" and "mlp" for an 'R' layer.  Under
+``cfg.moe`` every 'G' / 'L' layer takes a "moe" FFN, except the first
+``moe.n_dense_layers``, dense 'G' layers of width ``moe.d_ff_dense``.
+The reference stacks repeated layers under ``params["scan"]`` with a
+leading layer axis; the port keeps one entry per layer and runs a Python
+loop over them (``bridge`` converts between the two).  The decode cache
+is ``{"layers": [per-layer leaf]}`` with the reference's leaf layouts;
+:func:`prefill` builds an exact one and :func:`decode_step` updates a
+cache in place (a recurrent leaf's entries are replaced by the stepped
+state; an attention leaf's tensors are written).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from repro_torch.core import layer_state
 from repro_torch.kernels.clustered_decode import per_slot
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
@@ -52,9 +55,9 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves decoder-only dense stacks of 'G' layers, 'L' layers
-    with a ``sliding_window``, and 'M' / 'R' recurrent layers; anything
-    else names the ROADMAP item that brings it."""
+    """The port serves decoder-only stacks of 'G' layers, 'L' layers with
+    a ``sliding_window`` and 'M' / 'R' recurrent layers, with dense or MoE
+    FFNs; anything else names the ROADMAP item that brings it."""
     kinds = set(layer_kinds(cfg))
     if "L" in kinds and not cfg.sliding_window:
         raise ValueError(f"model '{cfg.name}': 'L' layers need a "
@@ -62,17 +65,15 @@ def check_supported(cfg: ModelConfig) -> None:
     problems = []
     if kinds - set("GLMR"):
         problems.append(f"unknown layer kinds in {cfg.layer_pattern!r}")
-    if cfg.moe is not None:
-        problems.append("MoE layers (ROADMAP Queue A item 8)")
     if cfg.attn_kind != "gqa":
         problems.append(f"attn_kind {cfg.attn_kind!r} (ROADMAP Queue A "
-                        "item 8)")
+                        "item 8.3)")
     if cfg.is_encdec or cfg.frontend is not None:
         problems.append("encoder-decoder / modality frontends (ROADMAP "
-                        "Queue A item 8)")
+                        "Queue A item 8.4)")
     if cfg.pos_kind != "rope":
         problems.append(f"pos_kind {cfg.pos_kind!r} (ROADMAP Queue A "
-                        "item 8)")
+                        "item 8.4)")
     if problems:
         raise NotImplementedError(f"model '{cfg.name}': " + "; ".join(problems))
 
@@ -82,10 +83,13 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_sublayer(generator, cfg: ModelConfig, kind: str, device=None):
+def init_sublayer(generator, cfg: ModelConfig, kind: str,
+                  use_moe: bool = False, d_ff=None, device=None):
     """One sublayer's parameters: an attention layer with the sandwich
     norms ("post_attn_norm", "post_mlp_norm") when ``cfg.post_norms`` is
-    set, an 'M' layer with no FFN, an 'R' layer with "norm2" and "mlp"."""
+    set and a "moe" FFN under ``use_moe``, else an MLP of width ``d_ff``
+    (default ``cfg.d_ff``); an 'M' layer with no FFN, an 'R' layer with
+    "norm2" and "mlp" (never MoE)."""
     p = {"norm1": init_norm(cfg, cfg.d_model, device)}
     if kind == "M":
         p["ssm"] = ssm_mod.init_ssm(generator, cfg, device)
@@ -93,7 +97,7 @@ def init_sublayer(generator, cfg: ModelConfig, kind: str, device=None):
     if kind == "R":
         p["rg"] = rg_mod.init_rglru(generator, cfg, device)
         p["norm2"] = init_norm(cfg, cfg.d_model, device)
-        p["mlp"] = init_mlp(generator, cfg, cfg.d_ff, device)
+        p["mlp"] = init_mlp(generator, cfg, d_ff or cfg.d_ff, device)
         return p
     if kind not in ("G", "L"):
         raise ValueError(kind)
@@ -101,7 +105,10 @@ def init_sublayer(generator, cfg: ModelConfig, kind: str, device=None):
     if cfg.post_norms:
         p["post_attn_norm"] = init_norm(cfg, cfg.d_model, device)
     p["norm2"] = init_norm(cfg, cfg.d_model, device)
-    p["mlp"] = init_mlp(generator, cfg, cfg.d_ff, device)
+    if use_moe:
+        p["moe"] = moe_mod.init_moe(generator, cfg, device)
+    else:
+        p["mlp"] = init_mlp(generator, cfg, d_ff or cfg.d_ff, device)
     if cfg.post_norms:
         p["post_mlp_norm"] = init_norm(cfg, cfg.d_model, device)
     return p
@@ -117,10 +124,16 @@ def init_params(generator, cfg: ModelConfig, device=None):
     dev = resolve_device(device)
     if not isinstance(generator, torch.Generator):
         generator = torch.Generator(device=dev).manual_seed(int(generator))
+    n_prefix = layout(cfg)[0]
+    moe = cfg.moe is not None
     return {
         "embed": init_embed(generator, cfg, dev),
-        "layers": [init_sublayer(generator, cfg, k, dev)
-                   for k in layer_kinds(cfg)],
+        # the dense prefix ('G', width d_ff_dense), then the stack
+        "layers": [init_sublayer(generator, cfg, k, moe and i >= n_prefix
+                                 and k in "GL",
+                                 cfg.moe.d_ff_dense if moe and i < n_prefix
+                                 else None, dev)
+                   for i, k in enumerate(layer_kinds(cfg))],
         "final_norm": init_norm(cfg, cfg.d_model, dev),
     }
 
@@ -131,9 +144,14 @@ def init_params(generator, cfg: ModelConfig, device=None):
 
 
 def _ffn(p, h, cfg: ModelConfig):
-    """norm2 → mlp → residual (+sandwich norm)."""
+    """norm2 → (moe|mlp) → residual (+sandwich norm).  A MoE FFN routes
+    every row of h at once, padding rows included, as the reference's
+    does; serving discards its metrics, as the reference's does."""
     x = apply_norm(p["norm2"], h, cfg)
-    y = apply_mlp(p["mlp"], x, cfg)
+    if "moe" in p:
+        y, _ = moe_mod.apply_moe(p["moe"], x, cfg)
+    else:
+        y = apply_mlp(p["mlp"], x, cfg)
     if cfg.post_norms:
         y = apply_norm(p["post_mlp_norm"], y, cfg)
     return h + y
@@ -224,7 +242,8 @@ def restore_clustered_slot_state(cache, snap, j: int):
 
 def sublayer_prefill(p, h, cfg: ModelConfig, kind: str, *, positions,
                      kv_repeat: int, max_seq: int,
-                     recurrent_mode: str = "sequential"):
+                     recurrent_mode: str = "sequential",
+                     recurrent_rows=None):
     """h (B, S, d) → (h, cache): a 'G' layer's exact k/v zero-padded out
     to ``max_seq`` positions for decode, an 'L' layer's window ring, an
     'M' / 'R' layer's final recurrent state.
@@ -235,7 +254,10 @@ def sublayer_prefill(p, h, cfg: ModelConfig, kind: str, *, positions,
     of feeding the prompt through the decode path, as chunked admission
     does; "scan" runs the parallel forms (chunked SSD, the log-depth
     linear scan), equal to stepping the decode only within rounding, and
-    is kept for parity with the reference's default."""
+    is kept for parity with the reference's default.  ``recurrent_rows``
+    (sequential only) steps the decode at that many rows, the prompts'
+    rows first and zero rows after them (:func:`_recurrent_prefill_
+    sequential`)."""
     if kind in ("M", "R"):
         x = apply_norm(p["norm1"], h, cfg)
         if recurrent_mode == "sequential":
@@ -243,7 +265,8 @@ def sublayer_prefill(p, h, cfg: ModelConfig, kind: str, *, positions,
                     else rg_mod.init_cache_rglru)
             y, cache = _recurrent_prefill_sequential(
                 _recurrent_step_fn(p, cfg, kind), x,
-                init(cfg, x.shape[0], device=x.device))
+                init(cfg, x.shape[0], device=x.device),
+                rows=recurrent_rows)
         elif kind == "M":
             y, cache = _ssm_prefill(p["ssm"], x, cfg)
         else:
@@ -263,18 +286,44 @@ def sublayer_prefill(p, h, cfg: ModelConfig, kind: str, *, positions,
     return _ffn(p, h, cfg), cache
 
 
-def _recurrent_prefill_sequential(step_fn, x, cache):
+def _pad_rows(rows, x, state):
+    """x (B, ...) and every (B, ...) leaf of a recurrent state with zero
+    rows appended up to ``rows`` (None or <= B: unchanged).
+
+    The engine steps a recurrent column at its slot count whatever the
+    launch (blocking admission's sequential prefill, the mixed and the
+    one-token decode after the dense bucket shrinks, the packed rounds),
+    because on the card some f32 ops of the step (the RG-LRU gate GEMM,
+    the SSD state read-out's batched matmul, the gated norm's row mean)
+    round a row differently at another row count.  At one row count a
+    row's bits do not depend on the launch, so chunked == blocking and
+    paged == dense hold on the card as on the CPU (ROADMAP Queue C 10)."""
+    b = x.shape[0]
+    if rows is None or rows <= b:
+        return x, state
+    pad = lambda v: torch.cat(                            # noqa: E731
+        [v, v.new_zeros((rows - b,) + v.shape[1:])])
+    return pad(x), {k: pad(v) for k, v in state.items()}
+
+
+def _recurrent_prefill_sequential(step_fn, x, cache, rows=None):
     """Prefill a recurrent layer by stepping its one-token decode.
 
     x (B, S, d) normed input; ``step_fn(xt (B, 1, d), cache) -> (y,
     cache)`` is the layer's decode recurrence.  Returns (y (B, S, d),
     cache): the per-step ops of feeding the S positions through the
-    decode path one at a time, which the engine's mixed launch does."""
+    decode path one at a time, which the engine's mixed launch does.
+
+    ``rows`` > B steps the decode at ``rows`` rows (:func:`_pad_rows`);
+    only the first B rows of the outputs and the state are returned, so
+    the padding reaches no slot."""
+    b = x.shape[0]
+    x, cache = _pad_rows(rows, x, cache)
     ys = []
     for t in range(x.shape[1]):
         y, cache = step_fn(x[:, t:t + 1], cache)
-        ys.append(y[:, 0])
-    return torch.stack(ys, dim=1), cache
+        ys.append(y[:b, 0])
+    return torch.stack(ys, dim=1), {k: v[:b] for k, v in cache.items()}
 
 
 def _ssm_prefill(p, x, cfg: ModelConfig):
@@ -304,22 +353,24 @@ def _ssm_prefill(p, x, cfg: ModelConfig):
 
 def prefill(params, cfg: ModelConfig, tokens, *, max_seq: int,
             kv_repeat: int = 1, last_pos=None,
-            recurrent_mode: str = "sequential"):
+            recurrent_mode: str = "sequential", recurrent_rows=None):
     """Full-sequence prefill of tokens (B, S).  Returns (logits (B, V) f32
     of position ``last_pos`` (default the last), cache): with prompts
     right-padded to a bucket, the causal mask keeps position last_pos
     exact whatever the padding behind it.  The cache is exact,
     ``{"layers": [leaf]}``: {"k", "v"} (B, max(S, max_seq), Hkv, Dh) for
     a 'G' layer, the (B, window, Hkv, Dh) ring for an 'L' layer, the final
-    recurrent state for an 'M' / 'R' layer (``recurrent_mode``: see
-    :func:`sublayer_prefill`)."""
+    recurrent state for an 'M' / 'R' layer (``recurrent_mode`` and
+    ``recurrent_rows``: see :func:`sublayer_prefill`; the engine passes
+    its slot count)."""
     h = embed_tokens(params["embed"], tokens, cfg)
     positions = torch.arange(h.shape[1], device=h.device)
     layers = []
     for lp, kind in zip(params["layers"], layer_kinds(cfg)):
         h, c = sublayer_prefill(lp, h, cfg, kind, positions=positions,
                                 kv_repeat=kv_repeat, max_seq=max_seq,
-                                recurrent_mode=recurrent_mode)
+                                recurrent_mode=recurrent_mode,
+                                recurrent_rows=recurrent_rows)
         layers.append(c)
     h = apply_norm(params["final_norm"], h, cfg)
     h_last = h[:, -1:] if last_pos is None else h[:, last_pos:last_pos + 1]
@@ -335,22 +386,28 @@ def _recurrent_step_fn(p, cfg: ModelConfig, kind: str):
 
 
 def sublayer_decode(p, h, cfg: ModelConfig, kind: str, cache, t, *,
-                    kv_repeat: int, chunk_len=None):
+                    kv_repeat: int, chunk_len=None, recurrent_rows=None):
     """h (B, 1, d), or (B, L, d) in mixed mode with per-slot
     ``chunk_len``.  Ring-family layers stream the chunk into their KV at
     exact positions (their tensors written in place); an 'M' / 'R' layer
     advances its state column by column with per-slot masking
-    (:func:`_recurrent_mixed_advance`) and the leaf's entries are replaced
-    by the new state.  Returns (h, cache)."""
+    (:func:`_recurrent_mixed_advance`), at ``recurrent_rows`` rows when B
+    is fewer (:func:`_pad_rows`), and the leaf's entries are replaced by
+    the new state.  Returns (h, cache)."""
     if kind in ("M", "R"):
         x = apply_norm(p["norm1"], h, cfg)
+        b = x.shape[0]
         step = _recurrent_step_fn(p, cfg, kind)
+        xs, st = _pad_rows(recurrent_rows, x, cache)
         if chunk_len is None:
-            y, new = step(x, cache)
+            y, new = step(xs, st)
         else:
-            y, new = _recurrent_mixed_advance(step, x, cache, chunk_len)
-        cache.update(new)
-        h = h + y
+            cl = per_slot(chunk_len, b, x.device)
+            if xs.shape[0] > b:                 # padded rows take no token
+                cl = torch.cat([cl, cl.new_zeros(xs.shape[0] - b)])
+            y, new = _recurrent_mixed_advance(step, xs, st, cl)
+        cache.update({k: v[:b] for k, v in new.items()})
+        h = h + y[:b]
         return (h if kind == "M" else _ffn(p, h, cfg)), cache
     x = apply_norm(p["norm1"], h, cfg)
     y, cache = attn.attn_decode(p["attn"], x, cfg, layer_kind=kind,
@@ -388,17 +445,20 @@ def _recurrent_mixed_advance(step_fn, x, cache, chunk_len):
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, t, *,
-                kv_repeat: int = 1, chunk_len=None):
+                kv_repeat: int = 1, chunk_len=None, recurrent_rows=None):
     """One engine step.  tokens (B, 1) with ``t`` scalar or (B,) (each
     slot's position), or mixed mode: tokens (B, L) with per-slot
     ``chunk_len`` (B,) valid columns and ``t`` (B,) the cache length before
     the step.  Returns (logits (B, V) f32, cache) — each slot's LAST valid
-    row — and writes the new keys and values into ``cache`` in place."""
+    row — and writes the new keys and values into ``cache`` in place.
+    ``recurrent_rows``: the rows an 'M' / 'R' layer steps at (the engine
+    passes its slot count; see :func:`_pad_rows`)."""
     h = embed_tokens(params["embed"], tokens, cfg)
     kinds = layer_kinds(cfg)
     for lp, kind, c in zip(params["layers"], kinds, cache["layers"]):
         h, _ = sublayer_decode(lp, h, cfg, kind, c, t, kv_repeat=kv_repeat,
-                               chunk_len=chunk_len)
+                               chunk_len=chunk_len,
+                               recurrent_rows=recurrent_rows)
     h = apply_norm(params["final_norm"], h, cfg)
     if chunk_len is not None:
         # gather each slot's last valid row before the vocab projection
@@ -473,16 +533,19 @@ def _sublayer_decode_recurrent_packed(p, h, cfg: ModelConfig, cache, kind,
     those rows through the one-token decode, and scatters the new state
     back to the same slots, in place.  Only a round's own rows are stepped
     and written (the reference steps every row and drops the writes of the
-    others); padding rows (row_pos < 0) are in no round."""
+    others), at the cache's slot count (:func:`_pad_rows`); padding rows
+    (row_pos < 0) are in no round."""
     x = apply_norm(p["norm1"], h, cfg)                   # (N, 1, d)
     step = _recurrent_step_fn(p, cfg, kind)
+    n_slots = next(iter(cache.values())).shape[0]
     y = torch.zeros_like(h)
     for rows, slots in rounds:
-        st = {k: v[slots] for k, v in cache.items()}
-        y_j, st_new = step(x[rows], st)
+        m = rows.shape[0]
+        y_j, st_new = step(*_pad_rows(n_slots, x[rows],
+                                      {k: v[slots] for k, v in cache.items()}))
         for k, v in st_new.items():
-            cache[k][slots] = v.to(cache[k].dtype)
-        y[rows] = y_j.to(y.dtype)
+            cache[k][slots] = v[:m].to(cache[k].dtype)
+        y[rows] = y_j[:m].to(y.dtype)
     h = h + y
     return (h if kind == "M" else _ffn(p, h, cfg)), cache
 

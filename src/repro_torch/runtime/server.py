@@ -33,9 +33,12 @@ Mamba2 SSD, 'R' RG-LRU) carry a fixed-size state per slot that never
 retires (``RecurrentRetention``): the mixed launch advances it token by
 token, blocking admission prefills it by stepping the same decode
 (``recurrent_mode="sequential"``), a chunked admission zeroes it first,
-and slot snapshots (prefix sharing, the swap) carry it whole.  A model
-with 'L', 'M' or 'R' layers admits prompts at their exact length (bucket
-1): pad tokens would enter a window ring or a recurrent state.
+and slot snapshots (prefix sharing, the swap) carry it whole.  Every
+launch steps a recurrent column at the engine's slot count
+(``recurrent_rows``, bound once in ``Server._prefill`` / ``_decode``), so
+a row's bits do not depend on the launch.  A
+model with 'L', 'M' or 'R' layers admits prompts at their exact length
+(bucket 1): pad tokens would enter a window ring or a recurrent state.
 
 With ``paged=PagedKVConfig(...)`` the 'G' layers' exact tail rings live
 in a block pool behind per-slot block tables (runtime/kv_pool.py).  With
@@ -98,6 +101,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import time
 from typing import Dict, List, Optional, Sequence
@@ -216,6 +220,15 @@ class Server:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.scfg = scfg
+        # every dense launch steps a recurrent column at the slot count,
+        # whatever rows its cache holds (blocking admission's fresh one-row
+        # cache, a shrunk bucket, the static batch); the packed launch
+        # reads the count from its all-slot cache
+        self._prefill = functools.partial(
+            tfm.prefill, recurrent_mode="sequential",
+            recurrent_rows=scfg.batch_size)
+        self._decode = functools.partial(tfm.decode_step,
+                                         recurrent_rows=scfg.batch_size)
         # the reference's ValueError gates, in its order
         if scfg.kv_compress is not None:
             if scfg.engine != "continuous":
@@ -325,6 +338,11 @@ class Server:
         tfm.check_supported(cfg)
         self.params = _to_device(params, self.device)
         self.last_stats: Dict[str, float] = {}
+        # port-only counts of a blocking clustered serve's admissions by
+        # _clusterize form ("kv_admit_compress", "kv_admit_tail") and its
+        # seconds in _clusterize ("clusterize_s"); kept out of the metrics
+        # registry, whose surface is the reference's (docs/metrics_torch.md)
+        self.last_admission: Dict[str, float] = {}
         # typed metrics registry and lifecycle tracer: last_stats is a flat
         # view regenerated from the registry at the end of every serve
         self.metrics = tele_mod.MetricsRegistry()
@@ -960,11 +978,10 @@ class Server:
             padded = np.zeros((1, bkt), np.int32)
             padded[0, :plen] = p
             t0 = time.perf_counter()
-            logits1, c1 = tfm.prefill(self.params, cfg,
-                                      torch.from_numpy(padded).to(dev),
-                                      max_seq=scfg.max_seq,
-                                      last_pos=plen - 1,
-                                      recurrent_mode="sequential")
+            logits1, c1 = self._prefill(self.params, cfg,
+                                        torch.from_numpy(padded).to(dev),
+                                        max_seq=scfg.max_seq,
+                                        last_pos=plen - 1)
             first = int(torch.argmax(logits1, -1)[0])
             now = time.perf_counter()
             pre_ms[uid] = (now - t0_serve) * 1e3        # TTFT
@@ -1271,12 +1288,12 @@ class Server:
                 t_d = torch.from_numpy(t_vec).to(dev)
                 if mixed:
                     with _annot("mixed_step"):
-                        logits, cache = tfm.decode_step(
+                        logits, cache = self._decode(
                             self.params, cfg, cache, tok_d, t_d,
                             chunk_len=torch.from_numpy(cl_vec).to(dev))
                 else:
                     with _annot("decode_step"):
-                        logits, cache = tfm.decode_step(
+                        logits, cache = self._decode(
                             self.params, cfg, cache, tok_d, t_d)
                 nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
                 nxt_of = lambda jj: nxt[jj]                # noqa: E731
@@ -1531,17 +1548,11 @@ class Server:
                     ).add(n_absorbs)
         reg.counter("kv_compactions", "batched compaction passes"
                     ).add(n_compacts)
-        if layout is not None and not chunk:
-            # port-only: the reference's stats do not split its blocking
-            # admissions by _clusterize form
-            reg.counter("kv_admit_compress",
-                        "blocking admissions through compress_cache_batched"
-                        ).add(n_admit_compress)
-            reg.counter("kv_admit_tail",
-                        "blocking admissions in tail-only clustered form"
-                        ).add(n_admit_tail)
-            reg.gauge("clusterize_s", "seconds in _clusterize"
-                      ).set(clusterize_s)
+        self.last_admission = (
+            {"kv_admit_compress": float(n_admit_compress),
+             "kv_admit_tail": float(n_admit_tail),
+             "clusterize_s": clusterize_s}
+            if layout is not None and not chunk else {})
         reg.counter("kv_retired_frontier",
                     "positions retired behind the coverage frontier"
                     ).add(kv_retired["frontier"])
@@ -1953,6 +1964,7 @@ class Server:
             "plan_waste", "padding waste of the static batch plan"
         ).set(plan.waste)
         self.last_stats = self.metrics.flat_view()
+        self.last_admission = {}
         return out
 
     def _serve_batch(self, uids, by_uid, prompts) -> List[Completion]:
@@ -1970,19 +1982,18 @@ class Server:
             toks[i, plen - len(p):] = p  # left-pad
 
         t0 = time.perf_counter()
-        logits, cache = tfm.prefill(self.params, cfg,
-                                    torch.from_numpy(toks).to(dev),
-                                    max_seq=self.scfg.max_seq,
-                                    last_pos=plen - 1,
-                                    recurrent_mode="sequential")
+        logits, cache = self._prefill(self.params, cfg,
+                                      torch.from_numpy(toks).to(dev),
+                                      max_seq=self.scfg.max_seq,
+                                      last_pos=plen - 1)
         _sync(dev)
         t1 = time.perf_counter()
 
         new = torch.argmax(logits, -1).to(torch.int32)[:, None]
         gen_toks = [new]
         for i in range(gen - 1):
-            logits, cache = tfm.decode_step(self.params, cfg, cache, new,
-                                            plen + i)
+            logits, cache = self._decode(self.params, cfg, cache, new,
+                                         plen + i)
             new = torch.argmax(logits, -1).to(torch.int32)[:, None]
             gen_toks.append(new)
         gen_arr = torch.cat(gen_toks, dim=1).cpu().numpy()

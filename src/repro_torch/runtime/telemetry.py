@@ -27,9 +27,14 @@ Event schema (internal form)::
      "pid": int_data_shard, "tid": "engine" | "queue" | "slot<K>",
      "uid": int | None, "args": {...}}
 
-``ts`` is microseconds relative to the serve's ``t0``.  The metrics
-reference document (the reference's ``reference_registry`` /
-``reference_doc``) is not ported yet (ROADMAP Queue A item 7).
+``ts`` is microseconds relative to the serve's ``t0``.
+
+* :func:`reference_registry` / :func:`reference_doc` — every metric the
+  serving stack can publish, collected from the live registrations of a
+  battery of tiny serves; ``docs/metrics_torch.md`` is generated from
+  them and checked for drift::
+
+      python -m repro_torch.runtime.telemetry reference [--check PATH]
 """
 
 from __future__ import annotations
@@ -216,6 +221,129 @@ class MetricsRegistry:
         for m in self._metrics.values():
             out.update(m.view())
         return out
+
+    def reference_table(self) -> str:
+        """Markdown reference of every registered metric (for docs)."""
+        lines = ["| metric | type | description |", "|---|---|---|"]
+        for m in self._metrics.values():
+            tag = " (lifetime)" if m.persist else ""
+            if m.kind == "histogram":
+                keys = ", ".join(f"`{m.key(q)}`" for q in m.quantiles)
+                lines.append(f"| {keys} | histogram{tag} | {m.help} |")
+            else:
+                lines.append(f"| `{m.name}` | {m.kind}{tag} | {m.help} |")
+        return "\n".join(lines)
+
+
+def reference_registry(device=None) -> "MetricsRegistry":
+    """A registry holding every metric the serving stack can publish.
+
+    Built by running the reference's battery of tiny in-memory serves on
+    the port's ``Server`` (on ``device``; None means CUDA) — the real
+    registration calls in server / scheduler / pool / template store with
+    their real help strings, so the generated reference cannot drift from
+    the code.  Battery legs (each adds the families the previous legs
+    cannot reach):
+
+    1. mixed 'GM' clustered + paged + chunked + SLO scheduler — base
+       engine metrics, frontier / recurrent retirement, both layer-state
+       byte gauges, pool accounting, sched_* ladder
+    2. windowed 'GL' clustered + paged + chunked — window retirement
+    3. exact-KV paged — quota retirement
+    4. clustered + paged + template store — template_* / prefix_*
+    5. clustered dense — the non-paged KV-footprint gauges
+    6. static batch engine — plan_waste
+
+    Per-cluster template gauges collapse to one ``<C>`` placeholder row
+    each, and the mesh-only metrics (per-data-shard waste), which a
+    one-device battery cannot reach, are registered directly, with the
+    reference's help strings."""
+    import re
+    from dataclasses import replace
+
+    from repro_torch.core import kv_compress
+    from repro_torch.core.request_cluster import Request
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.config import ModelConfig, SSMConfig
+    from repro_torch.runtime.kv_pool import PagedKVConfig
+    from repro_torch.runtime.scheduler import SLOConfig
+    from repro_torch.runtime.server import Server, ServerConfig
+    from repro_torch.runtime.template_store import TemplateStoreConfig
+
+    gm = ModelConfig(name="ref-gm", family="hybrid", n_layers=2,
+                     d_model=32, n_heads=2, n_kv_heads=2, head_dim=16,
+                     d_ff=64, vocab=64, pad_vocab_multiple=16,
+                     dtype="float32", layer_pattern="GM",
+                     ssm=SSMConfig(d_state=8, d_conv=4, expand=2,
+                                   head_dim=16, n_groups=1, chunk=16))
+    g = ModelConfig(name="ref-g", family="dense", n_layers=2, d_model=32,
+                    n_heads=2, n_kv_heads=2, head_dim=16, d_ff=64,
+                    vocab=64, pad_vocab_multiple=16, dtype="float32")
+    gl = replace(g, name="ref-gl", layer_pattern="GL", sliding_window=8)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, int(n), m) for i, (n, m) in
+            enumerate([(20, 6), (7, 5), (14, 4)])]
+    prompts = {r.uid: rng.integers(0, 64, size=(r.prompt_len,)).astype(
+        np.int32) for r in reqs}
+    ccfg = kv_compress.KVCompressConfig(n_clusters=4, iters=2,
+                                        keep_recent=8, refresh_every=4)
+    merged = MetricsRegistry()
+    instanced = re.compile(r"template_cluster\d+_")
+
+    def run(cfg, scfg):
+        srv = Server(cfg, scfg, tfm.init_params(0, cfg, device=device),
+                     device=device)
+        srv.serve(reqs, prompts)
+        for name, m in srv.metrics._metrics.items():
+            # which cluster ids exist is a traffic artifact, not part of
+            # the metrics surface: placeholder rows below
+            if not instanced.match(name):
+                merged._metrics.setdefault(name, m)
+
+    run(gm, ServerConfig(batch_size=2, max_seq=48, kv_compress=ccfg,
+                         prefill_chunk=8, paged=PagedKVConfig(block_size=4),
+                         scheduler=SLOConfig()))
+    run(gl, ServerConfig(batch_size=2, max_seq=48, kv_compress=ccfg,
+                         prefill_chunk=8, paged=PagedKVConfig(block_size=4)))
+    run(g, ServerConfig(batch_size=2, max_seq=48,
+                        paged=PagedKVConfig(block_size=4)))
+    run(g, ServerConfig(batch_size=2, max_seq=48, kv_compress=ccfg,
+                        prefill_chunk=8, paged=PagedKVConfig(block_size=4),
+                        template_store=TemplateStoreConfig()))
+    run(g, ServerConfig(batch_size=2, max_seq=48, kv_compress=ccfg))
+    run(g, ServerConfig(batch_size=2, max_seq=48, engine="static",
+                        use_clustered_batching=False))
+    # per-cluster placeholders (help strings mirror template_store.py)
+    merged.gauge("template_cluster<C>_cohesion",
+                 "cluster <C>: matched/prompt cohesion")
+    merged.gauge("template_cluster<C>_hit_rate",
+                 "cluster <C>: hits per member admission")
+    merged.gauge("template_cluster<C>_bytes_pinned",
+                 "cluster <C>: bytes pinned by its entries")
+    # mesh-only (the reference's engine registers these when
+    # n_data_shards > 1; help strings mirror its runtime/server.py)
+    merged.gauge("n_data_shards", "data shards this serve")
+    merged.gauge("slot_waste_shard<S>",
+                 "idle slot-step fraction on data shard <S>")
+    return merged
+
+
+def reference_doc(device=None) -> str:
+    """The committed ``docs/metrics_torch.md`` content."""
+    return (
+        "# Serving metrics reference (PyTorch port)\n\n"
+        "Every metric the port's serving engine can publish into "
+        "`Server.last_stats`, in registration order.  Generated by "
+        "`python -m repro_torch.runtime.telemetry reference` from the live "
+        "registrations (a battery of tiny in-memory serves) — do not "
+        "edit by hand; `--check` fails on drift.  Its rows are those of "
+        "the reference's `docs/metrics.md`.\n\n"
+        "Per-serve metrics reset at each `serve()`; metrics tagged "
+        "*(lifetime)* persist across serves on the same `Server`.  "
+        "`<S>` ranges over data shards on a mesh; "
+        "`template_cluster<C>_*` gauges appear per online traffic "
+        "cluster when a template store is configured.\n\n"
+        + reference_registry(device).reference_table() + "\n")
 
 
 # ---------------------------------------------------------------------------
@@ -611,6 +739,8 @@ def annotation(name: str):
 
 # ---------------------------------------------------------------------------
 # CLI: python -m repro_torch.runtime.telemetry validate <trace.json> ...
+#      python -m repro_torch.runtime.telemetry reference [--check PATH]
+#                                                      [--device DEV]
 # ---------------------------------------------------------------------------
 
 
@@ -626,7 +756,44 @@ def _main(argv: Optional[Sequence[str]] = None) -> int:
         action="store_true",
         help="skip reconciling event counts against embedded last_stats",
     )
+    r = sub.add_parser(
+        "reference",
+        help="emit the metrics reference doc (docs/metrics_torch.md)",
+    )
+    r.add_argument(
+        "--check",
+        metavar="PATH",
+        default=None,
+        help="compare against an existing file instead of printing; "
+        "exit 1 if it is out of date",
+    )
+    r.add_argument(
+        "--device",
+        default=None,
+        help="device the battery serves on (default: cuda; pass cpu "
+        "where there is no card)",
+    )
     args = ap.parse_args(argv)
+
+    if args.cmd == "reference":
+        doc = reference_doc(args.device)
+        if args.check is None:
+            print(doc, end="")
+            return 0
+        try:
+            with open(args.check, "r", encoding="utf-8") as f:
+                on_disk = f.read()
+        except OSError as e:
+            print(f"{args.check}: {e}")
+            return 1
+        if on_disk != doc:
+            dev = "" if args.device is None else f" --device {args.device}"
+            print(f"{args.check}: out of date — regenerate with "
+                  f"`python -m repro_torch.runtime.telemetry reference{dev} > "
+                  f"{args.check}`")
+            return 1
+        print(f"{args.check}: up to date")
+        return 0
 
     rc = 0
     for path in args.paths:

@@ -646,7 +646,7 @@ def test_tiny_blocking_serve_on_card(cuda, paged):
         ops.reset_launches()
         toks[str(dev)] = {o.uid: o.tokens for o in srv.serve(reqs, prompts)}
         counts = ops.launch_counts()
-    st = srv.last_stats
+    st = dict(srv.last_stats, **srv.last_admission)
     kernel = "paged_clustered_decode" if paged else "clustered_decode"
     assert counts[kernel] == cfg.n_layers * st["decode_steps"]
     assert counts["bitserial_median"] >= (st["kv_admit_compress"]
@@ -1117,3 +1117,63 @@ def test_gm_swap_serve_on_card(cuda):
         assert shed or t == toks["whole"][uid][0], uid
     assert counts["paged_clustered_decode"] == st["decode_steps"]
     assert st["state_bytes_recurrent"] > 0
+
+
+def test_apply_moe_on_card_matches_cpu(cuda):
+    """The reduced qwen2-moe's MoE layer (8 experts, top-2, a shared
+    expert) on (4, 16, 64) f32 rows at a capacity factor that drops
+    tokens: the CPU's routes, expert loads and drop fraction exactly, y
+    within 1e-5; and two card runs bit-equal (the combine adds each
+    token's expert outputs in k order, never by an atomic scatter)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(configs.get_reduced("qwen2-moe-a2.7b"),
+                              dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg, "cpu")
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(4, 16, cfg.d_model)).astype(np.float32))
+    y0, m0 = moe.apply_moe(p, x, cfg)
+    pc = {k: ({kk: vv.to(cuda) for kk, vv in v.items()}
+              if isinstance(v, dict) else v.to(cuda)) for k, v in p.items()}
+    runs = [moe.apply_moe(pc, x.to(cuda), cfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert float(m0["drop_frac"]) > 0
+    (y1, m1), (y2, _) = runs
+    assert torch.equal(y1, y2)
+    assert torch.equal(m1["expert_load"].cpu(), m0["expert_load"])
+    assert float(m1["drop_frac"]) == float(m0["drop_frac"])
+    torch.testing.assert_close(y1.cpu(), y0, rtol=1e-5, atol=1e-5)
+
+
+def test_mamba2_blocking_equals_chunked_on_card(cuda):
+    """ROADMAP Queue C 10 on the card: the reduced mamba2-2.7b (f32)
+    served blocking (each prompt's columns stepped at the slot count) and
+    chunked gives the same tokens, and the CPU's."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core.request_cluster import Request
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg = dataclasses.replace(configs.get_reduced("mamba2-2.7b"),
+                              dtype="float32")
+    params = tfm.init_params(0, cfg, device="cpu")
+    rng = np.random.default_rng(6)
+    lens = rng.integers(20, 41, size=4)
+    reqs = [Request(i, int(n), 12) for i, n in enumerate(lens)]
+    prompts = {i: rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for i, n in enumerate(lens)}
+    toks = {}
+    for name, dev, chunk in (("blocking", cuda, 0), ("chunked", cuda, 8),
+                             ("cpu", "cpu", 8)):
+        srv = Server(cfg, ServerConfig(batch_size=4, max_seq=96,
+                                       prefill_chunk=chunk), params,
+                     device=dev)
+        toks[name] = {o.uid: o.tokens for o in srv.serve(reqs, prompts)}
+    assert toks["blocking"] == toks["chunked"] == toks["cpu"]

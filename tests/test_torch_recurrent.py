@@ -316,6 +316,46 @@ def test_recurrent_mixed_advance_matches(model):
             _close(sg[k][b:b + 1], st[k].numpy(), f"slot {b} {k} stepped")
 
 
+def test_padded_steps_give_the_unpadded_rows(model):
+    """ROADMAP Queue C 10's repair: a recurrent column stepped at the
+    engine's slot count.  The sequential prefill of 2 prompts padded to 5
+    rows, a mixed launch and a one-token step of 2 slots padded to 5 rows
+    (``recurrent_rows``) give the unpadded outputs and states bit for bit
+    on the CPU, and hand back only the real rows (no padding row reaches a
+    slot)."""
+    cfg, cfg_t, _, _, _, kind, _, lp_t = model
+    _, _, _, _, init_t = _ssm_or_rg(kind)
+    step_t = _stepper(kind, lp_t, cfg_t, (ssm_t, rg_t))
+    _, xt = _x((2, 9, cfg.d_model), 12)
+    want = tfm_t._recurrent_prefill_sequential(step_t, xt,
+                                               init_t(cfg_t, 2,
+                                                      device="cpu"))
+    got = tfm_t._recurrent_prefill_sequential(step_t, xt,
+                                              init_t(cfg_t, 2, device="cpu"),
+                                              rows=5)
+    assert torch.equal(got[0], want[0])
+    for k in want[1]:
+        assert got[1][k].shape == want[1][k].shape
+        assert torch.equal(got[1][k], want[1][k]), k
+    rng = np.random.default_rng(13)
+    state = {k: T(rng.normal(size=v.shape).astype(np.float32) * 0.3)
+             for k, v in init_t(cfg_t, 2, device="cpu").items()}
+    t = T(np.array([9, 30], np.int32))
+    for hx, cl in ((xt[:, :6], T(np.array([6, 1], np.int32))),
+                   (xt[:, :1], None)):
+        outs = []
+        for rows in (None, 5):
+            c = {k: v.clone() for k, v in state.items()}
+            h, _ = tfm_t.sublayer_decode(lp_t, hx, cfg_t, kind, c, t,
+                                         kv_repeat=1, chunk_len=cl,
+                                         recurrent_rows=rows)
+            outs.append((h, c))
+        (h0, c0), (h1, c1) = outs
+        assert torch.equal(h1, h0)
+        for k in c0:
+            assert c1[k].shape == c0[k].shape and torch.equal(c1[k], c0[k])
+
+
 def test_recurrent_packed_matches_dense(model):
     """Packed rows (slot 1's 4-row chunk, slot 0's decode row, two padding
     rows, slot 2 idle) against the dense mixed advance of the same

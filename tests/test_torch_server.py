@@ -192,19 +192,23 @@ def test_paged_value_gates_kept(weights):
 
 
 def test_unported_layer_kinds_raise(weights):
-    """MoE layers and MLA attention are ROADMAP Queue A item 8; 'L' layers
-    serve since the sliding-window slice (tests/test_torch_window_serving.py)
-    and the recurrent kinds 'M' and 'R' since the recurrent slice
-    (tests/test_torch_recurrent_serving.py), so a 'GM' Server builds."""
-    for arch in ("qwen2-moe-a2.7b", "deepseek-v3-671b"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A item 8"):
-            ServerT(configs_t.get_reduced(arch), ServerConfigT(), weights[1],
-                    device="cpu")
+    """MLA attention is ROADMAP Queue A item 8.3; 'L' layers serve since
+    the sliding-window slice (tests/test_torch_window_serving.py), the
+    recurrent kinds 'M' and 'R' since the recurrent slice
+    (tests/test_torch_recurrent_serving.py) and MoE FFNs since the MoE
+    slice (tests/test_torch_moe_serving.py), so 'GM' and qwen2-moe Servers
+    build."""
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue A item 8.3"):
+        ServerT(configs_t.get_reduced("deepseek-v3-671b"), ServerConfigT(),
+                weights[1], device="cpu")
     gm = dataclasses.replace(TINY_T, layer_pattern="GM",
                              ssm=configs_t.get_reduced("mamba2-2.7b").ssm)
     ServerT(gm, ServerConfigT(prefill_chunk=8),
             tfm_t.init_params(0, gm, device="cpu"), device="cpu")
+    moe = configs_t.get_reduced("qwen2-moe-a2.7b")
+    ServerT(moe, ServerConfigT(prefill_chunk=8),
+            tfm_t.init_params(0, moe, device="cpu"), device="cpu")
 
 
 def test_reference_value_gates_kept(weights):
@@ -269,7 +273,8 @@ BLOCKING = {
     "static_b4": (PIECES, 0, None, dict(batch_size=4, max_seq=64,
                                         engine="static")),
 }
-# port-only stats of blocking clustered admission
+# port-only counts of blocking clustered admission (Server.last_admission,
+# outside the metrics registry)
 PORT_ONLY = {"kv_admit_compress", "kv_admit_tail", "clusterize_s"}
 
 
@@ -290,7 +295,7 @@ def _serve_port(pt, spec, seed, ccfg=None, **kw):
                                         **_paged_kw(kw, True)), pt,
                   device="cpu")
     return {o.uid: o.tokens for o in srv.serve(reqs_t, prompts)}, \
-        srv.last_stats
+        dict(srv.last_stats, **srv.last_admission)
 
 
 @pytest.fixture(scope="module")

@@ -43,6 +43,7 @@ from repro_torch.runtime import kv_pool as kv_pool_t
 from repro_torch.runtime import scheduler as sched_t
 from repro_torch.runtime.server import Server as ServerT
 from repro_torch.runtime.server import ServerConfig as ServerConfigT
+from repro_torch.runtime import telemetry as tele_t
 from repro_torch.runtime.telemetry import (TRACE_SCHEMA, TelemetryConfig,
                                            Tracer, events_from_chrome,
                                            phase_breakdown,
@@ -275,6 +276,57 @@ def test_validate_command_line(tmp_path):
     assert fail.returncode == 1
     assert f"{bad}: 1 problem(s)" in fail.stdout
     assert "uid 9: 0 terminal events" in fail.stdout
+
+
+# ---------------------------------------------------------------------------
+# the metrics reference (docs/metrics_torch.md)
+# ---------------------------------------------------------------------------
+
+DOCS = pathlib.Path(__file__).resolve().parents[1] / "docs"
+
+
+@pytest.fixture(scope="module")
+def reference_doc():
+    """The port's generated reference, from its battery of CPU serves."""
+    return tele_t.reference_doc("cpu")
+
+
+def _table_rows(text):
+    return [line for line in text.splitlines() if line.startswith("|")]
+
+
+def test_metrics_doc_is_generated(reference_doc):
+    """docs/metrics_torch.md is ``reference_doc()`` as committed."""
+    assert (DOCS / "metrics_torch.md").read_text(encoding="utf-8") == \
+        reference_doc
+
+
+def test_metrics_doc_rows_equal_reference(reference_doc):
+    """Every row (name, kind, help) of the reference's docs/metrics.md, in
+    its order: the port's serving stack registers the reference's metrics
+    surface."""
+    want = _table_rows((DOCS / "metrics.md").read_text(encoding="utf-8"))
+    assert len(want) > 40
+    assert _table_rows(reference_doc) == want
+
+
+def test_reference_check_command(tmp_path, capsys):
+    """``_main(["reference", "--device", "cpu", "--check", PATH])``: 0 for
+    the committed doc, 1 naming the regeneration command for a stale copy.
+    Without ``--device`` the battery serves on the card, as every entry
+    point does, so it refuses where there is none."""
+    doc = str(DOCS / "metrics_torch.md")
+    cpu = ["reference", "--device", "cpu"]
+    assert tele_t._main(cpu + ["--check", doc]) == 0
+    assert capsys.readouterr().out.strip() == f"{doc}: up to date"
+    stale = tmp_path / "stale.md"
+    stale.write_text("# stale\n", encoding="utf-8")
+    assert tele_t._main(cpu + ["--check", str(stale)]) == 1
+    assert "repro_torch.runtime.telemetry reference --device cpu" in \
+        capsys.readouterr().out
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tele_t._main(["reference", "--check", doc])
 
 
 # ---------------------------------------------------------------------------
