@@ -6,7 +6,7 @@ recurrent phases (4b, 5l, 5m) on the CPU.
 
 4b serves TINY 'GM' and 'GR' exactly as the smoke does (``rec_tiny_serves``,
 port weights from seed 0) and prints each serve's counts.  5l and 5m serve
-the smoke's requests (``recurrentgemma_requests``, ``mamba2_requests``)
+the smoke's requests (``draw_requests`` of ``RG_STREAM``, ``MAMBA_STREAM``)
 through the smoke's ServerConfigs (``recurrent_serves``) on recurrentgemma-9b
 and mamba2-2.7b at full depth and layer pattern but narrow widths (d_model
 64, heads of 16, RG-LRU width 64, Mamba2 heads of 32 over d_state 16, vocab
@@ -77,16 +77,16 @@ def main() -> int:
                                                    params).items():
                 print(f"4b {pattern} {name}: " + json.dumps(counts(rec)),
                       flush=True)
-    for phase, arch, max_seq, requests, modes in (
+    for phase, arch, max_seq, stream, modes in (
             ("5l", "recurrentgemma-9b", smoke.RG_MAX_SEQ,
-             smoke.recurrentgemma_requests, ("chunked", "paged", "blocking")),
-            ("5m", "mamba2-2.7b", smoke.MAMBA_MAX_SEQ, smoke.mamba2_requests,
+             smoke.RG_STREAM, ("chunked", "paged", "blocking")),
+            ("5m", "mamba2-2.7b", smoke.MAMBA_MAX_SEQ, smoke.MAMBA_STREAM,
              ("chunked", "blocking"))):
         if phase not in args.only:
             continue
         cfg = narrow(arch)
         params = tfm.init_params(0, cfg, device="cpu")
-        reqs, prompts = requests(cfg.vocab)
+        reqs, prompts = smoke.draw_requests(cfg.vocab, **stream)
         print(f"{phase} {arch} (narrow): prompts "
               f"{[r.prompt_len for r in reqs]}, new tokens "
               f"{[r.max_new_tokens for r in reqs]}", flush=True)

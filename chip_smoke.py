@@ -38,7 +38,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    query scale 1/12, softcap 50), paged bit-equal to dense, at
    qwen2-moe-a2.7b's heads in 5n (16 over 16 kv heads of 128, bf16: the
    mixed step's 64-token chunk beside 3 decode rows in a 128-row bucket
-   and a 4-row decode step, paged bit-equal to dense), at phase 4b's TINY
+   and a 4-row decode step, paged bit-equal to dense), at internvl2-76b's
+   heads in 5p (64 over 8 kv heads of 128, GQA group 8, the same two
+   steps, paged bit-equal to dense), at phase 4b's TINY
    'G' layer in f32 (2 slots, 4 / 2 heads of 16, C=8, R=16 in
    blocks of 4, an 8-token chunk in either slot and a decode-only step:
    within 1e-5 of plain, paged bit-equal to dense), and
@@ -75,6 +77,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
    admissions + compactions > 0.  Then the metrics reference's battery
    (``telemetry.reference_registry(device="cuda")``, six tiny serves):
    its table must equal the committed ``docs/metrics_torch.md``'s;
+4d. MLA, the frontend stub and the encoder-decoder, reduced: the reduced
+   deepseek-v3-671b (MLA over a latent cache, one dense layer, then MoE)
+   and internvl2-76b (the vision stub's projection, GQA 8 / 2) in f32,
+   port weights from seed 0, batch 2, max_seq 64, 4 requests of 12-40
+   prompt tokens, served static, blocking over exact KV and blocking under
+   ``KVCompressConfig(n_clusters=8, iters=4, keep_recent=16,
+   refresh_every=8)`` on the card and on the CPU.  Gates: card tokens ==
+   CPU tokens in every mode; deepseek-v3: blocking clustered == blocking
+   exact and no kernel launched (the latent stays exact); internvl2's
+   clustered serve: clustered_decode layers x engine steps,
+   bitserial_median >= absorbs + compress admissions + compactions > 0.
+   Then the model entry points: internvl2's ``prefill(frontend_embeds=)``
+   and seamless-m4t-medium's ``prefill(enc_embeds=)`` (2 encoder layers,
+   2 decoder layers with cross-attention), each with 4 greedy
+   ``decode_step``s: logits within 1e-4 of the CPU's, tokens equal;
 5. serve: qwen3-4b at full width (random weights, seed 0, bf16) answers 8
    requests through the continuous engine with chunked admission and a
    clustered KV cache; the clustered_decode launch count must equal
@@ -206,6 +223,42 @@ Phases, in order; any failure ends the run with a non-zero exit:
    launch's capacity drops depend on its other rows), each serve's steps,
    wall and tokens sha256, the host dispatches and wall of one mixed and
    one decode step, peak memory;
+5o. deepseek-v3-671b at full width (d_model 7,168, 128 heads, MLA with
+   q_lora 1,536, kv_lora 512, rope 64; 256 routed experts of 2,048 top-8
+   sigmoid and a shared expert; vocab 129,280 untied) with its depth cut
+   to 5 of 61 layers (the 3 dense layers of d_ff 18,432 and 2 MoE layers;
+   no MTP module): bf16 weights from seed 0, the routers f32, ~53 GB;
+   ``max_seq`` 4,096, batch 4, 4 requests from ``default_rng(8)``
+   (prompts of 256-2,048 tokens, 24-40 new tokens): static, blocking over
+   exact KV and blocking under the smoke's KVCompressConfig.  Gates:
+   every request complete; B1, B2 and B3 never launched and no absorb
+   (the latent stays exact, as in the reference; a compaction pass that
+   finds nothing to cluster still counts in ``kv_compactions``, as in
+   the reference); blocking clustered tokens == blocking exact tokens.
+   Printed: each serve's steps, wall and tokens sha256, static vs
+   blocking agreement, the host dispatches and wall of one decode step,
+   peak memory;
+5p. internvl2-76b at full width (d_model 8,192, 64 query heads over 8 kv
+   heads of 128, d_ff 28,672, vocab 128,256 untied, the vision stub's
+   projection) with its depth cut to 36 of 80 layers, bf16 weights from
+   seed 0, 65.95 GB; ``max_seq`` 2,048, batch 4, the smoke's
+   KVCompressConfig, 4 requests from ``default_rng(9)`` (prompts of
+   96-1,536 tokens, 24-40 new tokens), text-only: blocking clustered,
+   then static.  Gates: every request complete; clustered_decode 36 x
+   engine steps and paged_clustered_decode 0 in the blocking serve,
+   bitserial_median >= absorbs + compress admissions + compactions > 0;
+   no kernel in the static one.  Then the vision stub's entry points on
+   an exact cache: ``prefill(frontend_embeds=(4, 64, 8,192))`` over 64
+   text tokens and 16 greedy ``decode_step``s, each step held against a
+   fresh prefill over the same tokens (``decode_vs_prefill``'s gates,
+   among them planted faults that must read above the bound);
+5q. seamless-m4t-medium at full width and depth (12 encoder and 12
+   decoder layers, d_model 1,024, 16 heads of 64, vocab 256,206 tied),
+   bf16 from seed 0: ``prefill(enc_embeds=(4, 853, 1,024))`` (853 frames
+   drawn from 256-1,024 by ``default_rng(10)``) over 32-token decoder
+   prompts and 32 greedy ``decode_step``s, ``max_seq`` 128.  Gates:
+   every logit finite, the cross caches bit-identical before and after
+   the steps, and ``decode_vs_prefill``'s gates;
 6. clustering: ``clustering.fit`` at its default, L1 medians, k=64 on
    2^20 x 16 points from a threefry k-means++ start: both of its kernels,
    distance_argmin (assignment) and bitserial_median (median update),
@@ -234,8 +287,9 @@ B1's and B2's carry ``launches_windowed`` from 5f / 5g, B2's
 B2's and B3's ``launches_prefix_share`` from 5i's shared serve,
 ``launches_template_store`` from 5j's two store serves,
 ``launches_slo`` from 5k's scheduled serve, ``launches_recurrent``
-from 4b's chunked serves, by pattern, and ``launches_moe`` from 5n's
-serves, by mode),
+from 4b's chunked serves, by pattern, ``launches_moe`` from 5n's
+serves, by mode, and B1's and B3's ``launches_frontend`` from 5p's
+blocking serve),
 and the last line ``{"ok": true, "device": {...}}``; the full record goes
 to ``chiprun_out/chip_smoke.json``.  Each phase's seconds are printed as
 it ends.
@@ -302,6 +356,12 @@ GEMMA_G_LAYERS, GEMMA_MAX_SEQ = 23, 8192
 # rows in a 128-row bucket), its decode-only step 4 rows
 MOE_HQ, MOE_HKV, MOE_LAYERS = 16, 16, 24
 MOE_STEPS = [(CL_SERVE, 128), ([1, 1, 1, 1], 4)]
+# internvl2-76b's attention (5p): 36 'G' layers (depth cut from 80) of 64
+# query heads over 8 kv heads of 128 (GQA group 8), query scale 128^-0.5,
+# no softcap, the same engine steps; its compactions (36 x 4 x 8 members)
+# and blocking admissions (36 x 8 members x 2,048 points) are qwen3-4b's
+# bitserial_median shapes
+IVL_HQ, IVL_HKV, IVL_LAYERS = 64, 8, 36
 # bitserial_median members of the serve's memory manager over C + R points:
 # a compaction clusters (layers x 4 slots x kv heads) at once, an absorb
 # (layers x kv heads) of one slot into the prompt budget; qwen3-4b's 36
@@ -699,11 +759,13 @@ def check_gemma_decode(torch, cd, pcd, dev):
     return max_err
 
 
-def check_moe_decode(torch, cd, pcd, dev):
+def check_moe_decode(torch, cd, pcd, dev, hq=MOE_HQ, hkv=MOE_HKV,
+                     label="qwen2-moe"):
     """B1 and B2 at the shapes of qwen2-moe-a2.7b's 'G' layers in 5n
     (MOE_STEPS: 16 query heads over 16 kv heads of 128, bf16, qwen3's C,
-    R and slots): the engine's mixed step (a 64-token chunk in slot 0
-    beside 3 decode rows, a 128-row bucket) and a decode-only step (a
+    R and slots), or at ``hq`` / ``hkv`` heads (internvl2-76b's 64 over 8
+    in 5p, GQA group 8): the engine's mixed step (a 64-token chunk in slot
+    0 beside 3 decode rows, a 128-row bucket) and a decode-only step (a
     4-row bucket), each against its plain version within phase 3's bf16
     tolerance (2 bf16 ulps), B2 bit-equal to B1 on every real row (grouped
     as the engine groups them and one row per block), and B1's one-token
@@ -714,7 +776,7 @@ def check_moe_decode(torch, cd, pcd, dev):
                         and v.is_floating_point() else v)
                     for k, v in d.items()}
     for cl, bucket in MOE_STEPS:
-        x = decode_inputs(torch, dev, torch.bfloat16, MOE_HQ, MOE_HKV,
+        x = decode_inputs(torch, dev, torch.bfloat16, hq, hkv,
                           dict(QWEN_GEO, cl=cl, l=max(cl)))
         args, rows, n_mapped = paged_inputs(torch, x, cl, bucket)
         args = with_groups(torch, pcd, args)
@@ -740,9 +802,9 @@ def check_moe_decode(torch, cd, pcd, dev):
         for form, out in (("grouped", pg), ("one row per block", alone)):
             if not torch.equal(bits(torch, out[:n]), bits(torch, got[sel])):
                 raise AssertionError(
-                    f"qwen2-moe heads, chunk lengths {cl} ({form}): paged "
+                    f"{label} heads, chunk lengths {cl} ({form}): paged "
                     "rows differ from clustered_decode bit for bit")
-        say(f"qwen2-moe heads ({MOE_HQ}/{MOE_HKV} of {DH}, bf16, chunk "
+        say(f"{label} heads ({hq}/{hkv} of {DH}, bf16, chunk "
             f"lengths {cl}): clustered_decode (and its one-token form) and "
             f"paged_clustered_decode == plain within {tol}, paged bit-equal "
             f"to dense on all {n} real rows ({n_mapped} mapped blocks of "
@@ -1012,12 +1074,12 @@ def admission_cases():
     admissions' fits: qwen3-4b's in 5c / 5d, gemma2-27b's 'G' layers in 5f
     / 5g, qwen2-moe-a2.7b's in 5n's blocking serve."""
     lens, _ = gemma2_lengths(np.random.default_rng(0))
-    moe_lens, _ = moe_lengths(np.random.default_rng(7))
+    moe_lens = [r.prompt_len for r in draw_requests(1, **MOE_STREAM)[0]]
     return [("admission", N_LAYERS, HKV, ADM_S, ADM_PLEN),
             ("gemma2 admission", GEMMA_G_LAYERS, GEMMA_HKV, GEMMA_MAX_SEQ,
              int(lens.max())),
             ("qwen2-moe admission", MOE_LAYERS, MOE_HKV, ADM_S,
-             int(moe_lens.max()))]
+             max(moe_lens))]
 
 
 def check_bitserial_median(torch, bsm, dev):
@@ -1242,7 +1304,7 @@ def serve_workload(torch, dev, paged=None, params=None, chunk=64,
                             kv_compress=ccfg if compress else None,
                             paged=paged)
     srv = Server(cfg, scfg, params, device=dev)
-    reqs, prompts = qwen3_requests(cfg.vocab)
+    reqs, prompts = draw_requests(cfg.vocab, **QWEN3_STREAM)
     return cfg, srv, reqs, prompts
 
 
@@ -1254,18 +1316,44 @@ def smoke_kv_compress():
                             refresh_every=32, prompt_clusters=32)
 
 
-def qwen3_requests(vocab):
-    """The 8 requests of ``serve_workload`` (prompts of 96-1,536 tokens,
-    40-72 new tokens) and their prompts, from ``default_rng(0)``."""
+def draw_requests(vocab, seed, prompt, new=(24, 40), n=4, lead=(),
+                  new_last=False):
+    """``n`` requests and their prompts from ``default_rng(seed)``: prompt
+    lengths ``lead``, then draws from ``prompt`` (lo, hi); new tokens from
+    ``new`` (lo, hi), drawn together after the lengths, or with
+    ``new_last`` one request at a time after the prompts (the reduced
+    models' streams); prompt tokens below ``vocab``."""
     from repro_torch.core.request_cluster import Request
 
-    rng = np.random.default_rng(0)
-    lens = rng.integers(96, 1537, size=8)
-    gens = rng.integers(40, 73, size=8)
-    reqs = [Request(i, int(lens[i]), int(gens[i])) for i in range(8)]
-    prompts = {i: rng.integers(0, vocab, size=int(lens[i]))
-               .astype(np.int32) for i in range(8)}
-    return reqs, prompts
+    rng = np.random.default_rng(seed)
+    lens = np.concatenate([np.asarray(lead, np.int64), rng.integers(
+        prompt[0], prompt[1] + 1, size=n - len(lead))])
+    if not new_last:
+        gens = rng.integers(new[0], new[1] + 1, size=n)
+    prompts = {i: rng.integers(0, vocab, size=int(lens[i])).astype(np.int32)
+               for i in range(n)}
+    if new_last:
+        gens = [rng.integers(new[0], new[1] + 1) for _ in range(n)]
+    return [Request(i, int(lens[i]), int(gens[i])) for i in range(n)], prompts
+
+
+# the streams: qwen3-4b's 8 requests (5, 5c-5e, 5h), recurrentgemma-9b's
+# one prompt of 2,112 (past the 2,048 window) beside three of 96-128 (5l;
+# cut from 5 of 96-512: a mixed step dispatches ~100k host ops, so a
+# serve's wall follows its prompt tokens), mamba2-2.7b's 96-128 (5m;
+# narrowed from 96-384 as 5l's are), qwen2-moe-a2.7b's (5n),
+# deepseek-v3's (5o) and internvl2's (5p); the reduced qwen2-moe's (4c)
+# and the reduced zoo's (4d)
+QWEN3_STREAM = dict(seed=0, prompt=(96, 1536), new=(40, 72), n=8)
+RG_STREAM = dict(seed=5, prompt=(96, 128), lead=(2112,))
+MAMBA_STREAM = dict(seed=6, prompt=(96, 128))
+MOE_STREAM = dict(seed=7, prompt=(96, 768))
+DSV3_STREAM = dict(seed=8, prompt=(256, 2048))
+IVL_STREAM = dict(seed=9, prompt=(96, 1536))
+MOE_TINY_STREAM = dict(seed=7, prompt=(9, 40), new=(6, 12), n=5,
+                       new_last=True)
+ZOO_TINY_STREAM = dict(seed=11, prompt=(12, 40), new=(6, 20),
+                       new_last=True)
 
 
 def check_tokens(cfg, reqs, outs, mode):
@@ -1453,7 +1541,8 @@ def serve_quota(torch, dev, smi, params, static):
 
     # the quota layout's ring is max_seq (Q_R) positions
     quota = QuotaRetention(BS, Q_R // BS)
-    reqs, _ = qwen3_requests(configs.get_config("qwen3-4b").vocab)
+    reqs, _ = draw_requests(configs.get_config("qwen3-4b").vocab,
+                            **QWEN3_STREAM)
     need = sorted(quota.admit_blocks(min(r.prompt_len, Q_R),
                                      r.max_new_tokens) for r in reqs)
     pool_blocks = need[-1] + need[-2] - 1
@@ -2228,40 +2317,6 @@ RG_STATE_B = 26 * (3 * 4096 * 2 + 4096 * 4)
 MAMBA_STATE_B = 64 * (3 * 5376 * 2 + 80 * 64 * 128 * 4)
 
 
-def recurrentgemma_requests(vocab):
-    """5l's 4 requests from ``default_rng(5)``: one prompt of 2,112 tokens
-    (past the 2,048 window) and three of 96-128, 24-40 new tokens each,
-    so every one of the batch's 4 slots holds recurrent state.  (Cut from
-    5 requests of 96-512 beside the long one: a mixed step dispatches
-    ~100k host ops, one prefill is in flight at a time, so a serve's wall
-    follows its prompt tokens; three short prompts cost the 6 chunks that
-    one of 375 did.)"""
-    from repro_torch.core.request_cluster import Request
-
-    rng = np.random.default_rng(5)
-    lens = np.concatenate([[2112], rng.integers(96, 129, size=3)])
-    gens = rng.integers(24, 41, size=4)
-    reqs = [Request(i, int(lens[i]), int(gens[i])) for i in range(4)]
-    prompts = {i: rng.integers(0, vocab, size=int(lens[i])).astype(np.int32)
-               for i in range(4)}
-    return reqs, prompts
-
-
-def mamba2_requests(vocab):
-    """5m's 4 requests from ``default_rng(6)``: prompts of 96-128 tokens,
-    24-40 new tokens each (the issue's 96-384 narrowed, as 5l's are, so 4
-    live slots cost the 8 chunks that 2 prompts of 96-384 did)."""
-    from repro_torch.core.request_cluster import Request
-
-    rng = np.random.default_rng(6)
-    lens = rng.integers(96, 129, size=4)
-    gens = rng.integers(24, 41, size=4)
-    reqs = [Request(i, int(lens[i]), int(gens[i])) for i in range(4)]
-    prompts = {i: rng.integers(0, vocab, size=int(lens[i])).astype(np.int32)
-               for i in range(4)}
-    return reqs, prompts
-
-
 def full_width_params(torch, dev, cfg):
     """bf16 weights from ``init_params`` seed 0 on ``dev``, timed."""
     from repro_torch.models import transformer as tfm
@@ -2332,12 +2387,14 @@ class _OpCounter:
         return self.mode.__exit__(*exc)
 
 
-def step_dispatches(torch, dev, cfg, params, max_seq):
+def step_dispatches(torch, dev, cfg, params, max_seq,
+                    forms=("mixed", "decode")):
     """Host dispatches (non-view aten ops) and wall ms of one mixed engine
     step (4 slots, a 64-token chunk beside 3 decode rows) and of one
     decode step, on a fresh dense cache of the serve's layout, as
-    ``transformer.decode_step`` runs them.  The counts do not depend on
-    the widths or the device for these models (no kernel wrapper runs)."""
+    ``transformer.decode_step`` runs them (``forms``: which of the two; an
+    MLA model has no mixed step).  The counts do not depend on the widths
+    or the device for these models (no kernel wrapper runs)."""
     from repro_torch.models import transformer as tfm
 
     ccfg = smoke_kv_compress()
@@ -2349,6 +2406,8 @@ def step_dispatches(torch, dev, cfg, params, max_seq):
     with torch.inference_mode():
         for name, width, cl in (("mixed", REC_CHUNK, [REC_CHUNK, 1, 1, 1]),
                                 ("decode", 1, None)):
+            if name not in forms:
+                continue
             tok = torch.from_numpy(rng.integers(
                 0, cfg.vocab, size=(4, width)).astype(np.int32)).to(dev)
             t = torch.tensor([0, 100, 200, 300], dtype=torch.int32,
@@ -2392,8 +2451,8 @@ def serve_recurrent_full(torch, dev, smi, arch):
     rg = arch == "recurrentgemma-9b"
     max_seq = RG_MAX_SEQ if rg else MAMBA_MAX_SEQ
     want_b = RG_STATE_B if rg else MAMBA_STATE_B
-    reqs, prompts = (recurrentgemma_requests if rg else mamba2_requests)(
-        cfg.vocab)
+    reqs, prompts = draw_requests(cfg.vocab,
+                                  **(RG_STREAM if rg else MAMBA_STREAM))
     torch.cuda.reset_peak_memory_stats()
     params, n_par, n_bytes = full_width_params(torch, dev, cfg)
     problems = []
@@ -2506,19 +2565,6 @@ def clustered_launch_problems(rec, mode, n_layers):
     return problems
 
 
-def moe_tiny_stream():
-    """5 requests of 9-40 prompt tokens, 6-12 new tokens each, from
-    ``default_rng(7)`` (the reduced vocabulary of 256)."""
-    from repro_torch.core.request_cluster import Request
-
-    rng = np.random.default_rng(7)
-    lens = rng.integers(9, 41, size=5)
-    prompts = {i: rng.integers(0, 256, size=int(n)).astype(np.int32)
-               for i, n in enumerate(lens)}
-    return ([Request(i, int(n), int(rng.integers(6, 13)))
-             for i, n in enumerate(lens)], prompts)
-
-
 def check_moe_tiny(torch, dev, smi):
     """Phase 4c: the reduced qwen2-moe-a2.7b (2 'G' layers, 4 / 4 heads of
     16, 8 routed experts top-2 and a shared expert) in f32, port weights
@@ -2541,7 +2587,7 @@ def check_moe_tiny(torch, dev, smi):
 
     cfg = dc.replace(configs.get_reduced("qwen2-moe-a2.7b"), dtype="float32")
     params = tfm.init_params(0, cfg, device="cpu")
-    reqs, prompts = moe_tiny_stream()
+    reqs, prompts = draw_requests(cfg.vocab, **MOE_TINY_STREAM)
     base = dict(batch_size=4, max_seq=96,
                 kv_compress=KVCompressConfig(**MOE_TINY_CC))
     modes = {"chunked": dict(base, prefill_chunk=8),
@@ -2587,24 +2633,6 @@ def check_moe_tiny(torch, dev, smi):
 # ---------------------------------------------------------------------------
 
 MOE_MAX_SEQ = 2048
-
-
-def moe_lengths(rng):
-    """5n's 4 prompt lengths (96-768) and new tokens (24-40), the first
-    draws from ``rng``."""
-    return rng.integers(96, 769, size=4), rng.integers(24, 41, size=4)
-
-
-def moe_requests(vocab):
-    """5n's 4 requests and their prompts, from ``default_rng(7)``."""
-    from repro_torch.core.request_cluster import Request
-
-    rng = np.random.default_rng(7)
-    lens, gens = moe_lengths(rng)
-    reqs = [Request(i, int(lens[i]), int(gens[i])) for i in range(4)]
-    prompts = {i: rng.integers(0, vocab, size=int(lens[i])).astype(np.int32)
-               for i in range(4)}
-    return reqs, prompts
 
 
 def moe_kept(torch, idx, cap):
@@ -2724,7 +2752,7 @@ def serve_moe_full(torch, dev, smi):
     from repro_torch.runtime.server import Server, ServerConfig
 
     cfg = configs.get_config("qwen2-moe-a2.7b")
-    reqs, prompts = moe_requests(cfg.vocab)
+    reqs, prompts = draw_requests(cfg.vocab, **MOE_STREAM)
     torch.cuda.reset_peak_memory_stats()
     params, n_par, n_bytes = full_width_params(torch, dev, cfg)
     layer = check_moe_layer(torch, dev, cfg, params["layers"][0]["moe"])
@@ -2784,6 +2812,474 @@ def serve_moe_full(torch, dev, smi):
     return {"serves": recs, "steps": steps, "peak_bytes": peak,
             "n_params": n_par, "param_bytes": n_bytes, "moe_layer": layer,
             "prompt_lens": [r.prompt_len for r in reqs]}
+
+
+# ---------------------------------------------------------------------------
+# phase 4d and 5o-5q: MLA, the frontend stub and the encoder-decoder
+# ---------------------------------------------------------------------------
+
+# tests/test_torch_mla_serving.py's clustered config over the reduced zoo
+ZOO_TINY_CC = dict(n_clusters=8, iters=4, keep_recent=16, refresh_every=8)
+ZOO_KERNELS = ("clustered_decode", "paged_clustered_decode",
+               "bitserial_median")
+
+
+def entry_point_steps(torch, tfm, cfg, params, tokens, n_steps, max_seq,
+                      forced=None, shift=0, **inputs):
+    """``prefill`` of ``tokens`` (B, S) (with ``inputs``: frontend_embeds
+    or enc_embeds), then ``n_steps`` greedy ``decode_step``s, or steps
+    that feed ``forced`` (B, >= n_steps) column by column; a nonzero
+    ``shift`` plants a fault: each step runs at its position + ``shift``.
+    Returns (the logits of the prefill and of every step, f32 on the CPU,
+    the greedy tokens (B, n_steps + 1), the final cache)."""
+    dev = tokens.device
+    t0 = tokens.shape[1] + (0 if cfg.is_encdec else
+                            (inputs["frontend_embeds"].shape[1]
+                             if "frontend_embeds" in inputs else 0))
+    with torch.inference_mode():
+        lg, cache = tfm.prefill(params, cfg, tokens, max_seq=max_seq,
+                                **inputs)
+        logits, toks = [lg.float().cpu()], [lg.argmax(-1)]
+        for i in range(n_steps):
+            nxt = (toks[-1] if forced is None else forced[:, i])
+            lg, cache = tfm.decode_step(params, cfg, cache,
+                                        nxt.to(torch.int32)[:, None],
+                                        t0 + i + shift)
+            logits.append(lg.float().cpu())
+            toks.append(lg.argmax(-1))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    return logits, torch.stack(toks, 1).cpu(), cache
+
+
+def check_zoo_tiny(torch, dev, smi):
+    """Phase 4d: the reduced deepseek-v3-671b (MLA), internvl2-76b (the
+    vision stub) and seamless-m4t-medium (the encoder-decoder) in f32, port
+    weights from seed 0, on the card and on the CPU.  deepseek-v3 serves
+    static, blocking over exact KV and blocking under ``ZOO_TINY_CC``
+    (batch 2, max_seq 64, ``ZOO_TINY_STREAM``): card tokens == CPU tokens
+    in each mode, blocking clustered == blocking exact, and B1, B2 and B3
+    never launched (the latent stays exact).  internvl2 serves static,
+    blocking and blocking clustered, card == CPU, and B1 launched layers x
+    engine steps in the clustered serve; then ``prefill(frontend_embeds=)``
+    and 4 ``decode_step``s, logits within 1e-4 of the CPU's.  seamless:
+    ``prefill(enc_embeds=)`` and 4 ``decode_step``s within 1e-4 of the
+    CPU's, greedy tokens equal.  Returns the record."""
+    from repro_torch import configs
+    from repro_torch.core.kv_compress import KVCompressConfig
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.server import Server, ServerConfig, _to_device
+
+    problems, out = [], {}
+    modes = {"static": dict(engine="static"), "blocking": {},
+             "clustered": dict(kv_compress=KVCompressConfig(**ZOO_TINY_CC))}
+    for arch in ("deepseek-v3-671b", "internvl2-76b"):
+        cfg = dataclasses.replace(configs.get_reduced(arch),
+                                  dtype="float32")
+        params = tfm.init_params(0, cfg, device="cpu")
+        reqs, prompts = draw_requests(cfg.vocab, **ZOO_TINY_STREAM)
+        rec = out[arch] = {}
+        for mode, kw in modes.items():
+            recs = {}
+            for d in ("cpu", dev):
+                srv = Server(cfg, ServerConfig(batch_size=2, max_seq=64,
+                                               **kw), params, device=d)
+                recs[str(d)] = run_serve(torch, srv, reqs, prompts,
+                                         f"4d {arch} {mode} {d}")
+            card, cpu = recs[str(dev)], recs["cpu"]
+            rec[mode] = {"card": card, "cpu": cpu}
+            if card["tokens"] != cpu["tokens"]:
+                problems.append(f"{arch} {mode}: card tokens != CPU tokens")
+            ln = card["launches"]
+            want = {k: 0 for k in ZOO_KERNELS}
+            if arch == "internvl2-76b" and mode == "clustered":
+                problems += clustered_launch_problems(card, "blocking",
+                                                      cfg.n_layers)
+            elif {k: ln[k] for k in ZOO_KERNELS} != want:
+                problems.append(f"{arch} {mode}: kernel launches "
+                                f"{ {k: ln[k] for k in ZOO_KERNELS} }, "
+                                "want none")
+            say(f"[{smi}] 4d reduced {arch} {mode}: "
+                f"{card['engine_steps']} engine steps, card == CPU "
+                f"{card['tokens'] == cpu['tokens']}, launches "
+                f"{ {k: v for k, v in ln.items() if v} }, tokens sha256 "
+                f"{card['tokens_sha256']}")
+        if arch == "deepseek-v3-671b" and (
+                rec["clustered"]["card"]["tokens"]
+                != rec["blocking"]["card"]["tokens"]):
+            problems.append("deepseek-v3 blocking clustered tokens != "
+                            "blocking exact tokens")
+    # the model entry points: frontend patches, encoder frames
+    rng = np.random.default_rng(4)
+    for arch, key, n_in in (("internvl2-76b", "frontend_embeds", None),
+                            ("seamless-m4t-medium", "enc_embeds", 13)):
+        cfg = dataclasses.replace(configs.get_reduced(arch),
+                                  dtype="float32")
+        params = tfm.init_params(0, cfg, device="cpu")
+        n_in = n_in or cfg.n_frontend_tokens
+        emb = torch.from_numpy(rng.normal(size=(2, n_in, cfg.d_model))
+                               .astype(np.float32))
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 10))
+                               .astype(np.int32))
+        runs = {}
+        for d in ("cpu", dev):
+            runs[str(d)] = entry_point_steps(
+                torch, tfm, cfg, _to_device(params, d), tok.to(d), 4, 32,
+                **{key: emb.to(d)})
+        (lg_g, tk_g, _), (lg_c, tk_c, _) = runs[str(dev)], runs["cpu"]
+        err = max((a - b).abs().max().item() for a, b in zip(lg_g, lg_c))
+        out[f"{arch} entry points"] = {"max_abs_err": err,
+                                       "tokens_equal": bool(
+                                           torch.equal(tk_g, tk_c))}
+        if err > 1e-4:
+            problems.append(f"{arch} prefill({key}=) + 4 decode_steps: max "
+                            f"|card - CPU| {err:.3e} > 1e-4")
+        if not torch.equal(tk_g, tk_c):
+            problems.append(f"{arch} prefill({key}=) + 4 decode_steps: "
+                            "greedy tokens differ from the CPU's")
+        say(f"[{smi}] 4d reduced {arch} prefill({key}=(2, {n_in}, "
+            f"{cfg.d_model})) + 4 decode_steps: card == CPU logits (max abs "
+            f"err {err:.3e}), greedy tokens equal {torch.equal(tk_g, tk_c)}")
+    if problems:
+        raise AssertionError("4d reduced zoo: " + "; ".join(problems))
+    return out
+
+
+def no_kernel_problems(rec, what):
+    ln = {k: rec["launches"][k] for k in ZOO_KERNELS}
+    if any(ln.values()):
+        return [f"{what}: kernel launches {ln}, want none"]
+    return []
+
+
+def serve_line(smi, name, mode, reqs, rec):
+    st, ln = rec["stats"], rec["launches"]
+    say(f"[{smi}] {name} {mode}: 4 requests (prompts "
+        f"{[r.prompt_len for r in reqs]}, {int(st.get('gen_tokens', 0))} "
+        f"generated) in {rec['wall_s']:.3f} s wall; "
+        f"{rec['engine_steps']} engine steps, "
+        f"{int(st.get('kv_absorbs', 0))} absorbs, "
+        f"{int(st.get('kv_compactions', 0))} compactions"
+        + (f", {int(st['kv_admit_compress'])} compress + "
+           f"{int(st['kv_admit_tail'])} tail-only admissions"
+           if "kv_admit_compress" in st and ln["bitserial_median"] else "")
+        + f"; kernel launches {({k: v for k, v in ln.items() if v})}; "
+        + (times_line(rec) if "ttft_p50_ms" in st else
+           f"wall_s {rec['wall_s']:.3f}")
+        + f"; tokens sha256 {rec['tokens_sha256']}")
+
+
+# deepseek-v3-671b at full width (5o): 5 of its 61 layers (the 3 dense
+# layers and 2 MoE layers), max_seq 4,096; internvl2-76b (5p): 36 of its
+# 80 layers, max_seq 2,048; seamless-m4t-medium (5q): whole, max_seq 128
+DSV3_LAYERS, DSV3_MAX_SEQ = 5, 4096
+IVL_MAX_SEQ, IVL_STEPS, IVL_TEXT = 2048, 16, 64
+SEAM_MAX_SEQ, SEAM_STEPS, SEAM_PROMPT = 128, 32, 32
+# decode_vs_prefill's bound on rms(dlogit) / rms(logit) a row, by phase
+# and dtype, set between what a sound path and a planted fault read (on
+# an H100 80GB HBM3 at 700 W).  In bf16 the decode and a fresh prefill
+# round differently and the noise grows with depth: 5p at 36 layers
+# reads up to 6.0e-2, its planted faults 1.20 (one slot off) and 1.42
+# (frontend offset ignored); 5q reads 1.0e-2, its fault 0.153.  f32 (5p
+# cut to IVL_F32_LAYERS layers, 5q whole) reads 8.2e-6 / 7.2e-7, the
+# faults 0.69 / 0.153
+DVP_MAX_RATIO = {"5p": {"bf16": 0.15, "f32": 1e-3},
+                 "5q": {"bf16": 0.04, "f32": 1e-3}}
+IVL_F32_LAYERS = 4
+
+
+def serve_deepseek_full(torch, dev, smi):
+    """Phase 5o: deepseek-v3-671b at full width (d_model 7,168, 128 heads,
+    MLA with q_lora 1,536, kv_lora 512, rope 64; 256 routed experts of
+    2,048 top-8 sigmoid and a shared expert; vocab 129,280 untied), depth
+    cut to ``DSV3_LAYERS`` (its 3 dense layers of d_ff 18,432, then 2 MoE
+    layers; no MTP module), bf16 weights from seed 0, the routers f32.
+    ``max_seq`` 4,096, batch 4, 4 requests from ``default_rng(8)``
+    (prompts of 256-2,048, 24-40 new tokens): static, blocking over exact
+    KV, and blocking with the smoke's KVCompressConfig.  Gates: every
+    request complete; B1, B2 and B3 never launched; no absorb; blocking
+    clustered tokens == blocking exact tokens (the latent stays exact:
+    the same math).  Printed: each serve's steps, wall and tokens sha256,
+    the host dispatches and wall of one decode step, the peak of
+    ``torch.cuda.max_memory_allocated()``.  Returns the record; the
+    weights are freed."""
+    from repro_torch import configs
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg = dataclasses.replace(configs.get_config("deepseek-v3-671b"),
+                              n_layers=DSV3_LAYERS)
+    reqs, prompts = draw_requests(cfg.vocab, **DSV3_STREAM)
+    torch.cuda.reset_peak_memory_stats()
+    params, n_par, n_bytes = full_width_params(torch, dev, cfg)
+    kw = {"static": dict(engine="static"), "blocking": {},
+          "clustered": dict(kv_compress=smoke_kv_compress())}
+    recs, problems = {}, []
+    for mode, extra in kw.items():
+        srv = Server(cfg, ServerConfig(batch_size=4, max_seq=DSV3_MAX_SEQ,
+                                       **extra), params, device=dev)
+        rec = recs[mode] = run_serve(torch, srv, reqs, prompts,
+                                     f"5o deepseek-v3 {mode}")
+        problems += no_kernel_problems(rec, mode)
+        if rec["stats"].get("kv_absorbs", 0):
+            problems.append(f"{mode}: {rec['stats']['kv_absorbs']} absorbs")
+        serve_line(smi, "5o deepseek-v3-671b", mode, reqs, rec)
+    if compare_tokens(recs["blocking"], recs["clustered"],
+                      "5o blocking clustered vs exact"):
+        problems.append("blocking clustered tokens != blocking exact tokens")
+    compare_tokens(recs["blocking"], recs["static"],
+                   "5o static vs blocking")
+    steps = step_dispatches(torch, dev, cfg, params, DSV3_MAX_SEQ,
+                            forms=("decode",))
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[{smi}] 5o deepseek-v3-671b ({DSV3_LAYERS} layers): one decode "
+        f"step {steps['decode']['dispatches']} host dispatches (non-view "
+        f"aten ops) in {steps['decode']['ms']:.1f} ms; peak memory "
+        f"allocated {peak / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("5o deepseek-v3-671b: " + "; ".join(problems))
+    return {"serves": recs, "steps": steps, "peak_bytes": peak,
+            "n_params": n_par, "param_bytes": n_bytes,
+            "n_layers": DSV3_LAYERS,
+            "prompt_lens": [r.prompt_len for r in reqs]}
+
+
+def decode_vs_prefill(torch, tfm, cfg, params, tokens, n_steps, max_seq,
+                      max_ratio, **inputs):
+    """``n_steps`` greedy ``decode_step``s after a prefill, each step's
+    logits held against a fresh ``prefill``'s over the same tokens (the
+    prompt and the tokens generated so far).  The two paths round
+    differently (other GEMM shapes, another attention reduction order),
+    so in bf16 their logits part by a noise that grows with depth.  Gates:
+    every logit finite; on every row of every step rms(dlogit) /
+    rms(logit) <= ``max_ratio`` (``DVP_MAX_RATIO``: between what the
+    sound path and a planted fault read), the gate that finds faults; the
+    greedy tokens equal, except where the prefill's top two logits lie
+    within max(0.1, 5 x the row's rms(dlogit)) (in bf16 most rows lie
+    within that margin, so this only catches a path that has come apart).
+    Then the witness of the ratio bound:
+    the same steps, fed the same tokens, with a planted fault (each new
+    entry written one slot off; with ``frontend_embeds``, decode at the
+    text's positions, the frontend offset ignored) must read above
+    ``max_ratio`` against the same prefills.  Returns (record, problems,
+    the cache after the steps)."""
+    logits, toks, cache = entry_point_steps(torch, tfm, cfg, params, tokens,
+                                            n_steps, max_seq, **inputs)
+    problems = []
+    if not all(torch.isfinite(lg).all() for lg in logits):
+        problems.append("non-finite logits")
+    rms = lambda a: a.pow(2).mean(-1).sqrt()                  # noqa: E731
+    worst, ratio, near, differ, flips, ref = 0.0, 0.0, 0, 0, [], {}
+    with torch.inference_mode():
+        for i in range(1, n_steps + 1):
+            seq = torch.cat([tokens, toks[:, :i].to(tokens.device,
+                                                    tokens.dtype)], 1)
+            lg, _ = tfm.prefill(params, cfg, seq, max_seq=max_seq, **inputs)
+            lg = ref[i] = lg.float().cpu()
+            d = lg - logits[i]
+            worst = max(worst, d.abs().max().item())
+            ratio = max(ratio, (rms(d) / rms(lg)).max().item())
+            top2 = lg.topk(2, -1).values
+            gap = top2[:, 0] - top2[:, 1]
+            margin = torch.clamp(5 * rms(d), min=0.1)
+            flip = lg.argmax(-1) != toks[:, i]
+            flips += [[i, round(float(g), 4), round(float(r), 4)]
+                      for g, r, f in zip(gap, rms(d), flip) if f]
+            near += int((gap < margin).sum())
+            differ += int((flip & (gap >= margin)).sum())
+    if ratio > max_ratio:
+        problems.append(f"rms(dlogit) / rms(logit) {ratio:.3e} > "
+                        f"{max_ratio:g}")
+    if differ:
+        problems.append(f"{differ} decode tokens differ from a fresh "
+                        "prefill's outside max(0.1, 5 rms(dlogit))")
+    faults = {"one slot off": 1}
+    if "frontend_embeds" in inputs:
+        faults["frontend offset ignored"] = -inputs[
+            "frontend_embeds"].shape[1]
+    planted = {}
+    for name, shift in faults.items():
+        bad = entry_point_steps(torch, tfm, cfg, params, tokens, n_steps,
+                                max_seq, forced=toks.to(tokens.device),
+                                shift=shift, **inputs)[0]
+        planted[name] = max((rms(bad[i] - ref[i]) / rms(ref[i])).max().item()
+                            for i in ref)
+        if planted[name] <= max_ratio:
+            problems.append(f"planted fault ({name}) reads rms(dlogit) / "
+                            f"rms(logit) {planted[name]:.3e} <= "
+                            f"{max_ratio:g}: the bound misses it")
+    return ({"max_abs_dlogit": worst, "max_rms_ratio": ratio,
+             "near_ties": near, "flips": flips, "planted": planted,
+             "logit_rms": rms(lg).mean().item(),
+             "tokens": toks.tolist()}, problems, cache)
+
+
+def dvp_line(rec):
+    return (f"decode == fresh prefill greedy on every step but "
+            f"{len(rec['flips'])} flips [step, prefill top-2 gap, rms "
+            f"dlogit] {rec['flips']} (each inside its margin; "
+            f"{rec['near_ties']} rows within theirs), max rms(dlogit) / "
+            f"rms(logit) {rec['max_rms_ratio']:.3e} (logit rms "
+            f"{rec['logit_rms']:.3f}), max |dlogit| "
+            f"{rec['max_abs_dlogit']:.4f}; planted faults read "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rec["planted"].items()))
+
+
+def serve_internvl_full(torch, dev, smi):
+    """Phase 5p: internvl2-76b at full width (d_model 8,192, 64 query heads
+    over 8 kv heads of 128, d_ff 28,672, vocab 128,256 untied, the vision
+    stub's 8,192 x 8,192 projection), depth cut to ``IVL_LAYERS`` of 80,
+    bf16 weights from seed 0.  ``max_seq`` 2,048, batch 4, the smoke's
+    KVCompressConfig, 4 requests from ``default_rng(9)`` (prompts of
+    96-1,536, 24-40 new tokens), text-only: blocking clustered, then
+    static.  Gates: every request complete; clustered_decode launched
+    layers x engine steps in the blocking serve (GQA group 8),
+    paged_clustered_decode never, bitserial_median >= absorbs + compress
+    admissions + compactions > 0; no kernel in the static serve.  Then the
+    model entry points on an exact cache: ``prefill(frontend_embeds=(4,
+    64, 8,192))`` (a fresh ``default_rng(9)``'s normal draws, then 64 text
+    tokens) and ``IVL_STEPS`` greedy ``decode_step``s, every logit finite
+    and each step's token that of a fresh prefill over the same tokens
+    (``decode_vs_prefill``).  Returns the record; the weights are
+    freed."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg = dataclasses.replace(configs.get_config("internvl2-76b"),
+                              n_layers=IVL_LAYERS)
+    reqs, prompts = draw_requests(cfg.vocab, **IVL_STREAM)
+    torch.cuda.reset_peak_memory_stats()
+    params, n_par, n_bytes = full_width_params(torch, dev, cfg)
+    recs, problems = {}, []
+    for mode, extra in (("blocking", dict(kv_compress=smoke_kv_compress())),
+                        ("static", dict(engine="static"))):
+        srv = Server(cfg, ServerConfig(batch_size=4, max_seq=IVL_MAX_SEQ,
+                                       **extra), params, device=dev)
+        rec = recs[mode] = run_serve(torch, srv, reqs, prompts,
+                                     f"5p internvl2 {mode}")
+        problems += (clustered_launch_problems(rec, "blocking", IVL_LAYERS)
+                     if mode == "blocking" else
+                     no_kernel_problems(rec, mode))
+        serve_line(smi, "5p internvl2-76b", mode, reqs, rec)
+    del srv                                   # it holds the weights too
+    compare_tokens(recs["static"], recs["blocking"],
+                   "5p blocking clustered vs static")
+    rng = np.random.default_rng(9)
+    fe = torch.from_numpy(rng.normal(
+        size=(4, cfg.n_frontend_tokens, cfg.d_model)).astype(
+            np.float32)).to(dev)
+    text = torch.from_numpy(rng.integers(0, cfg.vocab, size=(4, IVL_TEXT))
+                            .astype(np.int32)).to(dev)
+    fr = {}
+    steps = step_dispatches(torch, dev, cfg, params, IVL_MAX_SEQ)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[{smi}] 5p internvl2-76b ({IVL_LAYERS} layers): one mixed step "
+        f"{steps['mixed']['dispatches']} host dispatches (non-view aten ops)"
+        f" in {steps['mixed']['ms']:.1f} ms, one decode step "
+        f"{steps['decode']['dispatches']} in {steps['decode']['ms']:.1f} ms;"
+        f" peak memory allocated {peak / 2**30:.2f} GiB")
+    # the entry points in bf16 at the served depth, then in f32 at
+    # IVL_F32_LAYERS layers (full width: 22 GB), where the two paths must
+    # agree to f32 rounding
+    for name, c in (("bf16", cfg), ("f32", dataclasses.replace(
+            cfg, n_layers=IVL_F32_LAYERS, dtype="float32"))):
+        if name == "f32":
+            del params
+            torch.cuda.empty_cache()
+            params = full_width_params(torch, dev, c)[0]
+        t0 = time.perf_counter()
+        fr[name], fprob, _ = decode_vs_prefill(
+            torch, tfm, c, params, text, IVL_STEPS, 256,
+            DVP_MAX_RATIO["5p"][name], frontend_embeds=fe)
+        fr[name]["seconds"] = time.perf_counter() - t0
+        problems += [f"frontend entry points ({name}): {p}" for p in fprob]
+        say(f"[{smi}] 5p internvl2-76b {name}, {c.n_layers} layers: "
+            f"prefill(frontend_embeds=(4, {c.n_frontend_tokens}, "
+            f"{c.d_model})) + {IVL_TEXT} text tokens, then {IVL_STEPS} "
+            f"decode_steps: every logit finite "
+            f"{not any('finite' in p for p in fprob)}, {dvp_line(fr[name])}"
+            f"; {fr[name]['seconds']:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("5p internvl2-76b: " + "; ".join(problems))
+    return {"serves": recs, "frontend": fr, "steps": steps,
+            "peak_bytes": peak, "n_params": n_par, "param_bytes": n_bytes,
+            "n_layers": IVL_LAYERS,
+            "prompt_lens": [r.prompt_len for r in reqs]}
+
+
+def run_seamless_full(torch, dev, smi):
+    """Phase 5q: seamless-m4t-medium at full width and depth (a 12-layer
+    encoder and a 12-layer decoder with cross-attention, d_model 1,024, 16
+    heads of 64, d_ff 4,096 GeGLU, LayerNorm, sinusoidal positions, vocab
+    256,206 padded to 256,256, tied), bf16 weights from seed 0, through the
+    model entry points: ``prefill(enc_embeds=(4, S_enc, 1,024))`` (S_enc
+    drawn from 256-1,024 by ``default_rng(10)``, then the frames' normal
+    draws and 32-token decoder prompts) and ``SEAM_STEPS`` greedy
+    ``decode_step``s, ``max_seq`` 128.  Gates: every logit finite; the
+    cross caches bit-identical before and after the steps;
+    ``decode_vs_prefill``'s gates, in bf16 and then in f32 (2.9 GB), where
+    the two paths must agree to f32 rounding.  Returns the record; the
+    weights are freed."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+
+    cfg = configs.get_config("seamless-m4t-medium")
+    torch.cuda.reset_peak_memory_stats()
+    params, n_par, n_bytes = full_width_params(torch, dev, cfg)
+    rng = np.random.default_rng(10)
+    s_enc = int(rng.integers(256, 1025))
+    enc = torch.from_numpy(rng.normal(size=(4, s_enc, cfg.d_model)).astype(
+        np.float32)).to(dev)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(4, SEAM_PROMPT))
+                           .astype(np.int32)).to(dev)
+    problems = []
+    with torch.inference_mode():
+        _, c0 = tfm.prefill(params, cfg, tok, max_seq=SEAM_MAX_SEQ,
+                            enc_embeds=enc)
+    cross0 = [(k.clone(), v.clone()) for k, v in c0["cross"]]
+    del c0
+    rec = {}
+    for name, c in (("bf16", cfg),
+                    ("f32", dataclasses.replace(cfg, dtype="float32"))):
+        if name == "f32":
+            del params
+            torch.cuda.empty_cache()
+            params = full_width_params(torch, dev, c)[0]
+        t0 = time.perf_counter()
+        rec[name], sprob, cache = decode_vs_prefill(
+            torch, tfm, c, params, tok, SEAM_STEPS, SEAM_MAX_SEQ,
+            DVP_MAX_RATIO["5q"][name], enc_embeds=enc)
+        rec[name]["seconds"] = time.perf_counter() - t0
+        problems += [f"{name}: {p}" for p in sprob]
+        if name == "bf16":
+            same = all(torch.equal(k, k0) and torch.equal(v, v0)
+                       for (k, v), (k0, v0) in zip(cache["cross"], cross0))
+            if not same:
+                problems.append("cross caches changed through the decode "
+                                "steps")
+        del cache
+        say(f"[{smi}] 5q seamless-m4t-medium {name}: prefill(enc_embeds=(4, "
+            f"{s_enc}, {cfg.d_model})) + {SEAM_PROMPT}-token decoder "
+            f"prompts, then {SEAM_STEPS} decode_steps: every logit finite "
+            f"{not any('finite' in p for p in sprob)}"
+            + (f", cross caches bit-identical {same}" if name == "bf16"
+               else "")
+            + f", {dvp_line(rec[name])}; {rec[name]['seconds']:.1f} s")
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[{smi}] 5q seamless-m4t-medium: peak memory allocated "
+        f"{peak / 2**30:.2f} GiB")
+    del params, cross0
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("5q seamless-m4t-medium: "
+                             + "; ".join(problems))
+    rec.update(s_enc=s_enc, cross_unchanged=same, peak_bytes=peak,
+               n_params=n_par, param_bytes=n_bytes)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -3307,7 +3803,9 @@ def main() -> int:
     pcd_err = check_paged_decode(torch, cd, pcd, dev)
     gemma_err = check_gemma_decode(torch, cd, pcd, dev)
     tiny_err = check_rec_tiny_decode(torch, cd, pcd, dev)
-    moe_err = check_moe_decode(torch, cd, pcd, dev)
+    moe_err = max(check_moe_decode(torch, cd, pcd, dev),
+                  check_moe_decode(torch, cd, pcd, dev, IVL_HQ, IVL_HKV,
+                                   "internvl2"))
     quota_err = check_paged_quota(torch, attention, pcd, dev)
     cd_err = max(cd_err, gemma_err, tiny_err, moe_err)
     pcd_err = max(pcd_err, gemma_err, tiny_err, moe_err, quota_err)
@@ -3330,6 +3828,11 @@ def main() -> int:
     # reference's battery on the card
     record["moe_tiny"] = check_moe_tiny(torch, dev, smi)
     done("4c qwen2-moe reduced + metrics reference")
+
+    # phase 4d: the reduced deepseek-v3 (MLA), internvl2 (frontend stub)
+    # and seamless (encoder-decoder), card vs CPU
+    record["zoo_tiny"] = check_zoo_tiny(torch, dev, smi)
+    done("4d MLA / frontend / enc-dec reduced")
 
     # phase 5: serve
     serve, params = serve_qwen3(torch, dev, smi)
@@ -3408,6 +3911,16 @@ def main() -> int:
     record["serve_qwen2_moe"] = moe
     done("5n qwen2-moe-a2.7b (weights included)")
 
+    # phases 5o-5q: MLA, the frontend stub and the encoder-decoder at full
+    # width (deepseek-v3 and internvl2 with their depth cut to fit)
+    record["serve_deepseek_v3"] = serve_deepseek_full(torch, dev, smi)
+    done("5o deepseek-v3-671b (weights included)")
+    ivl = serve_internvl_full(torch, dev, smi)
+    record["serve_internvl2"] = ivl
+    done("5p internvl2-76b (weights included)")
+    record["seamless"] = run_seamless_full(torch, dev, smi)
+    done("5q seamless-m4t-medium (weights included)")
+
     # phase 6: k-medians through both clustering kernels, the pipeline
     km = kmedians(torch, dev)
     record["kmedians"] = km
@@ -3466,6 +3979,8 @@ def main() -> int:
                  "clustered_decode"] for p, r in rec_tiny.items()},
              launches_moe={m: moe["serves"][m]["launches"][
                  "clustered_decode"] for m in ("chunked", "blocking")},
+             launches_frontend=ivl["serves"]["blocking"]["launches"][
+                 "clustered_decode"],
              max_abs_err=cd_err, ms=tm["clustered_decode"]["ms"],
              plain_ms=tm["clustered_decode"]["plain_ms"],
              bound_ms=tm["clustered_decode"]["bound_ms"],
@@ -3527,6 +4042,8 @@ def main() -> int:
                  "bitserial_median"] for p, r in rec_tiny.items()},
              launches_moe={m: r["launches"]["bitserial_median"]
                            for m, r in moe["serves"].items()},
+             launches_frontend=ivl["serves"]["blocking"]["launches"][
+                 "bitserial_median"],
              max_abs_err=bsm_err, ms=tm["bitserial_median"]["ms"],
              plain_ms=tm["bitserial_median"]["plain_ms"],
              bound_ms=tm["bitserial_median"]["bound_ms"],

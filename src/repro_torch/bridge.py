@@ -10,10 +10,17 @@ Parameters are cast from the f32 masters to ``cfg.dtype`` once, here —
 the reference casts at every use, and a cast is deterministic — except
 the leaves the reference reads uncast, which stay f32: norm scales and
 biases (``apply_norm``), an 'M' layer's ``dt_bias``, ``A_log``, ``D``
-and ``norm``, an 'R' layer's gate weights and biases and ``lam``, and a
-MoE layer's ``router`` and selection ``bias``.  A model with a dense
-prefix (``moe.n_dense_layers``) has its prefix layers first in the
-port's list, as under the reference's ``params["prefix"]``.  bf16
+and ``norm``, an 'R' layer's gate weights and biases and ``lam``, a MoE
+layer's ``router`` and selection ``bias``, and MLA's ``q_norm`` and
+``kv_norm`` (``rms_head_norm``).  A model with a dense prefix
+(``moe.n_dense_layers``) has its prefix layers first in the port's list,
+as under the reference's ``params["prefix"]``.  A frontend's ``proj``
+crosses as it is; an encoder-decoder's encoder, stacked under
+``params["encoder"]["scan"]["sub0"]`` over ``enc_layers``, becomes the
+port's ``params["encoder"]["layers"]``, and its cross caches
+(``cross_prefix`` / ``scan["xkv{j}"]`` / ``cross_tail``) the port's
+``cache["cross"]``, one (k, v) a decoder layer.  The reference's MTP
+module ("mtp") is left out: serving never reads it.  bf16
 arrays from JAX are ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses, so they cross as their uint16 bit patterns.
 """
@@ -29,6 +36,8 @@ from repro_torch.models.transformer import layout
 
 #: parameter leaves kept in f32 whatever the config dtype
 F32_KEYS = frozenset({"scale", "bias", "q_norm", "k_norm",
+                      # models/attention.py (MLA; q_norm above)
+                      "kv_norm",
                       # models/ssm.py
                       "dt_bias", "A_log", "D", "norm",
                       # models/rglru.py
@@ -99,6 +108,13 @@ def _stack(trees):
     return np.stack(trees)
 
 
+def _encoder_layers(enc, cfg: ModelConfig):
+    """The reference's encoder stack (``scan["sub0"]``, a leading layer
+    axis of ``enc_layers``) as a list of per-layer subtrees."""
+    return [_map(lambda a, _k, i=i: a[i], enc["scan"]["sub0"])
+            for i in range(cfg.enc_layers)]
+
+
 def params_from_numpy(tree, cfg: ModelConfig, device=None):
     """Reference params (numpy leaves) → the port's parameter dict."""
     dt = cdtype(cfg)
@@ -107,30 +123,68 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
         t = to_torch(a, device)
         return t if key in F32_KEYS else t.to(dt)
 
-    return {
-        "embed": _map(leaf, tree["embed"]),
-        "layers": [_map(leaf, lp) for lp in _unstack(tree, cfg)],
-        "final_norm": _map(leaf, tree["final_norm"]),
-    }
+    out = {"embed": _map(leaf, tree["embed"])}
+    if "frontend" in tree:
+        out["frontend"] = _map(leaf, tree["frontend"])
+    out["layers"] = [_map(leaf, lp) for lp in _unstack(tree, cfg)]
+    out["final_norm"] = _map(leaf, tree["final_norm"])
+    if "encoder" in tree:
+        out["encoder"] = {
+            "layers": [_map(leaf, lp)
+                       for lp in _encoder_layers(tree["encoder"], cfg)],
+            "final_norm": _map(leaf, tree["encoder"]["final_norm"])}
+    return out
 
 
 def params_to_numpy(params, cfg: ModelConfig):
     """The port's parameters → the reference's tree layout (numpy)."""
     conv = lambda t, _k: to_numpy(t)  # noqa: E731
     out = {"embed": _map(conv, params["embed"])}
+    if "frontend" in params:
+        out["frontend"] = _map(conv, params["frontend"])
     out.update(_restack([_map(conv, lp) for lp in params["layers"]], cfg))
     out["final_norm"] = _map(conv, params["final_norm"])
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {
+            "scan": {"sub0": _stack([_map(conv, lp)
+                                     for lp in enc["layers"]])},
+            "final_norm": _map(conv, enc["final_norm"])}
     return out
 
 
 def cache_from_numpy(tree, cfg: ModelConfig, device=None):
-    """Reference cache (numpy leaves) → ``{"layers": [leaf per layer]}``,
-    dtypes kept."""
-    return {"layers": [_map(lambda a, _k: to_torch(a, device), leaf)
-                       for leaf in _unstack(tree, cfg)]}
+    """Reference cache (numpy leaves) → ``{"layers": [leaf per layer]}``
+    (and ``"cross": [(k, v) per layer]`` for an encoder-decoder), dtypes
+    kept."""
+    conv = lambda a, _k: to_torch(a, device)  # noqa: E731
+    out = {"layers": [_map(conv, leaf) for leaf in _unstack(tree, cfg)]}
+    if "cross_prefix" in tree:
+        _, n_rep, _ = layout(cfg)
+        cross = [tuple(_map(conv, kv)) for kv in tree["cross_prefix"]]
+        for rep in range(n_rep):
+            for j in range(len(cfg.layer_pattern)):
+                cross.append(tuple(to_torch(a[rep], device)
+                                   for a in tree["scan"][f"xkv{j}"]))
+        cross.extend(tuple(_map(conv, kv)) for kv in tree["cross_tail"])
+        out["cross"] = cross
+    return out
 
 
 def cache_to_numpy(cache, cfg: ModelConfig):
-    """The port's cache → the reference's prefix/scan/tail tree."""
-    return _restack([_map(lambda t, _k: to_numpy(t), leaf)
-                     for leaf in cache["layers"]], cfg)
+    """The port's cache → the reference's prefix/scan/tail tree (with its
+    ``cross_prefix`` / ``scan["xkv{j}"]`` / ``cross_tail`` for an
+    encoder-decoder)."""
+    out = _restack([_map(lambda t, _k: to_numpy(t), leaf)
+                    for leaf in cache["layers"]], cfg)
+    if "cross" in cache:
+        n_prefix, n_rep, _ = layout(cfg)
+        plen = len(cfg.layer_pattern)
+        cross = [tuple(to_numpy(t) for t in kv) for kv in cache["cross"]]
+        out["cross_prefix"] = cross[:n_prefix]
+        out["cross_tail"] = cross[n_prefix + n_rep * plen:]
+        for j in range(plen if n_rep > 0 else 0):
+            group = [cross[n_prefix + rep * plen + j] for rep in range(n_rep)]
+            out["scan"][f"xkv{j}"] = (np.stack([k for k, _ in group]),
+                                      np.stack([v for _, v in group]))
+    return out

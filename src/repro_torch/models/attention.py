@@ -1,9 +1,10 @@
-"""Attention for the decoder-only GQA serving path (port of the global
-('G') and sliding-window ('L') subset of ``repro.models.attention``):
-chunked online-softmax prefill, the exact decode cache (optionally int8
-with per-head scales), the sliding-window ring of 'L' layers and the
-clustered [median centroids ⊕ exact tail ring] cache of the paper's
-memory manager.
+"""Attention for serving (port of the serving subset of
+``repro.models.attention``): chunked online-softmax prefill, the exact
+decode cache (optionally int8 with per-head scales), the sliding-window
+ring of 'L' layers, the clustered [median centroids ⊕ exact tail ring]
+cache of the paper's memory manager, the encoder-decoder's
+cross-attention, and MLA (DeepSeek-V3), which caches only its compressed
+latent (ckv, kpe) and decodes in the absorbed form.
 
 Cache leaves keep the reference's layouts: exact k/v (B, Sc, Hkv, Dh)
 (int8: plus k/v_scale (Hkv,) f32), where an 'L' layer's Sc is
@@ -12,7 +13,9 @@ clustered k/v_cents (B, C, Hkv, Dh), counts (B, C, Hkv) f32, k/v_tail
 (B, R, Hkv, Dh) in ring order, cov (B,) int32.  Decode writes the new keys
 and values into the cache IN PLACE (and returns the cache): an engine step
 must not copy every layer's KV.  Paged serving keeps the tails in a
-shared block pool (nb, bs, Hkv, Dh) read through block tables.
+shared block pool (nb, bs, Hkv, Dh) read through block tables.  An MLA
+leaf is {"ckv" (B, Sc, kv_lora_rank), "kpe" (B, Sc, rope)}, exact in every
+mode.
 """
 
 from __future__ import annotations
@@ -167,7 +170,9 @@ def _theta(cfg: ModelConfig, layer_kind: str) -> float:
 def _qkv(p, x, cfg: ModelConfig, positions, layer_kind: str,
          kv_repeat: int):
     """Projections, qk-norm and RoPE (local layers take
-    ``rope_theta_local`` where the config has one)."""
+    ``rope_theta_local`` where the config has one; a model with absolute
+    sinusoidal positions adds them at the embedding and rotates
+    nothing)."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(b, s, hq, dh)
@@ -176,9 +181,10 @@ def _qkv(p, x, cfg: ModelConfig, positions, layer_kind: str,
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
-    th = _theta(cfg, layer_kind)
-    q = apply_rope(q, positions, th)
-    k = apply_rope(k, positions, th)
+    if cfg.pos_kind == "rope":
+        th = _theta(cfg, layer_kind)
+        q = apply_rope(q, positions, th)
+        k = apply_rope(k, positions, th)
     if kv_repeat > 1:
         k = torch.repeat_interleave(k, kv_repeat, dim=2)
         v = torch.repeat_interleave(v, kv_repeat, dim=2)
@@ -188,6 +194,20 @@ def _qkv(p, x, cfg: ModelConfig, positions, layer_kind: str,
 def _scale(cfg: ModelConfig) -> float:
     return (cfg.query_scale if cfg.query_scale is not None
             else cfg.head_dim ** -0.5)
+
+
+def attn_train(p, x, cfg: ModelConfig, *, layer_kind: str, positions,
+               kv_repeat: int = 1, causal: bool = True,
+               chunk_kv: int = 1024):
+    """Full-sequence self-attention without a cache; ``causal=False`` is
+    the encoder's bidirectional form."""
+    q, k, v = _qkv(p, x, cfg, positions, layer_kind, kv_repeat)
+    window = cfg.sliding_window if layer_kind == "L" else None
+    out = chunked_attention(q, k, v, causal=causal, scale=_scale(cfg),
+                            window=window, softcap=cfg.attn_logit_softcap,
+                            chunk_kv=chunk_kv)
+    b, s = out.shape[:2]
+    return out.reshape(b, s, -1) @ p["wo"]
 
 
 def attn_prefill(p, x, cfg: ModelConfig, *, layer_kind: str, positions,
@@ -552,3 +572,186 @@ def attn_decode(p, x, cfg: ModelConfig, *, layer_kind: str, cache, t,
                                ring=ring)
     y = out.reshape(b, l, -1) @ p["wo"]
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attn(generator, cfg: ModelConfig, device=None):
+    return init_attn(generator, cfg, device)
+
+
+def cross_attn_apply(p, x, enc_kv, cfg: ModelConfig):
+    """x (B, Sq, d) over the encoder's ``enc_kv`` = (k, v), each (B, S_enc,
+    Hkv, Dh) from :func:`cross_kv`: bidirectional, no positions, the
+    config's logit softcap."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k, v = enc_kv
+    out = chunked_attention(q, k, v, causal=False, scale=_scale(cfg),
+                            softcap=cfg.attn_logit_softcap)
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
+def cross_kv(p, enc_out, cfg: ModelConfig):
+    """A decoder layer's cross-attention keys and values over the encoder
+    output (B, S_enc, d): computed once at prefill and carried unchanged
+    through every decode step."""
+    b, s, _ = enc_out.shape
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    k = (enc_out @ p["wk"]).reshape(b, s, hkv, dh)
+    v = (enc_out @ p["wv"]).reshape(b, s, hkv, dh)
+    return k, v
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): low-rank Q/KV with a compressed-latent cache
+# ---------------------------------------------------------------------------
+
+
+def init_mla(generator, cfg: ModelConfig, device=None):
+    """The reference's MLA leaves: the low-rank query ("wdq", "q_norm",
+    "wuq"), the latent ("wdkv", "kv_norm"), its up-projection to per-head
+    keys and values ("wukv"), the shared rotary key ("wkr") and "wo".  The
+    two norms stay f32 (``rms_head_norm`` reads them uncast)."""
+    m = cfg.mla
+    d, h, dt = cfg.d_model, cfg.n_heads, cdtype(cfg)
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    w = lambda shape: dense_init(generator, shape, dtype=dt,  # noqa: E731
+                                 device=device)
+    return {
+        "wdq": w((d, m.q_lora_rank)),
+        "q_norm": torch.ones(m.q_lora_rank, device=device),
+        "wuq": w((m.q_lora_rank, h * qd)),
+        "wdkv": w((d, m.kv_lora_rank)),
+        "kv_norm": torch.ones(m.kv_lora_rank, device=device),
+        "wukv": w((m.kv_lora_rank,
+                   h * (m.qk_nope_head_dim + m.v_head_dim))),
+        "wkr": w((d, m.qk_rope_head_dim)),
+        "wo": w((h * m.v_head_dim, d)),
+    }
+
+
+def _mla_q(p, x, cfg: ModelConfig, positions):
+    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope)), the rotary half
+    at ``positions``."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    cq = rms_head_norm(p["q_norm"], x @ p["wdq"], cfg.norm_eps)
+    q = (cq @ p["wuq"]).reshape(b, s, cfg.n_heads,
+                                m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    return q[..., :m.qk_nope_head_dim], q_rope
+
+
+def _mla_latent(p, x, cfg: ModelConfig, positions):
+    """(ckv (B, S, kv_lora_rank), kpe (B, S, rope)): what the cache holds
+    a token, the normed latent and the rotary key every head shares."""
+    ckv = rms_head_norm(p["kv_norm"], x @ p["wdkv"], cfg.norm_eps)
+    kpe = (x @ p["wkr"])[:, :, None, :]                  # (B, S, 1, rope)
+    kpe = apply_rope(kpe, positions, cfg.rope_theta)[:, :, 0]
+    return ckv, kpe
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
+
+
+def _mla_expanded(p, x, cfg: ModelConfig, positions, chunk_kv: int):
+    """The expanded form: per-head keys and values up-projected from the
+    latent, causal chunked attention.  Returns (y, (ckv, kpe))."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    ckv, kpe = _mla_latent(p, x, cfg, positions)
+    kv = (ckv @ p["wukv"]).reshape(b, s, h,
+                                   m.qk_nope_head_dim + m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([kv[..., :m.qk_nope_head_dim],
+                   kpe[:, :, None, :].expand(b, s, h, m.qk_rope_head_dim)],
+                  dim=-1)
+    out = chunked_attention(q, k, kv[..., m.qk_nope_head_dim:], causal=True,
+                            scale=_mla_scale(cfg), chunk_kv=chunk_kv)
+    return out.reshape(b, s, -1) @ p["wo"], (ckv, kpe)
+
+
+def mla_train(p, x, cfg: ModelConfig, *, positions, chunk_kv: int = 1024):
+    """Expanded (training / prefill) form: materializes per-head K/V."""
+    return _mla_expanded(p, x, cfg, positions, chunk_kv)[0]
+
+
+def init_cache_mla(cfg: ModelConfig, batch: int, max_seq: int, device=None):
+    """The latent cache: {"ckv" (B, max_seq, kv_lora_rank), "kpe" (B,
+    max_seq, rope)} in the compute dtype, position p at index p."""
+    m, dt = cfg.mla, cdtype(cfg)
+    return {"ckv": torch.zeros((batch, max_seq, m.kv_lora_rank), dtype=dt,
+                               device=device),
+            "kpe": torch.zeros((batch, max_seq, m.qk_rope_head_dim),
+                               dtype=dt, device=device)}
+
+
+def mla_prefill(p, x, cfg: ModelConfig, *, positions, max_seq: int,
+                chunk_kv: int = 1024):
+    """Causal prefill in the expanded form; the cache is the latent,
+    zero-padded out to ``max_seq`` positions (a longer prompt keeps its
+    S)."""
+    y, (ckv, kpe) = _mla_expanded(p, x, cfg, positions, chunk_kv)
+    pad = max_seq - x.shape[1]
+    if pad > 0:
+        ckv = torch.nn.functional.pad(ckv, (0, 0, 0, pad))
+        kpe = torch.nn.functional.pad(kpe, (0, 0, 0, pad))
+    return y, {"ckv": ckv, "kpe": kpe}
+
+
+def mla_decode(p, x, cfg: ModelConfig, *, cache, t):
+    """Absorbed one-token decode over the latent cache: W_uk is folded
+    into the query, so scores hit (ckv, kpe) directly and per-head keys
+    are never built.  x (B, 1, d); ``t`` scalar or (B,), each slot's
+    position.  The new latent is written into the cache in place.
+
+    The reference's casts: the absorbed query is formed in the compute
+    dtype, then scores, softmax and the context are f32 (positions >= t +
+    1 masked to -1e30, the sum clamped at 1e-30), and the context goes
+    back to the compute dtype before W_uv."""
+    m = cfg.mla
+    dt = cdtype(cfg)
+    b = x.shape[0]
+    h = cfg.n_heads
+    dev = x.device
+    f32 = torch.float32
+    tb = per_slot(t, b, dev)
+    positions = tb[:, None]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)        # (B, 1, H, .)
+    ckv_new, kpe_new = _mla_latent(p, x, cfg, positions)
+    ckv, kpe = cache["ckv"], cache["kpe"]
+    rows = torch.arange(b, device=dev)
+    # A slot decoding past max_seq keeps its cache: the reference's
+    # out-of-bounds .at[].set is dropped, so write the old entry back.
+    idx = torch.clamp(tb, max=ckv.shape[1] - 1).long()
+    keep = (tb >= ckv.shape[1])[:, None]
+    ckv[rows, idx] = torch.where(keep, ckv[rows, idx],
+                                 ckv_new[:, 0].to(ckv.dtype))
+    kpe[rows, idx] = torch.where(keep, kpe[rows, idx],
+                                 kpe_new[:, 0].to(kpe.dtype))
+
+    wukv = p["wukv"].reshape(m.kv_lora_rank, h,
+                             m.qk_nope_head_dim + m.v_head_dim)
+    wuk = wukv[..., :m.qk_nope_head_dim]                 # (r, H, nope)
+    wuv = wukv[..., m.qk_nope_head_dim:]                 # (r, H, v)
+    q_abs = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], wuk)
+    ckv32 = ckv.to(f32)
+    s = (torch.einsum("bhr,bsr->bhs", q_abs.to(f32), ckv32)
+         + torch.einsum("bhe,bse->bhs", q_rope[:, 0].to(f32),
+                        kpe.to(f32))) * _mla_scale(cfg)
+    pos = torch.arange(ckv.shape[1], device=dev)
+    s = torch.where((pos[None, :] < (tb + 1)[:, None])[:, None, :], s,
+                    torch.full_like(s, NEG))
+    w = torch.exp(s - s.amax(-1, keepdim=True))
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-30)
+    ctx = torch.einsum("bhs,bsr->bhr", w, ckv32)         # (B, H, r)
+    out = torch.einsum("bhr,rhv->bhv", ctx.to(dt), wuv)
+    return out.reshape(b, 1, -1) @ p["wo"], cache

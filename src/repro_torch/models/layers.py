@@ -1,5 +1,5 @@
-"""Shared building blocks: inits, norms, embeddings, positions, MLPs (port
-of ``repro.models.layers``).
+"""Shared building blocks: inits, norms, embeddings, positions, MLPs and
+the modality frontend stubs (port of ``repro.models.layers``).
 
 Parameters are nested dicts of tensors with the reference's keys.  Weight
 matrices are stored in the config dtype — the reference keeps f32 masters
@@ -34,11 +34,13 @@ def resolve_device(device=None) -> torch.device:
 
 def dense_init(generator: torch.Generator, shape, scale: float = 0.02, *,
                dtype=torch.float32, device=None) -> torch.Tensor:
-    """Truncated-normal (±2σ) init drawn from ``generator``, cast to
-    ``dtype`` once."""
+    """Truncated-normal (±2σ) init drawn from ``generator`` in f32, scaled,
+    cast to ``dtype`` once."""
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (w * scale).to(dtype)
+    # scaled in place: one f32 draw alive at a time (a deepseek-v3 expert
+    # bank is 15 GB in f32)
+    return w.mul_(scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +112,25 @@ def lm_logits(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return logits
 
 
+def sinusoidal_pos(seq_len: int, dim: int, offset=0,
+                   device=None) -> torch.Tensor:
+    """Absolute sinusoidal positions [sin | cos] in f32: (S, dim) for
+    positions offset..offset+S-1 with a scalar ``offset``, or (B, S, dim)
+    with a per-slot (B,) tensor ``offset`` (decode under continuous
+    batching).  The reference's f32 arithmetic: pos / 10000^(2i / dim)."""
+    if torch.is_tensor(offset):
+        device = offset.device
+    pos = torch.arange(seq_len, device=device)
+    if torch.is_tensor(offset) and offset.dim() > 0:
+        pos = offset.reshape(-1, 1).long() + pos[None, :]         # (B, S)
+    else:
+        pos = pos + offset
+    i = torch.arange(dim // 2, device=device, dtype=torch.float32)
+    ang = pos[..., None].to(torch.float32) / torch.pow(
+        torch.tensor(10000.0, device=device), 2.0 * i / dim)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return theta ** (-torch.arange(0, head_dim // 2, dtype=torch.float32,
                                    device=device) / (head_dim // 2))
@@ -148,3 +169,23 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     g = (F.gelu(gate, approximate="tanh") if cfg.mlp_kind == "geglu"
          else F.silu(gate))
     return (g * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Frontend stubs (vision / audio): precomputed embeddings -> d_model
+# ---------------------------------------------------------------------------
+
+
+def init_frontend(generator, cfg: ModelConfig, device=None):
+    """The stub frontend's projection {"proj": (d_model, d_model)}, or None
+    for a text-only model."""
+    if cfg.frontend is None:
+        return None
+    return {"proj": dense_init(generator, (cfg.d_model, cfg.d_model),
+                               dtype=cdtype(cfg), device=device)}
+
+
+def apply_frontend(p, embeds: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Precomputed patch or frame embeddings (B, S, d_model), cast to the
+    compute dtype on the projection's device, times the projection."""
+    return embeds.to(p["proj"].device, cdtype(cfg)) @ p["proj"]

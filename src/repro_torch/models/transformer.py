@@ -1,19 +1,31 @@
-"""Model assembly for serving a decoder-only stack of global ('G') and
-sliding-window ('L') GQA layers, Mamba2 SSD ('M') and RG-LRU ('R')
-recurrent layers, with dense or MoE FFNs (port of the prefill and decode
-subset of ``repro.models.transformer``).
+"""Model assembly for serving (port of the prefill and decode subset of
+``repro.models.transformer``): decoder stacks of global ('G') and
+sliding-window ('L') attention layers, GQA or MLA (DeepSeek-V3's latent
+attention), Mamba2 SSD ('M') and RG-LRU ('R') recurrent layers, with dense
+or MoE FFNs; encoder-decoder stacks (a bidirectional encoder, and
+cross-attention in every decoder layer); the vision / audio frontend
+stubs, whose projected embeddings are prepended to the text (decoder-only)
+or feed the encoder (encoder-decoder); RoPE or absolute sinusoidal
+positions.
 
-Parameters: ``{"embed": {"table"}, "layers": [per-layer dict], "final_norm"}``
-where each layer dict has the reference's keys: "norm1", "attn", "norm2",
-"mlp" or "moe" (and "post_attn_norm" / "post_mlp_norm" under
-``post_norms``) for an attention layer, "norm1" and "ssm" for an 'M'
-layer, "norm1", "rg", "norm2" and "mlp" for an 'R' layer.  Under
-``cfg.moe`` every 'G' / 'L' layer takes a "moe" FFN, except the first
-``moe.n_dense_layers``, dense 'G' layers of width ``moe.d_ff_dense``.
-The reference stacks repeated layers under ``params["scan"]`` with a
-leading layer axis; the port keeps one entry per layer and runs a Python
-loop over them (``bridge`` converts between the two).  The decode cache
-is ``{"layers": [per-layer leaf]}`` with the reference's leaf layouts;
+Parameters: ``{"embed": {"table"}, "layers": [per-layer dict],
+"final_norm"}``, plus ``"frontend": {"proj"}`` under a frontend and
+``"encoder": {"layers": [...], "final_norm"}`` for an encoder-decoder.
+Each layer dict has the reference's keys: "norm1", "attn" (GQA, or MLA's
+leaves under ``attn_kind="mla"``), "norm2", "mlp" or "moe" (and
+"post_attn_norm" / "post_mlp_norm" under ``post_norms``, "xnorm" and
+"xattn" in an encoder-decoder's decoder) for an attention layer, "norm1"
+and "ssm" for an 'M' layer, "norm1", "rg", "norm2" and "mlp" for an 'R'
+layer.  Under ``cfg.moe`` every 'G' / 'L' layer takes a "moe" FFN, except
+the first ``moe.n_dense_layers``, dense 'G' layers of width
+``moe.d_ff_dense``.  DeepSeek's multi-token-prediction module ("mtp") is
+a training head that serving never reads; it is not built here (ROADMAP
+Queue A item 8.5).  The reference stacks repeated layers under
+``params["scan"]`` with a leading layer axis; the port keeps one entry per
+layer and runs a Python loop over them (``bridge`` converts between the
+two).  The decode cache is ``{"layers": [per-layer leaf]}`` with the
+reference's leaf layouts, and for an encoder-decoder ``"cross": [(k, v)
+per layer]``, the encoder's keys and values, fixed after prefill;
 :func:`prefill` builds an exact one and :func:`decode_step` updates a
 cache in place (a recurrent leaf's entries are replaced by the stepped
 state; an attention leaf's tensors are written).
@@ -33,9 +45,11 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (apply_mlp, apply_norm, cdtype,
-                                       embed_tokens, init_embed, init_mlp,
-                                       init_norm, lm_logits, resolve_device)
+from repro_torch.models.layers import (apply_frontend, apply_mlp, apply_norm,
+                                       cdtype, embed_tokens, init_embed,
+                                       init_frontend, init_mlp, init_norm,
+                                       lm_logits, resolve_device,
+                                       sinusoidal_pos)
 
 
 def layout(cfg: ModelConfig):
@@ -55,9 +69,12 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves decoder-only stacks of 'G' layers, 'L' layers with
-    a ``sliding_window`` and 'M' / 'R' recurrent layers, with dense or MoE
-    FFNs; anything else names the ROADMAP item that brings it."""
+    """The port serves every layer kind of the zoo: 'G' layers (GQA or
+    MLA), 'L' layers with a ``sliding_window``, 'M' / 'R' recurrent layers,
+    dense or MoE FFNs, the frontend stubs, encoder-decoder stacks, and
+    RoPE or absolute sinusoidal positions.  An 'L' layer without a window
+    raises ValueError, an unknown layer kind or attention kind
+    NotImplementedError."""
     kinds = set(layer_kinds(cfg))
     if "L" in kinds and not cfg.sliding_window:
         raise ValueError(f"model '{cfg.name}': 'L' layers need a "
@@ -65,15 +82,10 @@ def check_supported(cfg: ModelConfig) -> None:
     problems = []
     if kinds - set("GLMR"):
         problems.append(f"unknown layer kinds in {cfg.layer_pattern!r}")
-    if cfg.attn_kind != "gqa":
-        problems.append(f"attn_kind {cfg.attn_kind!r} (ROADMAP Queue A "
-                        "item 8.3)")
-    if cfg.is_encdec or cfg.frontend is not None:
-        problems.append("encoder-decoder / modality frontends (ROADMAP "
-                        "Queue A item 8.4)")
-    if cfg.pos_kind != "rope":
-        problems.append(f"pos_kind {cfg.pos_kind!r} (ROADMAP Queue A "
-                        "item 8.4)")
+    if cfg.attn_kind not in ("gqa", "mla"):
+        problems.append(f"unknown attn_kind {cfg.attn_kind!r}")
+    if cfg.pos_kind not in ("rope", "abs_sinusoidal"):
+        problems.append(f"unknown pos_kind {cfg.pos_kind!r}")
     if problems:
         raise NotImplementedError(f"model '{cfg.name}': " + "; ".join(problems))
 
@@ -84,12 +96,15 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def init_sublayer(generator, cfg: ModelConfig, kind: str,
-                  use_moe: bool = False, d_ff=None, device=None):
-    """One sublayer's parameters: an attention layer with the sandwich
-    norms ("post_attn_norm", "post_mlp_norm") when ``cfg.post_norms`` is
-    set and a "moe" FFN under ``use_moe``, else an MLP of width ``d_ff``
-    (default ``cfg.d_ff``); an 'M' layer with no FFN, an 'R' layer with
-    "norm2" and "mlp" (never MoE)."""
+                  use_moe: bool = False, d_ff=None, device=None,
+                  cross: bool = False):
+    """One sublayer's parameters: an attention layer (MLA under
+    ``attn_kind="mla"``) with the sandwich norms ("post_attn_norm",
+    "post_mlp_norm") when ``cfg.post_norms`` is set, cross-attention
+    ("xnorm", "xattn") under ``cross``, and a "moe" FFN under
+    ``use_moe``, else an MLP of width ``d_ff`` (default ``cfg.d_ff``); an
+    'M' layer with no FFN, an 'R' layer with "norm2" and "mlp" (never
+    MoE)."""
     p = {"norm1": init_norm(cfg, cfg.d_model, device)}
     if kind == "M":
         p["ssm"] = ssm_mod.init_ssm(generator, cfg, device)
@@ -101,9 +116,14 @@ def init_sublayer(generator, cfg: ModelConfig, kind: str,
         return p
     if kind not in ("G", "L"):
         raise ValueError(kind)
-    p["attn"] = attn.init_attn(generator, cfg, device)
+    p["attn"] = (attn.init_mla(generator, cfg, device)
+                 if cfg.attn_kind == "mla"
+                 else attn.init_attn(generator, cfg, device))
     if cfg.post_norms:
         p["post_attn_norm"] = init_norm(cfg, cfg.d_model, device)
+    if cross:
+        p["xnorm"] = init_norm(cfg, cfg.d_model, device)
+        p["xattn"] = attn.init_cross_attn(generator, cfg, device)
     p["norm2"] = init_norm(cfg, cfg.d_model, device)
     if use_moe:
         p["moe"] = moe_mod.init_moe(generator, cfg, device)
@@ -119,23 +139,33 @@ def init_params(generator, cfg: ModelConfig, device=None):
     ``device``, or an int seed).  Weights are drawn in f32 and stored in
     ``cfg.dtype``.  ``device`` None means CUDA.  The draws are not the
     reference's ``jax.random`` draws; for parity, load the reference's
-    parameters through ``bridge.params_from_numpy``."""
+    parameters through ``bridge.params_from_numpy``.  Under a frontend
+    the tree has "frontend", for an encoder-decoder "encoder" (its 'G'
+    layers and final norm) and cross-attention in every decoder layer;
+    DeepSeek's MTP module is not built (serving never reads it)."""
     check_supported(cfg)
     dev = resolve_device(device)
     if not isinstance(generator, torch.Generator):
         generator = torch.Generator(device=dev).manual_seed(int(generator))
     n_prefix = layout(cfg)[0]
     moe = cfg.moe is not None
-    return {
-        "embed": init_embed(generator, cfg, dev),
-        # the dense prefix ('G', width d_ff_dense), then the stack
-        "layers": [init_sublayer(generator, cfg, k, moe and i >= n_prefix
+    p = {"embed": init_embed(generator, cfg, dev)}
+    fe = init_frontend(generator, cfg, dev)
+    if fe is not None:
+        p["frontend"] = fe
+    # the dense prefix ('G', width d_ff_dense), then the stack
+    p["layers"] = [init_sublayer(generator, cfg, k, moe and i >= n_prefix
                                  and k in "GL",
                                  cfg.moe.d_ff_dense if moe and i < n_prefix
-                                 else None, dev)
-                   for i, k in enumerate(layer_kinds(cfg))],
-        "final_norm": init_norm(cfg, cfg.d_model, dev),
-    }
+                                 else None, dev, cross=cfg.is_encdec)
+                   for i, k in enumerate(layer_kinds(cfg))]
+    p["final_norm"] = init_norm(cfg, cfg.d_model, dev)
+    if cfg.is_encdec:
+        p["encoder"] = {
+            "layers": [init_sublayer(generator, cfg, "G", device=dev)
+                       for _ in range(cfg.enc_layers)],
+            "final_norm": init_norm(cfg, cfg.d_model, dev)}
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -162,15 +192,18 @@ def init_sublayer_cache(cfg: ModelConfig, kind: str, batch: int,
                         kv_clusters: int = 512, kv_tail: int = 256,
                         kv_pool_blocks: int = 0, kv_block_size: int = 0,
                         device=None):
-    """A layer's decode cache.  In ``kv_mode="clustered"`` only 'G' layers
-    take the clustered layout; an 'L' layer keeps its dense window ring,
-    an 'M' / 'R' layer its fixed-size recurrent state."""
+    """A layer's decode cache.  In ``kv_mode="clustered"`` only GQA 'G'
+    layers take the clustered layout; an MLA layer keeps its exact latent
+    cache whatever the mode, an 'L' layer its dense window ring, an 'M' /
+    'R' layer its fixed-size recurrent state."""
     if kind == "M":
         return ssm_mod.init_cache_ssm(cfg, batch, device=device)
     if kind == "R":
         return rg_mod.init_cache_rglru(cfg, batch, device=device)
     if kind not in ("G", "L"):
         raise ValueError(kind)
+    if cfg.attn_kind == "mla":
+        return attn.init_cache_mla(cfg, batch, max_seq, device=device)
     if kind == "G" and kv_mode == "clustered":
         return attn.init_cache_attn_clustered(
             cfg, batch, n_clusters=kv_clusters, tail=kv_tail,
@@ -186,7 +219,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                kv_repeat: int = 1, kv_mode: str = "exact",
                kv_clusters: int = 512, kv_tail: int = 256,
                kv_pool_blocks: int = 0, kv_block_size: int = 0, device=None):
-    """``{"layers": [leaf per layer]}``; ``device`` None means CUDA.
+    """``{"layers": [leaf per layer]}`` (an encoder-decoder's cross
+    caches come from :func:`prefill`); ``device`` None means CUDA.
     ``kv_pool_blocks``/``kv_block_size`` switch clustered tails to the
     paged block-pool layout (runtime/kv_pool.py): one pool per layer
     leaf, all sharing the engine's single block table."""
@@ -241,12 +275,14 @@ def restore_clustered_slot_state(cache, snap, j: int):
 
 
 def sublayer_prefill(p, h, cfg: ModelConfig, kind: str, *, positions,
-                     kv_repeat: int, max_seq: int,
+                     kv_repeat: int, max_seq: int, enc_kv=None,
                      recurrent_mode: str = "sequential",
                      recurrent_rows=None):
-    """h (B, S, d) → (h, cache): a 'G' layer's exact k/v zero-padded out
-    to ``max_seq`` positions for decode, an 'L' layer's window ring, an
-    'M' / 'R' layer's final recurrent state.
+    """h (B, S, d) → (h, cache): a 'G' layer's exact k/v (an MLA layer's
+    latent) zero-padded out to ``max_seq`` positions for decode, an 'L'
+    layer's window ring, an 'M' / 'R' layer's final recurrent state.
+    ``enc_kv`` (a decoder layer of an encoder-decoder): the layer's
+    cross-attention keys and values, attended after self-attention.
 
     ``recurrent_mode`` picks how a recurrent layer computes its prefill:
     "sequential" (the default, what the serving engine runs) steps the
@@ -274,16 +310,50 @@ def sublayer_prefill(p, h, cfg: ModelConfig, kind: str, *, positions,
         h = h + y
         return (h if kind == "M" else _ffn(p, h, cfg)), cache
     x = apply_norm(p["norm1"], h, cfg)
-    y, cache = attn.attn_prefill(p["attn"], x, cfg, layer_kind=kind,
-                                 positions=positions, kv_repeat=kv_repeat)
-    s = cache["k"].shape[1]
-    if s < max_seq and kind == "G":
-        pad = (0, 0, 0, 0, 0, max_seq - s)
-        cache = {k: torch.nn.functional.pad(v, pad) for k, v in cache.items()}
+    if cfg.attn_kind == "mla":
+        y, cache = attn.mla_prefill(p["attn"], x, cfg, positions=positions,
+                                    max_seq=max_seq)
+    else:
+        y, cache = attn.attn_prefill(p["attn"], x, cfg, layer_kind=kind,
+                                     positions=positions,
+                                     kv_repeat=kv_repeat)
+        s = cache["k"].shape[1]
+        if s < max_seq and kind == "G":
+            pad = (0, 0, 0, 0, 0, max_seq - s)
+            cache = {k: torch.nn.functional.pad(v, pad)
+                     for k, v in cache.items()}
     if cfg.post_norms:
         y = apply_norm(p["post_attn_norm"], y, cfg)
-    h = h + y
+    h = _cross(p, h + y, enc_kv, cfg)
     return _ffn(p, h, cfg), cache
+
+
+def _cross(p, h, enc_kv, cfg: ModelConfig):
+    """The decoder layer's cross-attention residual over the encoder's
+    ``enc_kv`` (None: no cross-attention)."""
+    if enc_kv is None:
+        return h
+    x = apply_norm(p["xnorm"], h, cfg)
+    return h + attn.cross_attn_apply(p["xattn"], x, enc_kv, cfg)
+
+
+def sublayer_train(p, h, cfg: ModelConfig, kind: str, *, positions,
+                   kv_repeat: int = 1, causal: bool = True):
+    """A GQA 'G' / 'L' layer's full-sequence forward without a cache (the
+    encoder's layers run it with ``causal=False``).  The other kinds'
+    training forms wait for the training slice (ROADMAP Queue A item
+    8.5)."""
+    if kind not in ("G", "L") or cfg.attn_kind != "gqa":
+        raise NotImplementedError(
+            f"sublayer_train of a {cfg.attn_kind} '{kind}' layer (ROADMAP "
+            "Queue A item 8.5)")
+    x = apply_norm(p["norm1"], h, cfg)
+    y = attn.attn_train(p["attn"], x, cfg, layer_kind=kind,
+                        positions=positions, kv_repeat=kv_repeat,
+                        causal=causal)
+    if cfg.post_norms:
+        y = apply_norm(p["post_attn_norm"], y, cfg)
+    return _ffn(p, h + y, cfg)
 
 
 def _pad_rows(rows, x, state):
@@ -351,30 +421,91 @@ def _ssm_prefill(p, x, cfg: ModelConfig):
     return out, {"conv": conv_tail.to(dt_), "ssm": final_state}
 
 
+def _add_positions(h, cfg: ModelConfig, offset=0):
+    """h (B, S, d) plus absolute sinusoidal positions from ``offset`` (a
+    scalar, or (B,) per slot) under ``pos_kind="abs_sinusoidal"``; RoPE
+    models rotate q and k instead, so h is returned as it is."""
+    if cfg.pos_kind != "abs_sinusoidal":
+        return h
+    offset = per_slot(offset, h.shape[0], h.device)
+    return h + sinusoidal_pos(h.shape[1], cfg.d_model, offset).to(h.dtype)
+
+
+def _embed_inputs(params, cfg: ModelConfig, tokens, frontend_embeds):
+    """Token embeddings, after the projected ``frontend_embeds`` (B, F,
+    d_model) when given, with positions from 0."""
+    h = embed_tokens(params["embed"], tokens, cfg)
+    if frontend_embeds is not None:
+        fe = apply_frontend(params["frontend"], frontend_embeds, cfg)
+        h = torch.cat([fe, h], dim=1)
+    return _add_positions(h, cfg)
+
+
+def encode(params, cfg: ModelConfig, enc_embeds):
+    """The encoder stack over the frontend stub's frame embeddings (B,
+    S_enc, d_model): projected, positions added, then the bidirectional
+    'G' layers and the encoder's final norm."""
+    enc = params["encoder"]
+    h = _add_positions(apply_frontend(params["frontend"], enc_embeds, cfg),
+                       cfg)
+    positions = torch.arange(h.shape[1], device=h.device)
+    for lp in enc["layers"]:
+        h = sublayer_train(lp, h, cfg, "G", positions=positions,
+                           causal=False)
+    return apply_norm(enc["final_norm"], h, cfg)
+
+
+def _layer_enc_kv(lp, enc_out, cfg: ModelConfig):
+    if enc_out is None or "xattn" not in lp:
+        return None
+    return attn.cross_kv(lp["xattn"], enc_out, cfg)
+
+
 def prefill(params, cfg: ModelConfig, tokens, *, max_seq: int,
-            kv_repeat: int = 1, last_pos=None,
-            recurrent_mode: str = "sequential", recurrent_rows=None):
+            frontend_embeds=None, enc_embeds=None, kv_repeat: int = 1,
+            last_pos=None, recurrent_mode: str = "sequential",
+            recurrent_rows=None):
     """Full-sequence prefill of tokens (B, S).  Returns (logits (B, V) f32
     of position ``last_pos`` (default the last), cache): with prompts
     right-padded to a bucket, the causal mask keeps position last_pos
     exact whatever the padding behind it.  The cache is exact,
     ``{"layers": [leaf]}``: {"k", "v"} (B, max(S, max_seq), Hkv, Dh) for
-    a 'G' layer, the (B, window, Hkv, Dh) ring for an 'L' layer, the final
-    recurrent state for an 'M' / 'R' layer (``recurrent_mode`` and
-    ``recurrent_rows``: see :func:`sublayer_prefill`; the engine passes
-    its slot count)."""
-    h = embed_tokens(params["embed"], tokens, cfg)
+    a 'G' layer, an MLA layer's latent {"ckv", "kpe"} likewise, the (B,
+    window, Hkv, Dh) ring for an 'L' layer, the final recurrent state for
+    an 'M' / 'R' layer (``recurrent_mode`` and ``recurrent_rows``: see
+    :func:`sublayer_prefill`; the engine passes its slot count).
+
+    ``frontend_embeds`` (B, F, d_model): a frontend's patch embeddings,
+    prepended to the tokens, so the cache and the positions count them
+    (the last position is the last token's).  An encoder-decoder needs
+    ``enc_embeds`` (B, S_enc, d_model), the frames its encoder reads; its
+    cache also holds ``"cross"``, each decoder layer's encoder keys and
+    values."""
+    enc_out = None
+    if cfg.is_encdec:
+        if enc_embeds is None:
+            raise ValueError(
+                f"model '{cfg.name}' is an encoder-decoder: prefill needs "
+                "enc_embeds (B, S_enc, d_model), the frame embeddings its "
+                "encoder reads")
+        enc_out = encode(params, cfg, enc_embeds)
+    h = _embed_inputs(params, cfg, tokens, frontend_embeds)
     positions = torch.arange(h.shape[1], device=h.device)
-    layers = []
+    layers, cross = [], []
     for lp, kind in zip(params["layers"], layer_kinds(cfg)):
+        ekv = _layer_enc_kv(lp, enc_out, cfg)
         h, c = sublayer_prefill(lp, h, cfg, kind, positions=positions,
                                 kv_repeat=kv_repeat, max_seq=max_seq,
-                                recurrent_mode=recurrent_mode,
+                                enc_kv=ekv, recurrent_mode=recurrent_mode,
                                 recurrent_rows=recurrent_rows)
         layers.append(c)
+        cross.append(ekv)
     h = apply_norm(params["final_norm"], h, cfg)
     h_last = h[:, -1:] if last_pos is None else h[:, last_pos:last_pos + 1]
-    return lm_logits(params["embed"], h_last, cfg)[:, 0], {"layers": layers}
+    cache = {"layers": layers}
+    if cfg.is_encdec:
+        cache["cross"] = cross
+    return lm_logits(params["embed"], h_last, cfg)[:, 0], cache
 
 
 def _recurrent_step_fn(p, cfg: ModelConfig, kind: str):
@@ -386,14 +517,17 @@ def _recurrent_step_fn(p, cfg: ModelConfig, kind: str):
 
 
 def sublayer_decode(p, h, cfg: ModelConfig, kind: str, cache, t, *,
-                    kv_repeat: int, chunk_len=None, recurrent_rows=None):
+                    kv_repeat: int, chunk_len=None, recurrent_rows=None,
+                    enc_kv=None):
     """h (B, 1, d), or (B, L, d) in mixed mode with per-slot
     ``chunk_len``.  Ring-family layers stream the chunk into their KV at
-    exact positions (their tensors written in place); an 'M' / 'R' layer
-    advances its state column by column with per-slot masking
-    (:func:`_recurrent_mixed_advance`), at ``recurrent_rows`` rows when B
-    is fewer (:func:`_pad_rows`), and the leaf's entries are replaced by
-    the new state.  Returns (h, cache)."""
+    exact positions (their tensors written in place); an MLA layer
+    decodes one token at a time over its latent (a mixed chunk raises); an
+    'M' / 'R' layer advances its state column by column with per-slot
+    masking (:func:`_recurrent_mixed_advance`), at ``recurrent_rows`` rows
+    when B is fewer (:func:`_pad_rows`), and the leaf's entries are
+    replaced by the new state.  ``enc_kv``: a decoder layer's
+    cross-attention keys and values.  Returns (h, cache)."""
     if kind in ("M", "R"):
         x = apply_norm(p["norm1"], h, cfg)
         b = x.shape[0]
@@ -410,12 +544,19 @@ def sublayer_decode(p, h, cfg: ModelConfig, kind: str, cache, t, *,
         h = h + y[:b]
         return (h if kind == "M" else _ffn(p, h, cfg)), cache
     x = apply_norm(p["norm1"], h, cfg)
-    y, cache = attn.attn_decode(p["attn"], x, cfg, layer_kind=kind,
-                                cache=cache, t=t, kv_repeat=kv_repeat,
-                                chunk_len=chunk_len)
+    if cfg.attn_kind == "mla":
+        if chunk_len is not None:
+            raise NotImplementedError(
+                "mixed-mode chunked decode is not wired for MLA latent "
+                "caches yet")
+        y, cache = attn.mla_decode(p["attn"], x, cfg, cache=cache, t=t)
+    else:
+        y, cache = attn.attn_decode(p["attn"], x, cfg, layer_kind=kind,
+                                    cache=cache, t=t, kv_repeat=kv_repeat,
+                                    chunk_len=chunk_len)
     if cfg.post_norms:
         y = apply_norm(p["post_attn_norm"], y, cfg)
-    h = h + y
+    h = _cross(p, h + y, enc_kv, cfg)
     return _ffn(p, h, cfg), cache
 
 
@@ -452,13 +593,21 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, t, *,
     the step.  Returns (logits (B, V) f32, cache) — each slot's LAST valid
     row — and writes the new keys and values into ``cache`` in place.
     ``recurrent_rows``: the rows an 'M' / 'R' layer steps at (the engine
-    passes its slot count; see :func:`_pad_rows`)."""
+    passes its slot count; see :func:`_pad_rows`).  Sinusoidal positions
+    are added at ``t``; an encoder-decoder's cross caches are read, never
+    written (a mixed chunk raises: it is decoder-only)."""
+    if chunk_len is not None and cfg.is_encdec:
+        raise NotImplementedError("mixed-mode chunked decode is "
+                                  "decoder-only")
     h = embed_tokens(params["embed"], tokens, cfg)
+    h = _add_positions(h, cfg, t)
     kinds = layer_kinds(cfg)
-    for lp, kind, c in zip(params["layers"], kinds, cache["layers"]):
+    cross = cache.get("cross") or [None] * len(kinds)
+    for lp, kind, c, ekv in zip(params["layers"], kinds, cache["layers"],
+                                cross):
         h, _ = sublayer_decode(lp, h, cfg, kind, c, t, kv_repeat=kv_repeat,
                                chunk_len=chunk_len,
-                               recurrent_rows=recurrent_rows)
+                               recurrent_rows=recurrent_rows, enc_kv=ekv)
     h = apply_norm(params["final_norm"], h, cfg)
     if chunk_len is not None:
         # gather each slot's last valid row before the vocab projection
@@ -578,7 +727,8 @@ def decode_step_packed(params, cfg: ModelConfig, cache, tokens, row_slot,
         rounds = recurrent_rounds(torch.from_numpy(idx).to(row_slot.device),
                                   sizes)
     tokens = torch.where(row_pos >= 0, tokens, torch.zeros_like(tokens))
-    h = embed_tokens(params["embed"], tokens[:, None], cfg)   # (N, 1, d)
+    h = _add_positions(embed_tokens(params["embed"], tokens[:, None], cfg),
+                       cfg, row_pos)                          # (N, 1, d)
     for lp, kind, c in zip(params["layers"], kinds, cache["layers"]):
         if kind in ("M", "R"):
             h, _ = _sublayer_decode_recurrent_packed(lp, h, cfg, c, kind,

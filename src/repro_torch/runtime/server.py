@@ -91,6 +91,16 @@ With ``telemetry=TelemetryConfig(trace=True)`` the serve records the
 request lifecycle and every engine step (``last_trace``,
 ``export_trace``).
 
+MLA models (DeepSeek-V3) serve static and blocking, exact or under
+``kv_compress``: an MLA layer's latent cache stays exact in every mode
+(``_clusterize`` and compaction pass it through; the coverage frontier is
+bookkeeping only), and chunked or paged serving raises the reference's
+ValueError.  A frontend model (InternVL2) serves text-only in the same
+modes; an encoder-decoder (SeamlessM4T) serves through the model entry
+points only (``transformer.prefill(enc_embeds=...)`` and
+``decode_step``): the continuous engine raises NotImplementedError and
+the static one a ValueError naming the missing encoder inputs.
+
 Per-slot host bookkeeping (``pos`` / ``cur`` / ``fed``, the coverage
 frontier mirror) replays the reference engine step for step, so greedy
 tokens match it.  Mesh serving is a later slice of the port; asking for
@@ -434,6 +444,9 @@ class Server:
 
     def _serve_continuous(self, requests, prompts) -> List[Completion]:
         cfg, scfg = self.cfg, self.scfg
+        if cfg.is_encdec:
+            raise NotImplementedError(
+                "continuous engine serves decoder-only models")
         dev = self.device
         t0_serve = time.perf_counter()
         reg = self.metrics
@@ -1816,8 +1829,9 @@ class Server:
     @staticmethod
     def _clusterize(c1, plen: int, ccfg, kinds):
         """A fresh B=1 exact prefill cache in the engine's clustered
-        layout: the leaves of 'G' layers (``kinds``: each layer's kind)
-        are clustered, an 'L' leaf's window ring passes through.  A prompt
+        layout: the exact k/v leaves of 'G' layers (``kinds``: each
+        layer's kind) are clustered, an 'L' leaf's window ring and an MLA
+        layer's latent pass through.  A prompt
         that fits the ring with ``refresh`` positions to spare goes in as
         the ring alone (cov 0: every position survives until the first
         compaction; a quota layout's ring of max_seq takes every prompt
@@ -1825,9 +1839,11 @@ class Server:
         (``_compress_exact_layers``)."""
         C, R = ccfg.n_clusters, ccfg.keep_recent
         layers = list(c1["layers"])
-        idx = [i for i, kind in enumerate(kinds) if kind == "G"]
+        # an MLA 'G' layer's latent leaf {"ckv", "kpe"} stays exact
+        idx = [i for i, kind in enumerate(kinds)
+               if kind == "G" and _is_exact_kv(layers[i])]
         if not idx:
-            return c1   # no 'G' layer: nothing takes the clustered form
+            return c1   # no GQA 'G' layer: nothing takes the clustered form
         leaves = [layers[i] for i in idx]
         if plen <= R - ccfg.refresh:
             out = []
@@ -1970,7 +1986,11 @@ class Server:
     def _serve_batch(self, uids, by_uid, prompts) -> List[Completion]:
         """One static batch: prompts left-padded with token 0 to the
         longest (the pad is context, as in the reference), one prefill,
-        then decode steps until the longest budget is spent."""
+        then decode steps until the longest budget is spent.  Requests
+        carry tokens only, so an encoder-decoder's prefill raises its
+        ValueError for the missing encoder inputs (the reference's static
+        engine reaches its encoder with None and fails there); a frontend
+        model serves text-only, as in the reference."""
         cfg, dev = self.cfg, self.device
         reqs = [by_uid[u] for u in uids]
         plen = max(r.prompt_len for r in reqs)

@@ -1177,3 +1177,70 @@ def test_mamba2_blocking_equals_chunked_on_card(cuda):
                      device=dev)
         toks[name] = {o.uid: o.tokens for o in srv.serve(reqs, prompts)}
     assert toks["blocking"] == toks["chunked"] == toks["cpu"]
+
+
+@pytest.mark.parametrize("tv", [(12, 7), (16, 12)],
+                         ids=["per_slot", "past_max_seq"])
+def test_mla_decode_on_card_matches_cpu(cuda, tv):
+    """The reduced deepseek-v3's MLA layer in f32: an expanded prefill of
+    12 positions, then the absorbed decode at per-slot positions, card
+    against CPU within 1e-5 (outputs and latent caches); at t = max_seq
+    16 the slot's write is dropped, with no device-side assert."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import attention
+
+    cfg = dataclasses.replace(configs.get_reduced("deepseek-v3-671b"),
+                              dtype="float32")
+    p = attention.init_mla(torch.Generator().manual_seed(0), cfg, "cpu")
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(2, 12, cfg.d_model)).astype(
+        np.float32))
+    x1 = torch.from_numpy(rng.normal(size=(2, 1, cfg.d_model)).astype(
+        np.float32))
+    t = torch.tensor(tv, dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        y, c = attention.mla_prefill(pd, x.to(dev), cfg,
+                                     positions=torch.arange(12, device=dev),
+                                     max_seq=16)
+        y1, c = attention.mla_decode(pd, x1.to(dev), cfg, cache=c,
+                                     t=t.to(dev))
+        out[str(dev)] = [a.cpu() for a in (y, y1, c["ckv"], c["kpe"])]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_encdec_encode_and_decode_on_card_match_cpu(cuda):
+    """The reduced seamless-m4t-medium in f32: ``encode``, a prefill over
+    its output and one ``decode_step``, card against CPU within 1e-5; the
+    cross caches are carried through the step unchanged."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(configs.get_reduced("seamless-m4t-medium"),
+                              dtype="float32")
+    params = tfm.init_params(0, cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    enc = torch.from_numpy(rng.normal(size=(2, 13, cfg.d_model)).astype(
+        np.float32))
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 9)).astype(
+        np.int32))
+    out = {}
+    for dev in ("cpu", cuda):
+        pd = _to(params, dev)
+        e = tfm.encode(pd, cfg, enc.to(dev))
+        lg, c = tfm.prefill(pd, cfg, tok.to(dev), max_seq=24,
+                            enc_embeds=enc.to(dev))
+        cross = [(k.clone(), v.clone()) for k, v in c["cross"]]
+        nxt = lg.argmax(-1).to(torch.int32)[:, None]
+        lg1, c = tfm.decode_step(pd, cfg, c, nxt, 9)
+        for (k, v), (k0, v0) in zip(c["cross"], cross):
+            assert torch.equal(k, k0) and torch.equal(v, v0)
+        out[str(dev)] = [a.cpu() for a in (e, lg, lg1)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

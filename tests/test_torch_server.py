@@ -192,16 +192,17 @@ def test_paged_value_gates_kept(weights):
 
 
 def test_unported_layer_kinds_raise(weights):
-    """MLA attention is ROADMAP Queue A item 8.3; 'L' layers serve since
-    the sliding-window slice (tests/test_torch_window_serving.py), the
-    recurrent kinds 'M' and 'R' since the recurrent slice
-    (tests/test_torch_recurrent_serving.py) and MoE FFNs since the MoE
-    slice (tests/test_torch_moe_serving.py), so 'GM' and qwen2-moe Servers
-    build."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A item 8.3"):
-        ServerT(configs_t.get_reduced("deepseek-v3-671b"), ServerConfigT(),
-                weights[1], device="cpu")
+    """Every layer kind of the zoo serves: 'L' layers since the
+    sliding-window slice (tests/test_torch_window_serving.py), 'M' and 'R'
+    since the recurrent slice (tests/test_torch_recurrent_serving.py), MoE
+    FFNs since the MoE slice (tests/test_torch_moe_serving.py), MLA, the
+    frontend stubs and encoder-decoders since this slice
+    (tests/test_torch_mla_serving.py, tests/test_torch_encdec.py), so
+    'GM', qwen2-moe, deepseek-v3, internvl2 and seamless Servers build.
+    An unknown layer kind still raises."""
+    bad = dataclasses.replace(TINY_T, layer_pattern="GX")
+    with pytest.raises(NotImplementedError, match="unknown layer kinds"):
+        ServerT(bad, ServerConfigT(), weights[1], device="cpu")
     gm = dataclasses.replace(TINY_T, layer_pattern="GM",
                              ssm=configs_t.get_reduced("mamba2-2.7b").ssm)
     ServerT(gm, ServerConfigT(prefill_chunk=8),
@@ -209,6 +210,10 @@ def test_unported_layer_kinds_raise(weights):
     moe = configs_t.get_reduced("qwen2-moe-a2.7b")
     ServerT(moe, ServerConfigT(prefill_chunk=8),
             tfm_t.init_params(0, moe, device="cpu"), device="cpu")
+    for arch in ("deepseek-v3-671b", "internvl2-76b", "seamless-m4t-medium"):
+        cfg = configs_t.get_reduced(arch)
+        ServerT(cfg, ServerConfigT(),
+                tfm_t.init_params(0, cfg, device="cpu"), device="cpu")
 
 
 def test_reference_value_gates_kept(weights):
