@@ -162,7 +162,7 @@ def main() -> int:
             h_dec = rand((4, 1, cfg.d_model), torch.bfloat16)
             fns = [("norm1", lambda h: layers.apply_norm(p["norm1"], h, cfg))]
             if kind == "R":
-                fns.append(("_ffn", lambda h: tfm._ffn(p, h, cfg)))
+                fns.append(("_ffn", lambda h: tfm._ffn(p, h, cfg)[0]))
             for name, fn in fns:
                 a = fn(h_chk)[0]
                 b = fn(h_blk)[0, :L]

@@ -8,7 +8,8 @@ recurrent phases (4b, 5l, 5m) on the CPU.
 port weights from seed 0) and prints each serve's counts.  5l and 5m serve
 the smoke's requests (``draw_requests`` of ``RG_STREAM``, ``MAMBA_STREAM``)
 through the smoke's ServerConfigs (``recurrent_serves``) on recurrentgemma-9b
-and mamba2-2.7b at full depth and layer pattern but narrow widths (d_model
+and mamba2-2.7b at the smoke's depth (recurrentgemma-9b cut to
+``RG_LAYERS``) and layer pattern but narrow widths (d_model
 64, heads of 16, RG-LRU width 64, Mamba2 heads of 32 over d_state 16, vocab
 256; bf16, random weights from seed 0), and counts the non-view aten ops of
 one mixed and one decode step (``step_dispatches``).  These counts depend
@@ -85,6 +86,8 @@ def main() -> int:
         if phase not in args.only:
             continue
         cfg = narrow(arch)
+        if phase == "5l":       # the smoke cuts recurrentgemma's depth
+            cfg = dataclasses.replace(cfg, n_layers=smoke.RG_LAYERS)
         params = tfm.init_params(0, cfg, device="cpu")
         reqs, prompts = smoke.draw_requests(cfg.vocab, **stream)
         print(f"{phase} {arch} (narrow): prompts "

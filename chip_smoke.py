@@ -29,8 +29,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    8,192 points), qwen2-moe-a2.7b's in 5n (compaction 1,536 members,
    absorb 384, admission 384 members x 2,048 points), phase 4b's (absorb
    2 and compaction 4 members x 24 points x 16 dims, K=8; admission 2
-   members x 96 points) and the fit's streamed shape (2^20 x 16, K=64, 32
-   bits), each twice;
+   members x 96 points), the fit's streamed shape (2^20 x 16, K=64, 32
+   bits) and the Trainer's straggler median and MAD (8 and 64 step times
+   x 1, K=1, 16 bits, no weights), each twice;
    flash_decode: B=4, S=2048, Hq=32, Hkv=8, Dh=128, t=1500, 0 and 2500 in
    bf16, f32 and f32 + softcap 50, and against
    ``attention.decode_attention``; clustered_decode and
@@ -92,6 +93,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and seamless-m4t-medium's ``prefill(enc_embeds=)`` (2 encoder layers,
    2 decoder layers with cross-attention), each with 4 greedy
    ``decode_step``s: logits within 1e-4 of the CPU's, tokens equal;
+4e. training, reduced: one ``make_train_step`` step (AdamW at lr 1e-2
+   with no warmup, remat, loss chunks of 16) of each of qwen3-4b, gemma2-27b, gemma3-4b,
+   mamba2-2.7b, recurrentgemma-9b, deepseek-v3-671b (MTP), qwen2-moe-a2.7b,
+   internvl2-76b (frontend) and seamless-m4t-medium (enc-dec) at
+   ``get_reduced`` in f32, parameters from seed 0, on a SyntheticLM batch
+   of 2 x 64, on the card and on the CPU.  Gates: every MoE layer's expert
+   sets equal; the loss and every metric within 1e-5, the gradient norm
+   within 1e-4 (relative); each clipped gradient leaf within 1e-4 of its
+   largest CPU entry; the updated parameters within 1e-5, but for at
+   most 0.1 % that move by at most 2 lr (AdamW's first step moves each
+   element by about lr, and a gradient near 0 may take the other sign);
+   a skipped update and one gradient leaf 1 % off, planted in the card's
+   result, must each fail those gates.  Then
+   tests/test_system.py's TINY Trainer on the card: 25 steps, a
+   checkpoint every 10, bitserial_median launched 2 x (25 - 7) = 36 times
+   (the straggler median and MAD), a crash at step 17 and a resume whose
+   parameters are within 1e-5 of the uninterrupted run's, the loss
+   falling by 0.2;
 5. serve: qwen3-4b at full width (random weights, seed 0, bf16) answers 8
    requests through the continuous engine with chunked admission and a
    clustered KV cache; the clustered_decode launch count must equal
@@ -165,8 +184,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    cache (random contents, 3 slots over 40 blocks of 16) is swapped to
    the host and back into another slot's fresh blocks
    (``tests/_torch_swap.py``): its state and bytes bit for bit, the
-   re-adopted block and every other block unchanged.  Then qwen3's weights
-   are freed;
+   re-adopted block and every other block unchanged;
+5r. qwen3-4b training at full width and depth on the same bf16 weights:
+   the port's Trainer for 10 steps of 2 x 1,024 tokens (AdamW lr 3e-4,
+   warmup 2, remat, loss chunks of 256, f32 moments), a checkpoint of
+   step 10 in the reference's format in a fresh temporary directory
+   (removed after; the depth is cut if its disk cannot hold the 40.2 GB,
+   never the save), then 2 steps with k-means codebook gradient
+   compression.  Gates: losses and gradient norms finite; batch 0's loss
+   falls by ``TRAIN5R_MARGIN`` (a planted step at lr 0 first does not
+   move it); bitserial_median launched 2 x (10 - 7) = 6 times;
+   ``latest_step`` 10 and meta.json listing every parameter and moment
+   leaf.  Printed: seconds a step, launches, peak memory, the
+   checkpoint's bytes and seconds.  Then qwen3's weights are freed;
 5f. gemma2-27b at full width and depth (46 layers 'LG', window 4,096,
    d_model 4608, 32/16 heads of 128, d_ff 36864, vocab 256000; bf16
    weights from ``init_params`` seed 0, 54.5 GB), ``max_seq`` 8,192,
@@ -181,8 +211,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    decode 23 x engine steps, clustered_decode 0, ``pool_frees ==
    pool_allocs``, ``pool_blocks_end`` 0; agreement with 5f printed, not
    gated;
-5l. recurrentgemma-9b at full width and depth (38 layers 'RRL': 26 RG-LRU
-   'R' layers of width 4,096 and 12 'L' layers, window 2,048; d_model
+5l. recurrentgemma-9b at full width, depth cut from 38 to 21 layers
+   (seven 'RRL' repeats: 14 RG-LRU 'R' layers of width 4,096 and 7 'L'
+   layers, window 2,048; 5l's host-bound serves scale with depth, ~6.2 s
+   a layer on the slowest host seen, where the whole smoke at 38 layers
+   took 995 s; d_model
    4,096, 16 heads over 1 kv head of 256, d_ff 12,288, vocab 256,000;
    bf16 weights from ``init_params`` seed 0, the gate weights f32),
    ``max_seq`` 4,096, batch 4, the smoke's KVCompressConfig (inert: no
@@ -191,7 +224,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (chunk 64), chunked paged (blocks of 16) and blocking dense (a
    sequential prefill, bucket 1).  Gates: every request complete;
    kv_retired_window > 0, kv_retired_recurrent 0; state_bytes_recurrent
-   26 x (3 x 4,096 x 2 + 4,096 x 4) = 1,064,960 B a slot; B1, B2 and B3
+   14 x (3 x 4,096 x 2 + 4,096 x 4) = 573,440 B a slot; B1, B2 and B3
    never launched; paged: frees == allocs, end 0.  Printed: chunked vs
    blocking and paged vs dense agreement, the host dispatches (non-view
    aten ops) and wall of one mixed and one decode step, peak memory;
@@ -1149,6 +1182,42 @@ def check_bitserial_median(torch, bsm, dev):
     return float(max_err)
 
 
+def check_trainer_median(torch, bsm, dev):
+    """bitserial_median at the Trainer's shapes (phases 4e and 5r): the
+    straggler median of 8 and of 64 step times (N x 1 words, K 1, 16 bits,
+    no weights), then the MAD's input |times - median|, quantized as
+    ``core.bitserial.median`` does; kernel == plain bit for bit, two runs
+    equal.  Returns the largest difference (0 when equal)."""
+    from repro_torch.core import quantizer
+
+    g = torch.Generator(device="cpu").manual_seed(9)
+    max_err = 0.0
+    for n in (8, 64):
+        times = (0.05 + 0.01 * torch.rand(n, 1, generator=g)).to(dev)
+        x = times
+        for what in ("median", "MAD"):
+            scale = quantizer.auto_scale(x, 16).reshape(1)
+            spec = quantizer.FixedPointSpec(bits=16, scale=scale)
+            u = quantizer.to_unsigned_order(quantizer.quantize(x, spec), 16)
+            a = torch.zeros(n, dtype=torch.int32, device=dev)
+            runs = [bsm.grouped_median_bits_cuda(u, a, 1, bits=16)
+                    for _ in range(2)]
+            med0, tot0 = bsm.grouped_median_bits_plain(u, a, 1, bits=16)
+            torch.cuda.synchronize()
+            for med, tot in runs:
+                max_err = max(max_err, (med - med0).abs().max().item(),
+                              (tot - tot0).abs().max().item())
+                if not (torch.equal(med, med0) and torch.equal(tot, tot0)):
+                    raise AssertionError(f"bitserial_median Trainer {what} "
+                                         f"of {n}: kernel != plain")
+            say(f"bitserial_median Trainer {what} of {n} step times ({n} x "
+                "1 words, K=1, 16 bits, no weights): kernel == plain bit "
+                "for bit, two runs equal")
+            x = (times - quantizer.dequantize(quantizer.from_unsigned_order(
+                med0.reshape(1), 16), spec)).abs()
+    return float(max_err)
+
+
 def decode_cache(torch, dev, dtype, seed=3):
     g = torch.Generator(device=dev).manual_seed(seed)
     return (torch.randn(B, HQ, DH, generator=g, device=dev).to(dtype),
@@ -2011,6 +2080,7 @@ def gemma2_workload(torch, dev, paged=None, params=None):
     ring has wrapped at admission, three in [256, 3072], each with 48-80
     new tokens.  Returns ``(cfg, server, requests, prompts)``."""
     from repro_torch import configs
+    from repro_torch.core import tree
     from repro_torch.core.kv_compress import KVCompressConfig
     from repro_torch.core.request_cluster import Request
     from repro_torch.models import transformer as tfm
@@ -2023,7 +2093,7 @@ def gemma2_workload(torch, dev, paged=None, params=None):
                                  cfg, device=dev)
         torch.cuda.synchronize()
         n_bytes = sum(t.numel() * t.element_size()
-                      for t in _leaves(params))
+                      for t in tree.leaves(params))
         say(f"gemma2-27b params ({cfg.n_layers} layers "
             f"'{cfg.layer_pattern}', window {cfg.sliding_window}, d_model "
             f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
@@ -2049,17 +2119,6 @@ def gemma2_lengths(rng):
     lens = np.concatenate([rng.integers(4352, 6145, size=3),
                            rng.integers(256, 3073, size=3)])
     return lens, rng.integers(48, 81, size=6)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def serve_gemma2(torch, dev, smi, paged=None, params=None):
@@ -2305,20 +2364,23 @@ def check_rec_tiny(torch, dev, smi):
 
 
 # ---------------------------------------------------------------------------
-# 5l and 5m: recurrentgemma-9b and mamba2-2.7b at full width and depth
+# 5l and 5m: recurrentgemma-9b (depth cut) and mamba2-2.7b at full width
 # ---------------------------------------------------------------------------
 
-# recurrentgemma-9b: 38 layers 'RRL' (26 'R', 12 'L', window 2,048);
-# mamba2-2.7b: 64 'M' layers.  Per-slot recurrent state bytes: an 'R'
-# layer's bf16 (3, lru_width) conv tail and f32 h, an 'M' layer's bf16 (3,
-# d_inner + 2 d_state) conv tail and f32 (heads, head_dim, d_state) state
+# recurrentgemma-9b: 38 layers 'RRL' (26 'R', 12 'L', window 2,048), cut
+# to RG_LAYERS (14 'R', 7 'L'); mamba2-2.7b: 64 'M' layers.  Per-slot
+# recurrent state bytes: an 'R' layer's bf16 (3, lru_width) conv tail and
+# f32 h, an 'M' layer's bf16 (3, d_inner + 2 d_state) conv tail and f32
+# (heads, head_dim, d_state) state
 RG_MAX_SEQ, MAMBA_MAX_SEQ, REC_CHUNK = 4096, 2048, 64
-RG_STATE_B = 26 * (3 * 4096 * 2 + 4096 * 4)
+RG_LAYERS = 21
+RG_STATE_B = 14 * (3 * 4096 * 2 + 4096 * 4)
 MAMBA_STATE_B = 64 * (3 * 5376 * 2 + 80 * 64 * 128 * 4)
 
 
 def full_width_params(torch, dev, cfg):
     """bf16 weights from ``init_params`` seed 0 on ``dev``, timed."""
+    from repro_torch.core import tree
     from repro_torch.models import transformer as tfm
 
     t0 = time.perf_counter()
@@ -2327,7 +2389,7 @@ def full_width_params(torch, dev, cfg):
     params = tfm.init_params(gen, cfg, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    leaves = list(_leaves(params))
+    leaves = tree.leaves(params)
     n_par = sum(t.numel() for t in leaves)
     n_bytes = sum(t.numel() * t.element_size() for t in leaves)
     say(f"{cfg.name} params ({cfg.n_layers} layers '{cfg.layer_pattern}', "
@@ -2429,10 +2491,11 @@ def step_dispatches(torch, dev, cfg, params, max_seq,
 
 
 def serve_recurrent_full(torch, dev, smi, arch):
-    """Phases 5l (recurrentgemma-9b: chunked dense, chunked paged,
-    blocking dense) and 5m (mamba2-2.7b: chunked dense, blocking dense;
-    the paged construction must raise the reference's "ring-family"
-    ValueError) at full width and depth, bf16 weights from seed 0.
+    """Phases 5l (recurrentgemma-9b, depth cut to ``RG_LAYERS``: chunked
+    dense, chunked paged, blocking dense) and 5m (mamba2-2.7b, full depth:
+    chunked dense, blocking dense; the paged construction must raise the
+    reference's "ring-family" ValueError) at full width, bf16 weights
+    from seed 0.
     Gates: every request complete; B1, B2 and B3 never launched (no 'G'
     layer, as in the reference); state_bytes_recurrent exactly the
     per-slot figure (RG_STATE_B, MAMBA_STATE_B) and kv_retired_recurrent
@@ -2449,6 +2512,8 @@ def serve_recurrent_full(torch, dev, smi, arch):
 
     cfg = configs.get_config(arch)
     rg = arch == "recurrentgemma-9b"
+    if rg:
+        cfg = dataclasses.replace(cfg, n_layers=RG_LAYERS)
     max_seq = RG_MAX_SEQ if rg else MAMBA_MAX_SEQ
     want_b = RG_STATE_B if rg else MAMBA_STATE_B
     reqs, prompts = draw_requests(cfg.vocab,
@@ -3007,7 +3072,7 @@ def serve_deepseek_full(torch, dev, smi):
     from repro_torch.runtime.server import Server, ServerConfig
 
     cfg = dataclasses.replace(configs.get_config("deepseek-v3-671b"),
-                              n_layers=DSV3_LAYERS)
+                              n_layers=DSV3_LAYERS, mtp_depth=0)
     reqs, prompts = draw_requests(cfg.vocab, **DSV3_STREAM)
     torch.cuda.reset_peak_memory_stats()
     params, n_par, n_bytes = full_width_params(torch, dev, cfg)
@@ -3279,6 +3344,446 @@ def run_seamless_full(torch, dev, smi):
                              + "; ".join(problems))
     rec.update(s_enc=s_enc, cross_unchanged=same, peak_bytes=peak,
                n_params=n_par, param_bytes=n_bytes)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phases 4e and 5r: training
+# ---------------------------------------------------------------------------
+
+# 4e: one make_train_step step of each reduced architecture in f32 on a
+# SyntheticLM batch of 2 x TRAIN_SEQ, AdamW at TRAIN_AW (no warmup, so the
+# first step moves every element by about lr = 1e-2, a thousand times
+# TRAIN_P_TOL: a skipped, reversed or mis-scaled update cannot pass); then
+# the TINY Trainer (tests/test_system.py's model, data and optimizer)
+TRAIN_ARCHS = ("qwen3-4b", "gemma2-27b", "gemma3-4b", "mamba2-2.7b",
+               "recurrentgemma-9b", "deepseek-v3-671b", "qwen2-moe-a2.7b",
+               "internvl2-76b", "seamless-m4t-medium")
+TRAIN_SEQ = 64
+TRAIN_AW = dict(lr=1e-2, warmup_steps=0)
+# card against CPU, f32: the loss and each metric, and the gradient norm,
+# relative; each clipped gradient leaf within TRAIN_GRAD_RTOL of its
+# largest CPU entry; an updated parameter within TRAIN_P_TOL, except where
+# the two gradients are too close to 0 to fix the update's sign (AdamW's
+# first step moves an element by lr g / (|g| + eps), so such an element
+# may move the other way on the other device: those move 2 lr apart at
+# most, and must be few)
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_P_TOL = 1e-5, 1e-4, 1e-5
+TRAIN_GRAD_RTOL, TRAIN_FLIP_FRAC = 1e-4, 1e-3
+TINY_TRAIN = dict(name="tiny", family="dense", n_layers=2, d_model=64,
+                  n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128, vocab=64,
+                  pad_vocab_multiple=16, dtype="float32")
+# 5r: qwen3-4b training at full width and depth, bf16 weights
+TRAIN5R = dict(batch=2, seq=1024, steps=10, loss_chunk=256)
+TRAIN5R_AW = dict(lr=3e-4, warmup_steps=2, total_steps=10)
+# the loss on batch 0 must fall by at least this much over the 10 steps:
+# the first chip run read 373.57 -> 167.84 (a fall of 205.73), and the
+# planted lr-0 step 0.0 (on an H100 80GB HBM3 at 700 W; PERF.md §6)
+TRAIN5R_MARGIN = 50.0
+
+
+class _Routes:
+    """Records every MoE layer's top-k experts (``moe.route`` on the
+    layer's input) while the block runs, for a card-vs-CPU comparison."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+
+        self.moe, self.torch, self.idx = moe, torch, []
+
+    def __enter__(self):
+        self.orig = self.moe.apply_moe
+
+        def apply_moe(p, x, cfg):
+            with self.torch.no_grad():
+                _, idx, _ = self.moe.route(p, x.reshape(-1, x.shape[-1]), cfg)
+            self.idx.append(self.torch.sort(idx, dim=1).values.cpu())
+            return self.orig(p, x, cfg)
+
+        self.moe.apply_moe = apply_moe
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.apply_moe = self.orig
+
+
+def train_step_on(torch, cfg, params, batch, dev):
+    """One ``make_train_step`` step of ``params`` (copied to ``dev``) on
+    ``batch`` at ``TRAIN_AW``: (metrics as floats, updated params, the MoE
+    routes, the clipped gradient leaves on the CPU, recorded through the
+    step's ``grad_transform`` hook)."""
+    from repro_torch.core import tree
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+
+    grads = []
+
+    def record(g):
+        grads.append(g.detach().cpu())
+        return g
+
+    p = tree.map_(lambda t: t.detach().to(dev, copy=True), params)
+    step = steps.make_train_step(cfg, adamw.AdamWConfig(**TRAIN_AW),
+                                 steps.StepOptions(loss_chunk=16),
+                                 grad_transform=record)
+    with _Routes(torch) as routes:
+        p, _, metrics = step(p, adamw.init(p), batch)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return ({k: float(v) for k, v in metrics.items()},
+            tree.map_(lambda t: t.detach().cpu(), p), routes.idx, grads)
+
+
+def train_step_problems(torch, arch, card, cpu, lr):
+    """Card against CPU for one train step (see ``TRAIN_*``); returns
+    (problems, the largest gradient error over its leaf's largest entry,
+    the largest parameter difference, flipped elements)."""
+    from repro_torch.core import tree
+
+    (m_g, p_g, r_g, g_g), (m_c, p_c, r_c, g_c) = card, cpu
+    problems = []
+    if len(r_g) != len(r_c) or any(not torch.equal(a, b)
+                                   for a, b in zip(r_g, r_c)):
+        flips = sum(int((a != b).any(dim=1).sum()) for a, b in zip(r_g, r_c))
+        problems.append(f"{arch}: {flips} tokens route to other experts on "
+                        "the card")
+    for k, v in m_c.items():
+        tol = TRAIN_GNORM_RTOL if k == "grad_norm" else TRAIN_LOSS_RTOL
+        if abs(m_g[k] - v) > tol * max(abs(v), 1e-6):
+            problems.append(f"{arch} {k}: card {m_g[k]!r} != CPU {v!r}")
+    g_worst, g_bad = 0.0, 0
+    for a, b in zip(g_g, g_c, strict=True):
+        d, top = (a - b).abs().max().item(), b.abs().max().item()
+        g_worst = max(g_worst, d / top if top > 0 else d)
+        g_bad += d > TRAIN_GRAD_RTOL * top
+    if g_bad:
+        problems.append(f"{arch}: {g_bad} gradient leaves beyond "
+                        f"{TRAIN_GRAD_RTOL} of their largest entry")
+    worst, flipped, total = 0.0, 0, 0
+    for a, b in zip(tree.leaves(p_g), tree.leaves(p_c), strict=True):
+        d = (a.float() - b.float()).abs()
+        worst = max(worst, d.max().item())
+        flipped += int((d > TRAIN_P_TOL).sum())
+        total += d.numel()
+    if worst > 2 * lr + TRAIN_P_TOL or flipped > TRAIN_FLIP_FRAC * total:
+        problems.append(f"{arch}: updated params max |card - CPU| {worst:.3e}"
+                        f", {flipped} of {total} beyond {TRAIN_P_TOL}")
+    return problems, g_worst, worst, flipped
+
+
+def planted_train_faults(torch, arch, params, card, cpu, lr):
+    """The card's step with a planted fault must fail
+    ``train_step_problems``: the update skipped (the initial parameters),
+    or the smallest gradient leaf 1 % too large (a fault the global norm
+    does not see).  Returns the problems (empty when both fail)."""
+    from repro_torch.core import tree
+
+    m_g, _, r_g, g_g = card
+    skipped = tree.map_(lambda t: t.detach().cpu(), params)
+    i = min(range(len(g_g)), key=lambda j: (g_g[j].abs().max().item() == 0,
+                                             g_g[j].numel()))
+    scaled = [g * 1.01 if j == i else g for j, g in enumerate(g_g)]
+    out = []
+    for what, fault in (("a skipped update", (m_g, skipped, r_g, g_g)),
+                        (f"gradient leaf {i} x 1.01", (m_g, card[1], r_g,
+                                                        scaled))):
+        if not train_step_problems(torch, arch, fault, cpu, lr)[0]:
+            out.append(f"{arch}: the gate passed {what}")
+    return out
+
+
+def tiny_trainer(torch, dev, ckpt_dir, n_steps=25, fail_at=None):
+    """tests/test_system.py's TINY Trainer on ``dev``: batch 8 x 32 from
+    seed 7, AdamW lr 1e-2, warmup 5, weight decay 0.01, a checkpoint every
+    10 steps, parameters from seed 0 (made on the CPU)."""
+    from repro_torch.core import tree
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = ModelConfig(**TINY_TRAIN)
+    p0 = tfm.init_params(0, cfg, device="cpu")
+    aw = adamw.AdamWConfig(lr=1e-2, warmup_steps=5, total_steps=n_steps,
+                           weight_decay=0.01)
+    data = pipeline.SyntheticLM(cfg, pipeline.DataConfig(
+        seed=7, global_batch=8, seq_len=32))
+    return Trainer(cfg, TrainerConfig(
+        n_steps=n_steps, ckpt_dir=str(ckpt_dir), ckpt_every=10,
+        log_every=100, fail_at_step=fail_at), aw,
+        steps.make_train_step(cfg, aw, steps.StepOptions(remat=False)), data,
+        init_params_fn=lambda: tree.map_(lambda t: t.to(dev, copy=True),
+                                         p0),
+        device=dev)
+
+
+def check_training_tiny(torch, dev, smi):
+    """Phase 4e: training, reduced, f32, card against the port's CPU.
+
+    Each of ``TRAIN_ARCHS`` at ``configs.get_reduced`` in f32, parameters
+    from seed 0 made on the CPU and copied to the card: one
+    ``make_train_step`` step (``TRAIN_AW``, remat, loss chunks of 16) on
+    the ``SyntheticLM`` batch of 2 x ``TRAIN_SEQ`` at step 0, on both
+    devices.  Gates (``TRAIN_*``): every MoE layer's expert sets equal on
+    both devices; the loss, every metric and the gradient norm; every
+    clipped gradient leaf; the updated parameters; the planted faults of
+    :func:`planted_train_faults` caught.  Then the TINY Trainer on the card: 25 steps with
+    a checkpoint every 10 (B3 launched 2 x (25 - 7) = 36 times by the
+    straggler median and MAD), a run that crashes at step 17 and resumes
+    from step 10, the resumed parameters within 1e-5 of the uninterrupted
+    run's (the reference's bound; embedding and combine backward may use
+    atomics on the card, so a resumed run may differ by rounding), and
+    the loss falling as tests/test_system.py asks.  Returns the record."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.core import tree
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+
+    problems, out = [], {}
+    lr1 = float(adamw.schedule(adamw.AdamWConfig(**TRAIN_AW),
+                               torch.tensor(1)))
+    for arch in TRAIN_ARCHS:
+        cfg = dataclasses.replace(configs.get_reduced(arch), dtype="float32")
+        params = tfm.init_params(0, cfg, device="cpu")
+        batch = pipeline.SyntheticLM(cfg, pipeline.DataConfig(
+            seed=0, global_batch=2, seq_len=TRAIN_SEQ)).batch_at(0)
+        t0 = time.perf_counter()
+        card = train_step_on(torch, cfg, params, batch, dev)
+        card_s = time.perf_counter() - t0
+        cpu = train_step_on(torch, cfg, params, batch, torch.device("cpu"))
+        probs, g_worst, worst, flipped = train_step_problems(
+            torch, arch, card, cpu, lr1)
+        planted = planted_train_faults(torch, arch, params, card, cpu, lr1)
+        problems += probs + planted
+        out[arch] = {"card": card[0], "cpu": cpu[0], "grad_max_rel_err":
+                     g_worst, "param_max_abs_err": worst,
+                     "param_flipped": flipped, "card_s": card_s,
+                     "moe_layers_routed": len(card[2])}
+        say(f"[{smi}] 4e reduced {arch} train step: loss card "
+            f"{card[0]['loss']:.6f} CPU {cpu[0]['loss']:.6f}, grad_norm card "
+            f"{card[0]['grad_norm']:.6f} CPU {cpu[0]['grad_norm']:.6f}, "
+            f"{len(card[3])} gradient leaves: max |card - CPU| / leaf max "
+            f"{g_worst:.3e} (bound {TRAIN_GRAD_RTOL}), updated params at lr "
+            f"{lr1:.3g} max |card - CPU| {worst:.3e} ({flipped} beyond "
+            f"{TRAIN_P_TOL}), {len(card[2])} MoE routings equal "
+            f"{not any('route' in p for p in probs)}, planted faults "
+            f"caught {not planted}; card step {card_s:.2f} s")
+    with tempfile.TemporaryDirectory() as d:
+        ops.reset_launches()
+        clean = tiny_trainer(torch, dev, f"{d}/clean")
+        t0 = time.perf_counter()
+        p_clean, _ = clean.run()
+        clean_s = time.perf_counter() - t0
+        launches = ops.launch_counts()["bitserial_median"]
+        try:
+            tiny_trainer(torch, dev, f"{d}/crash", fail_at=17).run()
+            problems.append("4e TINY: the injected failure did not raise")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        resumed = tiny_trainer(torch, dev, f"{d}/crash")
+        p_res, _ = resumed.run()
+    err = max((a - b).abs().max().item()
+              for a, b in zip(tree.leaves(p_clean), tree.leaves(p_res)))
+    first, last = np.mean(clean.losses[:5]), np.mean(clean.losses[-5:])
+    out["tiny_trainer"] = {"losses": clean.losses, "resume_max_abs_err": err,
+                           "bitserial_median_launches": launches,
+                           "seconds": clean_s,
+                           "resumed_steps": len(resumed.losses)}
+    if launches != 2 * (25 - 7):
+        problems.append(f"4e TINY Trainer: bitserial_median launched "
+                        f"{launches} times, want {2 * (25 - 7)}")
+    if err > 1e-5:
+        problems.append(f"4e TINY resume: max |resumed - uninterrupted| "
+                        f"{err:.3e} > 1e-5")
+    if not last < first - 0.2:
+        problems.append(f"4e TINY: loss {first:.4f} -> {last:.4f}, want a "
+                        "fall of 0.2")
+    say(f"[{smi}] 4e TINY Trainer on the card: 25 steps in {clean_s:.2f} s "
+        f"(loss {first:.4f} -> {last:.4f} over the first and last 5), "
+        f"bitserial_median {launches} launches (want {2 * (25 - 7)}); crash "
+        f"at 17, resume from 10 for {len(resumed.losses)} steps: max "
+        f"|resumed - uninterrupted| {err:.3e} (bound 1e-5)")
+    if problems:
+        raise AssertionError("4e training: " + "; ".join(problems))
+    return out
+
+
+def train_qwen3_full(torch, dev, smi, params):
+    """Phase 5r: qwen3-4b training at full width and depth on phase 5's
+    bf16 weights (seed 0), which it trains in place (they are freed
+    after).  ``SyntheticLM(DataConfig(seed=0, global_batch=2,
+    seq_len=1,024))``, ``AdamWConfig(lr=3e-4, warmup_steps=2,
+    total_steps=10)``, remat, loss chunks of 256: the port's ``Trainer``
+    for 10 steps, its checkpoint directory a fresh temporary directory
+    (removed at the end), then 2 steps through ``make_train_step`` with
+    ``make_grad_transform(CompressConfig())``.
+
+    Gates: every loss and gradient norm finite; the loss of batch 0 falls
+    by ``TRAIN5R_MARGIN`` over the Trainer's 10 steps (a planted fault,
+    one step at lr 0 first, must leave it where it was: the gate would
+    fail it); ``bitserial_median`` launched 2 x (10 - 7) = 6 times by the
+    straggler median and MAD; the checkpoint's ``latest_step`` is 10 and
+    its meta.json lists every parameter and moment leaf.  If the
+    temporary directory's disk cannot hold the checkpoint (40.2 GB at full
+    depth), the depth is cut to what fits, never the save.  Printed:
+    seconds a step, the launches, the peak memory, the checkpoint's bytes
+    and seconds.  Returns the record."""
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import bridge, configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import grad_compress, tree
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = configs.get_config("qwen3-4b")
+    # checkpoint bytes: the parameters in their dtypes, two f32 moments
+    nbytes = lambda ts: sum(t.numel() * (t.element_size() + 8)  # noqa: E731
+                            for ts_ in ts for t in tree.leaves(ts_))
+    fixed = nbytes([params["embed"], params["final_norm"]])
+    per_layer = nbytes([params["layers"][0]])
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    n_layers = full = cfg.n_layers
+    if fixed + n_layers * per_layer > 0.9 * free:
+        n_layers = int((0.9 * free - fixed) // per_layer)
+        if n_layers < 1:
+            raise AssertionError(f"5r: {free / 1e9:.1f} GB free, the "
+                                 "checkpoint cannot fit one layer")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        params = dict(params, layers=params["layers"][:n_layers])
+    ck_pred = fixed + n_layers * per_layer
+    say(f"[{smi}] 5r qwen3-4b training: {n_layers} of {full} layers "
+        f"({'full depth' if n_layers == full else 'depth cut to fit the disk'}"
+        f"), {free / 1e9:.1f} GB free for a {ck_pred / 1e9:.1f} GB "
+        "checkpoint")
+    data = pipeline.SyntheticLM(cfg, pipeline.DataConfig(
+        seed=0, global_batch=TRAIN5R["batch"], seq_len=TRAIN5R["seq"]))
+    aw = adamw.AdamWConfig(**TRAIN5R_AW)
+    opts = steps.StepOptions(remat=True, loss_chunk=TRAIN5R["loss_chunk"])
+    b0 = steps.batch_to(data.batch_at(0), dev)
+
+    def eval_loss():
+        with torch.no_grad():
+            return float(tfm.train_loss(params, cfg, b0,
+                                        loss_chunk=opts.loss_chunk)[0])
+
+    problems, rec = [], {"n_layers": n_layers}
+    torch.cuda.empty_cache()
+    say(f"[{smi}] 5r start: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        "allocated (the weights)")
+    torch.cuda.reset_peak_memory_stats()
+    loss0 = eval_loss()
+    # the planted fault: a step at lr 0 leaves every parameter as it was
+    steps.make_train_step(cfg, dataclasses.replace(aw, lr=0.0), opts)(
+        params, adamw.init(params), data.batch_at(0))
+    fault_fall = loss0 - eval_loss()
+    if fault_fall >= TRAIN5R_MARGIN:
+        problems.append(f"planted fault (lr 0): the loss fell {fault_fall}")
+    ckdir = tempfile.mkdtemp(prefix="repro_torch_5r_")
+    try:
+        tr = Trainer(cfg, TrainerConfig(n_steps=TRAIN5R["steps"],
+                                        ckpt_dir=ckdir, ckpt_every=1000,
+                                        log_every=1), aw,
+                     steps.make_train_step(cfg, aw, opts), data,
+                     init_params_fn=lambda: params, device=dev)
+        save_s = []
+        save = tr._save
+
+        def timed_save(*a, **kw):
+            t0 = time.perf_counter()
+            out = save(*a, **kw)
+            save_s.append(time.perf_counter() - t0)
+            return out
+
+        tr._save = timed_save
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        params, opt_state = tr.run()
+        run_s = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        loss10 = eval_loss()
+        fall = loss0 - loss10
+        step_dir = os.path.join(ckdir, "step_00000010")
+        ck_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                       for f in os.listdir(step_dir))
+        with open(os.path.join(step_dir, "meta.json")) as f:
+            meta_keys = set(json.load(f)["leaves"])
+        want_keys = set(ckpt.leaf_keys({
+            "params": bridge.params_to_meta(params, cfg),
+            "opt": adamw.OptState(bridge.params_to_meta(opt_state.m, cfg),
+                                  bridge.params_to_meta(opt_state.v, cfg),
+                                  opt_state.step)}))
+        latest = ckpt.latest_step(ckdir)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    if latest != TRAIN5R["steps"]:
+        problems.append(f"checkpoint latest_step {latest}, want 10")
+    if meta_keys != want_keys:
+        problems.append(f"meta.json lists {len(meta_keys)} leaves, want "
+                        f"{len(want_keys)} (missing "
+                        f"{sorted(want_keys - meta_keys)[:3]})")
+    if launches.get("bitserial_median", 0) != 2 * (TRAIN5R["steps"] - 7):
+        problems.append(f"bitserial_median launched "
+                        f"{launches.get('bitserial_median', 0)} times in "
+                        "the Trainer, want 6")
+    if not fall >= TRAIN5R_MARGIN:
+        problems.append(f"batch 0's loss fell {fall:.4f} over 10 steps, "
+                        f"want >= {TRAIN5R_MARGIN}")
+    # 2 steps with k-means codebook gradient compression
+    step_c = steps.make_train_step(cfg, aw, opts, grad_transform=(
+        grad_compress.make_grad_transform(grad_compress.CompressConfig())))
+    comp = []
+    for s in (10, 11):
+        t0 = time.perf_counter()
+        params, opt_state, m = step_c(params, opt_state, data.batch_at(s))
+        torch.cuda.synchronize()
+        comp.append({"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "s": time.perf_counter() - t0})
+    vals = tr.losses + [c["loss"] for c in comp] + [c["grad_norm"]
+                                                    for c in comp]
+    if not all(np.isfinite(v) for v in vals):
+        problems.append(f"non-finite loss or gradient norm: {vals}")
+    peak = torch.cuda.max_memory_allocated()
+    med_s = float(np.median(tr.step_times))
+    rec.update(losses=tr.losses, step_s=tr.step_times, run_s=run_s,
+               loss0=loss0, loss10=loss10, fall=fall, fault_fall=fault_fall,
+               launches=launches, ckpt_bytes=ck_bytes, ckpt_s=save_s,
+               peak_bytes=peak, compressed=comp,
+               stragglers=tr.stragglers)
+    say(f"[{smi}] 5r qwen3-4b Trainer: {TRAIN5R['steps']} steps of "
+        f"{TRAIN5R['batch']} x {TRAIN5R['seq']:,} tokens, "
+        f"{med_s:.3f} s a step (median; first {tr.step_times[0]:.3f} s), "
+        f"losses {[round(x, 3) for x in tr.losses]}; batch 0's loss "
+        f"{loss0:.4f} -> {loss10:.4f} (fall {fall:.4f}, gate >= "
+        f"{TRAIN5R_MARGIN}; the lr-0 planted fault fell {fault_fall:.4f}); "
+        f"launches {launches} (bitserial_median want 6); peak memory "
+        f"allocated {peak / 2**30:.2f} GiB")
+    say(f"[{smi}] 5r checkpoint of step 10: {ck_bytes / 1e9:.2f} GB "
+        f"(predicted {ck_pred / 1e9:.2f}) in {save_s[-1]:.1f} s "
+        f"({ck_bytes / save_s[-1] / 1e9:.2f} GB/s), latest_step {latest}, "
+        f"meta.json {len(meta_keys)} leaves (want {len(want_keys)})")
+    say(f"[{smi}] 5r 2 steps with gradient compression: "
+        + ", ".join(f"loss {c['loss']:.4f} grad_norm {c['grad_norm']:.4f} "
+                    f"in {c['s']:.2f} s" for c in comp))
+    del params, opt_state, tr
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("5r qwen3-4b training: " + "; ".join(problems))
     return rec
 
 
@@ -3810,7 +4315,8 @@ def main() -> int:
     cd_err = max(cd_err, gemma_err, tiny_err, moe_err)
     pcd_err = max(pcd_err, gemma_err, tiny_err, moe_err, quota_err)
     da_err = check_distance_argmin(torch, da, dev)
-    bsm_err = check_bitserial_median(torch, bsm, dev)
+    bsm_err = max(check_bitserial_median(torch, bsm, dev),
+                  check_trainer_median(torch, bsm, dev))
     fd_err = check_flash_decode(torch, fd, dev)
     done("3 kernels vs plain")
 
@@ -3833,6 +4339,11 @@ def main() -> int:
     # and seamless (encoder-decoder), card vs CPU
     record["zoo_tiny"] = check_zoo_tiny(torch, dev, smi)
     done("4d MLA / frontend / enc-dec reduced")
+
+    # phase 4e: training, the reduced zoo card vs CPU, the TINY Trainer
+    train_tiny = check_training_tiny(torch, dev, smi)
+    record["train_tiny"] = train_tiny
+    done("4e training reduced + TINY Trainer")
 
     # phase 5: serve
     serve, params = serve_qwen3(torch, dev, smi)
@@ -3882,6 +4393,11 @@ def main() -> int:
     slo = serve_slo(torch, dev, smi, params)
     record["serve_slo"] = slo
     done("5k SLO scheduler")
+
+    # phase 5r: qwen3-4b training at full width on the same weights
+    train_full = train_qwen3_full(torch, dev, smi, params)
+    record["train_qwen3"] = train_full
+    done("5r qwen3-4b training")
     del params
     torch.cuda.empty_cache()
 
@@ -3898,7 +4414,8 @@ def main() -> int:
     del gparams
     torch.cuda.empty_cache()
 
-    # phases 5l and 5m: the recurrent families at full width and depth
+    # phases 5l and 5m: the recurrent families at full width (5l cut to
+    # RG_LAYERS)
     record["serve_recurrentgemma"] = serve_recurrent_full(
         torch, dev, smi, "recurrentgemma-9b")
     done("5l recurrentgemma-9b (weights included)")
@@ -4044,6 +4561,12 @@ def main() -> int:
                            for m, r in moe["serves"].items()},
              launches_frontend=ivl["serves"]["blocking"]["launches"][
                  "bitserial_median"],
+             # the Trainer's straggler median and MAD: 4e's TINY run, 5r
+             launches_train={
+                 "4e tiny": train_tiny["tiny_trainer"][
+                     "bitserial_median_launches"],
+                 "5r qwen3-4b": train_full["launches"].get(
+                     "bitserial_median", 0)},
              max_abs_err=bsm_err, ms=tm["bitserial_median"]["ms"],
              plain_ms=tm["bitserial_median"]["plain_ms"],
              bound_ms=tm["bitserial_median"]["bound_ms"],

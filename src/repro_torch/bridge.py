@@ -19,8 +19,10 @@ crosses as it is; an encoder-decoder's encoder, stacked under
 ``params["encoder"]["scan"]["sub0"]`` over ``enc_layers``, becomes the
 port's ``params["encoder"]["layers"]``, and its cross caches
 (``cross_prefix`` / ``scan["xkv{j}"]`` / ``cross_tail``) the port's
-``cache["cross"]``, one (k, v) a decoder layer.  The reference's MTP
-module ("mtp") is left out: serving never reads it.  bf16
+``cache["cross"]``, one (k, v) a decoder layer.  DeepSeek's MTP module
+("mtp", one unstacked 'G' layer and its projection and norms) crosses
+leaf for leaf.  AdamW's state crosses as ``(m, v, step)``, the moments
+f32 in the parameters' layout (:func:`opt_state_from_numpy`).  bf16
 arrays from JAX are ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses, so they cross as their uint16 bit patterns.
 """
@@ -30,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.tree import map_keyed as _map_keyed
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import cdtype
 from repro_torch.models.transformer import layout
@@ -47,7 +50,10 @@ F32_KEYS = frozenset({"scale", "bias", "q_norm", "k_norm",
 
 
 def to_torch(a, device=None) -> torch.Tensor:
-    """A numpy array (bf16 included) as a tensor on ``device``."""
+    """A numpy array (bf16 included), or a tensor, as a tensor on
+    ``device``."""
+    if torch.is_tensor(a):       # a copy: never a view of a stacked leaf
+        return a.to(a.device if device is None else device, copy=True)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
@@ -67,90 +73,172 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _map(fn, tree, key=None):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v, k) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(fn, v, key) for v in tree]
-    return fn(tree, key)
-
-
 def _unstack(tree, cfg: ModelConfig):
     """Reference tree → list of per-layer subtrees in stack order."""
     _, n_rep, _ = layout(cfg)
     layers = list(tree.get("prefix", []))
     for rep in range(n_rep):
         for j in range(len(cfg.layer_pattern)):
-            layers.append(_map(lambda a, _k, r=rep: a[r],
+            layers.append(_map_keyed(lambda a, _k, r=rep: a[r],
                                tree["scan"][f"sub{j}"]))
     layers.extend(tree.get("tail", []))
     return layers
 
 
-def _restack(layers, cfg: ModelConfig):
-    """List of per-layer subtrees → the reference's prefix/scan/tail."""
+def _restack(layers, cfg: ModelConfig, conv, stack=None):
+    """List of per-layer subtrees → the reference's prefix/scan/tail, each
+    leaf through ``conv``, each repeated group through ``stack`` (default
+    :func:`_stack`)."""
+    stack = stack or _stack
     n_prefix, n_rep, tail = layout(cfg)
     plen = len(cfg.layer_pattern)
-    out = {"prefix": layers[:n_prefix],
-           "tail": layers[n_prefix + n_rep * plen:]}
+    out = {"prefix": [_map_keyed(conv, lp) for lp in layers[:n_prefix]],
+           "tail": [_map_keyed(conv, lp) for lp in layers[n_prefix + n_rep * plen:]]}
     if n_rep > 0:
         out["scan"] = {}
         for j in range(plen):
             group = [layers[n_prefix + rep * plen + j] for rep in range(n_rep)]
-            out["scan"][f"sub{j}"] = _stack(group)
+            out["scan"][f"sub{j}"] = stack(group, conv)
     return out
 
 
-def _stack(trees):
+def _stack(trees, conv):
+    """Stack matching subtrees along a new leading axis, each leaf through
+    ``conv``, into one preallocated array a leaf: the host holds the
+    stacked tree and one converted leaf, never a second copy of the
+    stack (a full-width model's moments are tens of GB)."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return np.stack(trees)
+        return {k: _stack([t[k] for t in trees], conv) for k in first}
+    out = None
+    for i, t in enumerate(trees):
+        a = conv(t, None)
+        if out is None:
+            shape = (len(trees),) + tuple(a.shape)
+            out = (torch.empty(shape, dtype=a.dtype, device=a.device)
+                   if torch.is_tensor(a) else np.empty(shape, a.dtype))
+        out[i] = a
+    return out
+
+
+def _stack_lazy(trees):
+    """Host stacks of matching tensor subtrees, deferred: each stacked
+    leaf a callable that copies the layers straight into one CPU tensor
+    when called."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_lazy([t[k] for t in trees]) for k in first}
+
+    def build():
+        out = torch.empty((len(trees),) + tuple(first.shape),
+                          dtype=first.dtype)
+        for i, t in enumerate(trees):
+            out[i].copy_(t.detach())
+        return out
+
+    return build
 
 
 def _encoder_layers(enc, cfg: ModelConfig):
     """The reference's encoder stack (``scan["sub0"]``, a leading layer
     axis of ``enc_layers``) as a list of per-layer subtrees."""
-    return [_map(lambda a, _k, i=i: a[i], enc["scan"]["sub0"])
+    return [_map_keyed(lambda a, _k, i=i: a[i], enc["scan"]["sub0"])
             for i in range(cfg.enc_layers)]
 
 
-def params_from_numpy(tree, cfg: ModelConfig, device=None):
-    """Reference params (numpy leaves) → the port's parameter dict."""
+def params_from_numpy(tree, cfg: ModelConfig, device=None, *,
+                      cast: bool = True):
+    """Reference params (numpy leaves) → the port's parameter dict, each
+    leaf in ``cfg.dtype`` except ``F32_KEYS`` (``cast`` False: every leaf
+    keeps its dtype, as AdamW's f32 moments do)."""
     dt = cdtype(cfg)
 
     def leaf(a, key):
         t = to_torch(a, device)
-        return t if key in F32_KEYS else t.to(dt)
+        return t if key in F32_KEYS or not cast else t.to(dt)
 
-    out = {"embed": _map(leaf, tree["embed"])}
+    out = {"embed": _map_keyed(leaf, tree["embed"])}
     if "frontend" in tree:
-        out["frontend"] = _map(leaf, tree["frontend"])
-    out["layers"] = [_map(leaf, lp) for lp in _unstack(tree, cfg)]
-    out["final_norm"] = _map(leaf, tree["final_norm"])
+        out["frontend"] = _map_keyed(leaf, tree["frontend"])
+    out["layers"] = [_map_keyed(leaf, lp) for lp in _unstack(tree, cfg)]
+    out["final_norm"] = _map_keyed(leaf, tree["final_norm"])
     if "encoder" in tree:
         out["encoder"] = {
-            "layers": [_map(leaf, lp)
+            "layers": [_map_keyed(leaf, lp)
                        for lp in _encoder_layers(tree["encoder"], cfg)],
-            "final_norm": _map(leaf, tree["encoder"]["final_norm"])}
+            "final_norm": _map_keyed(leaf, tree["encoder"]["final_norm"])}
+    if "mtp" in tree:
+        out["mtp"] = _map_keyed(leaf, tree["mtp"])
+    return out
+
+
+def _to_reference(params, cfg: ModelConfig, conv, stack=None):
+    stack = stack or _stack
+    out = {"embed": _map_keyed(conv, params["embed"])}
+    if "frontend" in params:
+        out["frontend"] = _map_keyed(conv, params["frontend"])
+    out.update(_restack(params["layers"], cfg, conv, stack))
+    out["final_norm"] = _map_keyed(conv, params["final_norm"])
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {"scan": {"sub0": stack(enc["layers"], conv)},
+                          "final_norm": _map_keyed(conv, enc["final_norm"])}
+    if "mtp" in params:
+        out["mtp"] = _map_keyed(conv, params["mtp"])
     return out
 
 
 def params_to_numpy(params, cfg: ModelConfig):
     """The port's parameters → the reference's tree layout (numpy)."""
-    conv = lambda t, _k: to_numpy(t)  # noqa: E731
-    out = {"embed": _map(conv, params["embed"])}
-    if "frontend" in params:
-        out["frontend"] = _map(conv, params["frontend"])
-    out.update(_restack([_map(conv, lp) for lp in params["layers"]], cfg))
-    out["final_norm"] = _map(conv, params["final_norm"])
-    if "encoder" in params:
-        enc = params["encoder"]
-        out["encoder"] = {
-            "scan": {"sub0": _stack([_map(conv, lp)
-                                     for lp in enc["layers"]])},
-            "final_norm": _map(conv, enc["final_norm"])}
-    return out
+    return _to_reference(params, cfg, lambda t, _k: to_numpy(t))
+
+
+def params_to_host(params, cfg: ModelConfig):
+    """The port's parameters → the reference's tree layout, each leaf a
+    callable that makes its CPU copy (bf16 included, with no numpy bf16
+    type needed) when called: what the Trainer checkpoints
+    (``checkpoint.ckpt.save`` calls each leaf as it writes it, or all of
+    them at once for an async save's snapshot)."""
+    return _to_reference(params, cfg,
+                         lambda t, _k: (lambda: t.detach().cpu()),
+                         lambda trees, _c: _stack_lazy(trees))
+
+
+def params_to_meta(params, cfg: ModelConfig):
+    """The reference's tree layout of the port's parameters as meta
+    tensors: shapes and dtypes, no storage (a restore's template)."""
+    return _to_reference(params, cfg, lambda t, _k: torch.empty(
+        t.shape, dtype=t.dtype, device="meta"))
+
+
+def opt_state_from_numpy(state, cfg: ModelConfig, device=None):
+    """The reference's AdamW state ``(m, v, step)`` (numpy leaves, the
+    moments in the reference's parameter layout) → the port's
+    ``optim.adamw.OptState``: f32 moments in the port's layout and step a
+    0-d int32 tensor."""
+    from repro_torch.optim.adamw import OptState
+
+    m, v, step = state
+    return OptState(params_from_numpy(m, cfg, device, cast=False),
+                    params_from_numpy(v, cfg, device, cast=False),
+                    to_torch(np.asarray(step, np.int32), device))
+
+
+def opt_state_to_numpy(state, cfg: ModelConfig):
+    """The port's AdamW state → ``OptState(m, v, step)`` with numpy
+    leaves in the reference's layout (``OptState`` is a named tuple with
+    the reference's field names, so its checkpoint keys are the
+    reference's)."""
+    return type(state)(params_to_numpy(state.m, cfg),
+                       params_to_numpy(state.v, cfg),
+                       np.asarray(to_numpy(state.step), np.int32))
+
+
+def opt_state_to_host(state, cfg: ModelConfig):
+    """:func:`opt_state_to_numpy` with :func:`params_to_host`'s leaves."""
+    return type(state)(params_to_host(state.m, cfg),
+                       params_to_host(state.v, cfg),
+                       state.step.detach().cpu())
 
 
 def cache_from_numpy(tree, cfg: ModelConfig, device=None):
@@ -158,15 +246,15 @@ def cache_from_numpy(tree, cfg: ModelConfig, device=None):
     (and ``"cross": [(k, v) per layer]`` for an encoder-decoder), dtypes
     kept."""
     conv = lambda a, _k: to_torch(a, device)  # noqa: E731
-    out = {"layers": [_map(conv, leaf) for leaf in _unstack(tree, cfg)]}
+    out = {"layers": [_map_keyed(conv, leaf) for leaf in _unstack(tree, cfg)]}
     if "cross_prefix" in tree:
         _, n_rep, _ = layout(cfg)
-        cross = [tuple(_map(conv, kv)) for kv in tree["cross_prefix"]]
+        cross = [tuple(_map_keyed(conv, kv)) for kv in tree["cross_prefix"]]
         for rep in range(n_rep):
             for j in range(len(cfg.layer_pattern)):
                 cross.append(tuple(to_torch(a[rep], device)
                                    for a in tree["scan"][f"xkv{j}"]))
-        cross.extend(tuple(_map(conv, kv)) for kv in tree["cross_tail"])
+        cross.extend(tuple(_map_keyed(conv, kv)) for kv in tree["cross_tail"])
         out["cross"] = cross
     return out
 
@@ -175,8 +263,7 @@ def cache_to_numpy(cache, cfg: ModelConfig):
     """The port's cache → the reference's prefix/scan/tail tree (with its
     ``cross_prefix`` / ``scan["xkv{j}"]`` / ``cross_tail`` for an
     encoder-decoder)."""
-    out = _restack([_map(lambda t, _k: to_numpy(t), leaf)
-                    for leaf in cache["layers"]], cfg)
+    out = _restack(cache["layers"], cfg, lambda t, _k: to_numpy(t))
     if "cross" in cache:
         n_prefix, n_rep, _ = layout(cfg)
         plen = len(cfg.layer_pattern)

@@ -1,1 +1,2 @@
-"""The paper's tabular clustering workloads (port of ``repro.data``)."""
+"""Training token streams and the paper's tabular clustering workloads
+(port of ``repro.data``)."""

@@ -1,0 +1,119 @@
+"""The training step (port of the single-device part of
+``repro.launch.steps``): one autograd backward of the model's loss, then
+AdamW; with ``microbatch`` > 1 the gradients of the microbatches are
+summed in f32 first.  The mesh-only helpers of the reference (``pick_*``,
+``batch_pspec``, ``cache_pspecs``, ``lower_step``) wait for the port's
+sharding (ROADMAP Queue A item 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import tree as tree_mod
+from repro_torch.models import transformer as tfm
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim import adamw
+
+
+@dataclasses.dataclass(frozen=True)
+class StepOptions:
+    """The reference's training options; its sharding ones (``fsdp``,
+    ``seq_shard``, ``mla_seq_shard``) and its serving-cell ones
+    (``kv_mode``, ``kv_clusters``, ``kv_tail``) come with item 10."""
+    kv_repeat: int = 1
+    remat: bool = True
+    loss_chunk: int = 256
+    microbatch: int = 1
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Parameters of ``init_params`` (the MTP module included), counted on
+    the meta device: nothing is allocated."""
+    p = tfm.init_params(torch.Generator(), cfg, device="meta")
+    return sum(t.numel() for t in tree_mod.leaves(p))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: top_k + shared experts only)."""
+    total = param_count(cfg)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    _, n_rep, tail = tfm.layout(cfg)
+    n_moe_layers = n_rep * len(cfg.layer_pattern) + len(tail)
+    per_expert = 3 * cfg.d_model * m.d_expert
+    return total - n_moe_layers * (m.n_routed - m.top_k) * per_expert
+
+
+def batch_to(batch: dict, device) -> dict:
+    """A numpy (or tensor) batch as tensors on ``device``."""
+    return {k: (v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+                ).to(device) for k, v in batch.items()}
+
+
+def _loss_and_grads(loss_fn, params, batch):
+    """(loss, metrics, gradient leaves in ``tree.leaves(params)`` order,
+    zeros where the loss does not reach a leaf, as JAX's are): one
+    backward pass."""
+    leaves = tree_mod.leaves(params)
+    for p in leaves:
+        if not p.requires_grad:
+            p.requires_grad_(True)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, leaves)]
+    return loss.detach(), {k: (v.detach() if torch.is_tensor(v) else v)
+                           for k, v in metrics.items()}, grads
+
+
+def make_train_step(cfg: ModelConfig, aw: adamw.AdamWConfig,
+                    opts: StepOptions = StepOptions(), grad_transform=None):
+    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
+    the batch (numpy or tensors) moves to the parameters' device, one
+    backward pass gives the gradients (the parameters are made to require
+    grad), and ``adamw.update`` writes the parameters and the moments in
+    place.  metrics: the loss's ("nll", "aux_loss", "n_valid", and
+    "mtp_loss" under MTP), "loss", "grad_norm" and "lr"."""
+    def loss_fn(params, batch):
+        return tfm.train_loss(params, cfg, batch, kv_repeat=opts.kv_repeat,
+                              remat=opts.remat, loss_chunk=opts.loss_chunk)
+
+    def step(params, opt_state, batch):
+        batch = batch_to(batch, tree_mod.leaves(params)[0].device)
+        if opts.microbatch > 1:
+            grads, (loss, metrics) = _accum_grads(loss_fn, params, batch,
+                                                  opts.microbatch)
+        else:
+            loss, metrics, flat = _loss_and_grads(loss_fn, params, batch)
+            grads = tree_mod.unflatten(params, flat)
+            del flat
+        params, opt_state, om = adamw.update(grads, opt_state, params, aw,
+                                             grad_transform=grad_transform)
+        return params, opt_state, dict(metrics, loss=loss, **om)
+
+    return step
+
+
+def _accum_grads(loss_fn, params, batch, n_micro: int):
+    """Gradients of ``n_micro`` equal slices of the batch, summed in f32
+    and averaged; (grads, (mean loss, the last microbatch's metrics))."""
+    micro = {k: v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])
+             for k, v in batch.items()}
+    gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for p in tree_mod.leaves(params)]
+    lsum = torch.zeros((), dtype=torch.float32, device=gsum[0].device)
+    metrics = None
+    for i in range(n_micro):
+        loss, metrics, flat = _loss_and_grads(
+            loss_fn, params, {k: v[i] for k, v in micro.items()})
+        for acc, g in zip(gsum, flat):
+            acc.add_(g.to(torch.float32))
+        lsum = lsum + loss
+    grads = tree_mod.unflatten(params, [g / n_micro for g in gsum])
+    return grads, (lsum / n_micro, metrics)

@@ -1,10 +1,10 @@
 """RG-LRU recurrent block (Griffin / RecurrentGemma; port of
-``repro.models.rglru`` less its training forward).
+``repro.models.rglru``).
 
 Temporal mixing branch: linear → causal conv1d(4) → RG-LRU, gated by a
-parallel GeLU branch, then an output projection.  Prefill runs a log-depth
-scan over the first-order linear recurrence h_t = a_t ⊙ h_{t-1} + b_t;
-decode is the one-step update.  The serving engine prefills by stepping
+parallel GeLU branch, then an output projection.  Prefill and the
+training forward run a log-depth scan over the first-order linear
+recurrence h_t = a_t ⊙ h_{t-1} + b_t; decode is the one-step update.  The serving engine prefills by stepping
 the decode (``transformer.sublayer_prefill`` with
 ``recurrent_mode="sequential"``).
 
@@ -109,6 +109,12 @@ def rglru_prefill(p, x, cfg: ModelConfig):
     s = x.shape[1]
     tail = ux[:, -3:] if s >= 3 else F.pad(ux, (0, 0, 3 - s, 0))
     return y, {"conv": tail.to(dt), "h": h[:, -1]}
+
+
+def rglru_train(p, x, cfg: ModelConfig):
+    """x (B, S, d) → y (B, S, d): the scan forward (the reference's
+    training form)."""
+    return rglru_prefill(p, x, cfg)[0]
 
 
 def rglru_decode(p, x, cfg: ModelConfig, cache):

@@ -1,5 +1,4 @@
-"""Mamba-2 (SSD, state-space duality) block (port of ``repro.models.ssm``
-less its training forward).
+"""Mamba-2 (SSD, state-space duality) block (port of ``repro.models.ssm``).
 
 Prefill runs the chunked SSD algorithm (an intra-chunk quadratic term plus
 an inter-chunk linear state recurrence), so the state never materializes
@@ -7,7 +6,8 @@ per position.  Decode is the O(1)-per-token recurrence on an (H, hd, N)
 state with a rolling depthwise-conv buffer.  The serving engine prefills
 by stepping the decode (``transformer.sublayer_prefill`` with
 ``recurrent_mode="sequential"``), so its admissions give the same bits
-chunked or blocking; ``transformer._ssm_prefill`` is the chunked form.
+chunked or blocking; :func:`ssm_prefill` is the chunked form, and
+:func:`ssm_train` the training forward over it.
 
 Parameters: ``in_proj``, ``conv_w``, ``conv_b`` and ``out_proj`` are stored
 in the config dtype (the reference casts its f32 masters at every use);
@@ -158,6 +158,36 @@ def _gated_out(p, y, z, cfg: ModelConfig):
     var = (gated * gated).mean(-1, keepdim=True)
     gated = (gated * torch.rsqrt(var + cfg.norm_eps) * p["norm"]).to(dt_)
     return gated @ p["out_proj"]
+
+
+def ssm_prefill(p, x, cfg: ModelConfig):
+    """Chunked SSD forward of x (B, S, d) → (y (B, S, d), the final
+    {"conv", "ssm"} state for decode)."""
+    s_cfg = cfg.ssm
+    dt_ = cdtype(cfg)
+    d_in, hh, _ = _dims(cfg)
+    gn = s_cfg.n_groups * s_cfg.d_state
+    z, xbc_raw, dt_raw = _split(p, x, cfg)
+    xbc = _conv_train(p, xbc_raw, cfg)
+    b, s, _ = x.shape
+    xh = xbc[..., :d_in].reshape(b, s, hh, s_cfg.head_dim)
+    Bm = xbc[..., d_in:d_in + gn].reshape(b, s, s_cfg.n_groups,
+                                          s_cfg.d_state)
+    Cm = xbc[..., d_in + gn:].reshape(b, s, s_cfg.n_groups, s_cfg.d_state)
+    dt = _softplus(dt_raw.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, final_state = ssd_chunked(xh, dt, A, Bm, Cm, p["D"], s_cfg.chunk)
+    out = _gated_out(p, y.reshape(b, s, d_in).to(dt_), z, cfg)
+    k1 = s_cfg.d_conv - 1
+    conv_tail = (xbc_raw[:, -k1:] if s >= k1
+                 else F.pad(xbc_raw, (0, 0, k1 - s, 0)))
+    return out, {"conv": conv_tail.to(dt_), "ssm": final_state}
+
+
+def ssm_train(p, x, cfg: ModelConfig):
+    """x (B, S, d) → y (B, S, d): the chunked SSD forward (the reference's
+    training form)."""
+    return ssm_prefill(p, x, cfg)[0]
 
 
 def init_cache_ssm(cfg: ModelConfig, batch: int, dtype=None, device=None):

@@ -1,5 +1,5 @@
-"""Model assembly for serving (port of the prefill and decode subset of
-``repro.models.transformer``): decoder stacks of global ('G') and
+"""Model assembly (port of ``repro.models.transformer``): decoder stacks
+of global ('G') and
 sliding-window ('L') attention layers, GQA or MLA (DeepSeek-V3's latent
 attention), Mamba2 SSD ('M') and RG-LRU ('R') recurrent layers, with dense
 or MoE FFNs; encoder-decoder stacks (a bidirectional encoder, and
@@ -18,9 +18,10 @@ leaves under ``attn_kind="mla"``), "norm2", "mlp" or "moe" (and
 and "ssm" for an 'M' layer, "norm1", "rg", "norm2" and "mlp" for an 'R'
 layer.  Under ``cfg.moe`` every 'G' / 'L' layer takes a "moe" FFN, except
 the first ``moe.n_dense_layers``, dense 'G' layers of width
-``moe.d_ff_dense``.  DeepSeek's multi-token-prediction module ("mtp") is
-a training head that serving never reads; it is not built here (ROADMAP
-Queue A item 8.5).  The reference stacks repeated layers under
+``moe.d_ff_dense``.  Under ``cfg.mtp_depth`` > 0, DeepSeek's
+multi-token-prediction module ("mtp": "proj", "norm_h", "norm_e", a 'G'
+"layer" and "final_norm"), a training head that serving never reads.
+The reference stacks repeated layers under
 ``params["scan"]`` with a leading layer axis; the port keeps one entry per
 layer and runs a Python loop over them (``bridge`` converts between the
 two).  The decode cache is ``{"layers": [per-layer leaf]}`` with the
@@ -29,6 +30,15 @@ per layer]``, the encoder's keys and values, fixed after prefill;
 :func:`prefill` builds an exact one and :func:`decode_step` updates a
 cache in place (a recurrent leaf's entries are replaced by the stepped
 state; an attention leaf's tensors are written).
+
+Training: :func:`forward_trunk` runs every layer kind's full-sequence
+form (:func:`sublayer_train`), recomputing each repeat of the layer
+pattern in the backward pass under ``remat`` (the reference's
+``jax.checkpoint`` over its scan group); :func:`train_loss` adds the
+chunked cross-entropy (:func:`chunked_ce`, logits one chunk at a time),
+DeepSeek's MTP loss and the MoE layers' auxiliary loss.  The gradient is
+PyTorch autograd; no op on the training path writes a tensor that
+autograd saved.
 """
 
 from __future__ import annotations
@@ -37,6 +47,8 @@ from typing import List
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import layer_state
 from repro_torch.kernels.clustered_decode import per_slot
@@ -46,9 +58,9 @@ from repro_torch.models import rglru as rg_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_frontend, apply_mlp, apply_norm,
-                                       cdtype, embed_tokens, init_embed,
-                                       init_frontend, init_mlp, init_norm,
-                                       lm_logits, resolve_device,
+                                       cdtype, dense_init, embed_tokens,
+                                       init_embed, init_frontend, init_mlp,
+                                       init_norm, lm_logits, resolve_device,
                                        sinusoidal_pos)
 
 
@@ -142,7 +154,8 @@ def init_params(generator, cfg: ModelConfig, device=None):
     parameters through ``bridge.params_from_numpy``.  Under a frontend
     the tree has "frontend", for an encoder-decoder "encoder" (its 'G'
     layers and final norm) and cross-attention in every decoder layer;
-    DeepSeek's MTP module is not built (serving never reads it)."""
+    under ``cfg.mtp_depth`` > 0 "mtp", DeepSeek's multi-token-prediction
+    head (its 'G' layer takes a "moe" FFN under ``cfg.moe``)."""
     check_supported(cfg)
     dev = resolve_device(device)
     if not isinstance(generator, torch.Generator):
@@ -165,6 +178,14 @@ def init_params(generator, cfg: ModelConfig, device=None):
             "layers": [init_sublayer(generator, cfg, "G", device=dev)
                        for _ in range(cfg.enc_layers)],
             "final_norm": init_norm(cfg, cfg.d_model, dev)}
+    if cfg.mtp_depth > 0:
+        p["mtp"] = {
+            "proj": dense_init(generator, (2 * cfg.d_model, cfg.d_model),
+                               dtype=cdtype(cfg), device=dev),
+            "norm_h": init_norm(cfg, cfg.d_model, dev),
+            "norm_e": init_norm(cfg, cfg.d_model, dev),
+            "layer": init_sublayer(generator, cfg, "G", moe, device=dev),
+            "final_norm": init_norm(cfg, cfg.d_model, dev)}
     return p
 
 
@@ -174,17 +195,20 @@ def init_params(generator, cfg: ModelConfig, device=None):
 
 
 def _ffn(p, h, cfg: ModelConfig):
-    """norm2 → (moe|mlp) → residual (+sandwich norm).  A MoE FFN routes
-    every row of h at once, padding rows included, as the reference's
-    does; serving discards its metrics, as the reference's does."""
+    """norm2 → (moe|mlp) → residual (+sandwich norm).  Returns (h, aux):
+    a MoE FFN's load-balancing ``aux_loss`` (f32), 0.0 for an MLP.  A MoE
+    FFN routes every row of h at once, padding rows included, as the
+    reference's does; serving discards aux, as the reference's does."""
     x = apply_norm(p["norm2"], h, cfg)
+    aux = 0.0
     if "moe" in p:
-        y, _ = moe_mod.apply_moe(p["moe"], x, cfg)
+        y, metrics = moe_mod.apply_moe(p["moe"], x, cfg)
+        aux = metrics["aux_loss"]
     else:
         y = apply_mlp(p["mlp"], x, cfg)
     if cfg.post_norms:
         y = apply_norm(p["post_mlp_norm"], y, cfg)
-    return h + y
+    return h + y, aux
 
 
 def init_sublayer_cache(cfg: ModelConfig, kind: str, batch: int,
@@ -304,11 +328,11 @@ def sublayer_prefill(p, h, cfg: ModelConfig, kind: str, *, positions,
                 init(cfg, x.shape[0], device=x.device),
                 rows=recurrent_rows)
         elif kind == "M":
-            y, cache = _ssm_prefill(p["ssm"], x, cfg)
+            y, cache = ssm_mod.ssm_prefill(p["ssm"], x, cfg)
         else:
             y, cache = rg_mod.rglru_prefill(p["rg"], x, cfg)
         h = h + y
-        return (h if kind == "M" else _ffn(p, h, cfg)), cache
+        return (h if kind == "M" else _ffn(p, h, cfg)[0]), cache
     x = apply_norm(p["norm1"], h, cfg)
     if cfg.attn_kind == "mla":
         y, cache = attn.mla_prefill(p["attn"], x, cfg, positions=positions,
@@ -325,7 +349,7 @@ def sublayer_prefill(p, h, cfg: ModelConfig, kind: str, *, positions,
     if cfg.post_norms:
         y = apply_norm(p["post_attn_norm"], y, cfg)
     h = _cross(p, h + y, enc_kv, cfg)
-    return _ffn(p, h, cfg), cache
+    return _ffn(p, h, cfg)[0], cache
 
 
 def _cross(p, h, enc_kv, cfg: ModelConfig):
@@ -338,22 +362,29 @@ def _cross(p, h, enc_kv, cfg: ModelConfig):
 
 
 def sublayer_train(p, h, cfg: ModelConfig, kind: str, *, positions,
-                   kv_repeat: int = 1, causal: bool = True):
-    """A GQA 'G' / 'L' layer's full-sequence forward without a cache (the
-    encoder's layers run it with ``causal=False``).  The other kinds'
-    training forms wait for the training slice (ROADMAP Queue A item
-    8.5)."""
-    if kind not in ("G", "L") or cfg.attn_kind != "gqa":
-        raise NotImplementedError(
-            f"sublayer_train of a {cfg.attn_kind} '{kind}' layer (ROADMAP "
-            "Queue A item 8.5)")
+                   kv_repeat: int = 1, causal: bool = True, enc_kv=None):
+    """Full-sequence forward of one layer without a cache.  Returns (h,
+    aux), aux the MoE FFN's auxiliary loss (0.0 without one).  A 'G' / 'L'
+    layer runs GQA (``causal=False`` is the encoder's bidirectional form)
+    or MLA self-attention, then cross-attention over ``enc_kv`` when
+    given, then its FFN; an 'M' layer the chunked SSD; an 'R' layer the
+    RG-LRU's linear scan, then its MLP."""
     x = apply_norm(p["norm1"], h, cfg)
-    y = attn.attn_train(p["attn"], x, cfg, layer_kind=kind,
-                        positions=positions, kv_repeat=kv_repeat,
-                        causal=causal)
+    if kind == "M":
+        return h + ssm_mod.ssm_train(p["ssm"], x, cfg), 0.0
+    if kind == "R":
+        return _ffn(p, h + rg_mod.rglru_train(p["rg"], x, cfg), cfg)
+    if kind not in ("G", "L"):
+        raise ValueError(kind)
+    if cfg.attn_kind == "mla":
+        y = attn.mla_train(p["attn"], x, cfg, positions=positions)
+    else:
+        y = attn.attn_train(p["attn"], x, cfg, layer_kind=kind,
+                            positions=positions, kv_repeat=kv_repeat,
+                            causal=causal)
     if cfg.post_norms:
         y = apply_norm(p["post_attn_norm"], y, cfg)
-    return _ffn(p, h + y, cfg)
+    return _ffn(p, _cross(p, h + y, enc_kv, cfg), cfg)
 
 
 def _pad_rows(rows, x, state):
@@ -396,31 +427,6 @@ def _recurrent_prefill_sequential(step_fn, x, cache, rows=None):
     return torch.stack(ys, dim=1), {k: v[:b] for k, v in cache.items()}
 
 
-def _ssm_prefill(p, x, cfg: ModelConfig):
-    """Chunked SSD forward of x (B, S, d) and the final (conv, ssm) state
-    for decode."""
-    s_cfg = cfg.ssm
-    dt_ = cdtype(cfg)
-    d_in, hh, _ = ssm_mod._dims(cfg)
-    gn = s_cfg.n_groups * s_cfg.d_state
-    z, xbc_raw, dt_raw = ssm_mod._split(p, x, cfg)
-    xbc = ssm_mod._conv_train(p, xbc_raw, cfg)
-    b, s, _ = x.shape
-    xh = xbc[..., :d_in].reshape(b, s, hh, s_cfg.head_dim)
-    Bm = xbc[..., d_in:d_in + gn].reshape(b, s, s_cfg.n_groups,
-                                          s_cfg.d_state)
-    Cm = xbc[..., d_in + gn:].reshape(b, s, s_cfg.n_groups, s_cfg.d_state)
-    dt = ssm_mod._softplus(dt_raw.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    y, final_state = ssm_mod.ssd_chunked(xh, dt, A, Bm, Cm, p["D"],
-                                         s_cfg.chunk)
-    out = ssm_mod._gated_out(p, y.reshape(b, s, d_in).to(dt_), z, cfg)
-    k1 = s_cfg.d_conv - 1
-    conv_tail = (xbc_raw[:, -k1:] if s >= k1
-                 else torch.nn.functional.pad(xbc_raw, (0, 0, k1 - s, 0)))
-    return out, {"conv": conv_tail.to(dt_), "ssm": final_state}
-
-
 def _add_positions(h, cfg: ModelConfig, offset=0):
     """h (B, S, d) plus absolute sinusoidal positions from ``offset`` (a
     scalar, or (B,) per slot) under ``pos_kind="abs_sinusoidal"``; RoPE
@@ -450,8 +456,8 @@ def encode(params, cfg: ModelConfig, enc_embeds):
                        cfg)
     positions = torch.arange(h.shape[1], device=h.device)
     for lp in enc["layers"]:
-        h = sublayer_train(lp, h, cfg, "G", positions=positions,
-                           causal=False)
+        h, _ = sublayer_train(lp, h, cfg, "G", positions=positions,
+                              causal=False)
     return apply_norm(enc["final_norm"], h, cfg)
 
 
@@ -459,6 +465,139 @@ def _layer_enc_kv(lp, enc_out, cfg: ModelConfig):
     if enc_out is None or "xattn" not in lp:
         return None
     return attn.cross_kv(lp["xattn"], enc_out, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Training: trunk forward, chunked cross-entropy, loss
+# ---------------------------------------------------------------------------
+
+
+def forward_trunk(params, cfg: ModelConfig, tokens, *, frontend_embeds=None,
+                  enc_out=None, kv_repeat: int = 1, remat: bool = True,
+                  positions=None):
+    """Full-sequence training forward of tokens (B, S) (after the
+    projected ``frontend_embeds`` when given; ``enc_out``: an
+    encoder-decoder's encoder output, which every decoder layer
+    cross-attends).  Returns (h (B, S', d) after the final norm, aux_loss
+    f32, the MoE layers' auxiliary losses summed in stack order).
+
+    The reference's layout: the dense prefix, then each repeat of the
+    layer pattern, then the tail.  Under ``remat``, with autograd
+    recording, each repeat runs under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` over its scan group): the backward
+    pass keeps only the hidden state between repeats and recomputes their
+    interior."""
+    h = _embed_inputs(params, cfg, tokens, frontend_embeds)
+    if positions is None:
+        positions = torch.arange(h.shape[1], device=h.device)
+    layers, kinds = params["layers"], layer_kinds(cfg)
+
+    def run(lo, hi, h, aux):
+        for lp, kind in zip(layers[lo:hi], kinds[lo:hi]):
+            h, a = sublayer_train(lp, h, cfg, kind, positions=positions,
+                                  kv_repeat=kv_repeat,
+                                  enc_kv=_layer_enc_kv(lp, enc_out, cfg))
+            aux = aux + a
+        return h, aux
+
+    n_prefix, n_rep, _ = layout(cfg)
+    plen = len(cfg.layer_pattern)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    h, aux = run(0, n_prefix, h, aux)
+    for r in range(n_rep):
+        lo = n_prefix + r * plen
+        if remat and torch.is_grad_enabled():
+            h, aux = checkpoint(run, lo, lo + plen, h, aux,
+                                use_reentrant=False)
+        else:
+            h, aux = run(lo, lo + plen, h, aux)
+    h, aux = run(n_prefix + n_rep * plen, len(layers), h, aux)
+    return apply_norm(params["final_norm"], h, cfg), aux
+
+
+def _ce_chunk(embed, cfg: ModelConfig, h, labels):
+    """Summed negative log-likelihood of one chunk: h (B, C, d), labels
+    (B, C), label -1 masked."""
+    logits = lm_logits(embed, h, cfg)                    # (B, C, V) f32
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).long()[..., None])[..., 0]
+    valid = (labels >= 0).to(torch.float32)
+    return ((logz - gold) * valid).sum()
+
+
+def chunked_ce(params, cfg: ModelConfig, h, labels, chunk: int = 256):
+    """h (B, S, d), labels (B, S) int (-1 = masked) → (sum_nll, n_valid),
+    both f32.  Frontend positions (if any) must already be stripped from
+    h.  S is padded to a multiple of ``chunk`` (masked labels), and the
+    logits exist one (B, chunk, V) f32 chunk at a time; with autograd
+    recording each chunk runs under ``torch.utils.checkpoint``, so the
+    backward pass recomputes its logits instead of keeping all of them."""
+    s = h.shape[1]
+    pad = (-s) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    nv = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s + pad, chunk):
+        hh, ll = h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if torch.is_grad_enabled():
+            part = checkpoint(_ce_chunk, params["embed"], cfg, hh, ll,
+                              use_reentrant=False)
+        else:
+            part = _ce_chunk(params["embed"], cfg, hh, ll)
+        nll = nll + part
+        nv = nv + (ll >= 0).to(torch.float32).sum()
+    return nll, nv
+
+
+def train_loss(params, cfg: ModelConfig, batch, *, kv_repeat: int = 1,
+               remat: bool = True, loss_chunk: int = 256):
+    """batch: tensors {"tokens" (B, St), "labels" (B, St), and
+    "frontend_embeds" (B, F, d) under a frontend or "enc_embeds" (B,
+    S_enc, d) for an encoder-decoder}.  Returns (loss, metrics): the mean
+    next-token NLL over unmasked labels, plus 0.3 x the MTP loss under
+    ``cfg.mtp_depth``, plus the MoE auxiliary loss; metrics {"nll",
+    "aux_loss", "n_valid"} (and "mtp_loss"), the reference's."""
+    enc_out = None
+    if cfg.is_encdec:
+        enc_out = encode(params, cfg, batch["enc_embeds"])
+        h, aux = forward_trunk(params, cfg, batch["tokens"], enc_out=enc_out,
+                               kv_repeat=kv_repeat, remat=remat)
+    else:
+        h, aux = forward_trunk(params, cfg, batch["tokens"],
+                               frontend_embeds=batch.get("frontend_embeds"),
+                               kv_repeat=kv_repeat, remat=remat)
+    if cfg.n_frontend_tokens and not cfg.is_encdec:
+        h = h[:, cfg.n_frontend_tokens:]
+    nll, nv = chunked_ce(params, cfg, h, batch["labels"], loss_chunk)
+    loss = nll / torch.clamp(nv, min=1.0)
+    metrics = {"nll": loss, "aux_loss": aux, "n_valid": nv}
+    if cfg.mtp_depth > 0:
+        mtp_loss = _mtp_loss(params, cfg, h, batch, kv_repeat, loss_chunk)
+        metrics["mtp_loss"] = mtp_loss
+        loss = loss + 0.3 * mtp_loss
+    return loss + aux, metrics
+
+
+def _mtp_loss(params, cfg: ModelConfig, h, batch, kv_repeat: int,
+              loss_chunk: int):
+    """DeepSeek MTP depth 1: position t predicts token t + 2 from (h_t,
+    emb(token_{t+1})) through the "mtp" module's projection and 'G'
+    layer; the mean NLL over labels[:, 1:]."""
+    mtp = params["mtp"]
+    tokens, labels = batch["tokens"], batch["labels"]
+    h_in = apply_norm(mtp["norm_h"], h[:, :-1], cfg)
+    e_in = apply_norm(mtp["norm_e"],
+                      embed_tokens(params["embed"], tokens[:, 1:], cfg), cfg)
+    x = torch.cat([h_in, e_in], dim=-1) @ mtp["proj"]
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _ = sublayer_train(mtp["layer"], x, cfg, "G", positions=positions,
+                          kv_repeat=kv_repeat)
+    x = apply_norm(mtp["final_norm"], x, cfg)
+    nll, nv = chunked_ce(params, cfg, x, labels[:, 1:], loss_chunk)
+    return nll / torch.clamp(nv, min=1.0)
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, max_seq: int,
@@ -542,7 +681,7 @@ def sublayer_decode(p, h, cfg: ModelConfig, kind: str, cache, t, *,
             y, new = _recurrent_mixed_advance(step, xs, st, cl)
         cache.update({k: v[:b] for k, v in new.items()})
         h = h + y[:b]
-        return (h if kind == "M" else _ffn(p, h, cfg)), cache
+        return (h if kind == "M" else _ffn(p, h, cfg)[0]), cache
     x = apply_norm(p["norm1"], h, cfg)
     if cfg.attn_kind == "mla":
         if chunk_len is not None:
@@ -557,7 +696,7 @@ def sublayer_decode(p, h, cfg: ModelConfig, kind: str, cache, t, *,
     if cfg.post_norms:
         y = apply_norm(p["post_attn_norm"], y, cfg)
     h = _cross(p, h + y, enc_kv, cfg)
-    return _ffn(p, h, cfg), cache
+    return _ffn(p, h, cfg)[0], cache
 
 
 def _recurrent_mixed_advance(step_fn, x, cache, chunk_len):
@@ -632,7 +771,7 @@ def _sublayer_decode_packed(p, h, cfg: ModelConfig, cache, *, row_slot,
     if cfg.post_norms:
         y = apply_norm(p["post_attn_norm"], y, cfg)
     h = h + y
-    return _ffn(p, h, cfg), cache
+    return _ffn(p, h, cfg)[0], cache
 
 
 def _sublayer_decode_window_packed(p, h, cfg: ModelConfig, cache, *,
@@ -647,7 +786,7 @@ def _sublayer_decode_window_packed(p, h, cfg: ModelConfig, cache, *,
     if cfg.post_norms:
         y = apply_norm(p["post_attn_norm"], y, cfg)
     h = h + y
-    return _ffn(p, h, cfg), cache
+    return _ffn(p, h, cfg)[0], cache
 
 
 def recurrent_round_plan(row_slot, row_pos, row_cidx, width: int):
@@ -696,7 +835,7 @@ def _sublayer_decode_recurrent_packed(p, h, cfg: ModelConfig, cache, kind,
             cache[k][slots] = v[:m].to(cache[k].dtype)
         y[rows] = y_j[:m].to(y.dtype)
     h = h + y
-    return (h if kind == "M" else _ffn(p, h, cfg)), cache
+    return (h if kind == "M" else _ffn(p, h, cfg)[0]), cache
 
 
 def decode_step_packed(params, cfg: ModelConfig, cache, tokens, row_slot,

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_ref import ref_init_params
 from repro.models import transformer as tfm
 from repro.models.config import ModelConfig
 from repro_torch import bridge
@@ -55,7 +56,7 @@ def _assert_same_tree(a, b):
 
 @pytest.fixture(scope="module")
 def params_np():
-    params = tfm.init_params(jax.random.PRNGKey(0), TINY)
+    params = ref_init_params(TINY)
     return jax.tree.map(np.asarray, params)
 
 

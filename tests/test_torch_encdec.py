@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_ref import ref_init_params
 from repro import configs
 from repro.core.request_cluster import Request
 from repro.core import kv_compress
@@ -61,7 +62,7 @@ class _Model:
                                        dtype="float32", **kw)
         self.cfg_t = dataclasses.replace(configs_t.get_reduced(arch),
                                          dtype="float32", **kw)
-        self.params = tfm.init_params(jax.random.PRNGKey(0), self.cfg)
+        self.params = ref_init_params(self.cfg)
         self.np = jax.tree.map(np.asarray, self.params)
         self.pt = bridge.params_from_numpy(self.np, self.cfg_t, "cpu")
 
@@ -296,8 +297,7 @@ def test_init_params_and_bridge_round_trip(arch):
     cfg = dataclasses.replace(configs.get_reduced(arch), dtype="bfloat16")
     cfg_t = dataclasses.replace(configs_t.get_reduced(arch),
                                 dtype="bfloat16")
-    params = jax.tree.map(np.asarray, tfm.init_params(jax.random.PRNGKey(0),
-                                                      cfg))
+    params = jax.tree.map(np.asarray, ref_init_params(cfg))
     pt = bridge.params_from_numpy(params, cfg_t, "cpu")
     own = tfm_t.init_params(0, cfg_t, device="cpu")
 

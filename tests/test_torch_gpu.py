@@ -1244,3 +1244,118 @@ def test_encdec_encode_and_decode_on_card_match_cpu(cuda):
         out[str(dev)] = [a.cpu() for a in (e, lg, lg1)]
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# AdamW with no warmup at lr 1e-2: the first step moves every element by
+# about lr, a thousand times the 1e-5 the updated parameters are held to
+_TRAIN_AW = dict(lr=1e-2, warmup_steps=0)
+
+
+def _train_step(cfg, params, batch, dev, monkeypatch):
+    """One ``make_train_step`` step on ``dev`` from a copy of ``params``
+    at ``_TRAIN_AW``: (metrics as floats, the updated parameters on the
+    CPU, every MoE layer's sorted top-k experts, the clipped gradient
+    leaves on the CPU, recorded through the ``grad_transform`` hook)."""
+    from repro_torch.core import tree
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw
+
+    routes, apply_moe = [], moe.apply_moe
+
+    def recording(p, x, cfg_):
+        with torch.no_grad():
+            _, idx, _ = moe.route(p, x.reshape(-1, x.shape[-1]), cfg_)
+        routes.append(torch.sort(idx, dim=1).values.cpu())
+        return apply_moe(p, x, cfg_)
+
+    grads = []
+
+    def record(g):
+        grads.append(g.detach().cpu())
+        return g
+
+    monkeypatch.setattr(moe, "apply_moe", recording)
+    p = tree.map_(lambda t: t.detach().to(dev, copy=True), params)
+    step = steps.make_train_step(cfg, adamw.AdamWConfig(**_TRAIN_AW),
+                                 steps.StepOptions(loss_chunk=16),
+                                 grad_transform=record)
+    p, _, m = step(p, adamw.init(p), batch)
+    monkeypatch.setattr(moe, "apply_moe", apply_moe)
+    return ({k: float(v) for k, v in m.items()},
+            tree.map_(lambda t: t.detach().cpu(), p), routes, grads)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-v3-671b"])
+def test_train_step_card_matches_cpu(cuda, arch, monkeypatch):
+    """One train step of the reduced qwen3 and of the reduced deepseek-v3
+    (MLA, MoE and the MTP head) in f32, card against CPU: first every MoE
+    layer's expert sets equal, then the loss and every metric within
+    1e-5, the gradient norm within 1e-4 (relative), each clipped gradient
+    leaf within 1e-4 of its largest CPU entry, the updated parameters
+    (lr 1e-2, no warmup) within 1e-5 except for at most 0.1 % of them,
+    which AdamW's first step (about lr an element) may move the other way
+    where a gradient is near 0: those within 2 lr."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import tree
+    from repro_torch.data import pipeline
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(configs.get_reduced(arch), dtype="float32")
+    params = tfm.init_params(0, cfg, device="cpu")
+    assert ("mtp" in params) == (arch == "deepseek-v3-671b")
+    batch = pipeline.SyntheticLM(cfg, pipeline.DataConfig(
+        seed=0, global_batch=2, seq_len=64)).batch_at(0)
+    (m_g, p_g, r_g, g_g), (m_c, p_c, r_c, g_c) = (
+        _train_step(cfg, params, batch, d, monkeypatch)
+        for d in (cuda, torch.device("cpu")))
+    assert len(r_g) == len(r_c) and (len(r_g) > 0) == ("mtp" in params)
+    for a, b in zip(r_g, r_c):
+        assert torch.equal(a, b), "MoE expert sets differ card / CPU"
+    assert set(m_g) == set(m_c)
+    for k, v in m_c.items():
+        tol = 1e-4 if k == "grad_norm" else 1e-5
+        assert abs(m_g[k] - v) <= tol * max(abs(v), 1e-6), (k, m_g[k], v)
+    assert len(g_g) == len(g_c) == len(tree.leaves(params))
+    for i, (a, b) in enumerate(zip(g_g, g_c)):
+        err, top = (a - b).abs().max().item(), b.abs().max().item()
+        assert err <= 1e-4 * top, (i, err, top)
+    lr1 = float(adamw.schedule(adamw.AdamWConfig(**_TRAIN_AW),
+                               torch.tensor(1)))
+    assert lr1 > 0.99e-2
+    flipped = total = 0
+    for a, b in zip(tree.leaves(p_g), tree.leaves(p_c)):
+        d = (a - b).abs()
+        assert d.max().item() <= 2 * lr1 + 1e-5
+        flipped += int((d > 1e-5).sum())
+        total += d.numel()
+    assert flipped <= 1e-3 * total, (flipped, total)
+
+
+@pytest.mark.parametrize("n", [8, 23, 64])
+def test_bitserial_median_trainer_shapes(cuda, n):
+    """The Trainer's straggler median and MAD (n step times x 1, K 1, 16
+    bits, no weights) through ``core.bitserial.median`` on the card equal
+    the plain version's, and launch the kernel once each."""
+    from repro_torch.core import bitserial, quantizer
+
+    g = torch.Generator().manual_seed(n)
+    times = (0.05 + 0.01 * torch.rand(n, 1, generator=g)).to(cuda)
+    for x in (times, None):
+        x = (times - med).abs() if x is None else x
+        spec = quantizer.FixedPointSpec(
+            bits=16, scale=quantizer.auto_scale(x, 16).reshape(1))
+        u = quantizer.to_unsigned_order(quantizer.quantize(x, spec), 16)
+        a = torch.zeros(n, dtype=torch.int32, device=cuda)
+        m0, t0 = bsm.grouped_median_bits_plain(u, a, 1, bits=16)
+        ops.reset_launches()
+        med = bitserial.median(x, bits=16)
+        assert ops.launch_counts()["bitserial_median"] == 1
+        m1, t1 = bsm.grouped_median_bits_cuda(u, a, 1, bits=16)
+        assert torch.equal(m1, m0) and torch.equal(t1, t0)
+        want = quantizer.dequantize(quantizer.from_unsigned_order(
+            m0.reshape(1), 16), spec)
+        assert torch.equal(med, want)

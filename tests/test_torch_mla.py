@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_ref import ref_init_params
 from repro import configs
 from repro.models import attention as attn
 from repro.models import transformer as tfm
@@ -45,7 +46,7 @@ def _close(got, want, what, tol=1e-5):
 def model():
     """(cfg, cfg_t, reference params, port params) of the reduced model."""
     cfg, cfg_t = _configs()
-    params = tfm.init_params(jax.random.PRNGKey(0), cfg)
+    params = ref_init_params(cfg)
     pt = bridge.params_from_numpy(jax.tree.map(np.asarray, params), cfg_t,
                                   "cpu")
     return cfg, cfg_t, params, pt
@@ -181,17 +182,16 @@ def test_prefill_and_decode_steps_match(model):
 
 
 def test_init_params_and_bridge_round_trip():
-    """The port's init has every leaf of the reference's but "mtp" (a
-    training head serving never reads), with the shape and dtype the
-    bridge gives it (``q_norm`` and ``kv_norm`` f32 in a bf16 model); the
-    reference's params cross to the port and back bit for bit."""
+    """The port's init has every leaf of the reference's, DeepSeek's MTP
+    head ("mtp") included, with the shape and dtype the bridge gives it
+    (``q_norm`` and ``kv_norm`` f32 in a bf16 model); the reference's
+    params cross to the port and back bit for bit, "mtp" with them."""
     cfg, cfg_t = _configs("bfloat16")
-    params = jax.tree.map(np.asarray, tfm.init_params(jax.random.PRNGKey(0),
-                                                      cfg))
+    params = jax.tree.map(np.asarray, ref_init_params(cfg))
     assert "mtp" in params
     pt = bridge.params_from_numpy(params, cfg_t, "cpu")
     own = tfm_t.init_params(0, cfg_t, device="cpu")
-    assert "mtp" not in own and "mtp" not in pt
+    assert "mtp" in own and "mtp" in pt
 
     def walk(a, b, path):
         if isinstance(a, dict):
@@ -213,11 +213,9 @@ def test_init_params_and_bridge_round_trip():
         assert a["q_norm"].dtype == a["kv_norm"].dtype == torch.float32
         assert a["wukv"].dtype == torch.bfloat16
     cfg32, cfg32_t = _configs()
-    p32 = jax.tree.map(np.asarray, tfm.init_params(jax.random.PRNGKey(0),
-                                                   cfg32))
+    p32 = jax.tree.map(np.asarray, ref_init_params(cfg32))
     back = bridge.params_to_numpy(bridge.params_from_numpy(p32, cfg32_t,
                                                            "cpu"), cfg32_t)
-    del p32["mtp"]
     flat_a = jax.tree_util.tree_leaves_with_path(p32)
     flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
     assert len(flat_a) == len(flat_b)

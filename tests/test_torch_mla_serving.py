@@ -19,10 +19,10 @@ import jax
 import numpy as np
 import pytest
 
+from _torch_ref import ref_init_params
 from repro import configs
 from repro.core import kv_compress
 from repro.core.request_cluster import Request
-from repro.models import transformer as tfm
 from repro.runtime.kv_pool import PagedKVConfig
 from repro.runtime.prefix_cache import PrefixShareConfig
 from repro.runtime.scheduler import SLOConfig
@@ -105,7 +105,7 @@ class _Runs:
                                        dtype="float32")
         self.cfg_t = dataclasses.replace(configs_t.get_reduced(ARCH),
                                          dtype="float32")
-        self.params = tfm.init_params(jax.random.PRNGKey(0), self.cfg)
+        self.params = ref_init_params(self.cfg)
         self.pt = bridge.params_from_numpy(
             jax.tree.map(np.asarray, self.params), self.cfg_t, "cpu")
         self._memo = {}

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_ref import ref_init_params
 from repro import configs
 from repro.models import transformer as tfm
 from repro.models.config import ModelConfig
@@ -40,7 +41,7 @@ def _configs(which):
 @pytest.fixture(scope="module", params=["tiny", "qwen3"])
 def model(request):
     cfg, cfg_t = _configs(request.param)
-    params = tfm.init_params(jax.random.PRNGKey(0), cfg)
+    params = ref_init_params(cfg)
     pt = bridge.params_from_numpy(jax.tree.map(np.asarray, params), cfg_t,
                                   "cpu")
     # the reference's step, jitted once per shape (as its server runs it)
@@ -127,7 +128,7 @@ def test_init_params_matches_reference_tree(name):
     cfg = configs.get_reduced(name)
     cfg_t = configs_t.get_reduced(name)
     want = bridge.params_from_numpy(
-        jax.tree.map(np.asarray, tfm.init_params(jax.random.PRNGKey(0), cfg)),
+        jax.tree.map(np.asarray, ref_init_params(cfg)),
         cfg_t, "cpu")
     got = tfm_t.init_params(0, cfg_t, device="cpu")
 

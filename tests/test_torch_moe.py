@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_ref import ref_init_params
 from repro import configs
 from repro.models import moe
 from repro.models import transformer as tfm
@@ -324,8 +325,7 @@ def test_init_params_and_bridge_round_trip(prefix):
     cfg, cfg_t = _configs("qwen2-moe-a2.7b", "bfloat16")
     if prefix:
         cfg, cfg_t = _prefix_variant(cfg, cfg_t)
-    params = jax.tree.map(np.asarray, tfm.init_params(jax.random.PRNGKey(0),
-                                                      cfg))
+    params = jax.tree.map(np.asarray, ref_init_params(cfg))
     pt = bridge.params_from_numpy(params, cfg_t, "cpu")
     own = tfm_t.init_params(0, cfg_t, device="cpu")
 
@@ -353,8 +353,7 @@ def test_init_params_and_bridge_round_trip(prefix):
     cfg32, cfg32_t = _configs("qwen2-moe-a2.7b")
     if prefix:
         cfg32, cfg32_t = _prefix_variant(cfg32, cfg32_t)
-    p32 = jax.tree.map(np.asarray, tfm.init_params(jax.random.PRNGKey(0),
-                                                   cfg32))
+    p32 = jax.tree.map(np.asarray, ref_init_params(cfg32))
     back = bridge.params_to_numpy(bridge.params_from_numpy(p32, cfg32_t,
                                                            "cpu"), cfg32_t)
     flat_a = jax.tree_util.tree_leaves_with_path(p32)
@@ -379,7 +378,7 @@ def model(request):
         cfg, cfg_t = _prefix_variant(cfg, cfg_t)
     elif request.param == "overflow":
         cfg, cfg_t = _configs("qwen2-moe-a2.7b", capacity_factor=0.25)
-    params = tfm.init_params(jax.random.PRNGKey(1), cfg)
+    params = ref_init_params(cfg, 1)
     pt = bridge.params_from_numpy(jax.tree.map(np.asarray, params), cfg_t,
                                   "cpu")
     return cfg, cfg_t, params, pt

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_ref import ref_init_params
 from repro.core import kv_compress
 from repro.core.request_cluster import Request
 from repro.kernels.paged_clustered_decode import paged_clustered_decode_pallas
@@ -144,7 +145,7 @@ def test_window_floor_masks_like_cov():
 
 @pytest.fixture(scope="module")
 def weights():
-    params = tfm.init_params(jax.random.PRNGKey(0), TINY)
+    params = ref_init_params(TINY)
     return params, bridge.params_from_numpy(jax.tree.map(np.asarray, params),
                                             TINY_T, "cpu")
 

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_ref import ref_init_params
 from repro import configs
 from repro.models import attention as attn
 from repro.models import transformer as tfm
@@ -79,7 +80,7 @@ def _configs(which, dtype):
                 ids=lambda p: "-".join(p))
 def model(request):
     cfg, cfg_t = _configs(*request.param)
-    params = tfm.init_params(jax.random.PRNGKey(0), cfg)
+    params = ref_init_params(cfg)
     pt = bridge.params_from_numpy(jax.tree.map(np.asarray, params), cfg_t,
                                   "cpu")
     return cfg, cfg_t, params, pt
@@ -149,7 +150,7 @@ def test_int8_kv_decode_matches_reference():
                               dtype="float32")
     cfg_t = dataclasses.replace(configs_t.get_reduced("qwen3-4b"),
                                 dtype="float32")
-    params = tfm.init_params(jax.random.PRNGKey(0), cfg)
+    params = ref_init_params(cfg)
     pt = bridge.params_from_numpy(jax.tree.map(np.asarray, params), cfg_t,
                                   "cpu")
     toks = np.random.default_rng(2).integers(0, cfg.vocab,

@@ -20,9 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_ref import ref_init_params
 from repro.core import kv_compress
 from repro.core.request_cluster import Request
-from repro.models import transformer as tfm
 from repro.models.config import ModelConfig
 from repro.runtime.kv_pool import PagedKVConfig
 from repro.runtime.prefix_cache import PrefixShareConfig
@@ -49,7 +49,7 @@ SHARE_STATS = ("prefix_hits", "prefix_tokens_reused", "prefill_chunks",
 
 
 def _pair(seed):
-    params = tfm.init_params(jax.random.PRNGKey(seed), TINY)
+    params = ref_init_params(TINY, seed)
     return params, bridge.params_from_numpy(jax.tree.map(np.asarray, params),
                                             TINY_T, "cpu")
 

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_ref import ref_init_params
 from repro import configs
 from repro.core import layer_state
 from repro.core import retention as ret
@@ -53,7 +54,7 @@ def model(request):
     """(cfg, cfg_t, params, port params, the first recurrent layer's index,
     kind, reference sublayer params, port sublayer params)."""
     cfg, cfg_t = _configs(request.param)
-    params = tfm.init_params(jax.random.PRNGKey(1), cfg)
+    params = ref_init_params(cfg, 1)
     pt = bridge.params_from_numpy(jax.tree.map(np.asarray, params), cfg_t,
                                   "cpu")
     kinds = tfm_t.layer_kinds(cfg_t)
@@ -244,7 +245,7 @@ def test_prefill_forms_match(model):
     xj, xt = _x((2, 45, cfg.d_model), 4)
     if kind == "M":
         par, seq, key = tfm._ssm_prefill, ssm.ssm_sequential_ref, "ssm"
-        yg, cg = tfm_t._ssm_prefill(lp_t["ssm"], xt, cfg_t)
+        yg, cg = ssm_t.ssm_prefill(lp_t["ssm"], xt, cfg_t)
         seq_g = ssm_t.ssm_sequential_ref(lp_t["ssm"], xt, cfg_t)
     else:
         par, seq, key = rg.rglru_prefill, rg.rglru_sequential_ref, "rg"

@@ -26,6 +26,7 @@ import jax
 import numpy as np
 import pytest
 
+from _torch_ref import ref_init_params
 from repro import configs
 from repro.core import kv_compress
 from repro.core import layer_state
@@ -119,7 +120,7 @@ class _Runs:
 
     def __init__(self, pattern):
         self.cfg, self.cfg_t = _cfgs(pattern)
-        self.params = tfm.init_params(jax.random.PRNGKey(0), self.cfg)
+        self.params = ref_init_params(self.cfg)
         self.pt = bridge.params_from_numpy(
             jax.tree.map(np.asarray, self.params), self.cfg_t, "cpu")
         self._memo = {}
@@ -306,7 +307,7 @@ def test_reduced_zoo_configs_serve_like_reference(arch):
     reference."""
     cfg, cfg_t = (dataclasses.replace(c.get_reduced(arch), dtype="float32")
                   for c in (configs, configs_t))
-    params = tfm.init_params(jax.random.PRNGKey(0), cfg)
+    params = ref_init_params(cfg)
     pt = bridge.params_from_numpy(jax.tree.map(np.asarray, params), cfg_t,
                                   "cpu")
     rng = np.random.default_rng(5)

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as st
 
+from _torch_ref import ref_init_params
 from repro.core import kv_compress
 from repro.core import request_cluster as rc_ref
 from repro.models import transformer as tfm
@@ -552,7 +553,7 @@ class _Runs:
     uid), an out (tokens, shed)."""
 
     def __init__(self):
-        self.params = tfm.init_params(jax.random.PRNGKey(0), TINY)
+        self.params = ref_init_params(TINY)
         self.pt = bridge.params_from_numpy(
             jax.tree.map(np.asarray, self.params), TINY_T, "cpu")
         self._memo = {}

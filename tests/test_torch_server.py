@@ -44,7 +44,7 @@ from repro_torch.runtime.kv_pool import PagedKVConfig as PagedKVConfigT
 from repro_torch.runtime.server import Server as ServerT
 from repro_torch.runtime.server import ServerConfig as ServerConfigT
 
-from _torch_ref import exact_pow2_reference  # noqa: F401  (fixture)
+from _torch_ref import exact_pow2_reference, ref_init_params  # noqa: F401
 
 _TINY_KW = dict(name="tiny", family="dense", n_layers=2, d_model=64,
                 n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128, vocab=64,
@@ -60,7 +60,7 @@ LONG_DECODE = [(60, 20), (9, 14), (48, 17), (30, 25)]
 
 @pytest.fixture(scope="module")
 def weights():
-    params = tfm.init_params(jax.random.PRNGKey(0), TINY)
+    params = ref_init_params(TINY)
     return params, bridge.params_from_numpy(jax.tree.map(np.asarray, params),
                                             TINY_T, "cpu")
 
@@ -440,7 +440,7 @@ def one_layer():
                               dtype="float32")
     cfg_t = dataclasses.replace(configs_t.get_reduced("qwen3-4b"),
                                 n_layers=1, dtype="float32")
-    params = tfm.init_params(jax.random.PRNGKey(0), cfg)
+    params = ref_init_params(cfg)
     pt = bridge.params_from_numpy(jax.tree.map(np.asarray, params), cfg_t,
                                   "cpu")
     toks = np.random.default_rng(5).integers(0, cfg.vocab, size=(1, 96))

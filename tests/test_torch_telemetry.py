@@ -27,9 +27,9 @@ import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
+from _torch_ref import ref_init_params
 from repro.core import kv_compress
 from repro.core.request_cluster import Request
-from repro.models import transformer as tfm
 from repro.models.config import ModelConfig
 from repro.runtime import telemetry as tele_ref
 from repro.runtime.kv_pool import PagedKVConfig
@@ -372,7 +372,7 @@ class _Runs:
     last_trace, server)."""
 
     def __init__(self):
-        self.params = tfm.init_params(jax.random.PRNGKey(0), TINY)
+        self.params = ref_init_params(TINY)
         self.pt = bridge.params_from_numpy(
             jax.tree.map(np.asarray, self.params), TINY_T, "cpu")
         self._memo = {}

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_ref import ref_init_params
 from repro import configs
 from repro.core import retention as ret
 from repro.models import attention as attn
@@ -176,7 +177,7 @@ def _configs(name, dtype):
                 ids=lambda p: "-".join(p))
 def model(request):
     cfg, cfg_t = _configs(*request.param)
-    params = tfm.init_params(jax.random.PRNGKey(0), cfg)
+    params = ref_init_params(cfg)
     pt = bridge.params_from_numpy(jax.tree.map(np.asarray, params), cfg_t,
                                   "cpu")
     # the 'L' layer under test: gemma2's first, gemma3's tail layer
@@ -298,7 +299,7 @@ def test_prefill_and_decode_steps_match(name):
     the caches carried along (exact 'G' caches padded to max_seq, 'L'
     window rings)."""
     cfg, cfg_t = _configs(name, "float32")
-    params = tfm.init_params(jax.random.PRNGKey(1), cfg)
+    params = ref_init_params(cfg, 1)
     pt = bridge.params_from_numpy(jax.tree.map(np.asarray, params), cfg_t,
                                   "cpu")
     rng = np.random.default_rng(0)

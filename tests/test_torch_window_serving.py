@@ -19,9 +19,9 @@ import jax
 import numpy as np
 import pytest
 
+from _torch_ref import ref_init_params
 from repro.core import kv_compress
 from repro.core.request_cluster import Request
-from repro.models import transformer as tfm
 from repro.models.config import ModelConfig
 from repro.runtime.kv_pool import PagedKVConfig
 from repro.runtime.server import Server, ServerConfig
@@ -54,7 +54,7 @@ WINDOW_STATS = ("kv_retired_window", "kv_retired_frontier",
 
 
 def _pair(cfg, cfg_t, seed):
-    params = tfm.init_params(jax.random.PRNGKey(seed), cfg)
+    params = ref_init_params(cfg, seed)
     return params, bridge.params_from_numpy(jax.tree.map(np.asarray, params),
                                             cfg_t, "cpu")
 
