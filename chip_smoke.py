@@ -185,6 +185,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the host and back into another slot's fresh blocks
    (``tests/_torch_swap.py``): its state and bytes bit for bit, the
    re-adopted block and every other block unchanged;
+5s. the serving CLI (``repro_torch.launch.serve``) on qwen3-4b at full
+   width and depth: (a) ``--arch qwen3-4b --requests 16 --kv-clusters
+   32`` in a subprocess (``PYTHONPATH=src``, the module run as ``python
+   -m`` runs it, through ``runpy.run_module``, its own weights from seed
+   0; blocking clustered at the CLI's defaults: batch 4, max_seq 256, 8
+   new tokens), whose launch counts and last_stats a bootstrap prints
+   after the CLI's lines; gates: rc 0, ``16 completions, 128 tokens``,
+   the reference's lines in its order, clustered_decode 36 x engine
+   steps, paged_clustered_decode 0, bitserial_median >= compress
+   admissions + compactions > 0.  (b) ``main([...,
+   "--paged", "--prefill-chunk", "16", "--priority-demo", "--trace-out",
+   "chiprun_out/serve_cli_trace.json"], params=<phase 5's weights>)``:
+   ``SLOConfig()`` at its default ``priority_admission=True``; gates:
+   paged_clustered_decode 36 x engine steps, clustered_decode 0,
+   bitserial_median >= absorbs + compactions, sched_shed_high 0, every
+   unshed request complete, pool_blocks_end 0, the written trace clean
+   under ``validate_chrome_file``; printed: preemptions, deferrals, TTFT
+   p95 by class.  (c) ``main([..., "--paged", "--prefill-chunk", "16",
+   "--persist-templates"], params=...)``: the warm re-serve prints
+   ``tokens identical: True`` with store hits > 0, each serve's kernel
+   gates as (b)'s, the pool at 0 after ``invalidate_templates()``;
+5t. the example twin, ``examples/serve_clustered_kv_torch.py``'s
+   ``run("cuda")`` at its own shapes (SMALL, 'GL', 'GM' in f32, weights
+   from seeds 0, 1, 2): no line reads DIVERGED, ``schema problems: 0``,
+   ``0 protected shed``, every pool at 0 at drain, the CPU run's 23
+   lines, and clustered_decode, paged_clustered_decode and
+   bitserial_median each launched;
 5r. qwen3-4b training at full width and depth on the same bf16 weights:
    the port's Trainer for 10 steps of 2 x 1,024 tokens (AdamW lr 3e-4,
    warmup 2, remat, loss chunks of 256, f32 moments), a checkpoint of
@@ -211,11 +238,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    decode 23 x engine steps, clustered_decode 0, ``pool_frees ==
    pool_allocs``, ``pool_blocks_end`` 0; agreement with 5f printed, not
    gated;
-5l. recurrentgemma-9b at full width, depth cut from 38 to 21 layers
-   (seven 'RRL' repeats: 14 RG-LRU 'R' layers of width 4,096 and 7 'L'
-   layers, window 2,048; 5l's host-bound serves scale with depth, ~6.2 s
-   a layer on the slowest host seen, where the whole smoke at 38 layers
-   took 995 s; d_model
+5l. recurrentgemma-9b at full width, depth cut from 38 to 6 layers
+   (two 'RRL' repeats: 4 RG-LRU 'R' layers of width 4,096 and 2 'L'
+   layers, window 2,048; 5l's host-bound serves scale with depth, ~6-7 s
+   a layer on a slow host, where the whole smoke took 995 s at 38 layers
+   and 949 s at 21; d_model
    4,096, 16 heads over 1 kv head of 256, d_ff 12,288, vocab 256,000;
    bf16 weights from ``init_params`` seed 0, the gate weights f32),
    ``max_seq`` 4,096, batch 4, the smoke's KVCompressConfig (inert: no
@@ -224,7 +251,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (chunk 64), chunked paged (blocks of 16) and blocking dense (a
    sequential prefill, bucket 1).  Gates: every request complete;
    kv_retired_window > 0, kv_retired_recurrent 0; state_bytes_recurrent
-   14 x (3 x 4,096 x 2 + 4,096 x 4) = 573,440 B a slot; B1, B2 and B3
+   4 x (3 x 4,096 x 2 + 4,096 x 4) = 163,840 B a slot; B1, B2 and B3
    never launched; paged: frees == allocs, end 0.  Printed: chunked vs
    blocking and paged vs dense agreement, the host dispatches (non-view
    aten ops) and wall of one mixed and one decode step, peak memory;
@@ -321,8 +348,9 @@ B2's and B3's ``launches_prefix_share`` from 5i's shared serve,
 ``launches_template_store`` from 5j's two store serves,
 ``launches_slo`` from 5k's scheduled serve, ``launches_recurrent``
 from 4b's chunked serves, by pattern, ``launches_moe`` from 5n's
-serves, by mode, and B1's and B3's ``launches_frontend`` from 5p's
-blocking serve),
+serves, by mode, B1's and B3's ``launches_frontend`` from 5p's
+blocking serve, and B1's, B2's and B3's ``launches_cli`` from 5s, by
+part, and ``launches_example`` from 5t),
 and the last line ``{"ok": true, "device": {...}}``; the full record goes
 to ``chiprun_out/chip_smoke.json``.  Each phase's seconds are printed as
 it ends.
@@ -406,6 +434,23 @@ MED_CASES = [("compaction", N_LAYERS * B * HKV, C, 16),
              ("gemma2 absorb", GEMMA_G_LAYERS * GEMMA_HKV, C // 2, 16),
              ("qwen2-moe compaction", MOE_LAYERS * B * MOE_HKV, C, 16),
              ("qwen2-moe absorb", MOE_LAYERS * MOE_HKV, C // 2, 16)]
+# the serving CLI in 5s at its defaults with --kv-clusters 32 (qwen3-4b,
+# batch 4, max_seq 256, prompts of at most 159 tokens, C 32 over a ring of
+# R 64, refresh 32, chunks of 16, paged blocks of 16): two slots whose ring
+# has wrapped (t + cl > R) and two whose ring has not, cov >= t + cl - R;
+# every step form: a chunk in an unwrapped slot, a chunk in a wrapped one,
+# two chunks, decode rows only, each in its power-of-two row bucket.  Its
+# bitserial_median calls: an absorb (one slot, K = the prompt budget C),
+# a compaction (4 slots) over C + R = 96 points, and the blocking
+# admission's fit over max_seq points of the longest prompt
+CLI_C, CLI_R, CLI_MAX_SEQ, CLI_PLEN, CLI_REFRESH = 32, 64, 256, 159, 32
+CLI_GEO = dict(b=B, l=16, dh=DH, c=CLI_C, r=CLI_R, t=[40, 150, 96, 10],
+               cov=[0, 110, 48, 0], cl=[16, 1, 1, 1])
+CLI_STEPS = [([16, 1, 1, 1], 32), ([1, 16, 1, 1], 32),
+             ([1, 1, 16, 16], 64), ([1, 1, 1, 1], 4)]
+CLI_MED_CASES = [("CLI absorb", N_LAYERS * HKV, CLI_C, 16),
+                 ("CLI compaction", N_LAYERS * B * HKV, CLI_C, 16)]
+CLI_ADMISSION = ("CLI admission", N_LAYERS, HKV, CLI_MAX_SEQ, CLI_PLEN)
 # bitserial_median at a blocking admission's clustering: _clusterize fits
 # the B=1 prefill cache of every clustered layer at once, (layers x kv
 # heads) members of max_seq points each, weight 1 below the frontier cov of
@@ -793,7 +838,7 @@ def check_gemma_decode(torch, cd, pcd, dev):
 
 
 def check_moe_decode(torch, cd, pcd, dev, hq=MOE_HQ, hkv=MOE_HKV,
-                     label="qwen2-moe"):
+                     label="qwen2-moe", geo=QWEN_GEO, steps=MOE_STEPS):
     """B1 and B2 at the shapes of qwen2-moe-a2.7b's 'G' layers in 5n
     (MOE_STEPS: 16 query heads over 16 kv heads of 128, bf16, qwen3's C,
     R and slots), or at ``hq`` / ``hkv`` heads (internvl2-76b's 64 over 8
@@ -802,15 +847,16 @@ def check_moe_decode(torch, cd, pcd, dev, hq=MOE_HQ, hkv=MOE_HKV,
     4-row bucket), each against its plain version within phase 3's bf16
     tolerance (2 bf16 ulps), B2 bit-equal to B1 on every real row (grouped
     as the engine groups them and one row per block), and B1's one-token
-    form against its plain version."""
+    form against its plain version.  ``geo`` and ``steps`` give another
+    cache and other steps (CLI_GEO, CLI_STEPS: the serving CLI's)."""
     max_err, tol = 0.0, 1.6e-2
     kw = dict(scale=DH ** -0.5, softcap=None)
     fl = lambda d: {k: (v.float() if v is not None  # noqa: E731
                         and v.is_floating_point() else v)
                     for k, v in d.items()}
-    for cl, bucket in MOE_STEPS:
+    for cl, bucket in steps:
         x = decode_inputs(torch, dev, torch.bfloat16, hq, hkv,
-                          dict(QWEN_GEO, cl=cl, l=max(cl)))
+                          dict(geo, cl=cl, l=max(cl)))
         args, rows, n_mapped = paged_inputs(torch, x, cl, bucket)
         args = with_groups(torch, pcd, args)
         x1 = dict(x, q=x["q"][:, 0].contiguous(), chunk_len=None)
@@ -837,8 +883,8 @@ def check_moe_decode(torch, cd, pcd, dev, hq=MOE_HQ, hkv=MOE_HKV,
                 raise AssertionError(
                     f"{label} heads, chunk lengths {cl} ({form}): paged "
                     "rows differ from clustered_decode bit for bit")
-        say(f"{label} heads ({hq}/{hkv} of {DH}, bf16, chunk "
-            f"lengths {cl}): clustered_decode (and its one-token form) and "
+        say(f"{label} heads ({hq}/{hkv} of {DH}, bf16, C {geo['c']}, R "
+            f"{geo['r']}, t {geo['t']}, chunk lengths {cl}): clustered_decode (and its one-token form) and "
             f"paged_clustered_decode == plain within {tol}, paged bit-equal "
             f"to dense on all {n} real rows ({n_mapped} mapped blocks of "
             f"{BS}, {bucket}-row bucket; max abs err so far {max_err:.3e})")
@@ -1126,9 +1172,10 @@ def check_bitserial_median(torch, bsm, dev):
         return max((med - med0).abs().max().item(),
                    (tot - tot0).abs().max().item())
 
-    tiny = dict(c=REC_GEO["c"], r=REC_GEO["r"], dh=REC_GEO["dh"])
-    for name, m, k, bits in MED_CASES + REC_MED_CASES:
-        geo = tiny if name.startswith("4b") else dict(c=C, r=R, dh=DH)
+    geos = {"4b": dict(c=REC_GEO["c"], r=REC_GEO["r"], dh=REC_GEO["dh"]),
+            "CLI": dict(c=CLI_C, r=CLI_R, dh=DH)}
+    for name, m, k, bits in MED_CASES + REC_MED_CASES + CLI_MED_CASES:
+        geo = geos.get(name.split()[0], dict(c=C, r=R, dh=DH))
         u, a, w = median_inputs(torch, dev, m, k, bits, **geo)
         runs = [bsm.grouped_median_bits_cuda(u, a, k, w, bits=bits)
                 for _ in range(2)]
@@ -1145,10 +1192,11 @@ def check_bitserial_median(torch, bsm, dev):
             f"dims, K={k}, {bits} bits, count weights): kernel == plain bit "
             "for bit (medians and totals), two runs equal")
         del u, a, w, runs, med0, tot0
-    for name, layers, heads, s, plen in admission_cases() + [REC_ADMISSION]:
-        geo = (dict(c=REC_GEO["c"], r=REC_GEO["r"], dh=REC_GEO["dh"],
-                    refresh=REC_REFRESH) if name.startswith("4b") else
-               dict(c=C, r=R, dh=DH, refresh=32))
+    geos = {"4b": dict(geos["4b"], refresh=REC_REFRESH),
+            "CLI": dict(geos["CLI"], refresh=CLI_REFRESH)}
+    for name, layers, heads, s, plen in (admission_cases()
+                                         + [REC_ADMISSION, CLI_ADMISSION]):
+        geo = geos.get(name.split()[0], dict(c=C, r=R, dh=DH, refresh=32))
         u, a, w = admission_inputs(torch, dev, layers=layers, heads=heads,
                                    s=s, plen=plen, **geo)
         runs = [bsm.grouped_median_bits_cuda(u, a, geo["c"], w, bits=16)
@@ -2368,13 +2416,13 @@ def check_rec_tiny(torch, dev, smi):
 # ---------------------------------------------------------------------------
 
 # recurrentgemma-9b: 38 layers 'RRL' (26 'R', 12 'L', window 2,048), cut
-# to RG_LAYERS (14 'R', 7 'L'); mamba2-2.7b: 64 'M' layers.  Per-slot
+# to RG_LAYERS (4 'R', 2 'L'); mamba2-2.7b: 64 'M' layers.  Per-slot
 # recurrent state bytes: an 'R' layer's bf16 (3, lru_width) conv tail and
 # f32 h, an 'M' layer's bf16 (3, d_inner + 2 d_state) conv tail and f32
 # (heads, head_dim, d_state) state
 RG_MAX_SEQ, MAMBA_MAX_SEQ, REC_CHUNK = 4096, 2048, 64
-RG_LAYERS = 21
-RG_STATE_B = 14 * (3 * 4096 * 2 + 4096 * 4)
+RG_LAYERS = 6
+RG_STATE_B = 4 * (3 * 4096 * 2 + 4096 * 4)
 MAMBA_STATE_B = 64 * (3 * 5376 * 2 + 80 * 64 * 128 * 4)
 
 
@@ -3348,6 +3396,274 @@ def run_seamless_full(torch, dev, smi):
 
 
 # ---------------------------------------------------------------------------
+# phases 5s and 5t: the serving entry points (the CLI, the example twin)
+# ---------------------------------------------------------------------------
+
+# 5s (a): the CLI in a subprocess, run as ``python -m`` runs a module
+# (``runpy.run_module(..., run_name="__main__", alter_sys=True)``); the
+# bootstrap records the serve's last_stats and blocking admissions and
+# prints them with the kernels' launch counts of the run as one JSON line
+# after the CLI's own lines
+CLI_ARGS = ("--arch", "qwen3-4b", "--requests", "16")
+CLI_BOOT = """
+import json, runpy
+from repro_torch.kernels import ops
+from repro_torch.runtime.server import Server
+stats, serve = {}, Server.serve
+def recorded(self, *args):
+    outs = serve(self, *args)
+    stats.update(self.last_stats, **self.last_admission)
+    return outs
+Server.serve = recorded
+ops.reset_launches()
+runpy.run_module("repro_torch.launch.serve", run_name="__main__",
+                 alter_sys=True)
+print("RECORD " + json.dumps({"launches": ops.launch_counts(),
+                              "stats": {k: float(v)
+                                        for k, v in stats.items()}}))
+"""
+# the lines of a blocking clustered CLI serve, in the reference's order (a
+# retention line may follow)
+CLI_BLOCKING_LINES = ("[serve] padding waste: ", "[serve] clustered KV: ",
+                      "[serve] 16 completions, 128 tokens in ",
+                      "[serve] blocking prefill: ",
+                      "[serve] bucketed launches: ")
+# the example twin's line count on the CPU (tests/test_torch_serve_example.py
+# GOLDEN: the reference example's lines)
+EXAMPLE_LINES = 23
+
+
+def cli_serves(torch, argv, params):
+    """``launch.serve.main(argv, params=...)`` in process, with every
+    ``Server.serve`` of the run recorded: its requests, completions,
+    last_stats, kernel launches (counts reset just before the serve, read
+    just after) and the template pool it ends with.  Returns (server,
+    printed lines, serve records)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.runtime.server import Server
+
+    serves, lines, orig = [], [], Server.serve
+
+    def serve(self, requests, prompts):
+        ops.reset_launches()
+        outs = orig(self, requests, prompts)
+        torch.cuda.synchronize()
+        st = dict(self.last_stats)
+        serves.append({"reqs": list(requests), "outs": outs, "stats": st,
+                       "launches": ops.launch_counts(),
+                       "engine_steps": int(st.get("decode_steps", 0)),
+                       "tmpl_pool": self._tmpl_pool})
+        return outs
+
+    Server.serve = serve
+    try:
+        srv = serve_mod.main(list(argv), params=params, say=lines.append)
+    finally:
+        Server.serve = orig
+    return srv, lines, serves
+
+
+def serve_cli_full(torch, dev, smi, params):
+    """Phase 5s: the serving CLI on qwen3-4b at full width and depth (see
+    the module docstring): (a) blocking clustered in a subprocess drawing
+    its own weights, (b) the priority demo traced and (c) the template
+    store on phase 5's weights, in process."""
+    import os
+
+    from repro_torch import configs
+    from repro_torch.runtime.telemetry import validate_chrome_file
+
+    cfg = configs.get_config("qwen3-4b")
+    rec, problems = {}, []
+
+    # (a) the module as __main__ in a subprocess, beside this process's
+    # weights (its cached blocks handed back first)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    argv = list(CLI_ARGS) + ["--kv-clusters", "32"]
+    proc = subprocess.run([sys.executable, "-c", CLI_BOOT, *argv],
+                          capture_output=True, text=True, env=env, cwd=ROOT,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if not line.startswith("RECORD "):
+            say(f"    5s (a) {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"5s (a): rc {proc.returncode}; stderr "
+                             f"{proc.stderr[-2000:]}")
+    got = json.loads(lines[-1].removeprefix("RECORD "))
+    launches, st = got["launches"], got["stats"]
+    steps = int(st["decode_steps"])
+    need = int(st["kv_admit_compress"]) + int(st["kv_compactions"])
+    served = lines[:-1]
+    order = [next((i for i, p in enumerate(CLI_BLOCKING_LINES)
+                   if line.startswith(p)), None) for line in served]
+    if (order[:len(CLI_BLOCKING_LINES)] != list(range(len(
+            CLI_BLOCKING_LINES))) or not all(
+            line.startswith("[serve] retention: ")
+            for line in served[len(CLI_BLOCKING_LINES):])):
+        problems.append(f"(a) lines {served}")
+    if not (launches["clustered_decode"] == cfg.n_layers * steps > 0
+            and launches["paged_clustered_decode"] == 0
+            and launches["bitserial_median"] >= need > 0):
+        problems.append(f"(a) launches {launches}, want clustered_decode "
+                        f"{cfg.n_layers} x {steps} engine steps, "
+                        f"paged_clustered_decode 0, bitserial_median >= "
+                        f"compress admissions + compactions = {need} > 0")
+    rec["a"] = {"lines": served, "launches": launches, "wall_s": wall,
+                "engine_steps": steps}
+    say(f"[{smi}] 5s (a) python -m repro_torch.launch.serve "
+        f"{' '.join(argv)}: rc 0 in {wall:.1f} s (process, weight draw and "
+        f"serve); {steps} engine steps, {int(st['kv_admit_compress'])} "
+        f"compress + {int(st['kv_admit_tail'])} tail-only admissions, "
+        f"{int(st['kv_compactions'])} compactions; launches {launches}")
+
+    # (b) the priority demo, traced, on phase 5's weights
+    OUT.mkdir(exist_ok=True)
+    trace = OUT / "serve_cli_trace.json"
+    t0 = time.perf_counter()
+    srv, lines, serves = cli_serves(
+        torch, list(CLI_ARGS) + ["--paged", "--prefill-chunk", "16",
+                                 "--priority-demo", "--trace-out",
+                                 str(trace)], params)
+    wall = time.perf_counter() - t0
+    for line in lines:
+        say(f"    5s (b) {line}")
+    (sb,) = serves
+    st = sb["stats"]
+    try:
+        paged_launch_gate(cfg, sb, "5s (b)")
+    except AssertionError as e:
+        problems.append(str(e))
+    shed = {o.uid for o in sb["outs"] if o.shed}
+    for r in sb["reqs"]:
+        toks = next(o.tokens for o in sb["outs"] if o.uid == r.uid)
+        if r.uid not in shed and len(toks) != r.max_new_tokens:
+            problems.append(f"(b) uid {r.uid}: {len(toks)} tokens, want "
+                            f"{r.max_new_tokens}")
+    if st["sched_shed_high"] != 0 or st["pool_blocks_end"] != 0:
+        problems.append(f"(b) sched_shed_high {st['sched_shed_high']}, "
+                        f"pool_blocks_end {st['pool_blocks_end']}")
+    bad = validate_chrome_file(str(trace))
+    if bad:
+        problems.append("(b) trace: " + "; ".join(bad[:5]))
+    prio = {r.uid: r.priority for r in sb["reqs"]}
+    ttft = {}
+    for cls in sorted(set(prio.values())):
+        v = [o.prefill_ms for o in sb["outs"]
+             if prio[o.uid] == cls and not o.shed]
+        ttft[cls] = float(np.percentile(v, 95)) if v else float("nan")
+    rec["b"] = {"lines": lines, "launches": sb["launches"],
+                "engine_steps": sb["engine_steps"], "wall_s": wall,
+                "ttft_p95_ms": ttft,
+                "sched": {k: int(v) for k, v in st.items()
+                          if k.startswith("sched_")},
+                "trace_events": len(srv.last_trace), "trace_problems": bad}
+    say(f"[{smi}] 5s (b) priority demo, SLOConfig() (priority_admission="
+        f"True), pool {int(st['pool_blocks_total'])} blocks: "
+        f"{int(st['sched_preemptions'])} preemptions, "
+        f"{int(st['sched_deferrals'])} deferrals, {int(st['sched_sheds'])} "
+        f"shed ({int(st['sched_shed_high'])} protected); TTFT p95 by class "
+        + ", ".join(f"{k}: {v:.1f} ms" for k, v in ttft.items())
+        + f"; {sb['engine_steps']} engine steps, launches "
+        f"{sb['launches']}; trace {len(srv.last_trace)} events, "
+        f"{len(bad)} problems, written to chiprun_out/{trace.name}; "
+        f"{wall:.1f} s")
+
+    # (c) the template store, served twice, on the same weights
+    t0 = time.perf_counter()
+    srv, lines, serves = cli_serves(
+        torch, list(CLI_ARGS) + ["--paged", "--prefill-chunk", "16",
+                                 "--persist-templates"], params)
+    wall = time.perf_counter() - t0
+    for line in lines:
+        say(f"    5s (c) {line}")
+    if len(serves) != 2:
+        raise AssertionError(f"5s (c): {len(serves)} serves, want 2")
+    for i, s in enumerate(serves):
+        try:
+            paged_launch_gate(cfg, s, f"5s (c) serve {i + 1}")
+        except AssertionError as e:
+            problems.append(str(e))
+    warm = serves[1]["stats"]
+    if not any(line.startswith("[serve] warm re-serve: ")
+               and line.endswith("tokens identical: True") for line in lines):
+        problems.append("(c) the warm re-serve's tokens differ")
+    if not warm.get("prefix_hits", 0) > 0:
+        problems.append(f"(c) warm store hits {warm.get('prefix_hits')}")
+    pool = serves[1]["tmpl_pool"]
+    if pool is None or pool.allocated() != 0 or srv._tmpl_pool is not None:
+        problems.append("(c) the pool is not drained by "
+                        "invalidate_templates()")
+    rec["c"] = {"lines": lines, "wall_s": wall,
+                "launches": [s["launches"] for s in serves],
+                "engine_steps": [s["engine_steps"] for s in serves],
+                "prefix_hits": [s["stats"].get("prefix_hits", 0)
+                                for s in serves]}
+    say(f"[{smi}] 5s (c) template store: engine steps "
+        f"{rec['c']['engine_steps']}, store hits {rec['c']['prefix_hits']}, "
+        f"launches {rec['c']['launches']}; pool 0 after "
+        f"invalidate_templates(); {wall:.1f} s")
+    if problems:
+        raise AssertionError("5s serving CLI: " + "; ".join(problems))
+    return rec
+
+
+def cli_launches(cli, name):
+    """A kernel's launches in 5s: (a) blocking clustered, (b) the priority
+    demo, (c) the template store's two serves."""
+    return {"kv_clusters": cli["a"]["launches"][name],
+            "priority_demo": cli["b"]["launches"][name],
+            "persist_templates": [c[name] for c in cli["c"]["launches"]]}
+
+
+def serve_example_full(torch, dev, smi):
+    """Phase 5t: examples/serve_clustered_kv_torch.py's ``run("cuda")``
+    at its own shapes (SMALL, GLWIN, GMREC in f32, weights from seeds 0,
+    1, 2)."""
+    import runpy
+
+    from repro_torch.kernels import ops
+
+    twin = runpy.run_path(str(ROOT / "examples"
+                              / "serve_clustered_kv_torch.py"),
+                          run_name="serve_clustered_kv_torch")
+    lines = []
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = twin["run"]("cuda", say=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    for line in lines:
+        say(f"    5t {line}")
+    problems = []
+    if any("DIVERGED" in line for line in lines):
+        problems.append("a line reads DIVERGED")
+    if not any("schema problems: 0," in line for line in lines):
+        problems.append("the trace has schema problems")
+    if not any("(0 protected shed)" in line for line in lines):
+        problems.append("a protected request was shed")
+    if set(out["pool_blocks_end"].values()) != {0}:
+        problems.append(f"pools at drain {out['pool_blocks_end']}")
+    if len(lines) != EXAMPLE_LINES:
+        problems.append(f"{len(lines)} lines, the CPU run's {EXAMPLE_LINES}")
+    for k in ("clustered_decode", "paged_clustered_decode",
+              "bitserial_median"):
+        if not launches[k] > 0:
+            problems.append(f"{k} launched {launches[k]} times")
+    say(f"[{smi}] 5t example twin: {len(lines)} lines in {wall:.1f} s; "
+        f"launches {launches}; [kv] rel-err {out['rel_err']:.6f}")
+    if problems:
+        raise AssertionError("5t example twin: " + "; ".join(problems))
+    return {"lines": lines, "launches": launches, "wall_s": wall,
+            "rel_err": out["rel_err"]}
+
+
+# ---------------------------------------------------------------------------
 # phases 4e and 5r: training
 # ---------------------------------------------------------------------------
 
@@ -4303,14 +4619,17 @@ def main() -> int:
     done("2 build")
 
     # phase 3: kernels vs plain (B1 and B2 also at gemma2's heads, at 4b's
-    # TINY 'G' layer and in the quota layout)
+    # TINY 'G' layer, at the serving CLI's cache and steps and in the quota
+    # layout)
     cd_err = check_clustered_decode(torch, cd, dev)
     pcd_err = check_paged_decode(torch, cd, pcd, dev)
     gemma_err = check_gemma_decode(torch, cd, pcd, dev)
     tiny_err = check_rec_tiny_decode(torch, cd, pcd, dev)
     moe_err = max(check_moe_decode(torch, cd, pcd, dev),
                   check_moe_decode(torch, cd, pcd, dev, IVL_HQ, IVL_HKV,
-                                   "internvl2"))
+                                   "internvl2"),
+                  check_moe_decode(torch, cd, pcd, dev, HQ, HKV,
+                                   "serving CLI", CLI_GEO, CLI_STEPS))
     quota_err = check_paged_quota(torch, attention, pcd, dev)
     cd_err = max(cd_err, gemma_err, tiny_err, moe_err)
     pcd_err = max(pcd_err, gemma_err, tiny_err, moe_err, quota_err)
@@ -4393,6 +4712,15 @@ def main() -> int:
     slo = serve_slo(torch, dev, smi, params)
     record["serve_slo"] = slo
     done("5k SLO scheduler")
+
+    # phases 5s and 5t: the serving CLI at full width (the subprocess draws
+    # its own weights; (b) and (c) serve qwen3's), then the example twin
+    cli = serve_cli_full(torch, dev, smi, params)
+    record["serve_cli"] = cli
+    done("5s serving CLI")
+    example = serve_example_full(torch, dev, smi)
+    record["serve_example"] = example
+    done("5t example twin")
 
     # phase 5r: qwen3-4b training at full width on the same weights
     train_full = train_qwen3_full(torch, dev, smi, params)
@@ -4498,6 +4826,8 @@ def main() -> int:
                  "clustered_decode"] for m in ("chunked", "blocking")},
              launches_frontend=ivl["serves"]["blocking"]["launches"][
                  "clustered_decode"],
+             launches_cli=cli["a"]["launches"]["clustered_decode"],
+             launches_example=example["launches"]["clustered_decode"],
              max_abs_err=cd_err, ms=tm["clustered_decode"]["ms"],
              plain_ms=tm["clustered_decode"]["plain_ms"],
              bound_ms=tm["clustered_decode"]["bound_ms"],
@@ -4522,6 +4852,8 @@ def main() -> int:
                  "paged_clustered_decode"] for p, r in rec_tiny.items()},
              launches_moe=moe["serves"]["paged"]["launches"][
                  "paged_clustered_decode"],
+             launches_cli=cli_launches(cli, "paged_clustered_decode"),
+             launches_example=example["launches"]["paged_clustered_decode"],
              max_abs_err=pcd_err, ms=tm["paged_clustered_decode"]["ms"],
              plain_ms=tm["paged_clustered_decode"]["plain_ms"],
              bound_ms=tm["paged_clustered_decode"]["bound_ms"],
@@ -4561,6 +4893,8 @@ def main() -> int:
                            for m, r in moe["serves"].items()},
              launches_frontend=ivl["serves"]["blocking"]["launches"][
                  "bitserial_median"],
+             launches_cli=cli_launches(cli, "bitserial_median"),
+             launches_example=example["launches"]["bitserial_median"],
              # the Trainer's straggler median and MAD: 4e's TINY run, 5r
              launches_train={
                  "4e tiny": train_tiny["tiny_trainer"][

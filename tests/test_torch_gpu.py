@@ -1359,3 +1359,75 @@ def test_bitserial_median_trainer_shapes(cuda, n):
         want = quantizer.dequantize(quantizer.from_unsigned_order(
             m0.reshape(1), 16), spec)
         assert torch.equal(med, want)
+
+
+@pytest.mark.parametrize("flags,kernel", [
+    (["--kv-clusters", "8", "--keep-recent", "16", "--refresh-every", "8"],
+     "clustered_decode"),
+    (["--paged", "--prefill-chunk", "16"], "paged_clustered_decode"),
+], ids=["clustered", "paged"])
+def test_serve_cli_on_card_prints_the_cpu_counts(cuda, flags, kernel,
+                                                 monkeypatch):
+    """The serving CLI on the reduced qwen3-4b in f32, the same weights on
+    the card and on the CPU: every engine step's logits on its real rows
+    (a dense step's every slot, a packed step's rows at a position >= 0)
+    within 1e-4, every serve's greedy tokens equal, request for request;
+    every line equal but for its timing fields (the counts: completions,
+    tokens, chunks, pool blocks, retired positions); and on the card the
+    mode's decode kernel and bitserial_median launched.  The tokens alone
+    would hold little: the random reduced model repeats its first token,
+    whatever its attention returns."""
+    import dataclasses
+
+    from _serve_lines import mask
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.server import Server
+
+    orig = configs.get_reduced
+    monkeypatch.setattr(configs, "get_reduced", lambda a: dataclasses.replace(
+        orig(a), dtype="float32"))
+    toks, orig_serve = [], Server.serve
+
+    def recorded(self, requests, prompts):
+        outs = orig_serve(self, requests, prompts)
+        toks[-1].append({o.uid: o.tokens for o in outs})
+        return outs
+
+    monkeypatch.setattr(Server, "serve", recorded)
+    logits, step, packed = [], tfm.decode_step, tfm.decode_step_packed
+
+    def step_logits(*a, **k):
+        out, cache = step(*a, **k)
+        logits[-1].append(out.float().cpu())
+        return out, cache
+
+    def packed_logits(params, cfg, cache, tokp, rslot, rpos, *a, **k):
+        out, cache = packed(params, cfg, cache, tokp, rslot, rpos, *a, **k)
+        logits[-1].append(out[rpos >= 0].float().cpu())
+        return out, cache
+
+    monkeypatch.setattr(tfm, "decode_step", step_logits)
+    monkeypatch.setattr(tfm, "decode_step_packed", packed_logits)
+    argv = ["--arch", "qwen3-4b", "--reduced", "--requests", "8",
+            "--max-new", "4"] + flags
+    params = tfm.init_params(0, configs.get_reduced("qwen3-4b"),
+                             device="cpu")
+    lines = {}
+    for dev in ("cpu", "cuda"):
+        got = []
+        toks.append([])
+        logits.append([])
+        ops.reset_launches()
+        serve.main(argv + ["--device", dev], params=params, say=got.append)
+        lines[dev] = [mask(line) for line in got]
+    launches = ops.launch_counts()
+    assert toks[0] and all(len(t) == 8 for t in toks[0])
+    assert logits[0] and len(logits[1]) == len(logits[0])
+    for got, want in zip(logits[1], logits[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert toks[1] == toks[0]
+    assert lines["cuda"] == lines["cpu"]
+    assert any("8 completions, 32 tokens" in line for line in lines["cuda"])
+    assert launches[kernel] > 0 and launches["bitserial_median"] > 0
