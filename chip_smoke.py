@@ -48,6 +48,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    paged_clustered_decode in 5h's quota layout (one centroid of count 0,
    a ring of 2,048 positions in 128 blocks of 16, rows at 96-2,048
    positions) against its plain version and, in f32, exact attention);
+   clustered_decode also at 5u's dry-run shape (128 slots, one token, C
+   512, R 256, bf16, two bf16 ulps);
 4. model agreement: the reduced qwen3 in f32 decodes (mixed and plain
    steps, clustered cache) and prefills (logits at ``last_pos`` and the
    exact B=1 cache) with the same numbers on the card as on the CPU;
@@ -210,8 +212,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``run("cuda")`` at its own shapes (SMALL, 'GL', 'GM' in f32, weights
    from seeds 0, 1, 2): no line reads DIVERGED, ``schema problems: 0``,
    ``0 protected shed``, every pool at 0 at drain, the CPU run's 23
-   lines, and clustered_decode, paged_clustered_decode and
-   bitserial_median each launched;
+   lines, the ``[kv]`` rel-err within 0.005 of the CPU run's (an int
+   seed draws the same weights on both), and clustered_decode,
+   paged_clustered_decode and bitserial_median each launched;
+5u. the dry run's qwen3-4b x decode_32k cell in kv_mode "clustered"
+   (``repro_torch.launch.dryrun.run_cell(..., device="cuda",
+   params=...)``) at full width and depth on phase 5's weights: 128
+   slots at position 32,767, C 512 + R 256 entries a kv head (every
+   centroid counted, the ring full), 2 warm steps and 10 timed.  Gates:
+   clustered_decode launched 36 times a step (and 36 in the meta count);
+   the measured step no shorter than the ideal (params and cache read
+   once at the card's HBM rate); the peak allocation within 10 % of the
+   predicted device bytes; every logit finite; the same cell in exact KV
+   (618 GB of cache) counted on meta reads ``fits_80gb`` false.  Printed:
+   the three terms, the ideal, the measured step, the fraction, the
+   peak, and one step under torch.profiler (the host's enqueue time, the
+   device's busy time and idle share);
 5r. qwen3-4b training at full width and depth on the same bf16 weights:
    the port's Trainer for 10 steps of 2 x 1,024 tokens (AdamW lr 3e-4,
    warmup 2, remat, loss chunks of 256, f32 moments), a checkpoint of
@@ -238,11 +254,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    decode 23 x engine steps, clustered_decode 0, ``pool_frees ==
    pool_allocs``, ``pool_blocks_end`` 0; agreement with 5f printed, not
    gated;
-5l. recurrentgemma-9b at full width, depth cut from 38 to 6 layers
-   (two 'RRL' repeats: 4 RG-LRU 'R' layers of width 4,096 and 2 'L'
-   layers, window 2,048; 5l's host-bound serves scale with depth, ~6-7 s
-   a layer on a slow host, where the whole smoke took 995 s at 38 layers
-   and 949 s at 21; d_model
+5l. recurrentgemma-9b at full width, depth cut from 38 to 3 layers
+   (one 'RRL' repeat: 2 RG-LRU 'R' layers of width 4,096 and 1 'L'
+   layer, window 2,048; 5l's host-bound serves scale with depth, ~6-7 s
+   a layer on a slow host, where the whole smoke took 995 s at 38 layers,
+   949 s at 21 and ~1,000 s at 6; d_model
    4,096, 16 heads over 1 kv head of 256, d_ff 12,288, vocab 256,000;
    bf16 weights from ``init_params`` seed 0, the gate weights f32),
    ``max_seq`` 4,096, batch 4, the smoke's KVCompressConfig (inert: no
@@ -330,7 +346,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the wrapper call's CUDA-event time, its plain version, a library
    yardstick (device time too) and the card's bound; clustered_decode in
    its mixed, serve-like mixed (chunk_len [64, 1, 1, 1]) and one-token
-   forms, paged_clustered_decode mixed, decode-only and in 5h's quota
+   forms and one-token at 5u's shape (128 slots, C 512),
+   paged_clustered_decode mixed, decode-only and in 5h's quota
    layout (SDPA over each row's gathered entries), distance_argmin
    in L1 at the fit's shape and L2 at the quickstart's k sweep (5,000 x
    8, K=5), one row each in the kernels line with its ``shape``, and L2
@@ -350,7 +367,9 @@ B2's and B3's ``launches_prefix_share`` from 5i's shared serve,
 from 4b's chunked serves, by pattern, ``launches_moe`` from 5n's
 serves, by mode, B1's and B3's ``launches_frontend`` from 5p's
 blocking serve, and B1's, B2's and B3's ``launches_cli`` from 5s, by
-part, and ``launches_example`` from 5t),
+part, and ``launches_example`` from 5t; B1's
+``launches_dryrun_per_step`` from 5u and its times at 5u's shape under
+``dryrun``),
 and the last line ``{"ok": true, "device": {...}}``; the full record goes
 to ``chiprun_out/chip_smoke.json``.  Each phase's seconds are printed as
 it ends.
@@ -370,11 +389,6 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
-# outside the tensor cores, dense bf16 tensor-core FLOP/s
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
-PEAK_BF16_FLOP_PER_S = 989e12
 
 # serving path shapes of qwen3-4b under the smoke's ServerConfig
 B, L, HQ, HKV, DH, C, R = 4, 64, 32, 8, 128, 64, 256
@@ -451,6 +465,18 @@ CLI_STEPS = [([16, 1, 1, 1], 32), ([1, 16, 1, 1], 32),
 CLI_MED_CASES = [("CLI absorb", N_LAYERS * HKV, CLI_C, 16),
                  ("CLI compaction", N_LAYERS * B * HKV, CLI_C, 16)]
 CLI_ADMISSION = ("CLI admission", N_LAYERS, HKV, CLI_MAX_SEQ, CLI_PLEN)
+# the dry run's qwen3-4b x decode_32k cell in kv_mode "clustered" (5u):
+# 128 slots decoding one token each at C 512 + R 256 entries a kv head
+# (StepOptions' defaults), the served slots near position 32,767; phase 3
+# holds B1 there with wrapped rings, some ring entries behind the frontier
+DRY_ARCH, DRY_SHAPE, DRY_SLOTS, DRY_C, DRY_SEQ = (
+    "qwen3-4b", "decode_32k", 128, 512, 32768)
+DRY_T = [DRY_SEQ - 1 - (7 * b) % 300 for b in range(DRY_SLOTS)]
+DRY_GEO = dict(b=DRY_SLOTS, l=1, dh=DH, c=DRY_C, r=R, t=DRY_T,
+               cov=[t + 1 - R + 10 * (b % 3) for b, t in enumerate(DRY_T)],
+               cl=[1] * DRY_SLOTS)
+# 5u's gates: peak allocation at most this over the predicted device bytes
+DRY_PEAK_SLACK = 1.10
 # bitserial_median at a blocking admission's clustering: _clusterize fits
 # the B=1 prefill cache of every clustered layer at once, (layers x kv
 # heads) members of max_seq points each, weight 1 below the frontier cov of
@@ -680,6 +706,27 @@ def check_clustered_decode(torch, cd, dev):
         say(f"clustered_decode {name}: kernel == plain within {tol} "
             f"(max abs err so far {max_err:.3e})")
     return max_err
+
+
+def check_dryrun_decode(torch, cd, dev):
+    """B1 at the dry-run cell's shape (``DRY_GEO``: 128 slots, C 512, R
+    256, one token, qwen3-4b's heads) in bf16, against its plain version
+    in f32 cast to bf16, within phase 3's two bf16 ulps."""
+    x = decode_inputs(torch, dev, torch.bfloat16, geo=DRY_GEO)
+    x = dict(x, q=x["q"][:, 0].contiguous(), chunk_len=None)
+    got = cd.clustered_decode_cuda(**x, scale=DH ** -0.5)
+    f32 = {k: (v.float() if torch.is_tensor(v) and v.is_floating_point()
+               else v) for k, v in x.items()}
+    want = cd.clustered_decode_plain(**f32, scale=DH ** -0.5).to(
+        torch.bfloat16)
+    torch.cuda.synchronize()
+    tol = 1.6e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    err = (got.float() - want.float()).abs().max().item()
+    say(f"clustered_decode at the dry run's shape (B {DRY_SLOTS}, C "
+        f"{DRY_C}, R {R}, one token, bf16): kernel == plain within {tol} "
+        f"(max abs err {err:.3e})")
+    return err
 
 
 def paged_inputs(torch, x, cl, bucket, seed=1, bs=BS):
@@ -2416,13 +2463,13 @@ def check_rec_tiny(torch, dev, smi):
 # ---------------------------------------------------------------------------
 
 # recurrentgemma-9b: 38 layers 'RRL' (26 'R', 12 'L', window 2,048), cut
-# to RG_LAYERS (4 'R', 2 'L'); mamba2-2.7b: 64 'M' layers.  Per-slot
+# to RG_LAYERS (2 'R', 1 'L'); mamba2-2.7b: 64 'M' layers.  Per-slot
 # recurrent state bytes: an 'R' layer's bf16 (3, lru_width) conv tail and
 # f32 h, an 'M' layer's bf16 (3, d_inner + 2 d_state) conv tail and f32
 # (heads, head_dim, d_state) state
 RG_MAX_SEQ, MAMBA_MAX_SEQ, REC_CHUNK = 4096, 2048, 64
-RG_LAYERS = 6
-RG_STATE_B = 4 * (3 * 4096 * 2 + 4096 * 4)
+RG_LAYERS = 3
+RG_STATE_B = 2 * (3 * 4096 * 2 + 4096 * 4)    # RG_LAYERS' 2 'R' layers
 MAMBA_STATE_B = 64 * (3 * 5376 * 2 + 80 * 64 * 128 * 4)
 
 
@@ -3429,8 +3476,13 @@ CLI_BLOCKING_LINES = ("[serve] padding waste: ", "[serve] clustered KV: ",
                       "[serve] blocking prefill: ",
                       "[serve] bucketed launches: ")
 # the example twin's line count on the CPU (tests/test_torch_serve_example.py
-# GOLDEN: the reference example's lines)
+# GOLDEN: the reference example's lines), and its [kv] attention rel-err
+# from a CPU run (``python examples/serve_clustered_kv_torch.py --device
+# cpu``, weights drawn from seeds 0, 1, 2 on the CPU generator, as an int
+# seed draws them on the card too), which 5t must come within
+# EXAMPLE_REL_ERR_TOL of
 EXAMPLE_LINES = 23
+EXAMPLE_REL_ERR_CPU, EXAMPLE_REL_ERR_TOL = 0.10601958632469177, 0.005
 
 
 def cli_serves(torch, argv, params):
@@ -3467,7 +3519,8 @@ def cli_serves(torch, argv, params):
 def serve_cli_full(torch, dev, smi, params):
     """Phase 5s: the serving CLI on qwen3-4b at full width and depth (see
     the module docstring): (a) blocking clustered in a subprocess drawing
-    its own weights, (b) the priority demo traced and (c) the template
+    its own weights from ``--seed`` (on the host's CPU generator, as an
+    int seed draws), (b) the priority demo traced and (c) the template
     store on phase 5's weights, in process."""
     import os
 
@@ -3651,6 +3704,9 @@ def serve_example_full(torch, dev, smi):
         problems.append(f"pools at drain {out['pool_blocks_end']}")
     if len(lines) != EXAMPLE_LINES:
         problems.append(f"{len(lines)} lines, the CPU run's {EXAMPLE_LINES}")
+    if abs(out["rel_err"] - EXAMPLE_REL_ERR_CPU) > EXAMPLE_REL_ERR_TOL:
+        problems.append(f"[kv] rel-err {out['rel_err']:.6f}, the CPU run's "
+                        f"{EXAMPLE_REL_ERR_CPU:.6f}")
     for k in ("clustered_decode", "paged_clustered_decode",
               "bitserial_median"):
         if not launches[k] > 0:
@@ -3661,6 +3717,81 @@ def serve_example_full(torch, dev, smi):
         raise AssertionError("5t example twin: " + "; ".join(problems))
     return {"lines": lines, "launches": launches, "wall_s": wall,
             "rel_err": out["rel_err"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 5u: the dry run's decode cell on the card
+# ---------------------------------------------------------------------------
+
+
+def dryrun_cell_full(torch, dev, smi, params):
+    """Phase 5u: ``launch.dryrun.run_cell`` of qwen3-4b x decode_32k in
+    kv_mode "clustered" on the card at full width and depth, on phase 5's
+    weights, and the count of the same cell in kv_mode "exact" on meta."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analysis
+
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(DRY_ARCH, DRY_SHAPE, {"kv_mode": "clustered"},
+                          device="cuda", params=params)
+    row = analysis.analyze_record(rec)
+    exact = dryrun.run_cell(DRY_ARCH, DRY_SHAPE, {"kv_mode": "exact"},
+                            device="meta")
+    exact_row = analysis.analyze_record(exact)
+    wall = time.perf_counter() - t0
+    mem = rec["memory_analysis"]
+    predicted = mem["argument_bytes"] + mem["output_bytes"] \
+        - mem["alias_bytes"]
+    peak = mem["argument_bytes"] + mem["temp_bytes"]
+    layers = len(params["layers"])
+    b1 = rec["launches_per_step"]["clustered_decode"]
+    problems = []
+    if b1 != layers:
+        problems.append(f"clustered_decode launched {b1} times a step, not "
+                        f"{layers}")
+    if rec["op_stats"]["kernels"]["clustered_decode"]["launches"] != layers:
+        problems.append("the meta count does not hold one clustered_decode "
+                        "a layer")
+    if row["measured_s"] < row["ideal_s"]:
+        problems.append(f"measured step {row['measured_s']} s below the "
+                        f"ideal {row['ideal_s']} s")
+    if peak > DRY_PEAK_SLACK * predicted:
+        problems.append(f"peak {peak} B over {DRY_PEAK_SLACK} x the "
+                        f"predicted {predicted} B")
+    if not rec["logits_finite"]:
+        problems.append("a logit is not finite")
+    if exact_row["fits_80gb"]:
+        problems.append("exact KV reads fits_80gb true")
+    t = row["terms_s"]
+    prof = rec["profile"]
+    busy = prof["device_busy_s"]
+    say(f"[{smi}] 5u dry run {DRY_ARCH} x {DRY_SHAPE} (clustered, "
+        f"{layers} layers): terms compute {t['compute'] * 1e3:.4f} ms, "
+        f"memory {t['memory'] * 1e3:.4f} ms, collective "
+        f"{t['collective'] * 1e3:.4f} ms (spec constants); ideal "
+        f"{row['ideal_s'] * 1e3:.4f} ms; measured step "
+        f"{row['measured_s'] * 1e3:.4f} ms (median of "
+        f"{len(rec['measured_step_ms'])}); fraction "
+        f"{row['measured_fraction']}; peak {peak / 1e9:.3f} GB against "
+        f"{predicted / 1e9:.3f} GB predicted; clustered_decode {b1} a step; "
+        f"{rec['op_stats']['aten_ops']} aten ops a step; profiled step "
+        f"{prof['profiled_step_s'] * 1e3:.3f} ms, host enqueue "
+        f"{prof['host_enqueue_s'] * 1e3:.3f} ms, device busy "
+        f"{'not measured' if busy is None else f'{busy * 1e3:.3f} ms'}, "
+        f"idle share {prof['idle_share']}; exact KV "
+        f"{exact_row['device_bytes'] / 1e9:.1f} GB, fits 80 GB "
+        f"{exact_row['fits_80gb']}; {wall:.1f} s")
+    if problems:
+        raise AssertionError("5u dry run: " + "; ".join(problems))
+    keep = ("info", "memory_analysis", "measured_step_ms", "first_step_s",
+            "launches_per_step", "logits_finite", "profile", "card")
+    return {"record": {k: rec[k] for k in keep},
+            "op_stats": {k: v for k, v in rec["op_stats"].items()
+                         if k != "by_op"},
+            "card_op_stats": {k: v for k, v in rec["card_op_stats"].items()
+                              if k != "by_op"},
+            "row": row, "exact_row": exact_row, "peak_bytes": peak,
+            "predicted_bytes": predicted, "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -4217,63 +4348,27 @@ def quickstart(torch, dev):
 # ---------------------------------------------------------------------------
 
 
-def decode_flops(counts, cl):
-    """Flops of the valid rows (chunk rows i < cl[b]) against the entries
-    they can see, for q.k and for p.v alike, 2 flops per multiply-add."""
-    counts = counts.cpu().numpy()                              # (B, C, Hkv)
-    flops = 0
-    g = HQ // HKV
-    for b in range(B):
-        tw = T_SLOTS[b] + cl[b]
-        s = np.arange(R)
-        pos = s if tw <= R else tw - R + np.mod(s - tw, R)
-        for i in range(cl[b]):
-            ring = int(((pos >= COV_SLOTS[b]) & (pos <= T_SLOTS[b] + i)).sum())
-            cents = (counts[b] > 0).sum(0)                     # (Hkv,)
-            flops += int(((cents + ring) * g).sum()) * DH * 2
-    return flops
+def roofline_work():
+    """``src/repro_torch/roofline/work.py`` of this checkout, the kernels'
+    work models and bounds that the dry run counts with, loaded by path:
+    benchmarks/time_kernels.py puts another commit's ``src`` first on the
+    path to time its kernels."""
+    import importlib.util
+
+    name = "chip_smoke_roofline_work"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "src" / "repro_torch" / "roofline" / "work.py")
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    return sys.modules[name]
 
 
-def decode_work(x, cl):
-    """Bytes each input read once and each output written once, and the
-    flops of the valid rows against the entries they can see: ``(bytes,
-    q.k flops, p.v flops)``."""
-    nbytes = sum(v.numel() * v.element_size() for v in x.values()
-                 if v is not None)
-    nbytes += x["q"].numel() * x["q"].element_size()          # output
-    flops = decode_flops(x["counts"], cl)
-    return nbytes, flops, flops
-
-
-def paged_work(args, rows, n_mapped, cl):
-    """The least bytes paged_clustered_decode must move for these rows:
-    each real row's q and output once, each slot's centroids and counts
-    once, each mapped pool block once, the row vectors, group table and
-    block-table rows once; and the same flops as the dense rows they
-    equal."""
-    el = args["q"].element_size()
-    n = len(rows)
-    nbytes = 2 * n * HQ * DH * el                          # q in, out
-    nbytes += B * C * HKV * (2 * DH * el + 4)              # cents, counts
-    nbytes += 2 * n_mapped * BS * HKV * DH * el            # k/v blocks
-    nbytes += n * 4 * (6 + args["row_bt"].shape[1])        # int vectors
-    flops = decode_flops(args["counts"], cl)
-    return nbytes, flops, flops
-
-
-def bound(nbytes, ops):
-    """Least time in ms: bytes over the memory rate, or the operations,
-    given as (flops, rate) pairs, each over its rate, whichever is longer."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = sum(f / rate for f, rate in ops) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def decode_bound(nbytes, fl_qk, fl_pv):
-    """B1, B2 and B5: q.k of bf16 operands on the bf16 tensor cores (exact in
-    f32); p.v as the kernels compute it, two bf16 tensor-core products
-    (p = hi + lo)."""
-    return bound(nbytes, [(fl_qk + 2 * fl_pv, PEAK_BF16_FLOP_PER_S)])
+def work_fields(w):
+    """The bound columns of a kernel's work model."""
+    b_ms, b_by = w.bound()
+    return dict(bound_ms=b_ms, bound_by=b_by, bytes=w.nbytes,
+                **{k: v for k, v in w.detail.items() if k != "worst_case"})
 
 
 def sdpa_yardstick(torch, x):
@@ -4282,9 +4377,10 @@ def sdpa_yardstick(torch, x):
     timed call).  q (B, L, Hq, Dh) with chunk_len, or (B, Hq, Dh)."""
     import torch.nn.functional as F
 
-    g = HQ // HKV
     q = x["q"] if x["q"].dim() == 4 else x["q"][:, None]
-    n_l = q.shape[1]
+    b, n_l, hq, _ = q.shape
+    c, r = x["k_cents"].shape[1], x["k_tail"].shape[1]
+    g = hq // x["k_tail"].shape[2]
     k = torch.cat([x["k_cents"], x["k_tail"]], 1).transpose(1, 2)
     v = torch.cat([x["v_cents"], x["v_tail"]], 1).transpose(1, 2)
     k = k.repeat_interleave(g, 1).contiguous()                 # (B, Hq, E, Dh)
@@ -4295,17 +4391,17 @@ def sdpa_yardstick(torch, x):
     bias_c = torch.where(cnt > 0, torch.log(cnt.clamp_min(1e-9)),
                          torch.full_like(cnt, -1e30))[:, :, None, :]
     cl = x["chunk_len"]
-    cl = (torch.ones(B, dtype=torch.long, device=dev) if cl is None
+    cl = (torch.ones(b, dtype=torch.long, device=dev) if cl is None
           else cl.long())
     t = x["t"].long()[:, None]
     tw = t + cl[:, None]
-    s = torch.arange(R, device=dev)[None]
-    pos = torch.where(tw <= R, s, tw - R + torch.remainder(s - tw, R))
+    s = torch.arange(r, device=dev)[None]
+    pos = torch.where(tw <= r, s, tw - r + torch.remainder(s - tw, r))
     i = torch.arange(n_l, device=dev)[None, :, None]
     ok = ((pos[:, None, :] <= t[:, :, None] + i)
           & (pos[:, None, :] >= x["cov"].long()[:, None, None]))
-    bias_t = torch.where(ok, 0.0, -1e30)[:, None].expand(B, HQ, n_l, R)
-    mask = torch.cat([bias_c.expand(B, HQ, n_l, C), bias_t], -1).to(q.dtype)
+    bias_t = torch.where(ok, 0.0, -1e30)[:, None].expand(b, hq, n_l, r)
+    mask = torch.cat([bias_c.expand(b, hq, n_l, c), bias_t], -1).to(q.dtype)
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   scale=DH ** -0.5)
 
@@ -4363,13 +4459,11 @@ def time_clustered(torch, cd, x, cl, plain=False):
     time and bound; the plain version's call time when ``plain``."""
     kw = dict(scale=DH ** -0.5)
     run = lambda: cd.clustered_decode_cuda(**x, **kw)     # noqa: E731
-    nb, fl_qk, fl_pv = decode_work(x, cl)
-    b_ms, b_by = decode_bound(nb, fl_qk, fl_pv)
     out = dict(ms=device_ms(torch, run, "clustered_decode_kernel"),
                call_ms=time_ms(torch, run),
                library_ms=device_ms(torch, sdpa_yardstick(torch, x)),
-               bound_ms=b_ms, bound_by=b_by, bytes=nb, flops_qk=fl_qk,
-               flops_pv=fl_pv, chunk_len=list(cl))
+               chunk_len=list(cl),
+               **work_fields(roofline_work().clustered_decode_work(**x)))
     out["plain_ms"] = (time_ms(torch, lambda: cd.clustered_decode_plain(
         **x, **kw)) if plain else None)
     return out
@@ -4383,15 +4477,17 @@ def time_paged(torch, pcd, x, cl, bucket, plain=False):
     args = with_groups(torch, pcd, args)
     kw = dict(scale=DH ** -0.5)
     run = lambda: pcd.paged_clustered_decode_cuda(**args, **kw)  # noqa: E731
-    nb, fl_qk, fl_pv = paged_work(args, rows, n_mapped, cl)
-    b_ms, b_by = decode_bound(nb, fl_qk, fl_pv)
     out = dict(ms=device_ms(torch, run, "paged_clustered_decode_kernel"),
                call_ms=time_ms(torch, run),
                library_ms=device_ms(torch,
                                     paged_sdpa_yardstick(torch, args)),
-               bound_ms=b_ms, bound_by=b_by, bytes=nb, flops_qk=fl_qk,
-               flops_pv=fl_pv, rows=len(rows), bucket=bucket,
-               mapped_blocks=n_mapped)
+               bucket=bucket, **work_fields(
+                   roofline_work().paged_clustered_decode_work(**args)))
+    if (out["rows"], out["mapped_blocks"]) != (len(rows), n_mapped):
+        raise AssertionError(
+            f"paged work model: {out['rows']} rows over "
+            f"{out['mapped_blocks']} blocks, the layout's {len(rows)} over "
+            f"{n_mapped}")
     out["plain_ms"] = (time_ms(torch, lambda: (
         pcd.paged_clustered_decode_plain(**args, **kw))) if plain else None)
     return out
@@ -4410,19 +4506,18 @@ def time_paged_quota(torch, pcd, dev, plain=True):
     args = with_groups(torch, pcd, args)
     kw = dict(scale=DH ** -0.5)
     run = lambda: pcd.paged_clustered_decode_cuda(**args, **kw)  # noqa: E731
-    el = args["q"].element_size()
-    nbytes = (2 * B * HQ * DH * el + B * HKV * (2 * DH * el + 4)
-              + 2 * needed * BS * HKV * DH * el + B * 4 * (6 + Q_R // BS))
-    flops = sum(p + 1 for p in Q_POS) * HQ * DH * 2
-    b_ms, b_by = decode_bound(nbytes, flops, flops)
     out = dict(ms=device_ms(torch, run, "paged_clustered_decode_kernel"),
                call_ms=time_ms(torch, run),
                library_ms=device_ms(torch,
                                     paged_sdpa_yardstick(torch, args)),
-               bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops_qk=flops,
-               flops_pv=flops, rows=B, needed_blocks=needed,
+               needed_blocks=needed,
                shape=f"{B} decode rows at {Q_POS}, C 1 (count 0), ring "
-                     f"{Q_R} in {Q_R // BS} blocks of {BS}")
+                     f"{Q_R} in {Q_R // BS} blocks of {BS}",
+               **work_fields(roofline_work().paged_clustered_decode_work(
+                   **args)))
+    if out["mapped_blocks"] != needed:
+        raise AssertionError(f"quota work model: {out['mapped_blocks']} "
+                             f"blocks, the layout's {needed}")
     out["plain_ms"] = (time_ms(torch, lambda: (
         pcd.paged_clustered_decode_plain(**args, **kw))) if plain else None)
     return out
@@ -4432,13 +4527,16 @@ def decode_times(torch, cd, pcd, dev, plain=True):
     """B1 in its mixed (chunk_len CL_SLOTS), serve-like mixed (CL_SERVE:
     what the engine launches while one prompt is admitted) and one-token
     forms, and B2 in its mixed (the phase-3 rows, 256-row bucket) and
-    decode-only (one row per slot) forms, bf16.
+    decode-only (one row per slot) forms, bf16; B1 also one-token at the
+    dry run's cell (``DRY_GEO``: 128 slots, C 512).
     benchmarks/time_kernels.py runs it against another commit's
     kernels."""
     x = decode_inputs(torch, dev, torch.bfloat16)
     xs = dict(x, chunk_len=torch.tensor(CL_SERVE, dtype=torch.int32,
                                         device=dev))
     x1 = dict(x, q=x["q"][:, 0].contiguous(), chunk_len=None)
+    xd = decode_inputs(torch, dev, torch.bfloat16, geo=DRY_GEO)
+    xd = dict(xd, q=xd["q"][:, 0].contiguous(), chunk_len=None)
     return {
         "clustered_decode": time_clustered(torch, cd, x, CL_SLOTS, plain),
         "clustered_decode serve_mixed": time_clustered(torch, cd, xs,
@@ -4451,6 +4549,8 @@ def decode_times(torch, cd, pcd, dev, plain=True):
             torch, pcd, x, [1] * B, B, plain),
         "paged_clustered_decode quota": time_paged_quota(torch, pcd, dev,
                                                          plain),
+        "clustered_decode dryrun": time_clustered(torch, cd, xd,
+                                                  [1] * DRY_SLOTS),
     }
 
 
@@ -4462,36 +4562,25 @@ def time_median(torch, bsm, u, a, k, w, bits, plain_n):
     and the kernel reads no word of a point of weight 0) read once, the
     int64 medians and f32 totals written once; ``bytes_all`` counts every
     point's words.  Operations: one f32 vote add per (voting point,
-    column, bit), at the f32 rate."""
-    m = int(np.prod(u.shape[:-2]))
-    n, d = u.shape[-2:]
+    column, bit), at the f32 rate (``roofline/work.py``)."""
     run = lambda: bsm.grouped_median_bits_cuda(u, a, k, w,  # noqa: E731
                                                bits=bits)
     plain = time_ms(torch, lambda: bsm.grouped_median_bits_plain(
         u, a, k, weights=w, bits=bits), n=plain_n, warm=1) if plain_n \
         else None
-    voting = (a >= 0) & (a < k)
-    if w is not None:
-        voting &= torch.broadcast_to(w, a.shape) != 0
-    n_vote = int(voting.sum().item())
-    side = m * (n * 4 + (n * 4 if w is not None else 0) + k * d * 8 + k * 4)
-    nbytes = side + n_vote * d * 8
-    votes = n_vote * d * bits
-    b_ms, b_by = bound(nbytes, [(votes, PEAK_F32_FLOP_PER_S)])
+    w_model = roofline_work().bitserial_median_work(u, a, k, w, bits=bits)
     return dict(ms=device_ms(torch, run, REPRO_KERNELS),
                 call_ms=time_ms(torch, run), plain_ms=plain,
-                library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-                bytes_all=side + m * n * d * 8, voting_points=n_vote,
-                votes=votes,
+                library_ms=None, votes=w_model.flops,
                 library="none: no PyTorch call computes a weighted "
-                        "per-cluster median")
+                        "per-cluster median", **work_fields(w_model))
 
 
 def time_flash_decode(torch, fd, dev, plain=True):
     """B5 in bf16 at the phase-3 shape: kernel, plain (unless not
     ``plain``), SDPA (enable_gqa, boolean mask of the positions < t) and
     bound.  Bytes: q and the output once, the keys and values of the t
-    visible positions once; operations as ``decode_bound`` counts them:
+    visible positions once; operations as the decode work models count them:
     the kernel runs q.k and p.v (p = hi + lo) on bf16 tensor cores, as
     B1 and B2 do."""
     import torch.nn.functional as F
@@ -4506,14 +4595,10 @@ def time_flash_decode(torch, fd, dev, plain=True):
     mask = (torch.arange(FD_S, device=dev) < FD_T)[None, None, None, :]
     lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
         q4, k4, v4, attn_mask=mask, enable_gqa=True, **kw))
-    el = q.element_size()
-    nbytes = 2 * q.numel() * el + 2 * B * FD_T * HKV * DH * el
-    flops = 2 * B * HQ * FD_T * DH
-    b_ms, b_by = decode_bound(nbytes, flops, flops)
     return dict(ms=device_ms(torch, run, REPRO_KERNELS),
                 call_ms=time_ms(torch, run), plain_ms=plain_ms,
-                library_ms=lib, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-                flops_qk=flops, flops_pv=flops)
+                library_ms=lib, **work_fields(
+                    roofline_work().flash_decode_work(q, k, v, FD_T)))
 
 
 def time_distance(torch, da, x, c, metric, plain=True):
@@ -4527,21 +4612,14 @@ def time_distance(torch, da, x, c, metric, plain=True):
     run = lambda: da.distance_argmin_cuda(x, c, metric=metric)  # noqa: E731
     p = 1.0 if metric == "l1" else 2.0
     lib = lambda: torch.cdist(x, c, p=p).min(1)                 # noqa: E731
-    nbytes = 4 * (n * d + k * d + 2 * n)
-    # FP32-pipe instructions issued per (point, centroid): L1 2D + 1 (a
-    # subtract and an add with |.| folded into it per dim, the compare);
-    # L2 D + 4 (an FFMA per dim; x2 - 2 xc, + |c|^2, the clamp, the
-    # compare), plus |x|^2 once a point (N D)
-    instr = (n * k * (2 * d + 1) if metric == "l1"
-             else n * k * (d + 4) + n * d)
-    b_ms, b_by = bound(nbytes, [(instr, PEAK_F32_FLOP_PER_S / 2)])
+    w_model = roofline_work().distance_argmin_work(n, d, k, metric)
     a, m = run()
     plain_ms = (time_ms(torch, lambda: da.distance_argmin_plain(
         x, c, metric=metric), n=20, warm=2) if plain else None)
     return dict(ms=device_ms(torch, run, REPRO_KERNELS),
                 call_ms=time_ms(torch, run), plain_ms=plain_ms,
-                library_ms=device_ms(torch, lib), bound_ms=b_ms,
-                bound_by=b_by, bytes=nbytes, instructions=instr,
+                library_ms=device_ms(torch, lib),
+                instructions=w_model.flops, **work_fields(w_model),
                 assign_sha256=sha16(a), mind_sha256=sha16(m),
                 shape=f"{n} x {d}, K {k}")
 
@@ -4631,7 +4709,8 @@ def main() -> int:
                   check_moe_decode(torch, cd, pcd, dev, HQ, HKV,
                                    "serving CLI", CLI_GEO, CLI_STEPS))
     quota_err = check_paged_quota(torch, attention, pcd, dev)
-    cd_err = max(cd_err, gemma_err, tiny_err, moe_err)
+    dry_err = check_dryrun_decode(torch, cd, dev)
+    cd_err = max(cd_err, gemma_err, tiny_err, moe_err, dry_err)
     pcd_err = max(pcd_err, gemma_err, tiny_err, moe_err, quota_err)
     da_err = check_distance_argmin(torch, da, dev)
     bsm_err = max(check_bitserial_median(torch, bsm, dev),
@@ -4721,6 +4800,12 @@ def main() -> int:
     example = serve_example_full(torch, dev, smi)
     record["serve_example"] = example
     done("5t example twin")
+
+    # phase 5u: the dry run's qwen3-4b x decode_32k cell (clustered) on the
+    # card, on the same weights, before training moves them
+    dry = dryrun_cell_full(torch, dev, smi, params)
+    record["dryrun"] = dry
+    done("5u dry run")
 
     # phase 5r: qwen3-4b training at full width on the same weights
     train_full = train_qwen3_full(torch, dev, smi, params)
@@ -4828,6 +4913,10 @@ def main() -> int:
                  "clustered_decode"],
              launches_cli=cli["a"]["launches"]["clustered_decode"],
              launches_example=example["launches"]["clustered_decode"],
+             launches_dryrun_per_step=dry["record"]["launches_per_step"][
+                 "clustered_decode"],
+             dryrun={k: tm["clustered_decode dryrun"][k] for k in
+                     ("ms", "bound_ms", "bound_by", "library_ms")},
              max_abs_err=cd_err, ms=tm["clustered_decode"]["ms"],
              plain_ms=tm["clustered_decode"]["plain_ms"],
              bound_ms=tm["clustered_decode"]["bound_ms"],

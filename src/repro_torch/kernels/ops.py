@@ -11,6 +11,15 @@ Each wrapper carries a plain integer ``launches`` that it bumps where it
 launches its kernel and nowhere else (``distance_argmin``: one integer per
 metric), so a run can show that its main path went through the kernels
 (``reset_launches`` / ``launch_counts``).
+
+A ``meta`` tensor (the dry run's count, ``launch/dryrun.py``) reaches
+neither the kernel nor the plain version: the wrapper returns its
+outputs' shapes and dtypes.  Whatever the device, under an active
+``roofline.op_count.OpCounter`` each call records one launch with the
+kernel's work model (``roofline/work.py``; ``op_count.counted``), so the
+counts of the CPU, the card and ``meta`` agree; with no counter in force
+a call costs one thread-local read more.  ``launches`` stays the card's
+count.
 """
 
 from __future__ import annotations
@@ -24,18 +33,22 @@ from repro_torch.kernels import clustered_decode as _cd
 from repro_torch.kernels import distance_argmin as _da
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import paged_clustered_decode as _pcd
+from repro_torch.roofline import op_count
+from repro_torch.roofline import work as _work
 
 
-def use_kernel_for(x: torch.Tensor) -> bool:
-    """True when ``x`` lies on a CUDA device: the kernel runs; False on
-    the CPU: the plain version runs."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel backend for device {x.device}")
+def route(x: torch.Tensor) -> str:
+    """"kernel" for a CUDA tensor (the kernel runs), "plain" for a CPU
+    one (the plain version runs), "meta" on the meta device (shapes
+    only); any other device raises."""
+    kind = {"cuda": "kernel", "cpu": "plain", "meta": "meta"}.get(
+        x.device.type)
+    if kind is None:
+        raise ValueError(f"no kernel backend for device {x.device}")
+    return kind
 
 
+@op_count.counted("bitserial_median", _work.bitserial_median_work)
 def grouped_median_bits(u: torch.Tensor, assign: torch.Tensor, k: int,
                         weights: Optional[torch.Tensor] = None, *,
                         bits: int = 32):
@@ -44,26 +57,43 @@ def grouped_median_bits(u: torch.Tensor, assign: torch.Tensor, k: int,
     u (..., N, D) int64, assign (..., N) → (med (..., k, D) int64, totals
     (..., k) f32).  On the card the kernel runs at every N: the reference's
     fallback above ``MAX_KERNEL_POINTS`` is a TPU VMEM limit."""
-    if use_kernel_for(u):
+    how = route(u)
+    if how == "kernel":
         grouped_median_bits.launches += 1
         return _bsm.grouped_median_bits_cuda(u, assign, k, weights,
                                              bits=bits)
+    if how == "meta":
+        lead = u.shape[:-2]
+        return (u.new_empty(*lead, k, u.shape[-1]),
+                u.new_empty(*lead, k, dtype=torch.float32))
     return _bsm.grouped_median_bits_plain(u, assign, k, weights=weights,
                                           bits=bits)
 
 
+@op_count.counted(
+    lambda x, cents, *, metric="l2": f"distance_argmin {metric}",
+    lambda x, cents, *, metric="l2": _work.distance_argmin_work(
+        x.shape[0], x.shape[1], cents.shape[0], metric))
 def distance_argmin(x: torch.Tensor, cents: torch.Tensor, *,
                     metric: str = "l2"):
     """Closest-centroid assignment: (assign (N,) int32, mindist (N,)).
     Launches are counted per metric (``distance_argmin l1`` and
     ``distance_argmin l2`` in ``launch_counts``, beside their sum)."""
-    if use_kernel_for(x):
+    how = route(x)
+    if how == "kernel":
         out = _da.distance_argmin_cuda(x, cents, metric=metric)
         distance_argmin.launches[metric] += 1
         return out
+    if how == "meta":
+        n = x.shape[0]
+        return (x.new_empty(n, dtype=torch.int32),
+                x.new_empty(n, dtype=torch.float32))
     return _da.distance_argmin_plain(x, cents, metric=metric)
 
 
+@op_count.counted("clustered_decode",
+                  lambda *a, scale, softcap=None, **kw:
+                  _work.clustered_decode_work(*a, **kw))
 def clustered_decode(q, k_cents, v_cents, counts, k_tail, v_tail, t, cov,
                      chunk_len=None, *, scale: float,
                      softcap: Optional[float] = None):
@@ -71,16 +101,22 @@ def clustered_decode(q, k_cents, v_cents, counts, k_tail, v_tail, t, cov,
 
     q (B, Hq, Dh) for plain decode, or (B, L, Hq, Dh) for the mixed launch
     with per-slot ``chunk_len`` (B,) valid rows → output shaped like q."""
-    if use_kernel_for(q):
+    how = route(q)
+    if how == "kernel":
         clustered_decode.launches += 1
         return _cd.clustered_decode_cuda(
             q, k_cents, v_cents, counts, k_tail, v_tail, t, cov, chunk_len,
             scale=scale, softcap=softcap)
+    if how == "meta":
+        return torch.empty_like(q)
     return _cd.clustered_decode_plain(
         q, k_cents, v_cents, counts, k_tail, v_tail, t, cov, chunk_len,
         scale=scale, softcap=softcap)
 
 
+@op_count.counted("paged_clustered_decode",
+                  lambda *a, scale, softcap=None, **kw:
+                  _work.paged_clustered_decode_work(*a, **kw))
 def paged_clustered_decode(q, k_cents, v_cents, counts, k_pool, v_pool,
                            row_slot, row_bt, qpos1, tw, cov, row_wlo=None,
                            row_group=None, *, scale: float,
@@ -95,26 +131,33 @@ def paged_clustered_decode(q, k_cents, v_cents, counts, k_pool, v_pool,
     window floor (None: zeros, frontier-only masking); ``row_group`` (N,)
     the kernel's row groups (``paged_clustered_decode.group_rows``; None:
     one row each) → (N, Hq, Dh)."""
-    if use_kernel_for(q):
+    how = route(q)
+    if how == "kernel":
         paged_clustered_decode.launches += 1
         return _pcd.paged_clustered_decode_cuda(
             q, k_cents, v_cents, counts, k_pool, v_pool, row_slot, row_bt,
-            qpos1, tw, cov, row_wlo, row_group, scale=scale,
-            softcap=softcap)
+            qpos1, tw, cov, row_wlo, row_group, scale=scale, softcap=softcap)
+    if how == "meta":
+        return torch.empty_like(q)
     return _pcd.paged_clustered_decode_plain(
         q, k_cents, v_cents, counts, k_pool, v_pool, row_slot, row_bt,
         qpos1, tw, cov, row_wlo, row_group, scale=scale, softcap=softcap)
 
 
+@op_count.counted("flash_decode",
+                  lambda q, k, v, t, **_: _work.flash_decode_work(q, k, v, t))
 def flash_decode(q, k, v, t, *, scale: float, softcap: Optional[float] = None,
                  chunk: int = 512):
     """One-token exact GQA attention over a (B, S, Hkv, Dh) cache, positions
     < t: q (B, Hq, Dh) → (B, Hq, Dh).  Nothing in the model calls it, as
     nothing in the reference's does."""
-    if use_kernel_for(q):
+    how = route(q)
+    if how == "kernel":
         flash_decode.launches += 1
         return _fd.flash_decode_cuda(q, k, v, t, scale=scale,
                                      softcap=softcap, chunk=chunk)
+    if how == "meta":
+        return torch.empty_like(q)
     return _fd.flash_decode_plain(q, k, v, t, scale=scale, softcap=softcap,
                                   chunk=chunk)
 

@@ -201,8 +201,10 @@ def make_prefill_step(cfg: ModelConfig, cell: ShapeCell,
                       opts: StepOptions = StepOptions()):
     """``step(params, batch) -> (logits (B, V) f32, cache)``: the cell's
     prefill (an encoder-decoder's cache holds half the cell's length, its
-    encoder frames the other half).  The batch (numpy or tensors) moves
-    to the parameters' device."""
+    encoder frames the other half).  Recurrent layers take the parallel
+    forms (``recurrent_mode="scan"``), the reference's prefill default;
+    the serving engine steps them instead.  The batch (numpy or tensors)
+    moves to the parameters' device."""
     max_seq = cell.seq_len // 2 if cfg.is_encdec else cell.seq_len
 
     def step(params, batch):
@@ -211,7 +213,8 @@ def make_prefill_step(cfg: ModelConfig, cell: ShapeCell,
             return tfm.prefill(params, cfg, batch["tokens"], max_seq=max_seq,
                                frontend_embeds=batch.get("frontend_embeds"),
                                enc_embeds=batch.get("enc_embeds"),
-                               kv_repeat=opts.kv_repeat)
+                               kv_repeat=opts.kv_repeat,
+                               recurrent_mode="scan")
 
     return step
 

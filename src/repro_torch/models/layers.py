@@ -9,6 +9,8 @@ same thing; norm scales stay f32, as ``apply_norm`` uses them.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -34,13 +36,22 @@ def resolve_device(device=None) -> torch.device:
 
 def dense_init(generator: torch.Generator, shape, scale: float = 0.02, *,
                dtype=torch.float32, device=None) -> torch.Tensor:
-    """Truncated-normal (±2σ) init drawn from ``generator`` in f32, scaled,
-    cast to ``dtype`` once."""
-    w = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    """Truncated-normal (±2σ) init drawn from ``generator`` in f32 on the
+    generator's device, scaled and cast to ``dtype`` there, then moved to
+    ``device`` (None: the generator's).  A CPU generator thus gives the
+    same leaf on every device.  The draw is the inverse CDF of a uniform
+    (erfinv), spelled out here because ``nn.init.trunc_normal_`` changes
+    its algorithm between torch versions.  On ``meta`` nothing is drawn."""
+    dev = generator.device if device is None else torch.device(device)
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=dev)
+    w = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    lo, hi = (math.erf(x / math.sqrt(2.0)) for x in (-2.0, 2.0))
+    w.uniform_(lo, hi, generator=generator)
     # scaled in place: one f32 draw alive at a time (a deepseek-v3 expert
     # bank is 15 GB in f32)
-    return w.mul_(scale).to(dtype)
+    w.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(scale)
+    return w.to(dtype).to(dev)
 
 
 # ---------------------------------------------------------------------------

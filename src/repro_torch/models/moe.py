@@ -128,7 +128,10 @@ def _dispatch_compute(p, x_flat: torch.Tensor, cfg: ModelConfig):
     sort_idx = torch.argsort(flat_e, stable=True)
     ranks = torch.empty_like(sort_idx)
     ranks[sort_idx] = torch.arange(tk, device=dev)
-    counts = torch.bincount(flat_e, minlength=e)          # (E,) int64
+    # (E,) int64: bincount as a scatter-add, which also runs on the meta
+    # device (the dry run's count)
+    counts = torch.zeros(e, dtype=torch.int64, device=dev).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos = ranks - starts[flat_e]
     keep = pos < cap

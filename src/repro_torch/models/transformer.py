@@ -147,11 +147,14 @@ def init_sublayer(generator, cfg: ModelConfig, kind: str,
 
 
 def init_params(generator, cfg: ModelConfig, device=None):
-    """Random parameters from ``generator`` (a ``torch.Generator`` on
-    ``device``, or an int seed).  Weights are drawn in f32 and stored in
-    ``cfg.dtype``.  ``device`` None means CUDA.  The draws are not the
-    reference's ``jax.random`` draws; for parity, load the reference's
-    parameters through ``bridge.params_from_numpy``.  Under a frontend
+    """Random parameters from ``generator`` (a ``torch.Generator``, or
+    an int seed), placed on ``device`` (None means CUDA).  Weights are
+    drawn in f32 on the generator's device and stored in ``cfg.dtype``.
+    An int seed seeds a CPU generator, leaf by leaf moved to ``device``,
+    so one seed gives one model on every device; a generator on the card
+    draws there (faster at full width, another model).  The draws are not
+    the reference's ``jax.random`` draws; for parity, load the
+    reference's parameters through ``bridge.params_from_numpy``.  Under a frontend
     the tree has "frontend", for an encoder-decoder "encoder" (its 'G'
     layers and final norm) and cross-attention in every decoder layer;
     under ``cfg.mtp_depth`` > 0 "mtp", DeepSeek's multi-token-prediction
@@ -159,7 +162,7 @@ def init_params(generator, cfg: ModelConfig, device=None):
     check_supported(cfg)
     dev = resolve_device(device)
     if not isinstance(generator, torch.Generator):
-        generator = torch.Generator(device=dev).manual_seed(int(generator))
+        generator = torch.Generator().manual_seed(int(generator))
     n_prefix = layout(cfg)[0]
     moe = cfg.moe is not None
     p = {"embed": init_embed(generator, cfg, dev)}

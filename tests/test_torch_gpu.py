@@ -1431,3 +1431,55 @@ def test_serve_cli_on_card_prints_the_cpu_counts(cuda, flags, kernel,
     assert lines["cuda"] == lines["cpu"]
     assert any("8 completions, 32 tokens" in line for line in lines["cuda"])
     assert launches[kernel] > 0 and launches["bitserial_median"] > 0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2-moe-a2.7b"])
+def test_int_seed_draws_equal_on_card_and_cpu(cuda, arch):
+    """An int seed draws every leaf on the CPU generator and moves it:
+    ``init_params(0, cfg, device="cuda")`` equals the CPU's bit for bit,
+    leaf by leaf."""
+    from repro_torch import configs
+    from repro_torch.core import tree
+    from repro_torch.models import transformer as tfm
+
+    cfg = configs.get_reduced(arch)
+    card = tree.leaves(tfm.init_params(0, cfg, device="cuda"))
+    cpu = tree.leaves(tfm.init_params(0, cfg, device="cpu"))
+    assert len(card) == len(cpu)
+    for a, b in zip(card, cpu):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("arch,kv", [("qwen3-4b", "clustered"),
+                                     ("qwen3-4b", "exact"),
+                                     ("qwen2-moe-a2.7b", "clustered")])
+def test_dryrun_on_card_counts_as_meta(cuda, arch, kv):
+    """``run_cell(device="cuda")`` on a reduced config at a decode cell
+    whose ring is full (seq_len >= kv_tail): the card's kernel launches a
+    step and its count of a step equal the meta record's; the step's
+    logits are finite and its time is no shorter than the ideal."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.roofline import analysis
+
+    cfg = configs.get_reduced(arch)
+    cell = ShapeCell("decode_s", 512, 8, "decode")
+    rec = dryrun.run_cell(arch, "decode_s", {"kv_mode": kv, "kv_clusters": 16,
+                                             "kv_tail": 64},
+                          device="cuda", cfg=cfg, cell=cell)
+    meta, card = rec["op_stats"], rec["card_op_stats"]
+    n_g = tfm.layer_kinds(cfg).count("G")
+    want = n_g if kv == "clustered" else 0
+    assert rec["launches_per_step"]["clustered_decode"] == want
+    assert meta["kernels"].get("clustered_decode", {}).get(
+        "launches", 0) == want
+    for key in ("flops", "hbm_bytes", "matmul_flops", "aten_ops", "kernels"):
+        assert card[key] == meta[key], key
+    assert rec["logits_finite"]
+    row = analysis.analyze_record(rec)
+    assert row["measured_s"] >= row["ideal_s"]
+    prof = rec["profile"]
+    assert prof["device_busy_s"] and 0 <= prof["idle_share"] < 1

@@ -86,8 +86,11 @@ def test_adamw_update_matches_over_20_steps():
     p0 = _opt_tree(rng)
     pj = {k: (jnp.asarray(v, jnp.bfloat16) if k in BF16_KEYS
               else jax.tree.map(jnp.asarray, v)) for k, v in p0.items()}
+    # the port writes its parameters in place, and jnp.asarray may alias
+    # an aligned numpy buffer on the CPU: the port gets copies, so its
+    # write cannot reach the reference's inputs while its jit still runs
     pt = {k: (T(v).to(torch.bfloat16) if k in BF16_KEYS
-              else tree.map_(lambda a: torch.as_tensor(a), v))
+              else tree.map_(lambda a: torch.tensor(a), v))
           for k, v in p0.items()}
     sj, st = adamw_ref.init(pj), adamw.init(pt)
     upd = jax.jit(lambda g, s, p: adamw_ref.update(g, s, p, cfg))
