@@ -136,6 +136,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
 5e. static serve: ``engine="static"`` with exact KV, the 8 requests at
    batch 4 (left-padded prefill, plain decode attention): well-formed
    tokens and no kernel launch, as in the reference;
+5v. mesh serve: a one-rank NCCL world (a file store in a temporary
+   directory, no network) and ``make_serving_mesh("1x1")``; phase 5's
+   requests on phase 5's weights through the mesh engine
+   (``ServerConfig(mesh=...)``), chunked dense then chunked paged, each
+   decode kernel launched through the head island (its heads' block, an
+   ``all_gather`` over the model group) and each step's tokens gathered
+   over the data group.  Gates: the backend is nccl and the world 1; the
+   tokens equal 5's and 5b's request for request; clustered_decode
+   (dense) / paged_clustered_decode (paged) launched layers x engine
+   steps and the other never; bitserial_median >= absorbs + compactions
+   > 0; the paged pool drains.  One card holds one NCCL rank, so the
+   multi-rank parity of the mesh engine is held on the CPU (gloo,
+   tests/test_torch_sharded_serving.py);
 5h. quota serve: the 8 requests through paged exact KV under
    QuotaRetention (no ``kv_compress``, blocking admission, blocks of 16,
    a pool one block short of the two largest reservations): every request
@@ -367,7 +380,7 @@ B2's and B3's ``launches_prefix_share`` from 5i's shared serve,
 from 4b's chunked serves, by pattern, ``launches_moe`` from 5n's
 serves, by mode, B1's and B3's ``launches_frontend`` from 5p's
 blocking serve, and B1's, B2's and B3's ``launches_cli`` from 5s, by
-part, and ``launches_example`` from 5t; B1's
+part, ``launches_example`` from 5t and ``launches_mesh`` from 5v; B1's
 ``launches_dryrun_per_step`` from 5u and its times at 5u's shape under
 ``dryrun``),
 and the last line ``{"ok": true, "device": {...}}``; the full record goes
@@ -1437,13 +1450,13 @@ def check_small_model(torch, dev):
 
 
 def serve_workload(torch, dev, paged=None, params=None, chunk=64,
-                   engine="continuous", compress=True):
+                   engine="continuous", compress=True, mesh=None):
     """The smoke's serve: qwen3-4b at full width (random weights from seed
     0, bf16) behind a clustered-KV Server — paged when ``paged`` is a
     ``PagedKVConfig``, with blocking admission when ``chunk`` is 0, over
-    exact KV under a block quota when ``compress`` is False — or, with
-    ``engine="static"``, the static engine over exact KV; and 8
-    requests.  ``params`` reuses weights made by an earlier call.  Returns
+    exact KV under a block quota when ``compress`` is False, on the
+    serving ``mesh`` when one is given — or, with ``engine="static"``, the
+    static engine over exact KV; and 8 requests.  ``params`` reuses weights made by an earlier call.  Returns
     ``(cfg, server, requests, prompts)``; benchmarks/profile_torch_serve.py
     and serve_times.py serve the same workload."""
     from repro_torch import configs
@@ -1466,7 +1479,7 @@ def serve_workload(torch, dev, paged=None, params=None, chunk=64,
     else:
         scfg = ServerConfig(batch_size=4, max_seq=2048, prefill_chunk=chunk,
                             kv_compress=ccfg if compress else None,
-                            paged=paged)
+                            paged=paged, mesh=mesh)
     srv = Server(cfg, scfg, params, device=dev)
     reqs, prompts = draw_requests(cfg.vocab, **QWEN3_STREAM)
     return cfg, srv, reqs, prompts
@@ -1639,6 +1652,112 @@ def serve_qwen3(torch, dev, smi, paged=None, params=None, chunk=64):
         + ("" if chunk else f"  clusterize_s {st['clusterize_s']:.3f}  "
            f"prefill_pad_frac {st['prefill_pad_frac']:.4f}"))
     return dict(rec, n_layers=cfg.n_layers), srv.params
+
+
+def serve_mesh(torch, dev, smi, params, dense, paged):
+    """5v: phase 5's requests on its weights through the mesh engine of a
+    one-rank NCCL world, chunked dense then paged, each held to 5's / 5b's
+    gates and to their tokens (``dense``, ``paged``: 5's and 5b's
+    records).  Returns the two records and one island gather's host
+    cost (``island_gather_us``)."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.runtime.kv_pool import PagedKVConfig
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_5v_")
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=300))
+    problems, recs = [], {}
+    try:
+        mesh = make_serving_mesh("1x1")
+        backend, world = dist.get_backend(), dist.get_world_size()
+        say(f"5v mesh: backend {backend}, world size {world}, mesh 1x1 "
+            f"{tuple(mesh.mesh_dim_names)} over {mesh.device_type}, up in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if (backend, world) != ("nccl", 1):
+            problems.append(f"backend {backend} world {world}, want nccl 1")
+        for mode, pg, want in (
+                ("mesh dense", None, dense),
+                ("mesh paged", PagedKVConfig(block_size=16), paged)):
+            cfg, srv, reqs, prompts = serve_workload(torch, dev, pg, params,
+                                                     mesh=mesh)
+            rec = run_serve(torch, srv, reqs, prompts, f"5v {mode}")
+            recs[mode.split()[1]] = rec
+            st, launches = rec["stats"], rec["launches"]
+            steps = rec["engine_steps"]
+            kernel, other = (("paged_clustered_decode", "clustered_decode")
+                             if pg is not None else
+                             ("clustered_decode", "paged_clustered_decode"))
+            need = int(st["kv_absorbs"]) + int(st["kv_compactions"])
+            if (launches[kernel] != cfg.n_layers * steps
+                    or launches[other] != 0):
+                problems.append(
+                    f"{mode}: {kernel} {launches[kernel]} (want "
+                    f"{cfg.n_layers} x {steps}), {other} "
+                    f"{launches[other]} (want 0)")
+            if not launches["bitserial_median"] >= need > 0:
+                problems.append(
+                    f"{mode}: bitserial_median "
+                    f"{launches['bitserial_median']}, want >= absorbs + "
+                    f"compactions = {need} > 0")
+            if pg is not None and not (
+                    st["pool_blocks_end"] == 0
+                    and st["pool_allocs"] == st["pool_frees"]):
+                problems.append(
+                    f"{mode}: pool end {st['pool_blocks_end']}, allocs "
+                    f"{st['pool_allocs']}, frees {st['pool_frees']}")
+            diff = [uid for uid, t in want["tokens"].items()
+                    if rec["tokens"][uid] != t]
+            if diff:
+                problems.append(f"{mode}: tokens of uids {diff} differ "
+                                f"from phase {'5b' if pg else '5'}'s")
+            say(f"5v {mode} serve: {int(st['gen_tokens'])} tokens in "
+                f"{rec['wall_s']:.1f} s wall; {steps} engine steps, "
+                f"{int(st['kv_absorbs'])} absorbs, "
+                f"{int(st['kv_compactions'])} compactions; {kernel} "
+                f"launches {launches[kernel]} = {cfg.n_layers} x {steps} "
+                f"through the head island; bitserial_median "
+                f"{launches['bitserial_median']}; tokens sha256 "
+                f"{rec['tokens_sha256']} (phase "
+                f"{'5b' if pg else '5'}: {want['tokens_sha256']}); "
+                f"{len(want['tokens']) - len(diff)} of "
+                f"{len(want['tokens'])} requests equal")
+            say(f"[{smi}] 5v {mode}: wall_s {rec['wall_s']:.3f}  "
+                f"tokens_per_s {st['tokens_per_s']:.1f}  ttft_p50_ms "
+                f"{st['ttft_p50_ms']:.1f}  itl_p50_ms "
+                f"{st['itl_p50_ms']:.2f}  collectives a step: "
+                f"{cfg.n_layers} all_gather (model) + 1 all_gather (data)")
+        # what one island gather costs: a decode step's (4, 32, 128) bf16
+        # head block through the model group's all_gather and cat, 200
+        # times, the card synchronised at the end
+        group = mesh.get_group("model")
+        x = torch.zeros((4, 32, 128), dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(200):
+            parts = [torch.empty_like(x)]
+            dist.all_gather(parts, x, group=group)
+            torch.cat(parts, dim=-2)
+        torch.cuda.synchronize()
+        gather_us = (time.perf_counter() - t1) / 200 * 1e6
+        recs["island_gather_us"] = gather_us
+        say(f"[{smi}] 5v island gather: {gather_us:.1f} us a call (host "
+            f"clock over 200 calls, synchronised at the end); "
+            f"{cfg.n_layers} a step = "
+            f"{gather_us * cfg.n_layers / 1e3:.2f} ms")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"5v mesh wall: {time.perf_counter() - t0:.1f} s")
+    if problems:
+        raise AssertionError("5v mesh serve: " + "; ".join(problems))
+    return recs
 
 
 def compare_tokens(dense, paged, what="paged vs dense"):
@@ -4771,6 +4890,12 @@ def main() -> int:
     record["serve_static"] = static
     done("5-5e qwen3-4b serves")
 
+    # phase 5v: the same requests through the mesh engine of a one-rank
+    # NCCL world, dense then paged
+    mesh = serve_mesh(torch, dev, smi, params, serve, paged)
+    record["serve_mesh"] = mesh
+    done("5v mesh serve")
+
     # phase 5h: paged exact KV under QuotaRetention, qwen3's weights still
     # resident
     quota = serve_quota(torch, dev, smi, params, static)
@@ -4913,6 +5038,7 @@ def main() -> int:
                  "clustered_decode"],
              launches_cli=cli["a"]["launches"]["clustered_decode"],
              launches_example=example["launches"]["clustered_decode"],
+             launches_mesh=mesh["dense"]["launches"]["clustered_decode"],
              launches_dryrun_per_step=dry["record"]["launches_per_step"][
                  "clustered_decode"],
              dryrun={k: tm["clustered_decode dryrun"][k] for k in
@@ -4943,6 +5069,8 @@ def main() -> int:
                  "paged_clustered_decode"],
              launches_cli=cli_launches(cli, "paged_clustered_decode"),
              launches_example=example["launches"]["paged_clustered_decode"],
+             launches_mesh=mesh["paged"]["launches"][
+                 "paged_clustered_decode"],
              max_abs_err=pcd_err, ms=tm["paged_clustered_decode"]["ms"],
              plain_ms=tm["paged_clustered_decode"]["plain_ms"],
              bound_ms=tm["paged_clustered_decode"]["bound_ms"],
@@ -4984,6 +5112,8 @@ def main() -> int:
                  "bitserial_median"],
              launches_cli=cli_launches(cli, "bitserial_median"),
              launches_example=example["launches"]["bitserial_median"],
+             launches_mesh={m: mesh[m]["launches"]["bitserial_median"]
+                            for m in ("dense", "paged")},
              # the Trainer's straggler median and MAD: 4e's TINY run, 5r
              launches_train={
                  "4e tiny": train_tiny["tiny_trainer"][

@@ -13,7 +13,11 @@ examples/serve_clustered_kv.py, with the same configs and draws.
    then paged, prefix-shared, through the persistent template store,
    under the SLO scheduler, traced, and on a sliding-window ('GL') and a
    recurrent hybrid ('GM') model; the standalone compression error vs
-   exact attention is reported alongside the memory ratio.
+   exact attention is reported alongside the memory ratio,
+4. in a world of more than one rank (``torchrun``), the same queue runs
+   once more on a (data, model) serving mesh — decode slots shard over
+   `data`, attention heads over `model` — and token parity with the
+   single-device run is reported.
 
 On the card the clustered serves decode through the ``clustered_decode``
 CUDA kernel, the paged ones through ``paged_clustered_decode``, and every
@@ -23,6 +27,11 @@ k-medians fit of the memory manager (absorbs, compactions and the
 
 Run: PYTHONPATH=src python examples/serve_clustered_kv_torch.py
 [--device cpu]
+
+Mesh-enabled run (8 CPU ranks → a 2x4 serving mesh; rank 0 prints):
+
+    PYTHONPATH=src torchrun --nproc-per-node 8 \
+        examples/serve_clustered_kv_torch.py --device cpu
 """
 
 import argparse
@@ -30,9 +39,12 @@ import dataclasses as dc
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import kv_compress
 from repro_torch.core.request_cluster import Request, plan_batches, plan_fifo
+from repro_torch.launch import preboot
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig, SSMConfig
 from repro_torch.models.layers import resolve_device
@@ -72,8 +84,9 @@ def _word(same: bool) -> str:
 
 
 def run(device=None, say=print, params=None) -> dict:
-    """Every single-device section of the reference example on ``device``
-    (None: the card), its lines through ``say``.  ``params`` maps
+    """Every section of the reference example on ``device`` (None: the
+    card), its lines through ``say``; the mesh section serves when this
+    process is a rank of a world of more than one (``torchrun``).  ``params`` maps
     "SMALL", "GLWIN" and "GMREC" to the port's parameter dicts (None
     draws each from its seed in ``SEEDS``).  Returns the invariants the
     lines report: each serve's blocks held at drain, the trace's schema
@@ -338,11 +351,26 @@ def run(device=None, say=print, params=None) -> dict:
         f"retired {str_['kv_retired_recurrent']:.0f} (fixed-size state "
         f"never retires), {str_['pool_blocks_end']:.0f} blocks at drain")
 
-    # --- mesh-sharded serving: one card is one device, so the reference's
-    # one-device line; mesh serving waits for the port's sharding (ROADMAP
-    # Queue A item 10) ---
-    say("[server] mesh serving skipped (1 device; set XLA_FLAGS="
-        "--xla_force_host_platform_device_count=8 to try a 2x4 mesh)")
+    # --- mesh-sharded serving (slots x tensor parallel) ---
+    # In a world of more than one rank (torchrun) the same queue is served
+    # on a (data, model) mesh: each rank holds its slots' caches, its kv
+    # heads' blocks, and greedy tokens stay identical to the single-device
+    # run.  One process is one device: the reference's one-device line.
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world > 1:
+        model_par = 4 if world % 8 == 0 else 2
+        spec = f"{world // model_par}x{model_par}"
+        srv_m = server(SMALL, p_small, batch_size=4, max_seq=256,
+                       kv_compress=ccfg, prefill_chunk=16,
+                       mesh=make_serving_mesh(spec))
+        outs_m = srv_m.serve(reqs, prompts)
+        say(f"[server] mesh {spec}: "
+            f"{srv_m.last_stats['tokens_per_s']:.1f} tok/s, tokens "
+            f"{'bit-identical' if _same(outs_m, outs_c) else 'DIVERGED'} "
+            f"vs single-device")
+    else:
+        say("[server] mesh serving skipped (1 device; set XLA_FLAGS="
+            "--xla_force_host_platform_device_count=8 to try a 2x4 mesh)")
 
     # --- memory management: clustered-KV compression ---
     long_prompt = rng.integers(0, 512, size=(1, 192)).astype(np.int32)
@@ -375,7 +403,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
-    run(ap.parse_args(argv).device)
+    device = ap.parse_args(argv).device
+    # under torchrun every rank runs the example and rank 0 prints
+    preboot.init_world(resolve_device(device))
+    run(device, print if preboot.is_rank_zero() else (lambda *_: None))
+    preboot.leave_world()
 
 
 if __name__ == "__main__":

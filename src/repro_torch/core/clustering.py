@@ -18,6 +18,12 @@ for the same seed (k-means++ probabilities are computed by the port, so a
 last-ulp difference at a cumsum boundary could pick another point; ROADMAP
 Queue C).  The quality metrics (simplified silhouette, the optimal-k sweep,
 recognition rate) and the mini-batch fit follow the reference.
+
+Under ``group=`` (a ``torch.distributed`` process group, where the
+reference takes ``axis_name=`` under ``shard_map``) x is this rank's shard
+of the points: centroid sums, counts, median votes and inertia are summed
+across the group and the scale is its minimum, so every rank converges on
+the same centroids.
 """
 
 from __future__ import annotations
@@ -198,20 +204,24 @@ def _onehot(assign, k, weights):
     return onehot
 
 
-def update_mean(x, assign, k: int, prev, *, weights=None):
-    """Weighted mean centroids; empty clusters keep ``prev``."""
+def update_mean(x, assign, k: int, prev, *, weights=None, group=None):
+    """Weighted mean centroids; empty clusters keep ``prev``.  With
+    ``group`` the per-cluster sums and counts are summed across its ranks,
+    the reduction tree of the median's votes."""
     onehot = _onehot(assign, k, weights)
-    sums = torch.matmul(onehot.transpose(-1, -2), x)
-    counts = onehot.sum(-2)
+    sums = bitserial.psum(torch.matmul(onehot.transpose(-1, -2), x), group)
+    counts = bitserial.psum(onehot.sum(-2), group)
     mean = sums / torch.clamp(counts, min=1.0).unsqueeze(-1)
     return torch.where(counts.unsqueeze(-1) > 0, mean, prev), counts
 
 
 def update_median(x, assign, k: int, prev, *, bits: int = 32, scale=None,
-                  weights=None):
-    """Bit-serial median centroids; empty clusters keep ``prev``."""
+                  weights=None, group=None):
+    """Bit-serial median centroids; empty clusters keep ``prev``.  With
+    ``group`` the votes are summed across its ranks bit by bit."""
     med, counts = bitserial.grouped_median(x, assign, k, bits=bits,
-                                           scale=scale, weights=weights)
+                                           scale=scale, weights=weights,
+                                           group=group)
     return torch.where(counts.unsqueeze(-1) > 0, med, prev), counts
 
 
@@ -221,20 +231,22 @@ def update_median(x, assign, k: int, prev, *, bits: int = 32, scale=None,
 
 
 def _one_iter(cfg: ClusterConfig, x, cents, scale, use_kernel=True,
-              weights=None):
+              weights=None, group=None):
     assign, mind = assign_points(x, cents, cfg.metric, use_kernel=use_kernel)
     if cfg.centroid == "mean":
-        new, counts = update_mean(x, assign, cfg.k, cents, weights=weights)
+        new, counts = update_mean(x, assign, cfg.k, cents, weights=weights,
+                                  group=group)
     else:
         new, counts = update_median(x, assign, cfg.k, cents, bits=cfg.bits,
-                                    scale=scale, weights=weights)
+                                    scale=scale, weights=weights,
+                                    group=group)
     inertia = (mind.sum(-1) if weights is None
                else (mind * weights).sum(-1))
-    return new, assign, counts, inertia
+    return new, assign, counts, bitserial.psum(inertia, group)
 
 
 def fit(x: torch.Tensor, cfg: ClusterConfig, init_centroids=None, *,
-        use_kernel: bool = True, weights=None) -> ClusterResult:
+        use_kernel: bool = True, weights=None, group=None) -> ClusterResult:
     """Full-batch Lloyd iterations until convergence.
 
     Optional ``weights`` (..., N) ≥ 0 make this a weighted clustering:
@@ -244,8 +256,17 @@ def fit(x: torch.Tensor, cfg: ClusterConfig, init_centroids=None, *,
     ``cfg.init`` from ``prng.PRNGKey(cfg.seed)``, as the reference draws it
     — for batched inputs (..., N, D) with that one key for every member, as
     the reference's vmapped fits do.
+
+    With ``group`` (a process group) x is this rank's shard of the points
+    and ``init_centroids`` must be given, the same on every rank: the
+    scale is the group's smallest, the centroid updates and the inertia
+    are summed across it, and the loop makes the reference's fixed trip of
+    ``max_iters`` that freezes a converged member, so that every rank runs
+    the same collectives.  ``assign`` is this rank's points'.
     """
     if init_centroids is None:
+        if group is not None:
+            raise ValueError("distributed fit requires init_centroids")
         rng = prng.PRNGKey(cfg.seed)
         init_centroids = (
             init_kmeanspp(rng, x, cfg.k, cfg.metric, weights=weights)
@@ -254,7 +275,8 @@ def fit(x: torch.Tensor, cfg: ClusterConfig, init_centroids=None, *,
     # zero-weight (masked) points must not widen the scale
     x_scale = x if weights is None else x * (weights > 0).unsqueeze(-1).to(
         x.dtype)
-    scale = quantizer.auto_scale(x_scale, cfg.bits)
+    # global per-feature scale: the smallest, so the largest |x| fits
+    scale = bitserial.pmin(quantizer.auto_scale(x_scale, cfg.bits), group)
 
     lead = x.shape[:-2]
     dev = x.device
@@ -264,12 +286,16 @@ def fit(x: torch.Tensor, cfg: ClusterConfig, init_centroids=None, *,
     moved = torch.full(lead, float("inf"), dtype=torch.float32, device=dev)
     counts = torch.zeros(lead + (cfg.k,), dtype=torch.float32, device=dev)
     inertia = torch.zeros(lead, dtype=torch.float32, device=dev)
+    trip = 0
     while True:
         run = (it < cfg.max_iters) & (moved > cfg.tol)
-        if not bool(run.any()):
+        if (trip >= cfg.max_iters if group is not None
+                else not bool(run.any())):
             break
+        trip += 1
         new, new_assign, new_counts, new_inertia = _one_iter(
-            cfg, x, cents, scale, use_kernel=use_kernel, weights=weights)
+            cfg, x, cents, scale, use_kernel=use_kernel, weights=weights,
+            group=group)
         new_moved = (new - cents).abs().amax((-1, -2))
         # a converged member keeps its state, as under vmap'd while_loop
         cents = torch.where(run[..., None, None], new, cents)

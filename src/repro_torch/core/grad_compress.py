@@ -99,12 +99,12 @@ def make_grad_transform(cfg: CompressConfig, axis_name: str = None):
     update`` passes one clipped leaf at a time).  Without error feedback
     this is a pure transform; with it the caller threads ``EFState``
     through :func:`apply_ef`.  ``axis_name`` (the reference's cross-pod
-    reduction over a mesh axis) is refused: the port has no mesh yet
-    (ROADMAP Queue A item 10)."""
+    reduction over a mesh axis) is refused: training on a mesh is ROADMAP
+    Queue A item 10d."""
     if axis_name is not None:
         raise NotImplementedError(
             f"make_grad_transform(axis_name={axis_name!r}): a cross-pod "
-            "reduction needs a mesh (ROADMAP Queue A item 10)")
+            "reduction needs training on a mesh (ROADMAP Queue A item 10d)")
 
     def one(g):
         if g.numel() < 1024:  # tiny tensors aren't worth compressing

@@ -1,5 +1,5 @@
 """KV-cache memory management via bit-serial k-medians clustering (port of
-``repro.core.kv_compress`` without its mesh (``axis_name``) paths).
+``repro.core.kv_compress``).
 
 A slot's KV is kept as C key centroids per head (bit-serial medians of the
 keys, weighted by how many keys each stands for), the mean value of each
@@ -10,6 +10,13 @@ keys.  Centroids summarize positions [0, cov); the ring is exact for
 Cache-layout leaves: k/v_cents (B, C, H, Dh), counts (B, C, H), k/v_tail
 (B, R, H, Dh) in ring order (position p at slot p % R), cov (B,) int32.
 The (slot, head) members are batch dimensions of one k-medians fit.
+
+``group=`` (the reference's ``axis_name=``): when a member's points span
+the ranks of a process group, each rank passes its shard, and the weighted
+k-medians sums its votes, value sums and counts across the group, so every
+rank ends with the same centroids.  Mesh serving partitions slots and
+heads, so no member spans ranks there and absorb and compaction stay
+rank-local.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import clustering
+from repro_torch.core import bitserial, clustering
 from repro_torch.core.clustering import ClusterConfig
 
 
@@ -72,23 +79,28 @@ def ring_positions(r: int, t) -> torch.Tensor:
 
 
 def compress_head(keys, values, cfg: KVCompressConfig, seed: int = 0,
-                  weights=None, init_centroids=None):
+                  weights=None, init_centroids=None, group=None):
     """keys/values (..., S, Dh) → (k_cents, v_cents, counts) per member.
 
     ``weights`` (..., S) ≥ 0 mask padded positions (weight 0) or carry the
     counts of pre-aggregated summaries; ``init_centroids`` warm-starts
-    Lloyd for incremental re-compaction."""
+    Lloyd for incremental re-compaction.  With ``group`` the S points are
+    this rank's shard (``init_centroids`` required, the same on every
+    rank) and the fit, the value sums and the counts are summed across
+    the group."""
     ccfg = ClusterConfig(k=cfg.n_clusters, metric=cfg.metric,
                          centroid="median", max_iters=cfg.iters,
                          bits=cfg.bits, init="kmeanspp", seed=seed)
     res = clustering.fit(keys.to(torch.float32), ccfg, init_centroids,
-                         use_kernel=False, weights=weights)
+                         use_kernel=False, weights=weights, group=group)
     onehot = torch.nn.functional.one_hot(res.assign.long(),
                                          cfg.n_clusters).to(torch.float32)
     if weights is not None:
         onehot = onehot * weights.to(torch.float32).unsqueeze(-1)
-    vsum = torch.matmul(onehot.transpose(-1, -2), values.to(torch.float32))
-    counts = onehot.sum(-2)
+    vsum = bitserial.psum(
+        torch.matmul(onehot.transpose(-1, -2), values.to(torch.float32)),
+        group)
+    counts = bitserial.psum(onehot.sum(-2), group)
     v_cents = vsum / torch.clamp(counts, min=1.0).unsqueeze(-1)
     return res.centroids, v_cents, counts
 
@@ -179,7 +191,7 @@ def _merge(cache, changed, nk, nv, ncnt, new_cov):
                 cov=new_cov.to(torch.int32))
 
 
-def recompact_clustered(cache, lengths, cfg: KVCompressConfig):
+def recompact_clustered(cache, lengths, cfg: KVCompressConfig, group=None):
     """Incremental re-compaction of an already-clustered cache.
 
     The points to recluster are the old centroids (weighted by their
@@ -187,7 +199,8 @@ def recompact_clustered(cache, lengths, cfg: KVCompressConfig):
     warm-started from the old centroids.  Slots whose frontier does not
     advance (``new_cov == cov``) keep their centroid bank BIT-IDENTICAL, so
     a compaction triggered by one slot never perturbs another.  Returns a
-    new cache dict (the input is not modified)."""
+    new cache dict (the input is not modified).  ``group``: the members'
+    C + R points are sharded across its ranks (``compress_head``)."""
     kc, vc, cnt, kt, vt = _members(cache)
     cov = cache["cov"]
     r = cache["k_tail"].shape[1]
@@ -202,7 +215,8 @@ def recompact_clustered(cache, lengths, cfg: KVCompressConfig):
     x = torch.cat([kc, kt], dim=2)                           # (B, H, C+R, Dh)
     vals = torch.cat([vc, vt], dim=2)
     wgt = torch.cat([cnt, w_tail[:, None, :].expand(-1, h, -1)], dim=2)
-    nk, nv, ncnt = compress_head(x, vals, cfg, weights=wgt, init_centroids=kc)
+    nk, nv, ncnt = compress_head(x, vals, cfg, weights=wgt, init_centroids=kc,
+                                 group=group)
     return _merge(cache, new_cov > cov, nk, nv, ncnt, new_cov)
 
 

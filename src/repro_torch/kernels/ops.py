@@ -20,6 +20,14 @@ kernel's work model (``roofline/work.py``; ``op_count.counted``), so the
 counts of the CPU, the card and ``meta`` agree; with no counter in force
 a call costs one thread-local read more.  ``launches`` stays the card's
 count.
+
+Mesh serving (``sharding.rules.use_rules`` active) dispatches the decode
+kernels per model shard, as the reference's ``shard_map`` islands do: a
+rank's engine already holds only its data shard's slots, and
+:func:`head_island` gives the attention layer this rank's block of query
+and kv heads and the ``all_gather`` that puts every rank's outputs back in
+head order.  The kernel grid is (rows, kv head) and every cell is
+independent, so the sharded launch is exact.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import bitserial_median as _bsm
 from repro_torch.kernels import clustered_decode as _cd
@@ -35,6 +44,7 @@ from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import paged_clustered_decode as _pcd
 from repro_torch.roofline import op_count
 from repro_torch.roofline import work as _work
+from repro_torch.sharding.rules import current_rules
 
 
 def route(x: torch.Tensor) -> str:
@@ -46,6 +56,57 @@ def route(x: torch.Tensor) -> str:
     if kind is None:
         raise ValueError(f"no kernel backend for device {x.device}")
     return kind
+
+
+def _kernel_shard_axes(rules, b: int, hq: int, hkv: int):
+    """(data_axes, model_axes) for a (B, Hq/Hkv, …) kernel launch under
+    the sharding rules, None where nothing divides.  Heads shard over the
+    model axis only when BOTH the query and kv head counts divide (the GQA
+    group must stay intact per shard)."""
+    data_axes = rules.axes_for("batch", b)
+    model_axes = rules.axes_for("heads", hq)
+    if (model_axes is not None
+            and rules.axes_for("kv_heads", hkv) != model_axes):
+        model_axes = None
+    return data_axes, model_axes
+
+
+class HeadIsland:
+    """This rank's block of heads in a mesh step: query heads ``q`` and kv
+    heads ``kv`` (slices of the head axis) of rank ``index`` of the model
+    group, which holds ``size`` ranks."""
+
+    def __init__(self, rules, axes, hq: int, hkv: int):
+        self.size = rules.size(axes)
+        self.index = rules.axis_index(axes)
+        self.group = rules.group(axes)
+        nq, nkv = hq // self.size, hkv // self.size
+        self.q = slice(self.index * nq, (self.index + 1) * nq)
+        self.kv = slice(self.index * nkv, (self.index + 1) * nkv)
+
+    def gather(self, out: torch.Tensor) -> torch.Tensor:
+        """(..., Hq / size, Dh) outputs of this rank's heads → (..., Hq, Dh),
+        every rank's block in head order (an ``all_gather`` over the model
+        group)."""
+        out = out.contiguous()
+        parts = [torch.empty_like(out) for _ in range(self.size)]
+        dist.all_gather(parts, out, group=self.group)
+        return torch.cat(parts, dim=-2)
+
+
+def head_island(hq: int, hkv: int) -> Optional[HeadIsland]:
+    """The head island of a decode launch with ``hq`` / ``hkv`` heads under
+    the active sharding rules, or None: no rules (one device), or heads
+    that do not divide the model axis (every model rank then runs all
+    heads, the reference's replicated fallback, and its cache holds them
+    all)."""
+    r = current_rules()
+    if r is None:
+        return None
+    _, model_axes = _kernel_shard_axes(r, 1, hq, hkv)
+    if model_axes is None:
+        return None
+    return HeadIsland(r, model_axes, hq, hkv)
 
 
 @op_count.counted("bitserial_median", _work.bitserial_median_work)

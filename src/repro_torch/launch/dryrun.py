@@ -25,8 +25,8 @@ step, one step under ``torch.profiler`` (where its time goes: the host's
 time to enqueue it, the device's busy time and idle share, the kernels of
 most device time) and one more under the counter (``card_op_stats``).
 
-One card has no mesh: there is no ``--mesh`` (ROADMAP Queue A item 10
-brings the port's sharding).  ``--moe-impl`` takes the reference's
+One card has no mesh cell: there is no ``--mesh`` (the dry run on a mesh
+is ROADMAP Queue A item 10d).  ``--moe-impl`` takes the reference's
 impls, but on one card every impl reaches the same dispatch
 (``repro_torch.models.moe``), so it changes nothing; ``a2a`` is refused
 as the reference's needs a mesh.
@@ -318,7 +318,7 @@ def run_cell(arch: str, shape_name: str, overrides=None, moe_impl=None,
     cfg = cfg or configs.get_config(arch)
     if moe_impl == "a2a":
         raise ValueError("moe impl 'a2a' needs a mesh (ROADMAP Queue A "
-                         f"item 10); one card serves {MOE_IMPLS}")
+                         f"item 10b); one card serves {MOE_IMPLS}")
     cell = cell or SHAPES[shape_name]
     opts = pick_options(cfg, cell, **(overrides or {}))
     t0 = time.time()
@@ -369,8 +369,8 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="one-card dry run: count each arch x shape cell's step "
                     "on the meta device and, on the card, run the cells "
-                    "that fit its 80 GB.  There is no --mesh: the port's "
-                    "sharding comes with ROADMAP Queue A item 10.")
+                    "that fit its 80 GB.  There is no --mesh: the dry run "
+                    "on a mesh is ROADMAP Queue A item 10d.")
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
     ap.add_argument("--out", default="artifacts/dryrun_torch")
@@ -379,7 +379,7 @@ def parser() -> argparse.ArgumentParser:
                     help="the reference's MoE impls; on one card every impl "
                          "reaches the same dispatch, so this changes "
                          "nothing; a2a is refused (it needs ROADMAP Queue A "
-                         "item 10's mesh)")
+                         "item 10b's mesh)")
     ap.add_argument("--kv-mode", default=None,
                     choices=[None, "exact", "clustered", "int8"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "meta"])
@@ -390,8 +390,8 @@ def main(argv=None):
     ap = parser()
     args = ap.parse_args(argv)
     if args.moe_impl == "a2a":
-        ap.error("--moe-impl a2a needs the port's sharding (ROADMAP Queue "
-                 "A item 10); one card serves --moe-impl global or sharded")
+        ap.error("--moe-impl a2a needs the a2a path (ROADMAP Queue "
+                 "A item 10b); one card serves --moe-impl global or sharded")
     archs = list(configs.ARCH_IDS) if args.arch == "all" else [args.arch]
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
 

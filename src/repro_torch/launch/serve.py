@@ -10,6 +10,11 @@ through the retention-policy layer — ``--config`` is an alias for
     PYTHONPATH=src python -m repro_torch.launch.serve --config gemma2-27b \\
         --reduced --requests 24 --prefill-chunk 16 --paged --kv-clusters 8
 
+Mesh-sharded (slots over data, heads over model), e.g. on the CPU:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
+        --reduced --requests 24 --batch-size 8 --mesh 2x2 --device cpu
+
 Drives the full request-processing path: request queue → bit-serial
 k-medians batcher → prefill → decode loop; reports padding waste
 (clustered vs FIFO) and throughput, and prints the reference launcher's
@@ -18,8 +23,15 @@ the card, any ``--kv-*`` flag without ``--paged`` serves through the
 ``clustered_decode`` kernel, ``--paged`` through
 ``paged_clustered_decode``, and both run the memory manager's medians
 through ``bitserial_median``; exact KV served in blocking mode (the
-default) launches no kernel.  ``--mesh`` is refused: mesh serving needs
-the port's sharding (ROADMAP Queue A item 10).
+default) launches no kernel.
+
+``--mesh DATAxMODEL`` serves on a (data, model) mesh of ranks, one process
+each (runtime/server.py): run as ``python -m``, the launcher starts the
+D × M ranks itself (``launch.preboot``: gloo for ``--device cpu``; on CUDA
+NCCL, one rank a card, so a world larger than the visible card count is
+refused) and rank 0 prints; under ``torchrun`` each process already is a
+rank and joins the world it names.  ``main`` called in a process with no
+world refuses the mesh.
 
 ``main(argv, params=...)`` serves given weights (the port's parameter
 dict, e.g. ``bridge.params_from_numpy`` of the reference's) instead of
@@ -29,6 +41,7 @@ drawing them from ``--seed``, and returns the ``Server``.
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import numpy as np
@@ -36,6 +49,8 @@ import numpy as np
 from repro_torch import configs
 from repro_torch.core import kv_compress
 from repro_torch.core.request_cluster import Request, plan_batches, plan_fifo
+from repro_torch.launch import preboot
+from repro_torch.launch.mesh import make_serving_mesh, mesh_sizes
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import resolve_device
 from repro_torch.runtime.kv_pool import PagedKVConfig
@@ -134,13 +149,19 @@ def main(argv=None, *, params=None, say=print) -> Server:
     (``last_stats``, ``last_trace``)."""
     ap = parser()
     args = ap.parse_args(argv)
-    if args.mesh:
-        ap.error(f"--mesh {args.mesh} needs the port's sharding (ROADMAP "
-                 "Queue A item 10); serve on one device")
 
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
     dev = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        try:
+            preboot.init_world(dev)
+            mesh = make_serving_mesh(args.mesh)
+        except ValueError as e:
+            ap.error(f"--mesh {args.mesh}: {e}")
+        if not preboot.is_rank_zero():
+            say = lambda *_: None  # noqa: E731  (rank 0 prints)
     if cfg.is_encdec or cfg.attention_free:
         say(f"[serve] note: {args.arch} decode path exercised via its "
             f"own cache family")
@@ -196,6 +217,12 @@ def main(argv=None, *, params=None, say=print) -> Server:
     clus = plan_batches(reqs, args.batch_size)
     say(f"[serve] padding waste: fifo {fifo.waste * 100:.1f}% → "
         f"clustered {clus.waste * 100:.1f}%")
+    shards = 1
+    if mesh is not None:
+        sizes = mesh_sizes(mesh)
+        shards = sizes["data"]
+        say(f"[serve] mesh {args.mesh}: slots over data={sizes['data']}, "
+            f"heads over model={sizes['model']}")
 
     ccfg = paged = None
     clustered = args.paged or any(
@@ -210,10 +237,9 @@ def main(argv=None, *, params=None, say=print) -> Server:
             f"R={ccfg.keep_recent} refresh={ccfg.refresh_every}")
     if args.paged:
         pool_blocks = args.pool_blocks
-        # one device is one data shard
         per_slot = (ccfg.keep_recent + args.block_size - 1) \
             // args.block_size
-        slots = max(args.batch_size, 1)
+        slots = max(args.batch_size // shards, 1)
         if args.persist_templates and not pool_blocks:
             # the store pins entry blocks between serves: double the ring
             # footprint so the pins live in the surplus
@@ -248,7 +274,7 @@ def main(argv=None, *, params=None, say=print) -> Server:
         params = tfm.init_params(args.seed, cfg, device=dev)
     srv = Server(cfg, ServerConfig(
         batch_size=args.batch_size, max_seq=args.max_seq,
-        use_clustered_batching=not args.no_clustering,
+        use_clustered_batching=not args.no_clustering, mesh=mesh,
         prefill_chunk=args.prefill_chunk, kv_compress=ccfg,
         paged=paged, prefix_share=pshare, template_store=tstore,
         scheduler=SLOConfig() if args.priority_demo else None,
@@ -310,6 +336,15 @@ def main(argv=None, *, params=None, say=print) -> Server:
             f"{st['sched_readopted_blocks']:.0f} re-adopted), "
             f"{st['sched_deferrals']:.0f} deferrals, "
             f"{st['sched_sheds']:.0f} shed {shed}")
+    if mesh is not None:
+        if "n_data_shards" in st:
+            ws = [f"{st[f'slot_waste_shard{s}']:.2f}"
+                  for s in range(int(st['n_data_shards']))]
+            say(f"[serve] per-data-shard slot waste: {' '.join(ws)}")
+        elif shards > 1:
+            say(f"[serve] note: batch size {args.batch_size} does not "
+                f"divide the data axis — slots replicated (no slot "
+                f"sharding); pick a batch size divisible by {shards}")
 
     if args.trace_out:
         srv.export_trace(args.trace_out)
@@ -350,4 +385,8 @@ def main(argv=None, *, params=None, say=print) -> Server:
 
 
 if __name__ == "__main__":
+    code = preboot.start_mesh_ranks(sys.argv[1:], "repro_torch.launch.serve")
+    if code is not None:
+        sys.exit(code)
     main()
+    preboot.leave_world()

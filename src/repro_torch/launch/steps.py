@@ -7,8 +7,8 @@ summed in f32 first.  The serving steps are the plain prefill and decode
 closures.  ``batch_struct`` / ``cache_struct`` give a cell's inputs and
 decode cache as tensors on the ``meta`` device: shapes and dtypes,
 nothing allocated.  The mesh-only helpers of the reference (``pick_*``,
-``batch_pspec``, ``cache_pspecs``, ``lower_step``) wait for the port's
-sharding (ROADMAP Queue A item 10).
+``batch_pspec``, ``cache_pspecs``, ``lower_step``) wait for training on
+a mesh (ROADMAP Queue A item 10d).
 """
 
 from __future__ import annotations

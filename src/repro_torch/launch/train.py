@@ -7,8 +7,8 @@ Runs on the card unless ``--device`` names another device.  ``--reduced``
 takes the family-preserving small config, else the full published one.
 Checkpoint / restart, straggler logging and the optional k-means
 gradient compression are wired through.  Only ``--mesh host`` (one
-device) exists here: the pod meshes need the port's sharding (ROADMAP
-Queue A item 10).
+device) exists here: the pod meshes need training on a mesh (ROADMAP
+Queue A item 10d).
 """
 
 from __future__ import annotations
@@ -47,8 +47,8 @@ def main(argv=None):
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
     if args.mesh != "host":
-        ap.error(f"--mesh {args.mesh} needs the port's sharding (ROADMAP "
-                 "Queue A item 10); only --mesh host runs")
+        ap.error(f"--mesh {args.mesh} needs training on a mesh (ROADMAP "
+                 "Queue A item 10d); only --mesh host runs")
 
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))

@@ -16,6 +16,13 @@ must not copy every layer's KV.  Paged serving keeps the tails in a
 shared block pool (nb, bs, Hkv, Dh) read through block tables.  An MLA
 leaf is {"ckv" (B, Sc, kv_lora_rank), "kpe" (B, Sc, rope)}, exact in every
 mode.
+
+Under mesh serving a 'G' layer's decode is the reference's island
+(``kernels.ops.head_island``): the projections run in full on every model
+rank, the rank writes and scores only its block of kv heads (its cache
+holds no other), and the heads' outputs are gathered back in head order
+before ``wo``, where the reference annotates them replicated, so no float
+reduction is reordered.
 """
 
 from __future__ import annotations
@@ -189,6 +196,17 @@ def _qkv(p, x, cfg: ModelConfig, positions, layer_kind: str,
         k = torch.repeat_interleave(k, kv_repeat, dim=2)
         v = torch.repeat_interleave(v, kv_repeat, dim=2)
     return q, k, v
+
+
+def _head_block(q, k, v, cfg: ModelConfig, kv_repeat: int):
+    """(island, q, k, v): under mesh serving this rank's block of heads
+    (``kernels.ops.head_island``; q contiguous, as the kernels read whole
+    rows) and the island that gathers the outputs back; (None, q, k, v)
+    on one device or when the heads replicate."""
+    isl = kops.head_island(cfg.n_heads, cfg.n_kv_heads * kv_repeat)
+    if isl is None:
+        return None, q, k, v
+    return isl, q[:, :, isl.q].contiguous(), k[:, :, isl.kv], v[:, :, isl.kv]
 
 
 def _scale(cfg: ModelConfig) -> float:
@@ -374,6 +392,7 @@ def attn_decode_clustered(p, x, cfg: ModelConfig, *, cache, t,
     ri = torch.arange(l, device=dev)[None, :]                # (1, L)
     positions = tb[:, None] + ri
     q, k, v = _qkv(p, x, cfg, positions, "G", kv_repeat)
+    isl, q, k, v = _head_block(q, k, v, cfg, kv_repeat)
     tail = cache["k_tail"].shape[1]
     # masked chunk rows write out of range (dropped)
     slot = torch.where(ri < cl[:, None], torch.remainder(positions, tail),
@@ -383,7 +402,7 @@ def attn_decode_clustered(p, x, cfg: ModelConfig, *, cache, t,
     k_tail, v_tail = cache["k_tail"], cache["v_tail"]
     cov = cache["cov"]
 
-    hq = cfg.n_heads
+    hq = q.shape[2]
     hkv = k_tail.shape[2]
     g = hq // hkv
     scale = _scale(cfg)
@@ -421,7 +440,10 @@ def attn_decode_clustered(p, x, cfg: ModelConfig, *, cache, t,
                             cache["v_cents"].to(f32))
                + torch.einsum("bhlgs,bshd->blhgd", pw[..., nc:],
                               v_tail.to(f32)))
-    y = out.reshape(b, l, hq * cfg.head_dim).to(x.dtype) @ p["wo"]
+    out = out.reshape(b, l, hq, cfg.head_dim)
+    if isl is not None:
+        out = isl.gather(out)
+    y = out.reshape(b, l, -1).to(x.dtype) @ p["wo"]
     return y, cache
 
 
@@ -448,6 +470,7 @@ def attn_decode_clustered_packed(p, x, cfg: ModelConfig, *, cache,
     n = x.shape[0]
     positions = row_pos[:, None]                          # (N, 1)
     q, k, v = _qkv(p, x, cfg, positions, "G", kv_repeat)
+    isl, q, k, v = _head_block(q, k, v, cfg, kv_repeat)
     t_blocks = block_tables.shape[1]
     nb = cache["k_tail"].shape[0]
     rs = row_slot.long()
@@ -474,6 +497,8 @@ def attn_decode_clustered_packed(p, x, cfg: ModelConfig, *, cache,
         cache["k_tail"], cache["v_tail"], row_slot, row_bt, qpos1, row_tw,
         row_cov, row_wlo, row_group, scale=_scale(cfg),
         softcap=cfg.attn_logit_softcap)
+    if isl is not None:
+        out = isl.gather(out)
     y = out.reshape(n, 1, cfg.n_heads * cfg.head_dim).to(x.dtype) @ p["wo"]
     return y, cache
 
@@ -534,6 +559,7 @@ def attn_decode(p, x, cfg: ModelConfig, *, layer_kind: str, cache, t,
     ri = torch.arange(l, device=dev)[None, :]
     positions = tb[:, None] + ri                          # (B, L)
     q, k, v = _qkv(p, x, cfg, positions, layer_kind, kv_repeat)
+    isl, q, k, v = _head_block(q, k, v, cfg, kv_repeat)
     window = cfg.sliding_window if layer_kind == "L" else None
     sc = cache["k"].shape[1]
     scale, softcap = _scale(cfg), cfg.attn_logit_softcap
@@ -555,6 +581,8 @@ def attn_decode(p, x, cfg: ModelConfig, *, layer_kind: str, cache, t,
                                          window=window, softcap=softcap,
                                          ring=True))
         out = torch.stack(outs, dim=1)
+        if isl is not None:
+            out = isl.gather(out)
         return out.reshape(b, l, -1) @ p["wo"], cache
     slot = (torch.remainder(positions, sc) if window
             else torch.clamp(positions, max=sc - 1))
@@ -570,6 +598,8 @@ def attn_decode(p, x, cfg: ModelConfig, *, layer_kind: str, cache, t,
         out = decode_attention(q[:, 0], k_read, v_read, t=tb + 1,
                                scale=scale, window=window, softcap=softcap,
                                ring=ring)
+    if isl is not None:
+        out = isl.gather(out)
     y = out.reshape(b, l, -1) @ p["wo"]
     return y, cache
 

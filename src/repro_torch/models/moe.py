@@ -8,7 +8,7 @@ expert matmul, and combined back with router weights.  The reference runs
 it per data shard of a mesh; with no mesh, as here, that is one shard, so
 every ``impl`` ("sharded", "global", "a2a") reaches the same dispatch.
 The all-to-all path and expert placement need a mesh (ROADMAP Queue A
-item 10).
+item 10b).
 
 Routers: softmax (Qwen2-MoE, no top-k renorm) and sigmoid with selection
 bias (DeepSeek-V3 aux-loss-free balancing; the bias is a non-gradient

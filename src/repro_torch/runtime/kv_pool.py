@@ -152,8 +152,10 @@ class BlockPool:
     Physical block ids are *global* (``shard * pool_blocks + local``):
     shard ``s`` owns exactly the ids ``[s*pool_blocks, (s+1)*pool_blocks)``
     — a slot only ever references blocks of its own shard, which is what
-    lets the kernel run per mesh shard without collectives (mesh serving
-    is a later slice of the port; one device is one shard).
+    lets the kernel run per mesh shard without collectives: a rank of a
+    serving mesh holds its shard's range of the pool and rebases the ids
+    of its slots' rows on the host (runtime/server.py).  One device is one
+    shard.
     """
 
     def __init__(self, n_slots: int, tail: int, cfg: PagedKVConfig,

@@ -36,8 +36,8 @@ This module is the host-side index that makes that sharing safe:
     engine.
   * **Shard locality**: block ids are only meaningful on the data shard
     that owns them, so the map is per shard and a request admitted on
-    shard ``s`` can only reuse shard-``s`` entries (mesh serving is a
-    later slice of the port; one device is one shard).
+    shard ``s`` can only reuse shard-``s`` entries (prefix sharing on a
+    mesh is ROADMAP Queue A item 10c; one device is one shard).
   * **LRU + pressure eviction**: beyond ``max_entries`` per shard — or
     whenever the engine needs blocks back (pool pressure) — the least
     recently used entry releases its refs.  Entries are a cache, never

@@ -1,7 +1,7 @@
 """Serving runtime: the continuous-batching engine with chunked or
 blocking admission and device-resident clustered-KV compaction, on one
-device, with a dense cache or a paged block pool, and the static
-batch-at-a-time baseline (port of the single-device parts of
+device or a (data, model) mesh of ranks, with a dense cache or a paged
+block pool, and the static batch-at-a-time baseline (port of
 ``repro.runtime.server``).
 
 Requests are ordered by the clustering batcher (core/request_cluster.py);
@@ -103,8 +103,28 @@ the static one a ValueError naming the missing encoder inputs.
 
 Per-slot host bookkeeping (``pos`` / ``cur`` / ``fed``, the coverage
 frontier mirror) replays the reference engine step for step, so greedy
-tokens match it.  Mesh serving is a later slice of the port; asking for
-it raises ``NotImplementedError`` naming its ROADMAP item.
+tokens match it.
+
+With ``mesh=`` (``launch.mesh.make_serving_mesh``: a ``DeviceMesh`` over a
+``torch.distributed`` world, one process a rank) every rank runs this same
+engine SPMD, as the reference's one process drives its mesh.  Every rank
+holds the replicated weights and the whole host state, so all make the
+same decisions; slot j lives on data shard j // per_shard at index
+j % per_shard, and a rank's device cache holds only its data shard's slots
+(and pool blocks) and its model shard's kv heads (``sharding.rules``'s
+blocks).  A device step runs on the rank's own rows, its attention through
+``kernels.ops.head_island`` (heads gathered back over ``model`` before
+``wo``), and the next tokens are gathered over ``data``, so every host sees
+every slot.  Absorb and compaction touch one slot's heads at a time, so
+they stay rank-local, the median on the ``bitserial_median`` kernel.  A
+blocking admission's B=1 prefill runs on every rank (each needs its first
+token); the slot's owners keep their head block.  At most one admitting
+slot a data shard in chunked mode, the emptiest shard first.  Slots that do
+not divide the data axis replicate over it, heads that do not divide the
+model axis replicate over it (the reference's fallbacks).  Mesh serving of
+MoE, MLA, recurrent or 'L' layers, prefix sharing, the template store and
+the SLO scheduler raises a ValueError naming ROADMAP Queue A item 10's
+next part.
 """
 
 from __future__ import annotations
@@ -118,6 +138,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core import kv_compress
 from repro_torch.core import layer_state
@@ -125,6 +147,7 @@ from repro_torch.core import retention
 from repro_torch.core.request_cluster import (BatchPlan, Request,
                                               plan_batches, plan_fifo)
 from repro_torch.kernels import paged_clustered_decode as pcd
+from repro_torch.launch.mesh import mesh_sizes
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import resolve_device
@@ -134,6 +157,7 @@ from repro_torch.runtime import telemetry as tele_mod
 from repro_torch.runtime import template_store as template_mod
 from repro_torch.runtime.scheduler import SLOConfig, SLOScheduler, SwapRecord
 from repro_torch.runtime.telemetry import TelemetryConfig
+from repro_torch.sharding import rules as shard_rules
 
 
 @dataclasses.dataclass
@@ -169,7 +193,10 @@ class ServerConfig:
     scheduler: Optional[SLOConfig] = None
     # SLO-aware preemption, host swap and brownout (paged + kv_compress)
     telemetry: Optional[TelemetryConfig] = None
-    mesh: Optional[object] = None            # later slice (item 10)
+    mesh: Optional[object] = None
+    # (data, model) DeviceMesh (launch/mesh.make_serving_mesh): decode
+    # slots and their caches over data, kv heads over model, one rank a
+    # process; None = one device
 
 
 @dataclasses.dataclass
@@ -341,11 +368,8 @@ class Server:
         if scfg.mesh is not None and scfg.engine != "continuous":
             raise ValueError("mesh serving requires the continuous "
                              "engine (static batches are per-device)")
-        # what this slice of the port does not serve yet
-        if scfg.mesh is not None:
-            raise NotImplementedError("repro_torch Server: mesh= (ROADMAP "
-                                      "Queue A item 10)")
         tfm.check_supported(cfg)
+        self._mesh_setup(cfg, scfg)
         self.params = _to_device(params, self.device)
         self.last_stats: Dict[str, float] = {}
         # port-only counts of a blocking clustered serve's admissions by
@@ -383,8 +407,73 @@ class Server:
         if self._store is not None:
             self._store_epoch = (repr(cfg), repr(scfg.kv_compress),
                                  repr(scfg.paged), scfg.prefill_chunk,
-                                 scfg.max_seq, scfg.batch_size, 1,
+                                 scfg.max_seq, scfg.batch_size,
+                                 self._n_data_shards,
                                  self._params_digest(self.params))
+
+    def _mesh_setup(self, cfg: ModelConfig, scfg: ServerConfig) -> None:
+        """Mesh serving's rules and this rank's place in them: the data
+        shard count (``axes_for("batch", batch_size)``: slots that do not
+        divide the data axis replicate over it, and so do their pools),
+        this rank's data shard and the group the next tokens are gathered
+        over.  The modes this slice does not serve on a mesh raise."""
+        self._rules: Optional[shard_rules.Rules] = None
+        self._n_data_shards = 1
+        self._data_index = 0
+        self._data_group = None
+        mesh = scfg.mesh
+        if mesh is None:
+            return
+        kinds = set(cfg.layer_pattern)
+        later = ("10c: the mesh with prefix sharing, the template store, "
+                 "the SLO scheduler, recurrent, 'L' and MLA layers")
+        for hit, what, part in (
+                (cfg.moe is not None, "MoE layers",
+                 "10b: MoE expert placement and the a2a path"),
+                (cfg.attn_kind == "mla", "MLA attention", later),
+                (bool(kinds & set("MR")), "recurrent ('M' / 'R') layers",
+                 later),
+                ("L" in kinds, "sliding-window ('L') layers", later),
+                (scfg.prefix_share is not None, "prefix_share", later),
+                (scfg.template_store is not None, "template_store", later),
+                (scfg.scheduler is not None, "scheduler= (SLO)", later)):
+            if hit:
+                raise ValueError(
+                    f"mesh serving with {what} is ROADMAP Queue A item "
+                    f"10's next part ({part}); the mesh serves 'G' GQA "
+                    f"models, dense or paged, chunked or blocking")
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError("mesh= takes a DeviceMesh "
+                            "(launch.mesh.make_serving_mesh), not "
+                            f"{type(mesh).__name__}")
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"a mesh of {mesh.device_type} ranks cannot "
+                             f"serve on {self.device}")
+        table = shard_rules.default_table("pod" in mesh_sizes(mesh))
+        rules = shard_rules.Rules(mesh, table)
+        axes = rules.axes_for("batch", scfg.batch_size)
+        if axes:
+            self._n_data_shards = rules.size(axes)
+            self._data_index = rules.axis_index(axes)
+            self._data_group = rules.group(axes)
+        else:
+            table["batch"] = None
+        self._rules = rules
+
+    def _mesh_ctx(self):
+        """The sharding rules around a device step (the head islands)."""
+        return (shard_rules.use_rules(self._rules)
+                if self._rules is not None else contextlib.nullcontext())
+
+    def _gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a step output → every data shard's, in
+        shard order (an ``all_gather`` over ``data``); as is on one shard."""
+        if self._data_group is None:
+            return x
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self._n_data_shards)]
+        dist.all_gather(parts, x, group=self._data_group)
+        return torch.cat(parts)
 
     # ------------------------------------------------------------------
     # entry
@@ -419,12 +508,13 @@ class Server:
         threads, last_stats embedded for offline reconciliation);
         ``fmt="jsonl"`` the raw event log, one JSON object per line."""
         if fmt == "chrome":
-            tele_mod.write_chrome_trace(self.last_trace, path, n_shards=1,
+            tele_mod.write_chrome_trace(self.last_trace, path,
+                                        n_shards=self._n_data_shards,
                                         stats=self.last_stats)
         elif fmt == "jsonl":
             tele_mod.write_jsonl(
                 self.last_trace, path,
-                meta={"n_shards": 1,
+                meta={"n_shards": self._n_data_shards,
                       "last_stats": {k: float(v)
                                      for k, v in self.last_stats.items()}})
         else:
@@ -471,8 +561,29 @@ class Server:
             # so the batcher's order survives inside each); tokens are
             # unaffected, only who waits
             order.sort(key=lambda uid: -by_uid[uid].priority)
+        # data shards: slot j lives on data shard j // per_shard at index
+        # j % per_shard (one shard: per_shard = n, index = j).  The whole
+        # engine's launch rows are shard-major, ``shards * bucket`` of them
+        # (phys(j)); a rank's device cache holds its own shard's ``bucket``
+        # rows: per_shard until the queue drains, then powers of two down
+        # to the busiest index (admissions only happen before the drain,
+        # at the full shape)
+        shards = self._n_data_shards
+        per_shard = max(n // shards, 1)
+        bucket = per_shard
+        shard_of = lambda j: min(j // per_shard, shards - 1)  # noqa: E731
+        idx_of = lambda j: j % per_shard                      # noqa: E731
+        me = self._data_index
+
+        def mine(j):
+            """Slot j's rows live on this rank."""
+            return shard_of(j) == me
+
+        def phys(j):
+            return shard_of(j) * bucket + idx_of(j)
+
         if tr is not None:
-            tr.begin_serve(t0_serve, 1)
+            tr.begin_serve(t0_serve, shards)
             fam = self._families
             # the layer-state families this serve runs with, so offline
             # readers can segment span populations by family mix
@@ -485,10 +596,6 @@ class Server:
                          queue_pos=qpos, priority=qr.priority,
                          prompt_len=qr.prompt_len)
 
-        # the cache physically holds ``bucket`` slots: the full batch until
-        # the queue drains, then powers of two down to the busiest index
-        # (admissions only happen before the drain, at the full shape)
-        bucket = n
         # paged memory manager: tail rings in a block pool behind per-slot
         # block tables; the launch bucket never shrinks (packed rows
         # already make compute follow real tokens)
@@ -510,6 +617,8 @@ class Server:
                 pool.reset_peaks()
             else:
                 pool = kv_pool.BlockPool(n, layout.keep_recent, paged,
+                                         n_shards=shards,
+                                         slots_per_shard=per_shard,
                                          full_tail_resident=ccfg is not None)
             if store is not None:
                 # a store warmed under another epoch or pool is
@@ -518,14 +627,22 @@ class Server:
                 pcache = store
             elif self._pshare is not None:
                 pcache = prefix_mod.PrefixCache(self._pshare, 1, pool)
+        full = cache
         if cache is None:
-            cache = tfm.init_cache(
+            # on a mesh the whole cache is shapes only (meta): a rank
+            # allocates just its block, zeros like every fresh leaf
+            full = tfm.init_cache(
                 cfg, n, scfg.max_seq,
                 kv_mode="clustered" if layout else "exact",
                 kv_clusters=layout.n_clusters if layout else 512,
                 kv_tail=layout.keep_recent if layout else 256,
                 kv_pool_blocks=pool.n_blocks if pool else 0,
-                kv_block_size=paged.block_size if paged else 0, device=dev)
+                kv_block_size=paged.block_size if paged else 0,
+                device=dev if self._rules is None else "meta")
+            cache = full
+            if self._rules is not None:
+                cache = _zeros_on(shard_rules.shard_cache(full, self._rules),
+                                  dev)
         # per-serve stats are deltas against these marks: a persistent
         # store and pool carry lifetime counters across serves
         hits0 = pcache.hits if pcache is not None else 0
@@ -579,6 +696,10 @@ class Server:
         def slot_tid(j):
             return f"slot{j}"
 
+        def slot_ids(j):
+            """Slot j's trace track: its data shard and its thread."""
+            return {"pid": shard_of(j), "tid": slot_tid(j)}
+
         def tr_open(j, uid, t, how, p0=0):
             if tr is None:
                 return
@@ -592,7 +713,7 @@ class Server:
             t0s, how, uid, tok0, p0 = seg[j]
             seg[j] = None
             held = pool.mapped_blocks(j) if pool is not None else 0
-            tr.span("run", t0s, t, tid=slot_tid(j), uid=uid, start=how,
+            tr.span("run", t0s, t, **slot_ids(j), uid=uid, start=how,
                     end=why, tokens=len(toks.get(uid, ())) - tok0, pos0=p0,
                     pos1=int(max(int(fed[j]), int(pos[j]))),
                     blocks_held=held)
@@ -615,12 +736,18 @@ class Server:
         launch_real = launch_padded = 0
         kv_live_sum = kv_alloc_sum = 0
         kv_alloc_peak = kv_shared_peak = 0
-        tail_bpt = self._tail_bytes_per_token(cache) if layout else 0
+        # byte prices of the whole engine (every kv head), from the whole
+        # cache's shapes
+        tail_bpt = self._tail_bytes_per_token(full) if layout else 0
+        ring_state_b = layer_state.ring_state_bytes(full, n)
         # the recurrent family's byte price: the whole fixed-size state one
         # slot carries (constant over the stream, swapped whole, never
         # pool-backed), added to every victim's cost and swap payload
-        rec_state_b = (layer_state.recurrent_state_bytes(cache, n)
+        rec_state_b = (layer_state.recurrent_state_bytes(full, n)
                        if self._has_recurrent else 0)
+        del full
+        shard_busy_steps = np.zeros(shards, np.int64)
+        shard_steps = 0
         stall_retries = idle_retries = 0
         # blocking clustered admissions by _clusterize form, and its time
         n_admit_compress = n_admit_tail = 0
@@ -631,9 +758,20 @@ class Server:
             """Device copy of the block table, re-uploaded only when the
             allocator changed it since the last launch."""
             if bt_cache[0] is None or pool.dirty:
-                bt_cache[0] = torch.from_numpy(pool.table_for_read()).to(dev)
+                bt = pool.table_for_read()
+                if self._rules is not None:
+                    bt = np.ascontiguousarray(shard_rules.place_block_tables(
+                        bt, self._rules, pool.pool_blocks))
+                bt_cache[0] = torch.from_numpy(bt).to(dev)
                 pool.dirty = False
             return bt_cache[0]
+
+        def occupancy():
+            occ = np.zeros(shards, np.int32)
+            for j in range(n):
+                if active[j] or admitting[j]:
+                    occ[shard_of(j)] += 1
+            return occ
 
         def sweep_covered():
             """Give back every block the retention policy has already
@@ -733,7 +871,7 @@ class Server:
                                + rec_state_b)
             if tr is not None:
                 t_now = time.perf_counter()
-                tr.span("swap_out", t_sw0, t_now, tid=slot_tid(j), uid=uid,
+                tr.span("swap_out", t_sw0, t_now, **slot_ids(j), uid=uid,
                         blocks=len(held), pos=int(pos[j]),
                         state_bytes=rec_state_b)
                 tr_close(j, t_now, "preempt")
@@ -801,7 +939,7 @@ class Server:
             if tr is not None:
                 t_now = time.perf_counter()
                 tr_open(j, rec.uid, t_r0, "resume", p0=rec.pos)
-                tr.span("resume", t_r0, t_now, tid=slot_tid(j), uid=rec.uid,
+                tr.span("resume", t_r0, t_now, **slot_ids(j), uid=rec.uid,
                         readopted=len(readopted), reuploaded=len(fresh),
                         demand=fresh_demand)
             return True
@@ -813,7 +951,7 @@ class Server:
             slo.shed_uid(uid, by_uid[uid].priority)
             if tr is not None:
                 t_now = time.perf_counter()
-                tr.event("shed", tid=slot_tid(j), uid=uid, t=t_now,
+                tr.event("shed", **slot_ids(j), uid=uid, t=t_now,
                          where="active", why="brownout")
                 tr_close(j, t_now, "shed")
             active[j] = False
@@ -939,21 +1077,21 @@ class Server:
                 # prompt centroids and frontier; admission resumes at
                 # hit.fed.  The paged bucket never shrinks, so j is the
                 # slot's physical row.
-                assert pool is not None and bucket == n
+                assert pool is not None and bucket == per_shard
                 for bi, gid in hit.blocks.items():
                     pool.adopt(j, bi, gid)
-                tfm.restore_clustered_slot_state(cache, hit.snap, j)
+                tfm.restore_clustered_slot_state(cache, hit.snap, idx_of(j))
                 fed[j] = hit.fed
                 fr.set_frontier(j, hit.cov)
                 # the slot holds its own refs now: the entry may be
                 # evicted again
                 pcache.adoption_done(hit)
-            elif layout is not None or self._has_recurrent:
+            elif (layout is not None or self._has_recurrent) and mine(j):
                 # the previous occupant's counts would unmask its stale
                 # centroids, and a recurrent leaf has no mask at all (its
                 # state feeds the next step); ring entries are hidden by
                 # the position mask
-                self._reset_slot(cache, j)
+                self._reset_slot(cache, idx_of(j))
             if tr is not None:
                 tr_open(j, uid, time.perf_counter(), "admit",
                         p0=int(fed[j]))
@@ -991,6 +1129,8 @@ class Server:
             padded = np.zeros((1, bkt), np.int32)
             padded[0, :plen] = p
             t0 = time.perf_counter()
+            # every rank prefills (each needs the first token); the slot's
+            # owners keep their block of kv heads below
             logits1, c1 = self._prefill(self.params, cfg,
                                         torch.from_numpy(padded).to(dev),
                                         max_seq=scfg.max_seq,
@@ -1002,25 +1142,28 @@ class Server:
             toks[uid] = [first]
             token_t[uid] = [now]
             if tr is not None:
-                tr.span("prefill", t0, now, tid=slot_tid(j), uid=uid,
+                tr.span("prefill", t0, now, **slot_ids(j), uid=uid,
                         prompt_len=plen)
-                tr.event("first_token", tid=slot_tid(j), uid=uid, t=now,
+                tr.event("first_token", **slot_ids(j), uid=uid, t=now,
                          ttft_ms=pre_ms[uid])
             pad_toks += bkt - plen
             useful_toks += plen
             if r.max_new_tokens <= 1:
                 if tr is not None:
                     t_done = time.perf_counter()
-                    tr.event("finish", tid=slot_tid(j), uid=uid, t=t_done)
+                    tr.event("finish", **slot_ids(j), uid=uid, t=t_done)
                     tr_close(j, t_done, "finish")
                 if pool is not None:
                     pool.free_slot(j)   # done at prefill; slot stays free
                 return True
+            if mine(j) and self._rules is not None:
+                c1 = shard_rules.place_admission(c1, self._rules)
             if layout is not None:
-                t_c = time.perf_counter()
-                c1 = self._clusterize(c1, plen, layout, self._kinds)
-                _sync(dev)
-                clusterize_s += time.perf_counter() - t_c
+                if mine(j):
+                    t_c = time.perf_counter()
+                    c1 = self._clusterize(c1, plen, layout, self._kinds)
+                    _sync(dev)
+                    clusterize_s += time.perf_counter() - t_c
                 if plen <= R - layout.refresh:
                     n_admit_tail += 1
                 else:
@@ -1031,11 +1174,13 @@ class Server:
             if wr is not None:
                 wr.on_slot_free(j)
                 kv_retired["window"] += wr.advance(j, plen)
-            if pool is not None:
-                self._write_slot_paged(cache, c1, j, pool.row_for_write(j),
-                                       paged.block_size)
-            else:
-                self._write_slot(cache, c1, j)
+            if mine(j) and pool is not None:
+                self._write_slot_paged(
+                    cache, c1, idx_of(j),
+                    pool.row_for_write(j) - pool.shard_base(j),
+                    paged.block_size)
+            elif mine(j):
+                self._write_slot(cache, c1, idx_of(j))
             cur[j], pos[j] = first, plen
             active[j] = True
             since_tok[j] = 0
@@ -1074,13 +1219,25 @@ class Server:
                         continue
                     break
                 uid = order[qi]
-                if chunk and admitting.any():
-                    free = []   # one prefill in flight at a time
-                elif free and pcache is not None:
+                # the emptiest data shard's lowest free index (a burst
+                # spreads across shards and keeps indices low for tight
+                # launch buckets); chunked mode keeps at most one prefill
+                # in flight a shard
+                occ = occupancy()
+                cands = []
+                for sh in range(shards):
+                    slots = range(sh * per_shard, min((sh + 1) * per_shard, n))
+                    if chunk and any(admitting[jj] for jj in slots):
+                        continue
+                    sh_free = [jj for jj in slots
+                               if not (active[jj] or admitting[jj])]
+                    if sh_free:
+                        cands.append((occ[sh], sh, sh_free[0]))
+                if cands and pcache is not None:
                     # slot choice hashes the head request (one shard: no
                     # steering to do, but the store assigns its cluster)
                     prefix_digests(uid)
-                if not free:
+                if not cands:
                     # slot pressure: a higher-priority head preempts the
                     # cheapest strictly-lower-priority decoding slot (not
                     # while a prefill is in flight in chunked mode: a
@@ -1095,7 +1252,7 @@ class Server:
                             preempt(v)
                             continue
                     break
-                j = free[0]
+                j = min(cands)[-1]
                 ok = (start_admission(j, uid) if chunk
                       else admit_blocking(j, uid))
                 if ok:
@@ -1152,12 +1309,13 @@ class Server:
 
             # ---- bucketed launch: shrink to live occupancy ----------------
             if pool is None and qi >= len(order) and not admitting.any():
-                busy = [j for j in range(n) if active[j] or admitting[j]]
-                desired = min(n, _pow2ceil(max(busy) + 1))
+                busy = [idx_of(j) for j in range(n)
+                        if active[j] or admitting[j]]
+                desired = min(per_shard, _pow2ceil(max(busy) + 1))
                 if desired < bucket:
                     cache = self._shrink_cache(cache, desired)
                     bucket = desired
-            bp = bucket
+            bp = shards * bucket
 
             # ---- chunked admission: pre-step absorb (make ring room) ------
             step_chunks = {}            # slot -> chunk len this step
@@ -1171,15 +1329,16 @@ class Server:
                                          0, fed[j]))
                     kv_retired["frontier"] += target - fr.frontier(j)
                     t_ab0 = time.perf_counter()
-                    self._absorb(cache, j, int(fed[j]), target, ccfg,
-                                 self._row_for_read(pool, j, dev))
+                    if mine(j):
+                        self._absorb(cache, idx_of(j), int(fed[j]), target,
+                                     ccfg, self._row_for_read(pool, j, dev))
                     fr.set_frontier(j, target)
                     if pool is not None:
                         pool.free_retired(j, int(fed[j]), fr)
                     n_absorbs += 1
                     if tr is not None:
                         tr.span("absorb", t_ab0, time.perf_counter(),
-                                tid=slot_tid(j), uid=slot_uid[j],
+                                **slot_ids(j), uid=slot_uid[j],
                                 target=int(target))
 
             # ---- build the launch -----------------------------------------
@@ -1238,27 +1397,39 @@ class Server:
                     continue
                 stall_retries = 0
                 # one row per real (slot, position) pair: (slot, token,
-                # position, ring watermark, index in chunk), padded to a
-                # power-of-two bucket with rows on slot 0 at position -1;
-                # a sixth row carries the attention kernel's row groups
-                # in the same host-to-device copy
-                rows = []
+                # position, ring watermark, index in chunk), padded per
+                # data shard to a power-of-two bucket with rows on the
+                # shard's first slot at position -1 (paged slots never
+                # shrink, so slot j is row j of the table); a sixth row
+                # carries the attention kernel's row groups in the same
+                # host-to-device copy
+                rows_by_shard = [[] for _ in range(shards)]
                 for j in range(n):
+                    rs = rows_by_shard[shard_of(j)]
                     if j in step_chunks:
                         cl = step_chunks[j]
                         p = prompt_np[slot_uid[j]]
                         f = int(fed[j])
-                        rows += [(j, int(p[f + i]), f + i, f + cl, i)
-                                 for i in range(cl)]
+                        rs += [(j, int(p[f + i]), f + i, f + cl, i)
+                               for i in range(cl)]
                     elif active[j] and j not in stalled_decode:
-                        rows.append((j, int(cur[j]), int(pos[j]),
-                                     int(pos[j]) + 1, 0))
-                compute_rows = _pow2ceil(len(rows))
-                # rows 6-7: the recurrent layers' rounds, planned here
+                        rs.append((j, int(cur[j]), int(pos[j]),
+                                   int(pos[j]) + 1, 0))
+                row_bucket = _pow2ceil(max(max(map(len, rows_by_shard)), 1))
+                compute_rows = shards * row_bucket
+                last_row = {}
+                # this rank's block of the rows: local slots, rows 6-7 the
+                # recurrent layers' rounds, planned here
                 packed = np.zeros((8 if self._has_recurrent else 6,
-                                   compute_rows), np.int32)
+                                   row_bucket), np.int32)
                 packed[2] = -1
-                packed[:5, :len(rows)] = np.asarray(rows, np.int32).T
+                for sh, rs in enumerate(rows_by_shard):
+                    last_row.update((r[0], sh * row_bucket + i)
+                                    for i, r in enumerate(rs))
+                rs = rows_by_shard[me]
+                if rs:
+                    packed[:5, :len(rs)] = np.asarray(rs, np.int32).T
+                    packed[0, :len(rs)] -= me * bucket
                 packed[5] = pcd.group_rows(packed[0], packed[2] + 1,
                                            packed[3],
                                            cfg.n_heads // cfg.n_kv_heads)
@@ -1266,7 +1437,6 @@ class Server:
                     idx, sizes = tfm.recurrent_round_plan(
                         packed[0], packed[2], packed[4], width)
                     packed[6:, :idx.shape[1]] = idx
-                last_row = {r[0]: i for i, r in enumerate(rows)}
                 bt_d = bt_device()
                 t0 = time.perf_counter()
                 packed_d = torch.from_numpy(packed).to(dev)
@@ -1274,42 +1444,48 @@ class Server:
                 rounds = (tfm.recurrent_rounds(
                     packed_d[6:, :idx.shape[1]], sizes)
                     if self._has_recurrent else None)
-                with _annot("decode_packed"):
+                with _annot("decode_packed"), self._mesh_ctx():
                     logits, cache = tfm.decode_step_packed(
                         self.params, cfg, cache, tokp, rslot, rpos, rtw,
                         rcidx, bt_d, block_size=paged.block_size,
                         width=width, row_group=rgrp, rounds=rounds)
-                nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+                nxt = self._gather_rows(
+                    torch.argmax(logits, -1).to(torch.int32)).cpu().numpy()
                 nxt_of = lambda jj: nxt[last_row[jj]]      # noqa: E731
             else:
-                tok = np.zeros((bp, width), np.int32)
-                t_vec = np.zeros(bp, np.int32)
-                cl_vec = np.ones(bp, np.int32)
-                for j in range(min(n, bp)):
+                # this rank's rows: its data shard's bucket
+                tok = np.zeros((bucket, width), np.int32)
+                t_vec = np.zeros(bucket, np.int32)
+                cl_vec = np.ones(bucket, np.int32)
+                for j in range(n):
+                    if not mine(j) or idx_of(j) >= bucket:
+                        continue
+                    i = idx_of(j)
                     if admitting[j]:
                         cl = step_chunks[j]
                         p = prompt_np[slot_uid[j]]
-                        tok[j, :cl] = p[fed[j]:fed[j] + cl]
-                        t_vec[j] = fed[j]
-                        cl_vec[j] = cl
+                        tok[i, :cl] = p[fed[j]:fed[j] + cl]
+                        t_vec[i] = fed[j]
+                        cl_vec[i] = cl
                     else:
-                        tok[j, 0] = cur[j]
-                        t_vec[j] = pos[j]
+                        tok[i, 0] = cur[j]
+                        t_vec[i] = pos[j]
 
                 t0 = time.perf_counter()
                 tok_d = torch.from_numpy(tok).to(dev)
                 t_d = torch.from_numpy(t_vec).to(dev)
                 if mixed:
-                    with _annot("mixed_step"):
+                    with _annot("mixed_step"), self._mesh_ctx():
                         logits, cache = self._decode(
                             self.params, cfg, cache, tok_d, t_d,
                             chunk_len=torch.from_numpy(cl_vec).to(dev))
                 else:
-                    with _annot("decode_step"):
+                    with _annot("decode_step"), self._mesh_ctx():
                         logits, cache = self._decode(
                             self.params, cfg, cache, tok_d, t_d)
-                nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
-                nxt_of = lambda jj: nxt[jj]                # noqa: E731
+                nxt = self._gather_rows(
+                    torch.argmax(logits, -1).to(torch.int32)).cpu().numpy()
+                nxt_of = lambda jj: nxt[phys(jj)]          # noqa: E731
                 compute_rows = bp * width
             now = time.perf_counter()
             dec_s += now - t0
@@ -1325,8 +1501,9 @@ class Server:
                 tr.span("engine_step", t0, now, tid="engine", kind=kind,
                         width=int(width), rows=int(compute_rows),
                         real_rows=int(real_rows),
-                        occupancy=[int((active | admitting).sum())],
-                        pool_free=([pool.free_blocks(0)]
+                        occupancy=[int(x) for x in occupancy()],
+                        pool_free=([pool.free_blocks(sh)
+                                    for sh in range(shards)]
                                    if pool is not None else []),
                         pool_live=(int(pool.allocated())
                                    if pool is not None else 0),
@@ -1335,6 +1512,11 @@ class Server:
             advanced[list(stalled_decode)] = False   # a stalled slot waits
             since_tok[advanced] += 1
             n_chunks += len(step_chunks)
+            if shards > 1:
+                shard_steps += 1
+                for j in range(n):
+                    if active[j] or admitting[j]:
+                        shard_busy_steps[shard_of(j)] += 1
             if layout is not None:
                 live = 0
                 for j in range(n):
@@ -1354,7 +1536,9 @@ class Server:
                                          pool.shared_extra())
 
             # ---- host update ---------------------------------------------
-            for j in range(min(n, bp)):
+            for j in range(n):
+                if idx_of(j) >= bucket:
+                    continue
                 uid = slot_uid[j]
                 if admitting[j]:
                     if j not in step_chunks:
@@ -1362,7 +1546,7 @@ class Server:
                     cl = step_chunks[j]
                     fed[j] += cl
                     if tr is not None:
-                        tr.event("prefill_chunk", tid=slot_tid(j), uid=uid,
+                        tr.event("prefill_chunk", **slot_ids(j), uid=uid,
                                  t=now, fed=int(fed[j]), chunk=cl)
                     if wr is not None:
                         kv_retired["window"] += wr.advance(j, int(fed[j]))
@@ -1395,8 +1579,10 @@ class Server:
                             kv_retired["frontier"] += (target_end
                                                        - fr.frontier(j))
                             t_ab0 = time.perf_counter()
-                            self._absorb(cache, j, plen, target_end, ccfg,
-                                         self._row_for_read(pool, j, dev))
+                            if mine(j):
+                                self._absorb(
+                                    cache, idx_of(j), plen, target_end, ccfg,
+                                    self._row_for_read(pool, j, dev))
                             fr.set_frontier(j, target_end)
                             if pool is not None:
                                 pool.free_retired(j, plen, fr)
@@ -1404,19 +1590,19 @@ class Server:
                             if tr is not None:
                                 tr.span("absorb", t_ab0,
                                         time.perf_counter(),
-                                        tid=slot_tid(j), uid=uid,
+                                        **slot_ids(j), uid=uid,
                                         target=int(target_end))
                     first = int(nxt_of(j))
                     toks[uid] = [first]
                     token_t[uid] = [now]
                     pre_ms[uid] = (now - t0_serve) * 1e3    # TTFT
                     if tr is not None:
-                        tr.event("first_token", tid=slot_tid(j), uid=uid,
+                        tr.event("first_token", **slot_ids(j), uid=uid,
                                  t=now, ttft_ms=pre_ms[uid])
                     admitting[j] = False
                     if by_uid[uid].max_new_tokens <= 1:
                         if tr is not None:
-                            tr.event("finish", tid=slot_tid(j), uid=uid,
+                            tr.event("finish", **slot_ids(j), uid=uid,
                                      t=now)
                             tr_close(j, now, "finish")
                         slot_uid[j] = -1
@@ -1442,7 +1628,7 @@ class Server:
                         active[j] = False
                         since_tok[j] = 0
                         if tr is not None:
-                            tr.event("finish", tid=slot_tid(j), uid=uid,
+                            tr.event("finish", **slot_ids(j), uid=uid,
                                      t=now)
                             tr_close(j, now, "finish")
                         if pool is not None:
@@ -1460,14 +1646,18 @@ class Server:
             # and recompact_clustered's gate keeps them bit-identical)
             due = [j for j in range(n)
                    if ccfg is not None and active[j]
-                   and since_tok[j] >= ccfg.refresh and j < bucket]
+                   and since_tok[j] >= ccfg.refresh and idx_of(j) < bucket]
             if due:
-                lengths = np.zeros(bp, np.int32)
-                for j in due:
-                    lengths[j] = pos[j]
                 t_c0 = time.perf_counter()
-                cache = self.compact_kv(cache, lengths, ccfg,
-                                        bt_device() if pool else None)
+                # rank-local: this rank's due slots on its own rows (a
+                # rank with none would leave every slot bit-identical)
+                lengths = np.zeros(bucket, np.int32)
+                for j in due:
+                    if mine(j):
+                        lengths[idx_of(j)] = pos[j]
+                if lengths.any():
+                    cache = self.compact_kv(cache, lengths, ccfg,
+                                            bt_device() if pool else None)
                 # compaction is when the paged engine gives back the
                 # blocks the new frontier covers
                 for j in due:
@@ -1547,7 +1737,7 @@ class Server:
         reg.gauge("launch_rows_frac", "launched slot rows / slots×steps"
                   ).set(rows_launched / max(decode_steps * n, 1))
         reg.gauge("launch_bucket_mean", "mean launch bucket per shard"
-                  ).set(rows_launched / max(decode_steps, 1))
+                  ).set(rows_launched / max(decode_steps * shards, 1))
         reg.gauge("launch_pad_frac",
                   "launched compute rows carrying no real token"
                   ).set(1.0 - launch_real / max(launch_padded, 1))
@@ -1582,7 +1772,7 @@ class Server:
                           if rr is not None else 0)
         reg.gauge("state_bytes_ring",
                   "dense ring-family state bytes per slot (tails excluded)"
-                  ).set(float(layer_state.ring_state_bytes(cache, bucket)))
+                  ).set(float(ring_state_b))
         reg.gauge("state_bytes_recurrent",
                   "recurrent-family state bytes per slot"
                   ).set(float(rec_state_b))
@@ -1625,13 +1815,22 @@ class Server:
             else:
                 reg.gauge("kv_bytes_peak_per_shard",
                           "peak live tail-KV bytes on the busiest shard"
-                          ).set(float(n * R * tail_bpt))
+                          ).set(float(per_shard * R * tail_bpt))
                 reg.gauge("pool_occupancy_peak",
                           "peak live blocks / capacity").set(1.0)
         if slo is not None:
             # brownout ladder accounting (sched_shed_high must stay 0: the
             # protected class is raised on, never shed)
             slo.publish(reg)
+        if shards > 1:
+            reg.gauge("n_data_shards", "data shards this serve"
+                      ).set(float(shards))
+            for sh in range(shards):
+                reg.gauge(f"slot_waste_shard{sh}",
+                          f"idle slot-step fraction on data shard {sh}"
+                          ).set(1.0 - shard_busy_steps[sh]
+                                / (shard_steps * per_shard)
+                                if shard_steps else 0.0)
         self.last_stats = reg.flat_view()
         if tr is not None:
             self.last_trace = tr.finish()
@@ -1788,10 +1987,12 @@ class Server:
     @staticmethod
     def _row_for_read(pool, j: int, device):
         """Slot j's read-sanitized block-table row on ``device`` (paged),
-        or None (dense)."""
+        its ids local to the rank holding slot j's data shard of the pool
+        (one device: global), or None (dense)."""
         if pool is None:
             return None
-        return torch.from_numpy(pool.row_for_read(j)).to(device)
+        return torch.from_numpy(pool.row_for_read(j)
+                                - pool.shard_base(j)).to(device)
 
     @staticmethod
     def _absorb(cache, j: int, lengths: int, target: int, ccfg,
@@ -2024,6 +2225,16 @@ class Server:
                            prefill_ms=(t1 - t0) * 1e3 / b,
                            decode_ms=(t2 - t1) * 1e3 / b)
                 for i, r in enumerate(reqs)]
+
+
+def _zeros_on(tree, device):
+    """A tree of zero tensors on ``device`` shaped like ``tree``'s (a
+    fresh engine cache is all zeros)."""
+    if isinstance(tree, dict):
+        return {k: _zeros_on(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_zeros_on(v, device) for v in tree]
+    return torch.zeros(tree.shape, dtype=tree.dtype, device=device)
 
 
 def _to_device(tree, device):

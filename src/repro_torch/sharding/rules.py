@@ -1,0 +1,407 @@
+"""Logical-axis sharding rules, divisibility-aware (port of
+``repro.sharding.rules``).
+
+A rules object maps logical axis names ("batch", "heads", "kv_heads", …)
+to mesh axes, and a *spec* says, for each dimension of a tensor, the mesh
+axes that partition it: a tuple with one entry per dimension, None or a
+tuple of axis names (the port's ``PartitionSpec``; ``()`` replicates
+everything).  A dimension is sharded only when its size divides evenly;
+otherwise it is replicated (never crash: small models on big meshes
+degrade to partial parallelism).
+
+The specs are the reference's.  What the reference does with them differs:
+its ``device_put`` places a global array on a mesh, while every rank of the
+port is a process that holds only its own block.  So ``shard_cache``,
+``place_admission``, ``place_block_tables``, ``place_prefix_snapshot`` and
+``place_swap_payload`` take this rank's block of a whole tensor (its
+coordinate along each sharded dimension's axes), and nothing is ever
+gathered back but through an explicit collective (``kernels.ops``'s head
+island, the server's token gather).  Parameters replicate at serve time,
+as in the reference: ``serving_param_specs`` distributes only MoE expert
+banks, which mesh serving does not take yet (ROADMAP Queue A item 10b).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import re
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.launch.mesh import mesh_sizes
+
+
+def P(*dims):
+    """A partition spec: one entry a dimension, None or axis names."""
+    return tuple(dims)
+
+
+@dataclasses.dataclass
+class Rules:
+    mesh: object                     # DeviceMesh (or a stand-in with .shape)
+    table: dict                      # logical axis -> mesh axis tuple | None
+    fsdp: bool = False               # shard params/opt-state over data axis
+
+    def size(self, axes) -> int:
+        """Ranks along mesh axes ``axes`` (a name or a tuple of names)."""
+        sizes = mesh_sizes(self.mesh)
+        return math.prod(sizes[a] for a in _axes(axes))
+
+    def axes_for(self, logical: Optional[str], dim: int):
+        if logical is None:
+            return None
+        axes = self.table.get(logical)
+        if not axes:
+            return None
+        total = self.size(axes)
+        if dim % total != 0:
+            # try a prefix of the axes (e.g. batch over ("pod","data") but
+            # dim only divisible by pod count)
+            for cut in range(len(axes) - 1, 0, -1):
+                sub = axes[:cut]
+                if dim % self.size(sub) == 0:
+                    return tuple(sub)
+            return None
+        return tuple(axes)
+
+    def axis_index(self, axes) -> int:
+        """This rank's index along mesh axes ``axes``, folded row-major
+        (the reference's ``_fold_axis_index``)."""
+        coord = dict(zip(self.mesh.mesh_dim_names,
+                         self.mesh.get_coordinate()))
+        sizes = mesh_sizes(self.mesh)
+        idx = 0
+        for a in _axes(axes):
+            idx = idx * sizes[a] + coord[a]
+        return idx
+
+    def group(self, axes):
+        """The process group of the ranks that differ only along ``axes``
+        (one mesh axis: the serving mesh's "data" or "model")."""
+        axes = _axes(axes)
+        if len(axes) != 1:
+            raise ValueError(f"no process group over several mesh axes "
+                             f"{axes}: a serving mesh is (data, model)")
+        return self.mesh.get_group(axes[0])
+
+
+def _axes(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+_ACTIVE: list = []
+
+
+@contextlib.contextmanager
+def use_rules(rules: Rules):
+    _ACTIVE.append(rules)
+    try:
+        yield rules
+    finally:
+        _ACTIVE.pop()
+
+
+def current_rules() -> Optional[Rules]:
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+# ---------------------------------------------------------------------------
+# Mesh-axis tables
+# ---------------------------------------------------------------------------
+
+
+def default_table(multi_pod: bool, *, seq_shard: bool = False) -> dict:
+    batch = ("pod", "data") if multi_pod else ("data",)
+    model = ("model",)
+    return {
+        "batch": batch,
+        "seq": None,
+        "kvseq": batch if seq_shard else None,  # sequence-parallel KV (SP)
+        "d_model": None,
+        "heads": model,
+        "kv_heads": model,
+        "ff": model,
+        "vocab": model,
+        # full expert parallelism over model×data when the count divides;
+        # axes_for falls back to ("model",), then replication
+        "experts": ("model", "data"),
+        "expert_ff": model,
+        "expert_cap": batch,
+        "lru": model,
+        "ssm_heads": model,
+        "state": None,
+        "head_dim": None,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Parameter partition specs (name-based)
+# ---------------------------------------------------------------------------
+
+# rule: regex on the leaf path -> logical axes for the TRAILING dims
+_PARAM_RULES = [
+    # MoE expert banks: (E, d, f) / (E, f, d)
+    (re.compile(r"moe/(w_gate|w_up)$"), ("experts", "fsdp", "expert_ff")),
+    (re.compile(r"moe/w_down$"), ("experts", "expert_ff", "fsdp")),
+    (re.compile(r"moe/router$"), (None, None)),
+    (re.compile(r"moe/bias$"), (None,)),
+    # embeddings / heads
+    (re.compile(r"embed/table$"), ("vocab", "fsdp")),
+    (re.compile(r"embed/head$"), ("fsdp", "vocab")),
+    # attention projections
+    (re.compile(r"(wq|wk|wv|wuq|wukv)$"), ("fsdp", "model_out")),
+    (re.compile(r"(wdq|wdkv|wkr)$"), ("fsdp", None)),
+    (re.compile(r"wo$"), ("model_out", "fsdp")),
+    # mlp
+    (re.compile(r"(w_gate|w_up)$"), ("fsdp", "ff")),
+    (re.compile(r"w_down$"), ("ff", "fsdp")),
+    # recurrent / ssm
+    (re.compile(r"(wx|wg|wa_gate|wi_gate)$"), ("fsdp", "lru")),
+    (re.compile(r"rg_out$"), ("lru", "fsdp")),
+    (re.compile(r"in_proj$"), ("fsdp", "ssm_ch")),
+    (re.compile(r"out_proj$"), ("ssm_ch", "fsdp")),
+    (re.compile(r"frontend/proj$"), (None, "fsdp")),
+]
+
+
+def _dedupe(entries) -> list:
+    """A mesh axis may appear at most once in a spec: later claims of an
+    axis already used replicate."""
+    used: set = set()
+    out = []
+    for ax in entries:
+        tup = _axes(ax) if ax is not None else ()
+        if not tup or any(a in used for a in tup):
+            out.append(None)
+        else:
+            used.update(tup)
+            out.append(ax)
+    return out
+
+
+def param_spec(path: str, shape: Sequence[int], rules: Rules):
+    """Partition spec for parameter leaf ``path`` with ``shape``.
+
+    Trailing dims follow the matched rule; extra leading dims are
+    unsharded.  ``fsdp`` resolves to the data axis when the rules enable
+    it, else replicated; ``model_out`` / ``ff`` etc. resolve to the model
+    axis when divisible."""
+    logical = None
+    for rx, ax in _PARAM_RULES:
+        if rx.search(path):
+            logical = ax
+            break
+    if logical is None:
+        return P()  # norms, biases, conv kernels, A_log… replicated
+    sizes = mesh_sizes(rules.mesh)
+
+    def resolve(name, dim):
+        if name is None:
+            return None
+        if name == "fsdp":
+            if not rules.fsdp:
+                return None
+            # the data axis only: pods replicate params, cross-pod traffic
+            # goes through gradient compression
+            axes = tuple(a for a in (rules.table.get("batch") or ())
+                         if a == "data")
+            return axes if axes and dim % rules.size(axes) == 0 else None
+        if name == "experts":
+            return rules.axes_for("experts", dim)
+        if name in ("model_out", "ff", "expert_ff", "vocab", "lru",
+                    "ssm_ch", "heads"):
+            return ("model",) if dim % sizes["model"] == 0 else None
+        axes = rules.table.get(name)
+        if not axes:
+            return None
+        return tuple(axes) if dim % rules.size(axes) == 0 else None
+
+    trailing = [resolve(n, d) for n, d in zip(logical, shape[-len(logical):])]
+    return P(*([None] * (len(shape) - len(logical)) + _dedupe(trailing)))
+
+
+# ---------------------------------------------------------------------------
+# Serving-cache partition specs (name-based, like params)
+# ---------------------------------------------------------------------------
+
+# KV-cache leaf name -> head-axis position counted from the END of the shape
+_CACHE_HEAD_AXIS = {
+    "k": 2, "v": 2,                                   # (…, S, H, Dh)
+    "k_cents": 2, "v_cents": 2,                       # (…, C, H, Dh)
+    "k_tail": 2, "v_tail": 2,                         # (…, R, H, Dh)
+    "counts": 1,                                      # (…, C, H)
+}
+
+
+def cache_spec(path: str, shape: Sequence[int], rules: Rules):
+    """Partition spec for one serving-cache leaf: decode slots (axis 0,
+    or axis 1 under the reference's scan-stacked layer dim) over the
+    rules' ``batch`` axes, kv heads over ``model``; a dim that does not
+    divide replicates.  Non-KV state gets slot sharding only.  A paged
+    tail pool ``(n_blocks, block_size, H, Dh)`` shards its block axis over
+    ``batch`` like the slots it backs: the pool is sized shards ×
+    pool_blocks and the allocator hands each shard's slots only its own
+    block-id range (runtime/kv_pool.py)."""
+    parts = path.split("/")
+    name = parts[-1]
+    stacked = parts[0] == "scan"
+    dims: list = [None] * len(shape)
+    used: set = set()
+
+    def put(axis_pos: int, logical: str):
+        if not 0 <= axis_pos < len(shape):
+            return
+        res = rules.axes_for(logical, shape[axis_pos])
+        tup = _axes(res) if res else ()
+        if tup and not any(a in used for a in tup):
+            used.update(tup)
+            dims[axis_pos] = res
+
+    if name in ("k_scale", "v_scale"):                # (…, H) — no slot dim
+        put(len(shape) - 1, "kv_heads")
+        return P(*dims)
+    put(1 if stacked else 0, "batch")
+    head_off = _CACHE_HEAD_AXIS.get(name)
+    if head_off is not None and len(shape) - head_off > (1 if stacked else 0):
+        put(len(shape) - head_off, "kv_heads")
+    return P(*dims)
+
+
+def block_table_spec(shape: Sequence[int], rules: Rules):
+    """Partition spec for the paged engine's block table ``(slots, T)``:
+    rows follow the slots over ``batch``, columns replicated."""
+    dims: list = [None] * len(shape)
+    res = rules.axes_for("batch", shape[0])
+    if res:
+        dims[0] = res
+    return P(*dims)
+
+
+def admission_spec(path: str, shape: Sequence[int], rules: Rules):
+    """Partition spec for a B=1 admission-prefill cache leaf: its slot dim
+    cannot shard, its kv-head dims shard over ``model`` like the engine
+    cache's."""
+    name = path.split("/")[-1]
+    dims: list = [None] * len(shape)
+    head_off = _CACHE_HEAD_AXIS.get(name)
+    if name in ("k_scale", "v_scale"):
+        head_off = 1
+    if head_off is not None and len(shape) >= head_off:
+        res = rules.axes_for("kv_heads", shape[len(shape) - head_off])
+        if res:
+            dims[len(shape) - head_off] = res
+    return P(*dims)
+
+
+# ---------------------------------------------------------------------------
+# This rank's blocks
+# ---------------------------------------------------------------------------
+
+
+def take_block(x: torch.Tensor, spec, rules: Rules) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x`` under ``spec``: each
+    sharded dimension cut into equal parts, the part at this rank's index
+    along its axes.  A cut tensor is copied (the whole one can be freed);
+    an uncut one is returned as is."""
+    cut = False
+    for dim, axes in enumerate(spec):
+        if not axes:
+            continue
+        n = x.shape[dim] // rules.size(axes)
+        x = x.narrow(dim, rules.axis_index(axes) * n, n)
+        cut = True
+    return x.clone() if cut else x
+
+
+def _place(tree, rules: Rules, spec_of, path: str = ""):
+    """``take_block`` over a tree of tensors (dicts, lists, None leaves),
+    each leaf's spec from ``spec_of(path, shape, rules)``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _place(v, rules, spec_of, f"{path}/{k}" if path else k)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_place(v, rules, spec_of, f"{path}/{i}" if path else str(i))
+                for i, v in enumerate(tree)]
+    return take_block(tree, spec_of(path, tuple(tree.shape), rules), rules)
+
+
+def shard_cache(cache, rules: Rules):
+    """This rank's block of a whole serving cache (engine init): its data
+    shard's slots (and pool blocks), its model shard's kv heads."""
+    return _place(cache, rules, cache_spec)
+
+
+def place_admission(cache, rules: Rules):
+    """This rank's block of a B=1 admission-prefill cache: its model
+    shard's kv heads, every position (``admission_spec``)."""
+    return _place(cache, rules, admission_spec)
+
+
+def place_prefix_snapshot(snap, rules: Rules):
+    """This rank's block of a prefix-cache snapshot (one slot's clustered
+    summary rows): kv heads over ``model``, as ``admission_spec``."""
+    return _place(snap, rules, admission_spec)
+
+
+def place_swap_payload(payload, rules: Rules):
+    """This rank's block of a swapped-out slot's host payload (snapshot
+    and tail blocks): kv heads over ``model``, as ``admission_spec``."""
+    return _place(payload, rules, admission_spec)
+
+
+def place_block_tables(bt, rules: Rules, local_blocks: int = 0):
+    """This rank's rows of the paged engine's block table ``(slots, T)``
+    (``block_table_spec``), its global block ids rebased to the rank's
+    pool block (``local_blocks`` blocks a data shard: the ids of data
+    shard s start at s * local_blocks).  The reference rebases inside its
+    shard_map island; the port's rank holds only its shard's pool, so the
+    ids are rebased on the host before upload.  ``bt`` a numpy array or a
+    tensor."""
+    spec = block_table_spec(tuple(bt.shape), rules)
+    if not spec[0]:
+        return bt
+    n = bt.shape[0] // rules.size(spec[0])
+    s = rules.axis_index(spec[0])
+    return bt[s * n:(s + 1) * n] - s * local_blocks
+
+
+# ---------------------------------------------------------------------------
+# Parameter spec trees
+# ---------------------------------------------------------------------------
+
+
+def _spec_tree(params, rules: Rules, spec_of, path: str = ""):
+    if isinstance(params, dict):
+        return {k: _spec_tree(v, rules, spec_of, f"{path}/{k}" if path else k)
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [_spec_tree(v, rules, spec_of,
+                           f"{path}/{i}" if path else str(i))
+                for i, v in enumerate(params)]
+    return spec_of(path, tuple(params.shape), rules)
+
+
+def tree_param_specs(params, rules: Rules):
+    """Partition spec tree for a parameter tree (path-aware)."""
+    return _spec_tree(params, rules, param_spec)
+
+
+# serve-time placement: only the leaves whose replication cost dominates
+# are distributed; everything else replicates
+_SERVING_DISTRIBUTED = re.compile(r"moe/(w_gate|w_up|w_down)$")
+
+
+def serving_param_specs(params, rules: Rules):
+    """Partition spec tree for serve-time parameter placement: MoE routed
+    expert banks by ``param_spec`` (the expert dim on ``model``, spilling
+    onto ``data`` when the count divides), every other leaf replicated."""
+    return _spec_tree(
+        params, rules,
+        lambda path, shape, r: (param_spec(path, shape, r)
+                                if _SERVING_DISTRIBUTED.search(path)
+                                else P()))

@@ -1483,3 +1483,59 @@ def test_dryrun_on_card_counts_as_meta(cuda, arch, kv):
     assert row["measured_s"] >= row["ideal_s"]
     prof = rec["profile"]
     assert prof["device_busy_s"] and 0 <= prof["idle_share"] < 1
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_tiny_mesh_serve_on_card(cuda, paged, tmp_path):
+    """The mesh engine on a one-rank NCCL world (a file store, no
+    network): TINY served chunked and clustered through
+    ``make_serving_mesh("1x1")`` gives the tokens of the same serve
+    without a mesh, and the decode kernel launches once a layer an engine
+    step through the head island (B1 dense, B2 paged), B3 at least once
+    an absorb and a compaction."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core.kv_compress import KVCompressConfig
+    from repro_torch.core.request_cluster import Request
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.kv_pool import PagedKVConfig
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg = _tiny()
+    params = tfm.init_params(0, cfg, device=cuda)
+    rng = np.random.default_rng(9)
+    spec = [(60, 12), (9, 10), (48, 9), (21, 14)]
+    reqs = [Request(i, l, gn) for i, (l, gn) in enumerate(spec)]
+    prompts = {i: rng.integers(0, 64, size=l).astype(np.int32)
+               for i, (l, _) in enumerate(spec)}
+    kw = dict(batch_size=2, max_seq=96, prefill_chunk=8,
+              kv_compress=KVCompressConfig(n_clusters=8, iters=4,
+                                           keep_recent=16, refresh_every=8),
+              paged=PagedKVConfig(block_size=4) if paged else None)
+    want = {o.uid: o.tokens for o in Server(
+        cfg, ServerConfig(**kw), params, device=cuda).serve(reqs, prompts)}
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        assert dist.get_backend() == "nccl"
+        srv = Server(cfg, ServerConfig(mesh=make_serving_mesh("1x1"), **kw),
+                     params, device=cuda)
+        ops.reset_launches()
+        got = {o.uid: o.tokens for o in srv.serve(reqs, prompts)}
+        counts = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    st = srv.last_stats
+    kernel, other = (("paged_clustered_decode", "clustered_decode") if paged
+                     else ("clustered_decode", "paged_clustered_decode"))
+    assert got == want
+    assert counts[kernel] == cfg.n_layers * st["decode_steps"]
+    assert counts[other] == 0
+    assert counts["bitserial_median"] >= (st["kv_absorbs"]
+                                          + st["kv_compactions"]) > 0
+    if paged:
+        assert st["pool_blocks_end"] == 0.0

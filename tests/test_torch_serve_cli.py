@@ -7,9 +7,9 @@ and counts equal too).  The paged template-store and prefix-sharing
 cases are in tests/test_torch_serve_cli_paged.py, the windowed one in
 tests/test_torch_serve_cli_window.py.  Also the
 error paths (``--priority-demo`` without ``--paged``, a chunked serve of
-a model the engine cannot serve chunked, ``--mesh``), the flags (the
-reference's help plus ``--device``) and an unpatched run at the
-config's own bf16."""
+a model the engine cannot serve chunked, ``--mesh`` without a world),
+the flags (the reference's help plus ``--device``) and an unpatched run
+at the config's own bf16."""
 
 import collections
 import json
@@ -86,11 +86,16 @@ def test_cli_refusals_equal_reference(argv, f32_reduced, capsys,
 
 
 def test_cli_refuses_mesh(capsys, monkeypatch):
+    """``main`` called in a process that is no rank of a world refuses a
+    mesh, naming the ranks it needs (run as ``python -m``, the launcher
+    starts them: tests/test_torch_serve_cli_mesh.py)."""
+    for k in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
     code, msg = _error(lambda: serve_t.main(QWEN + ["--mesh", "2x4",
                                                     "--device", "cpu"]),
                        [], capsys, monkeypatch)
     assert code == 2
-    assert "--mesh 2x4" in msg and "Queue A item 10" in msg
+    assert "--mesh 2x4" in msg and "world of 8 ranks" in msg
 
 
 def _options_section(main, capsys, monkeypatch):

@@ -39,6 +39,7 @@ from repro_torch.models import transformer as tfm_t
 from repro_torch.models.config import ModelConfig as ModelConfigT
 from repro_torch.runtime import kv_pool as kv_pool_t
 from repro_torch.runtime import prefix_cache as prefix_cache_t
+from repro_torch.runtime import scheduler as scheduler_t
 from repro_torch.runtime import template_store as template_store_t
 from repro_torch.runtime.kv_pool import PagedKVConfig as PagedKVConfigT
 from repro_torch.runtime.server import Server as ServerT
@@ -140,11 +141,16 @@ def test_server_defaults_to_cuda(weights):
     ("mesh", object()),
 ])
 def test_unported_features_raise(weights, field, value):
-    """``mesh=`` is ROADMAP Queue A item 10; ``scheduler=`` and tracing
-    serve since the SLO slice (tests/test_torch_scheduler.py,
-    tests/test_torch_telemetry.py)."""
-    kw = {"prefill_chunk": 8, field: value}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``mesh=`` serves since the mesh slice
+    (tests/test_torch_sharded_serving.py), but not yet under the SLO
+    scheduler (nor with prefix sharing, the template store, MoE, MLA,
+    recurrent or 'L' layers): that raises naming ROADMAP Queue A item
+    10's next part.  ``scheduler=`` and tracing serve since the SLO slice
+    (tests/test_torch_scheduler.py, tests/test_torch_telemetry.py)."""
+    kw = {"prefill_chunk": 8, "kv_compress": _SHARE_CC,
+          "paged": PagedKVConfigT(block_size=4),
+          "scheduler": scheduler_t.SLOConfig(), field: value}
+    with pytest.raises(ValueError, match="ROADMAP Queue A item 10's next"):
         ServerT(TINY_T, ServerConfigT(**kw), weights[1], device="cpu")
 
 

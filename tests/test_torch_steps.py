@@ -13,7 +13,8 @@ JAX.
   vision frontend) in f32, on the reference's weights: logits and every
   cache leaf within 1e-5 of the reference's.
 * In a subprocess that cannot import ``jax`` or ``repro``: every module
-  of ``repro_torch``, ``examples/*_torch.py`` and ``chip_smoke.py``
+  of ``repro_torch`` (the mesh's ``launch.mesh``, ``launch.preboot`` and
+  ``sharding`` among them), ``examples/*_torch.py`` and ``chip_smoke.py``
   import.
 """
 
@@ -159,6 +160,9 @@ _GUARD = """
     import repro_torch
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
+    # the mesh's modules among them
+    assert {"repro_torch.launch.mesh", "repro_torch.launch.preboot",
+            "repro_torch.sharding", "repro_torch.sharding.rules"} <= set(names)
     for name in names:
         importlib.import_module(name)
     root = Path(sys.argv[1])
