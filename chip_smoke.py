@@ -284,14 +284,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    never launched; paged: frees == allocs, end 0.  Printed: chunked vs
    blocking and paged vs dense agreement, the host dispatches (non-view
    aten ops) and wall of one mixed and one decode step, peak memory;
-5m. mamba2-2.7b at full width and depth (64 'M' layers, d_model 2,560,
+5m. mamba2-2.7b at full width, depth cut to 16 of its 64 'M' layers
+   (``MAMBA_LAYERS``; d_model 2,560,
    d_state 128, expand 2, 80 heads of 64, vocab 50,280; bf16 weights from
    seed 0), ``max_seq`` 2,048, batch 4, 4 requests from
    ``default_rng(6)`` (prompts of 96-128, 24-40 new tokens): chunked dense
    and blocking dense; the paged construction must raise the reference's
    "ring-family" ValueError.  Gates: every request complete; B1, B2 and
-   B3 never launched; state_bytes_recurrent 64 x (3 x 5,376 x 2 + 80 x
-   64 x 128 x 4) = 169,836,544 B a slot; blocking tokens == chunked
+   B3 never launched; state_bytes_recurrent 16 x (3 x 5,376 x 2 + 80 x
+   64 x 128 x 4) = 42,459,136 B a slot; blocking tokens == chunked
    tokens on all 4 requests (every launch steps a recurrent column at the
    slot count).  Printed as in 5l;
 5n. qwen2-moe-a2.7b at full width and depth (24 'G' layers, d_model
@@ -312,6 +313,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
    launch's capacity drops depend on its other rows), each serve's steps,
    wall and tokens sha256, the host dispatches and wall of one mixed and
    one decode step, peak memory;
+5w. MoE on the mesh: 5n's requests on 5n's weights through the mesh
+   engine of a one-rank NCCL world (5v's), chunked dense at 5n's
+   ServerConfig (**Cut**: its chunked paged serve, for the smoke's time;
+   the reduced qwen2-moe serves paged through a one-rank mesh in
+   tests/test_torch_gpu.py).  Gates: tokens equal 5n's chunked serve
+   request for request (one data shard: 5n's capacities);
+   clustered_decode launched 24 x engine steps through the head island
+   and paged_clustered_decode never; bitserial_median >= absorbs +
+   compactions > 0; the rank holds all 60 experts of every routed bank;
+   every MoE call took the mesh's sharded dispatch.  Printed: wall, ITL
+   p50, the MoE branch counts and the rank's parameter and expert
+   bytes.  One card
+   holds one NCCL rank: expert parallelism across ranks, and the a2a
+   dispatch, are held on the CPU (gloo, tests/test_torch_sharded_moe.py)
+   and by ``benchmarks/mesh_serve_torch.py --arch`` on four cards;
 5o. deepseek-v3-671b at full width (d_model 7,168, 128 heads, MLA with
    q_lora 1,536, kv_lora 512, rope 64; 256 routed experts of 2,048 top-8
    sigmoid and a shared expert; vocab 129,280 untied) with its depth cut
@@ -327,6 +343,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    Printed: each serve's steps, wall and tokens sha256, static vs
    blocking agreement, the host dispatches and wall of one decode step,
    peak memory;
+5x. MLA on the mesh: 2 of 5o's 4 requests (**Cut**, for the smoke's
+   time) on 5o's weights through the one-rank
+   NCCL mesh, blocking under the smoke's KVCompressConfig (the latent
+   over slots only, decoded in full; the config's ``impl="a2a"`` with 256
+   routed experts on one rank takes the sharded fallback).  Gates: tokens
+   equal 5o's blocking clustered serve's for those requests; B1, B2 and
+   B3 never launched;
+   the a2a branch never taken, the fallback taken.  Printed: wall, ITL
+   p50 and the MoE branch counts;
 5p. internvl2-76b at full width (d_model 8,192, 64 query heads over 8 kv
    heads of 128, d_ff 28,672, vocab 128,256 untied, the vision stub's
    projection) with its depth cut to 36 of 80 layers, bf16 weights from
@@ -380,7 +405,8 @@ B2's and B3's ``launches_prefix_share`` from 5i's shared serve,
 from 4b's chunked serves, by pattern, ``launches_moe`` from 5n's
 serves, by mode, B1's and B3's ``launches_frontend`` from 5p's
 blocking serve, and B1's, B2's and B3's ``launches_cli`` from 5s, by
-part, ``launches_example`` from 5t and ``launches_mesh`` from 5v; B1's
+part, ``launches_example`` from 5t, ``launches_mesh`` from 5v and
+B1's and B3's ``launches_mesh_moe`` from 5w; B1's
 ``launches_dryrun_per_step`` from 5u and its times at 5u's shape under
 ``dryrun``),
 and the last line ``{"ok": true, "device": {...}}``; the full record goes
@@ -390,6 +416,7 @@ it ends.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -1654,34 +1681,50 @@ def serve_qwen3(torch, dev, smi, paged=None, params=None, chunk=64):
     return dict(rec, n_layers=cfg.n_layers), srv.params
 
 
-def serve_mesh(torch, dev, smi, params, dense, paged):
-    """5v: phase 5's requests on its weights through the mesh engine of a
-    one-rank NCCL world, chunked dense then paged, each held to 5's / 5b's
-    gates and to their tokens (``dense``, ``paged``: 5's and 5b's
-    records).  Returns the two records and one island gather's host
-    cost (``island_gather_us``)."""
+@contextlib.contextmanager
+def one_rank_mesh(tag):
+    """A one-rank NCCL world (a file store in a temporary directory, no
+    network) and its ``make_serving_mesh("1x1")``, torn down on exit;
+    raises unless the backend is nccl and the world 1."""
     import datetime
     import shutil
     import tempfile
 
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_serving_mesh
-    from repro_torch.runtime.kv_pool import PagedKVConfig
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_5v_")
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
     t0 = time.perf_counter()
     dist.init_process_group(
         "nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
         timeout=datetime.timedelta(seconds=300))
-    problems, recs = [], {}
     try:
         mesh = make_serving_mesh("1x1")
         backend, world = dist.get_backend(), dist.get_world_size()
-        say(f"5v mesh: backend {backend}, world size {world}, mesh 1x1 "
+        say(f"{tag} mesh: backend {backend}, world size {world}, mesh 1x1 "
             f"{tuple(mesh.mesh_dim_names)} over {mesh.device_type}, up in "
             f"{time.perf_counter() - t0:.1f} s")
         if (backend, world) != ("nccl", 1):
-            problems.append(f"backend {backend} world {world}, want nccl 1")
+            raise AssertionError(f"{tag}: backend {backend} world {world}, "
+                                 f"want nccl 1")
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def serve_mesh(torch, dev, smi, params, dense, paged):
+    """5v: phase 5's requests on its weights through the mesh engine of a
+    one-rank NCCL world, chunked dense then paged, each held to 5's / 5b's
+    gates and to their tokens (``dense``, ``paged``: 5's and 5b's
+    records).  Returns the two records and one island gather's host
+    cost (``island_gather_us``)."""
+    import torch.distributed as dist
+    from repro_torch.runtime.kv_pool import PagedKVConfig
+
+    t0 = time.perf_counter()
+    problems, recs = [], {}
+    with one_rank_mesh("5v") as mesh:
         for mode, pg, want in (
                 ("mesh dense", None, dense),
                 ("mesh paged", PagedKVConfig(block_size=16), paged)):
@@ -1751,9 +1794,6 @@ def serve_mesh(torch, dev, smi, params, dense, paged):
             f"clock over 200 calls, synchronised at the end); "
             f"{cfg.n_layers} a step = "
             f"{gather_us * cfg.n_layers / 1e3:.2f} ms")
-    finally:
-        dist.destroy_process_group()
-        shutil.rmtree(tmp, ignore_errors=True)
     say(f"5v mesh wall: {time.perf_counter() - t0:.1f} s")
     if problems:
         raise AssertionError("5v mesh serve: " + "; ".join(problems))
@@ -2582,14 +2622,17 @@ def check_rec_tiny(torch, dev, smi):
 # ---------------------------------------------------------------------------
 
 # recurrentgemma-9b: 38 layers 'RRL' (26 'R', 12 'L', window 2,048), cut
-# to RG_LAYERS (2 'R', 1 'L'); mamba2-2.7b: 64 'M' layers.  Per-slot
+# to RG_LAYERS (2 'R', 1 'L'); mamba2-2.7b: 64 'M' layers, cut to
+# MAMBA_LAYERS (the smoke's time: a mixed step dispatches ~2,200 host ops
+# a layer).  Per-slot
 # recurrent state bytes: an 'R' layer's bf16 (3, lru_width) conv tail and
 # f32 h, an 'M' layer's bf16 (3, d_inner + 2 d_state) conv tail and f32
 # (heads, head_dim, d_state) state
 RG_MAX_SEQ, MAMBA_MAX_SEQ, REC_CHUNK = 4096, 2048, 64
 RG_LAYERS = 3
 RG_STATE_B = 2 * (3 * 4096 * 2 + 4096 * 4)    # RG_LAYERS' 2 'R' layers
-MAMBA_STATE_B = 64 * (3 * 5376 * 2 + 80 * 64 * 128 * 4)
+MAMBA_LAYERS = 16
+MAMBA_STATE_B = MAMBA_LAYERS * (3 * 5376 * 2 + 80 * 64 * 128 * 4)
 
 
 def full_width_params(torch, dev, cfg):
@@ -2706,8 +2749,9 @@ def step_dispatches(torch, dev, cfg, params, max_seq,
 
 def serve_recurrent_full(torch, dev, smi, arch):
     """Phases 5l (recurrentgemma-9b, depth cut to ``RG_LAYERS``: chunked
-    dense, chunked paged, blocking dense) and 5m (mamba2-2.7b, full depth:
-    chunked dense, blocking dense; the paged construction must raise the
+    dense, chunked paged, blocking dense) and 5m (mamba2-2.7b, depth cut
+    to ``MAMBA_LAYERS``: chunked dense, blocking dense; the paged
+    construction must raise the
     reference's "ring-family" ValueError) at full width, bf16 weights
     from seed 0.
     Gates: every request complete; B1, B2 and B3 never launched (no 'G'
@@ -2726,8 +2770,8 @@ def serve_recurrent_full(torch, dev, smi, arch):
 
     cfg = configs.get_config(arch)
     rg = arch == "recurrentgemma-9b"
-    if rg:
-        cfg = dataclasses.replace(cfg, n_layers=RG_LAYERS)
+    cfg = dataclasses.replace(cfg,
+                              n_layers=RG_LAYERS if rg else MAMBA_LAYERS)
     max_seq = RG_MAX_SEQ if rg else MAMBA_MAX_SEQ
     want_b = RG_STATE_B if rg else MAMBA_STATE_B
     reqs, prompts = draw_requests(cfg.vocab,
@@ -3007,6 +3051,14 @@ def check_moe_layer(torch, dev, cfg, p):
     return rec
 
 
+def moe_workload():
+    """5n's and 5w's model and requests: (cfg, reqs, prompts)."""
+    from repro_torch import configs
+
+    cfg = configs.get_config("qwen2-moe-a2.7b")
+    return (cfg,) + draw_requests(cfg.vocab, **MOE_STREAM)
+
+
 def serve_moe_full(torch, dev, smi):
     """Phase 5n: qwen2-moe-a2.7b at full width and depth (24 'G' layers,
     d_model 2,048, 16 / 16 heads of 128, MoE FFNs of 60 routed experts of
@@ -3024,14 +3076,11 @@ def serve_moe_full(torch, dev, smi):
     vs blocking and paged vs dense agreement (not gated: a MoE launch's
     capacity drops depend on its other rows), each serve's steps, wall and
     tokens sha256, the host dispatches and wall of one mixed and one
-    decode step, peak memory.  Returns the record; the weights are
-    freed."""
-    from repro_torch import configs
+    decode step, peak memory.  Returns (record, params)."""
     from repro_torch.runtime.kv_pool import PagedKVConfig
     from repro_torch.runtime.server import Server, ServerConfig
 
-    cfg = configs.get_config("qwen2-moe-a2.7b")
-    reqs, prompts = draw_requests(cfg.vocab, **MOE_STREAM)
+    cfg, reqs, prompts = moe_workload()
     torch.cuda.reset_peak_memory_stats()
     params, n_par, n_bytes = full_width_params(torch, dev, cfg)
     layer = check_moe_layer(torch, dev, cfg, params["layers"][0]["moe"])
@@ -3084,13 +3133,82 @@ def serve_moe_full(torch, dev, smi):
         f"step {steps['decode']['dispatches']} in "
         f"{steps['decode']['ms']:.1f} ms; peak memory allocated "
         f"{peak / 2**30:.2f} GiB")
-    del params
-    torch.cuda.empty_cache()
     if problems:
         raise AssertionError("5n qwen2-moe-a2.7b: " + "; ".join(problems))
-    return {"serves": recs, "steps": steps, "peak_bytes": peak,
-            "n_params": n_par, "param_bytes": n_bytes, "moe_layer": layer,
-            "prompt_lens": [r.prompt_len for r in reqs]}
+    out = {"serves": recs, "steps": steps, "peak_bytes": peak,
+           "n_params": n_par, "param_bytes": n_bytes, "moe_layer": layer,
+           "prompt_lens": [r.prompt_len for r in reqs]}
+    return out, params
+
+
+def expert_bank_counts(params):
+    """The expert count of every routed bank a rank holds (the leading
+    dim of each MoE layer's w_gate, w_up and w_down)."""
+    return sorted({lp["moe"][k].shape[0] for lp in params["layers"]
+                   if "moe" in lp for k in ("w_gate", "w_up", "w_down")})
+
+
+def serve_moe_mesh(torch, dev, smi, params, want):
+    """5w: 5n's requests on 5n's weights (qwen2-moe-a2.7b at full width
+    and depth) through the mesh engine of a one-rank NCCL world, chunked
+    dense at 5n's ServerConfig (its paged serve is cut for the smoke's
+    time).  Gates: tokens equal 5n's chunked serve (``want``: 5n's
+    serves) request for request (one data shard: 5n's capacities);
+    clustered_decode launched layers x engine steps through the head
+    island and paged_clustered_decode never; bitserial_median >= absorbs
+    + compactions > 0; the rank holds every one of the 60 experts of
+    every routed bank (1 x 1: the expert dim over ("model", "data") of
+    one rank); every MoE call took the mesh's sharded dispatch (60
+    experts on one rank: no a2a geometry).  Printed: the serve's wall,
+    ITL p50 and MoE branch counts, the rank's parameter and expert-bank
+    bytes.  Returns {"chunked": record}."""
+    from repro_torch.models import moe
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg, reqs, prompts = moe_workload()
+    t0 = time.perf_counter()
+    problems, recs = [], {}
+    with one_rank_mesh("5w") as mesh:
+        for mode, extra in (("chunked", dict(prefill_chunk=REC_CHUNK)),):
+            srv = Server(cfg, ServerConfig(
+                batch_size=4, max_seq=MOE_MAX_SEQ,
+                kv_compress=smoke_kv_compress(), mesh=mesh, **extra),
+                params, device=dev)
+            held = srv.param_bytes()
+            banks = expert_bank_counts(srv.params)
+            if banks != [cfg.moe.n_routed]:
+                problems.append(f"{mode}: the rank's banks hold {banks} "
+                                f"experts, want {cfg.moe.n_routed}")
+            moe.reset_mesh_dispatches()
+            rec = recs[mode] = run_serve(torch, srv, reqs, prompts,
+                                         f"5w qwen2-moe mesh {mode}")
+            rec["mesh_dispatches"] = dict(moe.mesh_dispatches)
+            rec["param_bytes"] = held
+            problems += clustered_launch_problems(rec, mode, cfg.n_layers)
+            st = rec["stats"]
+            md = rec["mesh_dispatches"]
+            if not (md["sharded"] > 0 and md["a2a"] == md["global"] == 0):
+                problems.append(f"{mode}: MoE branches {md}, want sharded "
+                                f"only")
+            diff = [uid for uid, t in want[mode]["tokens"].items()
+                    if rec["tokens"][uid] != t]
+            if diff:
+                problems.append(f"{mode}: tokens of uids {diff} differ from "
+                                f"5n's")
+            say(f"[{smi}] 5w qwen2-moe-a2.7b mesh {mode}: wall_s "
+                f"{rec['wall_s']:.3f}  itl_p50_ms {st['itl_p50_ms']:.2f}  "
+                f"{rec['engine_steps']} engine steps; MoE branches {md}; "
+                f"kernel launches "
+                f"{({k: v for k, v in rec['launches'].items() if v})}; the "
+                f"rank holds {held['total'] / 1e9:.2f} GB of parameters, "
+                f"{held['experts'] / 1e9:.2f} GB of them routed experts "
+                f"({banks} a bank); tokens sha256 {rec['tokens_sha256']} "
+                f"(5n: {want[mode]['tokens_sha256']}); "
+                f"{len(reqs) - len(diff)} of {len(reqs)} requests equal")
+    say(f"5w mesh wall: {time.perf_counter() - t0:.1f} s")
+    if problems:
+        raise AssertionError("5w qwen2-moe mesh: " + "; ".join(problems))
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -3252,6 +3370,8 @@ def serve_line(smi, name, mode, reqs, rec):
 # layers and 2 MoE layers), max_seq 4,096; internvl2-76b (5p): 36 of its
 # 80 layers, max_seq 2,048; seamless-m4t-medium (5q): whole, max_seq 128
 DSV3_LAYERS, DSV3_MAX_SEQ = 5, 4096
+# 5x serves the first 2 of 5o's 4 requests (**Cut** for the smoke's time)
+DSV3_MESH_REQUESTS = 2
 IVL_MAX_SEQ, IVL_STEPS, IVL_TEXT = 2048, 16, 64
 SEAM_MAX_SEQ, SEAM_STEPS, SEAM_PROMPT = 128, 32, 32
 # decode_vs_prefill's bound on rms(dlogit) / rms(logit) a row, by phase
@@ -3267,6 +3387,16 @@ DVP_MAX_RATIO = {"5p": {"bf16": 0.15, "f32": 1e-3},
 IVL_F32_LAYERS = 4
 
 
+def deepseek_workload():
+    """5o's and 5x's model (deepseek-v3-671b cut to ``DSV3_LAYERS``, no
+    MTP module) and requests: (cfg, reqs, prompts)."""
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get_config("deepseek-v3-671b"),
+                              n_layers=DSV3_LAYERS, mtp_depth=0)
+    return (cfg,) + draw_requests(cfg.vocab, **DSV3_STREAM)
+
+
 def serve_deepseek_full(torch, dev, smi):
     """Phase 5o: deepseek-v3-671b at full width (d_model 7,168, 128 heads,
     MLA with q_lora 1,536, kv_lora 512, rope 64; 256 routed experts of
@@ -3280,14 +3410,10 @@ def serve_deepseek_full(torch, dev, smi):
     clustered tokens == blocking exact tokens (the latent stays exact:
     the same math).  Printed: each serve's steps, wall and tokens sha256,
     the host dispatches and wall of one decode step, the peak of
-    ``torch.cuda.max_memory_allocated()``.  Returns the record; the
-    weights are freed."""
-    from repro_torch import configs
+    ``torch.cuda.max_memory_allocated()``.  Returns (record, params)."""
     from repro_torch.runtime.server import Server, ServerConfig
 
-    cfg = dataclasses.replace(configs.get_config("deepseek-v3-671b"),
-                              n_layers=DSV3_LAYERS, mtp_depth=0)
-    reqs, prompts = draw_requests(cfg.vocab, **DSV3_STREAM)
+    cfg, reqs, prompts = deepseek_workload()
     torch.cuda.reset_peak_memory_stats()
     params, n_par, n_bytes = full_width_params(torch, dev, cfg)
     kw = {"static": dict(engine="static"), "blocking": {},
@@ -3314,14 +3440,65 @@ def serve_deepseek_full(torch, dev, smi):
         f"step {steps['decode']['dispatches']} host dispatches (non-view "
         f"aten ops) in {steps['decode']['ms']:.1f} ms; peak memory "
         f"allocated {peak / 2**30:.2f} GiB")
-    del params
-    torch.cuda.empty_cache()
     if problems:
         raise AssertionError("5o deepseek-v3-671b: " + "; ".join(problems))
-    return {"serves": recs, "steps": steps, "peak_bytes": peak,
-            "n_params": n_par, "param_bytes": n_bytes,
-            "n_layers": DSV3_LAYERS,
-            "prompt_lens": [r.prompt_len for r in reqs]}
+    out = {"serves": recs, "steps": steps, "peak_bytes": peak,
+           "n_params": n_par, "param_bytes": n_bytes,
+           "n_layers": DSV3_LAYERS,
+           "prompt_lens": [r.prompt_len for r in reqs]}
+    return out, params
+
+
+def serve_deepseek_mesh(torch, dev, smi, params, want):
+    """5x: the first ``DSV3_MESH_REQUESTS`` of 5o's requests on 5o's
+    weights (deepseek-v3-671b at full width,
+    ``DSV3_LAYERS`` layers) through the mesh engine of a one-rank NCCL
+    world, blocking under the smoke's KVCompressConfig: MLA on a mesh (the
+    latent over slots only, decoded in full) and the a2a config's sharded
+    fallback (256 routed experts, one rank).  Gates: tokens equal 5o's
+    blocking clustered serve's (``want``: 5o's serves) request for
+    request; B1, B2 and
+    B3 never launched (the latent stays exact); the a2a branch never
+    taken and the sharded fallback taken.  Printed: the wall, ITL p50 and
+    the MoE branch counts."""
+    from repro_torch.models import moe
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg, reqs, prompts = deepseek_workload()
+    reqs = reqs[:DSV3_MESH_REQUESTS]
+    prompts = {r.uid: prompts[r.uid] for r in reqs}
+    t0 = time.perf_counter()
+    problems = []
+    with one_rank_mesh("5x") as mesh:
+        srv = Server(cfg, ServerConfig(batch_size=4, max_seq=DSV3_MAX_SEQ,
+                                       kv_compress=smoke_kv_compress(),
+                                       mesh=mesh), params, device=dev)
+        held = srv.param_bytes()
+        moe.reset_mesh_dispatches()
+        rec = run_serve(torch, srv, reqs, prompts, "5x deepseek-v3 mesh")
+        rec["mesh_dispatches"] = md = dict(moe.mesh_dispatches)
+        rec["param_bytes"] = held
+    problems += no_kernel_problems(rec, "mesh clustered")
+    if not (md["a2a"] == 0 and md["sharded"] > 0):
+        problems.append(f"MoE branches {md}, want a2a 0 and sharded > 0")
+    diff = [uid for uid, t in rec["tokens"].items()
+            if want["clustered"]["tokens"][uid] != t]
+    if diff or len(rec["tokens"]) != len(reqs):
+        problems.append(f"tokens of uids {diff} differ from 5o's blocking "
+                        f"clustered serve (served {sorted(rec['tokens'])})")
+    st = rec["stats"]
+    say(f"[{smi}] 5x deepseek-v3-671b mesh blocking clustered: wall_s "
+        f"{rec['wall_s']:.3f}  itl_p50_ms {st['itl_p50_ms']:.2f}  "
+        f"{rec['engine_steps']} engine steps; MoE branches {md}; the rank "
+        f"holds {held['total'] / 1e9:.2f} GB of parameters "
+        f"({held['experts'] / 1e9:.2f} GB routed experts); tokens sha256 "
+        f"{rec['tokens_sha256']} (5o's 4: "
+        f"{want['clustered']['tokens_sha256']}); {len(reqs) - len(diff)} "
+        f"of {len(reqs)} requests equal")
+    say(f"5x mesh wall: {time.perf_counter() - t0:.1f} s")
+    if problems:
+        raise AssertionError("5x deepseek-v3 mesh: " + "; ".join(problems))
+    return rec
 
 
 def decode_vs_prefill(torch, tfm, cfg, params, tokens, n_steps, max_seq,
@@ -4952,8 +5129,8 @@ def main() -> int:
     del gparams
     torch.cuda.empty_cache()
 
-    # phases 5l and 5m: the recurrent families at full width (5l cut to
-    # RG_LAYERS)
+    # phases 5l and 5m: the recurrent families at full width (cut to
+    # RG_LAYERS and MAMBA_LAYERS)
     record["serve_recurrentgemma"] = serve_recurrent_full(
         torch, dev, smi, "recurrentgemma-9b")
     done("5l recurrentgemma-9b (weights included)")
@@ -4961,15 +5138,27 @@ def main() -> int:
                                                   "mamba2-2.7b")
     done("5m mamba2-2.7b (weights included)")
 
-    # phase 5n: qwen2-moe-a2.7b at full width and depth
-    moe = serve_moe_full(torch, dev, smi)
+    # phases 5n and 5w: qwen2-moe-a2.7b at full width and depth, then its
+    # requests on its weights through a one-rank NCCL mesh
+    moe, mparams = serve_moe_full(torch, dev, smi)
     record["serve_qwen2_moe"] = moe
     done("5n qwen2-moe-a2.7b (weights included)")
+    moe["mesh"] = serve_moe_mesh(torch, dev, smi, mparams, moe["serves"])
+    done("5w qwen2-moe-a2.7b mesh")
+    del mparams
+    torch.cuda.empty_cache()
 
     # phases 5o-5q: MLA, the frontend stub and the encoder-decoder at full
-    # width (deepseek-v3 and internvl2 with their depth cut to fit)
-    record["serve_deepseek_v3"] = serve_deepseek_full(torch, dev, smi)
+    # width (deepseek-v3 and internvl2 with their depth cut to fit), 5x
+    # after 5o: deepseek-v3 on its weights through a one-rank NCCL mesh
+    dsv3, dparams = serve_deepseek_full(torch, dev, smi)
+    record["serve_deepseek_v3"] = dsv3
     done("5o deepseek-v3-671b (weights included)")
+    dsv3["mesh"] = serve_deepseek_mesh(torch, dev, smi, dparams,
+                                       dsv3["serves"])
+    done("5x deepseek-v3-671b mesh")
+    del dparams
+    torch.cuda.empty_cache()
     ivl = serve_internvl_full(torch, dev, smi)
     record["serve_internvl2"] = ivl
     done("5p internvl2-76b (weights included)")
@@ -5039,6 +5228,8 @@ def main() -> int:
              launches_cli=cli["a"]["launches"]["clustered_decode"],
              launches_example=example["launches"]["clustered_decode"],
              launches_mesh=mesh["dense"]["launches"]["clustered_decode"],
+             launches_mesh_moe=moe["mesh"]["chunked"]["launches"][
+                 "clustered_decode"],
              launches_dryrun_per_step=dry["record"]["launches_per_step"][
                  "clustered_decode"],
              dryrun={k: tm["clustered_decode dryrun"][k] for k in
@@ -5114,6 +5305,8 @@ def main() -> int:
              launches_example=example["launches"]["bitserial_median"],
              launches_mesh={m: mesh[m]["launches"]["bitserial_median"]
                             for m in ("dense", "paged")},
+             launches_mesh_moe={m: r["launches"]["bitserial_median"]
+                                for m, r in moe["mesh"].items()},
              # the Trainer's straggler median and MAD: 4e's TINY run, 5r
              launches_train={
                  "4e tiny": train_tiny["tiny_trainer"][

@@ -27,9 +27,11 @@ most device time) and one more under the counter (``card_op_stats``).
 
 One card has no mesh cell: there is no ``--mesh`` (the dry run on a mesh
 is ROADMAP Queue A item 10d).  ``--moe-impl`` takes the reference's
-impls, but on one card every impl reaches the same dispatch
-(``repro_torch.models.moe``), so it changes nothing; ``a2a`` is refused
-as the reference's needs a mesh.
+impls and sets the config's, as the reference's dry run does; with no
+mesh every impl reaches the same one-shard dispatch
+(``repro_torch.models.moe``), ``a2a`` through its sharded fallback, as the
+reference's ``apply_moe`` does without a mesh, so the counts do not
+change.
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ from repro_torch.roofline.op_count import OpCounter
 # skipped per the brief (documented in DESIGN.md §7)
 LONG_OK = {"mamba2-2.7b", "recurrentgemma-9b", "gemma3-4b", "gemma2-27b"}
 
-MOE_IMPLS = ("global", "sharded")
+MOE_IMPLS = ("global", "sharded", "a2a")
 WARM_STEPS, TIMED_STEPS = 2, 10
 # activations may take 9/16 of a device's HBM, the reference's rule for
 # choosing the training microbatch
@@ -312,13 +314,13 @@ def run_cell(arch: str, shape_name: str, overrides=None, moe_impl=None,
     default) run on the card as well when it fits.  ``params`` (on the
     card) reuses weights already there; ``cfg`` / ``cell`` replace the
     arch's config and the shape's cell (reduced configs, small cells).
-    ``moe_impl`` changes nothing on one card (every impl reaches the same
-    dispatch); "a2a" is refused."""
+    ``moe_impl`` replaces a MoE config's impl; on one card every impl
+    reaches the same dispatch ("a2a" its sharded fallback)."""
     dev = resolve_device(device)
     cfg = cfg or configs.get_config(arch)
-    if moe_impl == "a2a":
-        raise ValueError("moe impl 'a2a' needs a mesh (ROADMAP Queue A "
-                         f"item 10b); one card serves {MOE_IMPLS}")
+    if moe_impl and cfg.moe is not None:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, impl=moe_impl))
     cell = cell or SHAPES[shape_name]
     opts = pick_options(cfg, cell, **(overrides or {}))
     t0 = time.time()
@@ -375,11 +377,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--shape", default="all")
     ap.add_argument("--out", default="artifacts/dryrun_torch")
     ap.add_argument("--moe-impl", default=None,
-                    choices=[None, *MOE_IMPLS, "a2a"],
+                    choices=[None, *MOE_IMPLS],
                     help="the reference's MoE impls; on one card every impl "
-                         "reaches the same dispatch, so this changes "
-                         "nothing; a2a is refused (it needs ROADMAP Queue A "
-                         "item 10b's mesh)")
+                         "reaches the same dispatch (a2a its sharded "
+                         "fallback, as the reference's without a mesh), so "
+                         "the counts do not change")
     ap.add_argument("--kv-mode", default=None,
                     choices=[None, "exact", "clustered", "int8"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "meta"])
@@ -389,9 +391,6 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None):
     ap = parser()
     args = ap.parse_args(argv)
-    if args.moe_impl == "a2a":
-        ap.error("--moe-impl a2a needs the a2a path (ROADMAP Queue "
-                 "A item 10b); one card serves --moe-impl global or sharded")
     archs = list(configs.ARCH_IDS) if args.arch == "all" else [args.arch]
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
 

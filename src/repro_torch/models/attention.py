@@ -17,12 +17,13 @@ shared block pool (nb, bs, Hkv, Dh) read through block tables.  An MLA
 leaf is {"ckv" (B, Sc, kv_lora_rank), "kpe" (B, Sc, rope)}, exact in every
 mode.
 
-Under mesh serving a 'G' layer's decode is the reference's island
+Under mesh serving a 'G' or 'L' layer's decode is the reference's island
 (``kernels.ops.head_island``): the projections run in full on every model
 rank, the rank writes and scores only its block of kv heads (its cache
 holds no other), and the heads' outputs are gathered back in head order
 before ``wo``, where the reference annotates them replicated, so no float
-reduction is reordered.
+reduction is reordered.  An MLA layer's latent has no head axis: each
+rank decodes its data shard's slots in full.
 """
 
 from __future__ import annotations
@@ -515,17 +516,18 @@ def attn_decode_window_packed(p, x, cfg: ModelConfig, *, cache, row_slot,
     K/V of every row with index jj into its slot's ring (in place), then
     scores those rows at watermark row_pos + 1, the blocking engine's
     one-token-at-a-time schedule.  Two rows of one slot never share an
-    index, so each round's writes do not collide."""
+    index, so each round's writes do not collide.  Under mesh serving the
+    rank writes and scores its block of heads (``_head_block``)."""
     n = x.shape[0]
     f32 = torch.float32
     q, k, v = _qkv(p, x, cfg, row_pos[:, None], "L", kv_repeat)
+    isl, q, k, v = _head_block(q, k, v, cfg, kv_repeat)
     kc, vc = cache["k"], cache["v"]
     b, sc = kc.shape[0], kc.shape[1]
     valid = row_pos >= 0
     rs = row_slot.long()
     ring_slot = rs * sc + torch.remainder(row_pos, sc).long()
-    out = torch.zeros((n, cfg.n_heads, cfg.head_dim), dtype=f32,
-                      device=x.device)
+    out = torch.zeros((n,) + q.shape[2:], dtype=f32, device=x.device)
     for jj in range(width):
         sel = valid & (row_cidx == jj)
         # rows outside this round point past the flattened rings and drop
@@ -538,6 +540,8 @@ def attn_decode_window_packed(p, x, cfg: ModelConfig, *, cache, row_slot,
                                   window=cfg.sliding_window,
                                   softcap=cfg.attn_logit_softcap, ring=True)
         out = torch.where(sel[:, None, None], out_jj.to(f32), out)
+    if isl is not None:
+        out = isl.gather(out)
     y = out.reshape(n, 1, -1).to(x.dtype) @ p["wo"]
     return y, cache
 

@@ -394,10 +394,10 @@ def _pad_rows(rows, x, state):
     """x (B, ...) and every (B, ...) leaf of a recurrent state with zero
     rows appended up to ``rows`` (None or <= B: unchanged).
 
-    The engine steps a recurrent column at its slot count whatever the
-    launch (blocking admission's sequential prefill, the mixed and the
-    one-token decode after the dense bucket shrinks, the packed rounds),
-    because on the card some f32 ops of the step (the RG-LRU gate GEMM,
+    The engine steps a recurrent column at its slot count (on a mesh, the
+    rank's data shard's) whatever the launch (blocking admission's
+    sequential prefill, the mixed and the one-token decode after the dense
+    bucket shrinks, the packed rounds), because on the card some f32 ops of the step (the RG-LRU gate GEMM,
     the SSD state read-out's batched matmul, the gated norm's row mean)
     round a row differently at another row count.  At one row count a
     row's bits do not depend on the launch, so chunked == blocking and

@@ -257,15 +257,6 @@ class Server:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.scfg = scfg
-        # every dense launch steps a recurrent column at the slot count,
-        # whatever rows its cache holds (blocking admission's fresh one-row
-        # cache, a shrunk bucket, the static batch); the packed launch
-        # reads the count from its all-slot cache
-        self._prefill = functools.partial(
-            tfm.prefill, recurrent_mode="sequential",
-            recurrent_rows=scfg.batch_size)
-        self._decode = functools.partial(tfm.decode_step,
-                                         recurrent_rows=scfg.batch_size)
         # the reference's ValueError gates, in its order
         if scfg.kv_compress is not None:
             if scfg.engine != "continuous":
@@ -370,6 +361,20 @@ class Server:
                              "engine (static batches are per-device)")
         tfm.check_supported(cfg)
         self._mesh_setup(cfg, scfg)
+        # every dense launch steps a recurrent column at the slot count of
+        # the rank's cache (on a mesh its data shard's), whatever rows it
+        # holds (blocking admission's fresh one-row cache, a shrunk bucket,
+        # the static batch); the packed launch reads the count from its
+        # all-slot cache
+        rows = max(scfg.batch_size // self._n_data_shards, 1)
+        self._prefill = functools.partial(
+            tfm.prefill, recurrent_mode="sequential", recurrent_rows=rows)
+        self._decode = functools.partial(tfm.decode_step,
+                                         recurrent_rows=rows)
+        if self._rules is not None:
+            # this rank's block of the routed-expert banks, every other
+            # leaf whole (the reference's serving_param_specs placement)
+            params = shard_rules.place_serving_params(params, self._rules)
         self.params = _to_device(params, self.device)
         self.last_stats: Dict[str, float] = {}
         # port-only counts of a blocking clustered serve's admissions by
@@ -416,7 +421,8 @@ class Server:
         shard count (``axes_for("batch", batch_size)``: slots that do not
         divide the data axis replicate over it, and so do their pools),
         this rank's data shard and the group the next tokens are gathered
-        over.  The modes this slice does not serve on a mesh raise."""
+        over.  Every model family serves on a mesh; the modes of ROADMAP
+        Queue A item 10c's second part raise."""
         self._rules: Optional[shard_rules.Rules] = None
         self._n_data_shards = 1
         self._data_index = 0
@@ -424,24 +430,18 @@ class Server:
         mesh = scfg.mesh
         if mesh is None:
             return
-        kinds = set(cfg.layer_pattern)
-        later = ("10c: the mesh with prefix sharing, the template store, "
-                 "the SLO scheduler, recurrent, 'L' and MLA layers")
-        for hit, what, part in (
-                (cfg.moe is not None, "MoE layers",
-                 "10b: MoE expert placement and the a2a path"),
-                (cfg.attn_kind == "mla", "MLA attention", later),
-                (bool(kinds & set("MR")), "recurrent ('M' / 'R') layers",
-                 later),
-                ("L" in kinds, "sliding-window ('L') layers", later),
-                (scfg.prefix_share is not None, "prefix_share", later),
-                (scfg.template_store is not None, "template_store", later),
-                (scfg.scheduler is not None, "scheduler= (SLO)", later)):
+        for hit, what in ((scfg.prefix_share is not None, "prefix_share"),
+                          (scfg.template_store is not None,
+                           "template_store"),
+                          (scfg.scheduler is not None, "scheduler= (SLO)")):
             if hit:
                 raise ValueError(
                     f"mesh serving with {what} is ROADMAP Queue A item "
-                    f"10's next part ({part}); the mesh serves 'G' GQA "
-                    f"models, dense or paged, chunked or blocking")
+                    f"10's next part (10c's second part: prefix sharing, "
+                    f"the template store and the SLO scheduler with its "
+                    f"swap on a mesh); the mesh serves every model family "
+                    f"('G', 'L', 'M' / 'R', MLA, MoE), dense or paged, "
+                    f"chunked or blocking")
         if not isinstance(mesh, DeviceMesh):
             raise TypeError("mesh= takes a DeviceMesh "
                             "(launch.mesh.make_serving_mesh), not "
@@ -456,14 +456,39 @@ class Server:
             self._n_data_shards = rules.size(axes)
             self._data_index = rules.axis_index(axes)
             self._data_group = rules.group(axes)
-        else:
-            table["batch"] = None
+        table["batch"] = axes
         self._rules = rules
 
-    def _mesh_ctx(self):
-        """The sharding rules around a device step (the head islands)."""
-        return (shard_rules.use_rules(self._rules)
-                if self._rules is not None else contextlib.nullcontext())
+    def _mesh_ctx(self, whole_rows: bool = False):
+        """The sharding rules around a device step (the head islands, the
+        MoE dispatch); ``whole_rows``: every rank holds all of the step's
+        rows (a B=1 admission prefill)."""
+        if self._rules is None:
+            return contextlib.nullcontext()
+        return shard_rules.use_rules(
+            dataclasses.replace(self._rules, whole_rows=True)
+            if whole_rows else self._rules)
+
+    def param_bytes(self) -> Dict[str, int]:
+        """This rank's parameter bytes: "total", and "experts" those of its
+        routed-expert banks (its block of them on a mesh)."""
+        out = {"total": 0, "experts": 0}
+
+        def walk(node, path):
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    walk(v, f"{path}/{k}")
+            elif isinstance(node, (list, tuple)):
+                for i, v in enumerate(node):
+                    walk(v, f"{path}/{i}")
+            elif torch.is_tensor(node):
+                n = node.numel() * node.element_size()
+                out["total"] += n
+                if shard_rules.is_expert_bank(path):
+                    out["experts"] += n
+
+        walk(self.params, "")
+        return out
 
     def _gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a step output → every data shard's, in
@@ -1131,10 +1156,11 @@ class Server:
             t0 = time.perf_counter()
             # every rank prefills (each needs the first token); the slot's
             # owners keep their block of kv heads below
-            logits1, c1 = self._prefill(self.params, cfg,
-                                        torch.from_numpy(padded).to(dev),
-                                        max_seq=scfg.max_seq,
-                                        last_pos=plen - 1)
+            with self._mesh_ctx(whole_rows=True):
+                logits1, c1 = self._prefill(self.params, cfg,
+                                            torch.from_numpy(padded).to(dev),
+                                            max_seq=scfg.max_seq,
+                                            last_pos=plen - 1)
             first = int(torch.argmax(logits1, -1)[0])
             now = time.perf_counter()
             pre_ms[uid] = (now - t0_serve) * 1e3        # TTFT

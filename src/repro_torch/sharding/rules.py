@@ -16,9 +16,11 @@ port is a process that holds only its own block.  So ``shard_cache``,
 ``place_swap_payload`` take this rank's block of a whole tensor (its
 coordinate along each sharded dimension's axes), and nothing is ever
 gathered back but through an explicit collective (``kernels.ops``'s head
-island, the server's token gather).  Parameters replicate at serve time,
-as in the reference: ``serving_param_specs`` distributes only MoE expert
-banks, which mesh serving does not take yet (ROADMAP Queue A item 10b).
+island, the server's token gather, the MoE dispatch's exchanges).
+Parameters replicate at serve time, as in the reference, but for the MoE
+routed-expert banks: ``serving_param_specs`` distributes those, and
+``place_serving_params`` keeps this rank's block of them
+(``models/moe.py`` exchanges the rows the other experts need).
 """
 
 from __future__ import annotations
@@ -44,6 +46,9 @@ class Rules:
     mesh: object                     # DeviceMesh (or a stand-in with .shape)
     table: dict                      # logical axis -> mesh axis tuple | None
     fsdp: bool = False               # shard params/opt-state over data axis
+    # every rank holds all rows of the step (a B=1 admission prefill,
+    # ``admission_spec``) instead of its ``batch`` shard's
+    whole_rows: bool = False
 
     def size(self, axes) -> int:
         """Ranks along mesh axes ``axes`` (a name or a tuple of names)."""
@@ -305,10 +310,11 @@ def take_block(x: torch.Tensor, spec, rules: Rules) -> torch.Tensor:
     """This rank's block of the whole tensor ``x`` under ``spec``: each
     sharded dimension cut into equal parts, the part at this rank's index
     along its axes.  A cut tensor is copied (the whole one can be freed);
-    an uncut one is returned as is."""
+    an uncut one (no sharded dimension, or only one-rank axes) is returned
+    as is."""
     cut = False
     for dim, axes in enumerate(spec):
-        if not axes:
+        if not axes or rules.size(axes) == 1:
             continue
         n = x.shape[dim] // rules.size(axes)
         x = x.narrow(dim, rules.axis_index(axes) * n, n)
@@ -396,12 +402,44 @@ def tree_param_specs(params, rules: Rules):
 _SERVING_DISTRIBUTED = re.compile(r"moe/(w_gate|w_up|w_down)$")
 
 
+def is_expert_bank(path: str) -> bool:
+    """Whether parameter leaf ``path`` is a routed-expert bank, the one
+    family of leaves mesh serving distributes."""
+    return _SERVING_DISTRIBUTED.search(path) is not None
+
+
+def _serving_spec(path: str, shape, rules: Rules):
+    return param_spec(path, shape, rules) if is_expert_bank(path) else P()
+
+
 def serving_param_specs(params, rules: Rules):
     """Partition spec tree for serve-time parameter placement: MoE routed
     expert banks by ``param_spec`` (the expert dim on ``model``, spilling
     onto ``data`` when the count divides), every other leaf replicated."""
-    return _spec_tree(
-        params, rules,
-        lambda path, shape, r: (param_spec(path, shape, r)
-                                if _SERVING_DISTRIBUTED.search(path)
-                                else P()))
+    return _spec_tree(params, rules, _serving_spec)
+
+
+def place_serving_params(params, rules: Rules):
+    """This rank's parameter tree for mesh serving
+    (``serving_param_specs``): its block of every MoE routed-expert bank
+    (``moe/w_gate``, ``moe/w_up``, ``moe/w_down``), every other leaf (the
+    shared expert, the router, its bias) whole."""
+    return _place(params, rules, _serving_spec)
+
+
+def expert_axes(rules: Rules, n_routed: int):
+    """The mesh axes the routed-expert dim of ``n_routed`` experts shards
+    over at serve time (``("model", "data")`` when the count divides,
+    else ``("model",)``, else None: replicated), as ``param_spec`` places
+    the banks."""
+    return rules.axes_for("experts", n_routed)
+
+
+def row_shards(rules: Rules) -> int:
+    """Data shards a step's rows are split over on this mesh: the size of
+    the ``batch`` axes, 1 when every rank holds all rows (the table's
+    ``batch`` replicated, or ``whole_rows``)."""
+    axes = rules.table.get("batch")
+    if rules.whole_rows or not axes:
+        return 1
+    return rules.size(axes)

@@ -24,7 +24,8 @@ reference's (``repro.launch.dryrun`` and ``steps.lower_step``):
   fills it, equals the meta count.
 * At full width on meta, qwen3-4b x decode_32k fits 80 GB in kv_mode
   "clustered" and not in "exact"; ``--device meta`` runs from the
-  command line; ``--moe-impl a2a`` is refused naming ROADMAP item 10.
+  command line; ``--moe-impl a2a`` counts what ``sharded`` counts (its
+  sharded fallback with no mesh, as in the reference).
 """
 
 import ast
@@ -227,6 +228,18 @@ def test_full_width_decode_fits_only_clustered():
     assert rows["clustered"]["dominant"] == "memory"
 
 
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v3-671b"])
+def test_moe_impl_a2a_counts_equal_sharded(arch):
+    """``--moe-impl a2a`` on one card runs the sharded fallback, as the
+    reference's ``apply_moe`` does with no mesh: the meta count of a
+    decode cell at full width equals ``sharded``'s, op for op."""
+    recs = {impl: dryrun.run_cell(arch, "decode_32k", moe_impl=impl,
+                                  device="meta")
+            for impl in ("a2a", "sharded")}
+    assert recs["a2a"]["op_stats"] == recs["sharded"]["op_stats"]
+    assert recs["a2a"]["info"] == recs["sharded"]["info"]
+
+
 def _cli(*args, tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     return subprocess.run(
@@ -248,8 +261,12 @@ def test_cli_meta_writes_records(tmp_path):
     assert r.returncode == 0
     rec = json.loads((tmp_path / "qwen3-4b__long_500k__1.json").read_text())
     assert rec["skipped"] == _reference_skips()[1]("qwen3-4b", "long_500k")
-    r = _cli("--device", "meta", "--moe-impl", "a2a", tmp_path=tmp_path)
-    assert r.returncode == 2 and "item 10" in r.stderr
+    r = _cli("--device", "meta", "--arch", "qwen2-moe-a2.7b", "--shape",
+             "decode_32k", "--moe-impl", "a2a", tmp_path=tmp_path)
+    assert r.returncode == 0, r.stderr[-2000:]
+    rec = json.loads((tmp_path / "qwen2-moe-a2.7b__decode_32k__1.json")
+                     .read_text())
+    assert rec["info"]["options"] and rec["op_stats"]["flops"] > 0
     r = _cli("--help", tmp_path=tmp_path)
     assert "--mesh" in r.stdout and "item 10" in r.stdout
     assert "--device" in r.stdout

@@ -1539,3 +1539,61 @@ def test_tiny_mesh_serve_on_card(cuda, paged, tmp_path):
                                           + st["kv_compactions"]) > 0
     if paged:
         assert st["pool_blocks_end"] == 0.0
+
+
+@pytest.mark.parametrize("family", ["moe", "moe-paged", "GL", "GM", "GR"])
+def test_family_mesh_serve_on_card(cuda, family, tmp_path):
+    """Every model family through the mesh engine of a one-rank NCCL world
+    (a file store, no network): the reduced qwen2-moe (f32, its 8 routed
+    experts on the one rank, the mesh's sharded dispatch; dense and
+    paged) and tests/test_sharded_serving.py's 'GL', 'GM' and 'GR' models
+    served chunked and clustered through ``make_serving_mesh("1x1")``
+    give the tokens of the same serve without a mesh; the 'G' layers'
+    decode kernel (B2 paged, B1 otherwise) launches once a layer an
+    engine step through the head island."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core.kv_compress import KVCompressConfig
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.kv_pool import PagedKVConfig
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    import _torch_family_ranks as fam
+
+    is_moe, paged = family.startswith("moe"), family.endswith("paged")
+    cfg = fam.moe_config() if is_moe else fam.family_config(family)
+    params = tfm.init_params(0, cfg, device=cuda)
+    reqs, prompts = fam.recurrent_stream()
+    kw = dict(batch_size=4, max_seq=96, prefill_chunk=8,
+              kv_compress=KVCompressConfig(n_clusters=8, iters=4,
+                                           keep_recent=16, refresh_every=8),
+              paged=PagedKVConfig(block_size=4) if paged else None)
+    want = {o.uid: o.tokens for o in Server(
+        cfg, ServerConfig(**kw), params, device=cuda).serve(reqs, prompts)}
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        assert dist.get_backend() == "nccl"
+        srv = Server(cfg, ServerConfig(mesh=make_serving_mesh("1x1"), **kw),
+                     params, device=cuda)
+        ops.reset_launches()
+        moe.reset_mesh_dispatches()
+        got = {o.uid: o.tokens for o in srv.serve(reqs, prompts)}
+        counts = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    assert got == want
+    n_g = tfm.layer_kinds(cfg).count("G")
+    kernel, other = (("paged_clustered_decode", "clustered_decode") if paged
+                     else ("clustered_decode", "paged_clustered_decode"))
+    assert counts[kernel] == n_g * srv.last_stats["decode_steps"]
+    assert counts[other] == 0
+    if paged:
+        assert srv.last_stats["pool_blocks_end"] == 0.0
+    if is_moe:
+        assert moe.mesh_dispatches["sharded"] > 0

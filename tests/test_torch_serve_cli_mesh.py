@@ -5,7 +5,8 @@ with weights from the same seed: every printed line equal but for its
 timing fields (the lines count requests, tokens, launches and positions,
 which the schedule alone sets), for blocking exact KV and for paged
 chunked clustered KV (its peak KV bytes count every kv head, though a
-rank holds half of them).  The port's launcher starts the four gloo ranks
+rank holds half of them), and the reduced qwen2-moe chunked (its routed
+experts 2 a rank).  The port's launcher starts the four gloo ranks
 itself and rank 0 prints.  Also: a rank that fails fails the run at once,
 with its exit code, and the waiting ranks are stopped."""
 
@@ -23,12 +24,14 @@ import _torch_ref  # noqa: F401  (one torch thread, the JAX cache)
 from _serve_lines import mask
 
 ROOT = Path(__file__).resolve().parents[1]
-ARGV = ["--arch", "qwen3-4b", "--reduced", "--requests", "8", "--max-new",
-        "4", "--mesh", "2x2"]
+ARGV = ["--reduced", "--requests", "8", "--max-new", "4", "--mesh", "2x2"]
+QWEN3 = ["--arch", "qwen3-4b"]
 CASES = {
-    "exact": [],
-    "paged": ["--paged", "--prefill-chunk", "16", "--kv-clusters", "8",
-              "--keep-recent", "16", "--refresh-every", "8"],
+    "exact": QWEN3,
+    "paged": QWEN3 + ["--paged", "--prefill-chunk", "16", "--kv-clusters",
+                      "8", "--keep-recent", "16", "--refresh-every", "8"],
+    # 8 routed experts on 4 ranks: 2 a rank, the sharded dispatch
+    "moe": ["--arch", "qwen2-moe-a2.7b", "--prefill-chunk", "16"],
 }
 
 

@@ -142,10 +142,10 @@ def test_server_defaults_to_cuda(weights):
 ])
 def test_unported_features_raise(weights, field, value):
     """``mesh=`` serves since the mesh slice
-    (tests/test_torch_sharded_serving.py), but not yet under the SLO
-    scheduler (nor with prefix sharing, the template store, MoE, MLA,
-    recurrent or 'L' layers): that raises naming ROADMAP Queue A item
-    10's next part.  ``scheduler=`` and tracing serve since the SLO slice
+    (tests/test_torch_sharded_serving.py), every model family since 10b
+    and 10c's first part, but not yet under the SLO scheduler (nor with
+    prefix sharing or the template store): that raises naming ROADMAP
+    Queue A item 10's next part.  ``scheduler=`` and tracing serve since the SLO slice
     (tests/test_torch_scheduler.py, tests/test_torch_telemetry.py)."""
     kw = {"prefill_chunk": 8, "kv_compress": _SHARE_CC,
           "paged": PagedKVConfigT(block_size=4),

@@ -10,9 +10,10 @@ exact KV, mid-stream compaction, chunked prefill (exact and clustered,
 with absorbs), paged blocking and chunked (tokens also equal the dense
 engine's, the pool drains), and ``tiny2`` (2 kv heads on a model axis of
 4: heads replicate, slots stay data-sharded).  Every rank returns the same
-completions (one host engine, run SPMD).  The modes this slice does not
-serve on a mesh raise the ValueError that names ROADMAP item 10's next
-part.
+completions (one host engine, run SPMD).  Prefix sharing, the template
+store and the SLO scheduler on a mesh raise the ValueError that names
+ROADMAP item 10's next part; the other model families serve on a mesh
+(tests/test_torch_sharded_moe.py, tests/test_torch_sharded_layers.py).
 
 The reference's and the single-device serves run here, in the test
 process, while the ranks (``_torch_serving_ranks.main``) serve."""
@@ -179,10 +180,21 @@ _PAGED = dict(kv_compress=_CC, prefill_chunk=8,
 ], ids=["moe", "mla", "recurrent", "window", "prefix_share",
         "template_store", "slo"])
 def test_unported_mesh_modes_raise(cfg, kw, what):
-    """Refused before the mesh is touched, naming ROADMAP item 10's next
-    part (10b for MoE, 10c for the rest)."""
-    part = "10b" if what == "MoE layers" else "10c"
+    """Prefix sharing, the template store and the SLO scheduler are
+    refused before the mesh is touched, naming ROADMAP item 10's next part
+    (10c's second part).  The model families (MoE, MLA, recurrent,
+    sliding-window) serve on a mesh since 10b and 10c's first part
+    (tests/test_torch_sharded_moe.py, tests/test_torch_sharded_layers.py):
+    no family gate stops them, and the first check they meet is the
+    mesh's type."""
+    if what in ("MoE layers", "MLA attention", "recurrent",
+                "sliding-window"):
+        with pytest.raises(TypeError, match="mesh= takes a DeviceMesh"):
+            Server(cfg, ServerConfig(batch_size=4, max_seq=64,
+                                     mesh=object(), **kw), None,
+                   device="cpu")
+        return
     with pytest.raises(ValueError, match=f"mesh serving with {what}.*"
-                       f"item 10's next part \\({part}"):
+                       "item 10's next part \\(10c's second part"):
         Server(cfg, ServerConfig(batch_size=4, max_seq=64, mesh=object(),
                                  **kw), None, device="cpu")

@@ -18,6 +18,7 @@ reference's, in process (no world needed):
   larger than the visible card count is refused.
 """
 
+import dataclasses
 import itertools
 
 import jax
@@ -242,6 +243,60 @@ def test_rank_blocks_are_the_reference_partition():
         assert torch.equal(snap["layers"][0]["k_cents"],
                            whole[0]["k_cents"][:, :, hd])
         assert torch.equal(snap["layers"][0]["cov"], whole[0]["cov"])
+
+
+@pytest.mark.parametrize("shape,n_routed,per_rank", [
+    ({"data": 2, "model": 4}, 8, 1),      # ("model", "data"): 1 a rank
+    ({"data": 2, "model": 2}, 60, 15),    # qwen2-moe's 60 on 2 x 2
+    ({"data": 2, "model": 4}, 60, 15),    # 60 % 8: ("model",) alone
+    ({"data": 2, "model": 4}, 6, 6),      # nothing divides: replicated
+])
+def test_serving_params_place_expert_blocks(shape, n_routed, per_rank):
+    """place_serving_params: rank (d, m) holds its block of every routed
+    bank, folded over ``expert_axes`` in their order (model-major), and
+    every other leaf whole (the same tensor); the blocks of all ranks put
+    back together give the whole bank."""
+    gen = torch.Generator().manual_seed(1)
+    params = {"layers": [{"moe": {
+        "w_gate": torch.randn(n_routed, 8, 6, generator=gen),
+        "w_down": torch.randn(n_routed, 6, 8, generator=gen),
+        "router": torch.randn(8, n_routed, generator=gen),
+        "bias": torch.zeros(n_routed),
+        "shared": {"w_gate": torch.randn(8, 12, generator=gen)}},
+        "attn": {"wq": torch.randn(8, 8, generator=gen)}}]}
+    blocks = {}
+    for (d, m), got in _blocks(shape, lambda r: (
+            rules_t.place_serving_params(params, r),
+            rules_t.expert_axes(r, n_routed))).items():
+        placed, axes = got
+        p, whole = placed["layers"][0], params["layers"][0]
+        assert p["moe"]["w_gate"].shape[0] == per_rank
+        coord = {"data": d, "model": m}
+        idx = 0
+        for a in axes or ():
+            idx = idx * shape[a] + coord[a]
+        for k in ("w_gate", "w_down"):
+            assert torch.equal(p["moe"][k], whole["moe"][k][
+                idx * per_rank:(idx + 1) * per_rank])
+        blocks.setdefault(idx, p["moe"]["w_gate"])
+        for leaf in (("moe", "router"), ("moe", "bias"), ("attn", "wq")):
+            assert p[leaf[0]][leaf[1]] is whole[leaf[0]][leaf[1]]
+        assert (p["moe"]["shared"]["w_gate"]
+                is whole["moe"]["shared"]["w_gate"])
+    assert torch.equal(torch.cat([blocks[i] for i in sorted(blocks)]),
+                       params["layers"][0]["moe"]["w_gate"])
+
+
+def test_row_shards_follow_the_table():
+    """row_shards: the batch axes' size, 1 for whole rows or a replicated
+    batch."""
+    mesh = FakeMesh({"data": 2, "model": 4})
+    rules = rules_t.Rules(mesh, rules_t.default_table(False))
+    assert rules_t.row_shards(rules) == 2
+    assert rules_t.row_shards(dataclasses.replace(rules,
+                                                  whole_rows=True)) == 1
+    table = dict(rules_t.default_table(False), batch=None)
+    assert rules_t.row_shards(rules_t.Rules(mesh, table)) == 1
 
 
 def test_mesh_spec_errors_equal_reference():
