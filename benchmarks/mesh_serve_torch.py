@@ -25,6 +25,20 @@ their count divides.
   served chunked on 4c's requests: the a2a dispatch on the cards.
   Tokens printed, not gated.
 
+With ``--store`` or ``--slo`` (qwen3-4b), the runtime modes instead:
+``--store`` serves ``chip_smoke.py`` 5j's two templated bursts through
+one Server with ``TemplateStoreConfig(max_entries=2)`` over 5j's pool (a
+data shard's), on one card and on the mesh, and gates each burst's mesh
+tokens equal to the card's; ``--slo`` serves 5k's stream unpressured on
+one card and scheduled on the mesh (``SLOConfig(priority_admission=
+False)``, traced) over its slots' own blocks a data shard (2 x 16 on 2 x
+2: a data shard of 2 slots has no slot to preempt within its class when
+one of them admits, so 5k's 62.5 % raises PoolExhausted there, in the
+reference's engine as in the port's; the full pool still preempts), and
+gates every unshed mesh request's tokens equal to the unpressured ones;
+it prints the sched_* counters and the resumes that landed on another
+data shard than their swap-out (their payloads moved between cards).
+
 Rank 0 prints, beside the card's name and power limit, each serve's wall,
 ITL p50, engine steps, decode-kernel launches and MoE branch counts and
 each rank's parameter and expert-bank bytes on every rank, and appends
@@ -80,11 +94,76 @@ def workload(torch, dev, arch):
     return cfg, params, reqs, prompts, modes, False
 
 
+def runtime_serves(torch, dev, cfg, params, mesh, store):
+    """``--store`` / ``--slo``: (records, whether the mesh tokens equal the
+    one card's)."""
+    import chip_smoke as cs
+    from repro_torch.launch.mesh import mesh_sizes
+    from repro_torch.runtime.telemetry import validate_trace
+    from repro_torch.runtime.template_store import TemplateStoreConfig
+
+    if store:
+        recs = {}
+        for where, m in (("card", None), ("mesh", mesh)):
+            srv = cs.templated_server(
+                cfg, params, dev, cs.TPL_POOL, mesh=m,
+                template_store=TemplateStoreConfig(max_entries=2))
+            recs[where] = [cs.run_serve(torch, srv,
+                                        *cs.templated_stream(cfg.vocab, seed),
+                                        f"{where} store burst {seed}")
+                           for seed in (1, 2)]
+            srv.invalidate_templates()
+            del srv
+        equal = all(a["tokens"] == b["tokens"]
+                    for a, b in zip(recs["card"], recs["mesh"]))
+        return {where: [{"wall_s": r["wall_s"],
+                         "itl_p50_ms": r["stats"]["itl_p50_ms"],
+                         "engine_steps": r["engine_steps"],
+                         "prefix_hits": r["stats"]["prefix_hits"],
+                         "template_pinned_blocks":
+                             r["stats"]["template_pinned_blocks"]}
+                        for r in rs] for where, rs in recs.items()}, equal
+    reqs, prompts = cs.slo_stream(cfg.vocab)
+    free = cs.slo_serve(torch, dev, cfg, params, reqs, prompts, False)
+    per_shard = 4 // mesh_sizes(mesh)["data"]
+    sched = cs.slo_serve(torch, dev, cfg, params, reqs, prompts, True,
+                         mesh=mesh, pool_blocks=per_shard * (cs.R // cs.BS))
+    last, moved = {}, []
+    for e in sched["trace"]:
+        if e["name"] == "swap_out":
+            last[e["uid"]] = e["pid"]
+        elif e["name"] == "resume" and last[e["uid"]] != e["pid"]:
+            moved.append((e["uid"], last[e["uid"]], e["pid"]))
+    equal = all(t == free["tokens"][u] for u, t in sched["tokens"].items()
+                if not sched["shed"][u])
+    st = sched["stats"]
+    return {"card_unpressured": {"wall_s": free["wall_s"],
+                                 "itl_p50_ms": free["stats"]["itl_p50_ms"]},
+            "mesh": {"wall_s": sched["wall_s"],
+                     "itl_p50_ms": st["itl_p50_ms"],
+                     "engine_steps": sched["engine_steps"],
+                     "sched": {k: v for k, v in st.items()
+                               if k.startswith("sched_")},
+                     "cross_shard_resumes": moved,
+                     "shed": [u for u, v in sched["shed"].items() if v],
+                     "trace_problems": validate_trace(sched["trace"],
+                                                      totals=st)[:5]},
+            }, equal
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mesh", default="2x2")
     ap.add_argument("--arch", default="qwen3-4b", choices=ARCHS)
+    ap.add_argument("--store", action="store_true",
+                    help="5j's template-store bursts, card against mesh")
+    ap.add_argument("--slo", action="store_true",
+                    help="5k's stream scheduled on the mesh against "
+                         "unpressured on one card")
     args = ap.parse_args()
+    if (args.store or args.slo) and (args.arch != "qwen3-4b"
+                                     or args.store == args.slo):
+        ap.error("--store or --slo (one of them) serves qwen3-4b")
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import torch
     import torch.distributed as dist
@@ -107,6 +186,22 @@ def main() -> int:
     mesh = make_serving_mesh(args.mesh)
     equal = True
     out = ROOT / "chiprun_out" / "mesh_serve_torch.jsonl"
+    if args.store or args.slo:
+        modes = {}
+        rec, equal = runtime_serves(torch, dev, cfg, params, mesh,
+                                    args.store)
+        rec = {"rank": rank, "arch": args.arch, "mesh": args.mesh,
+               "mode": "store" if args.store else "slo", "smi": smi,
+               "tokens_equal": equal, **rec}
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, rec)
+        equal = all(r["tokens_equal"] for r in every)
+        if rank == 0:
+            out.parent.mkdir(exist_ok=True)
+            with out.open("a") as f:
+                for r in every:
+                    print(json.dumps(r))
+                    f.write(json.dumps(r) + "\n")
     for mode, kw in modes.items():
         kernel = ("paged_clustered_decode" if "paged" in kw
                   else "clustered_decode")

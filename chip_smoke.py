@@ -139,14 +139,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
 5v. mesh serve: a one-rank NCCL world (a file store in a temporary
    directory, no network) and ``make_serving_mesh("1x1")``; phase 5's
    requests on phase 5's weights through the mesh engine
-   (``ServerConfig(mesh=...)``), chunked dense then chunked paged, each
-   decode kernel launched through the head island (its heads' block, an
-   ``all_gather`` over the model group) and each step's tokens gathered
-   over the data group.  Gates: the backend is nccl and the world 1; the
-   tokens equal 5's and 5b's request for request; clustered_decode
-   (dense) / paged_clustered_decode (paged) launched layers x engine
-   steps and the other never; bitserial_median >= absorbs + compactions
-   > 0; the paged pool drains.  One card holds one NCCL rank, so the
+   (``ServerConfig(mesh=...)``), chunked dense (**Cut**: its chunked
+   paged serve, for the smoke's time; 5y serves paged through the mesh),
+   the decode kernel launched through the head island (its heads' block,
+   an ``all_gather`` over the model group) and each step's tokens
+   gathered over the data group.  Gates: the backend is nccl and the
+   world 1; the tokens equal 5's request for request; clustered_decode
+   launched layers x engine steps and paged_clustered_decode never;
+   bitserial_median >= absorbs + compactions > 0.  One card holds one NCCL rank, so the
    multi-rank parity of the mesh engine is held on the CPU (gloo,
    tests/test_torch_sharded_serving.py);
 5h. quota serve: the 8 requests through paged exact KV under
@@ -200,6 +200,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the host and back into another slot's fresh blocks
    (``tests/_torch_swap.py``): its state and bytes bit for bit, the
    re-adopted block and every other block unchanged;
+5y. prefix sharing, the template store and the SLO scheduler on the mesh:
+   right after 5k, on phase 5's weights, through the one-rank NCCL mesh
+   of 5v: (a) 5j's two templated bursts through one mesh Server with
+   ``TemplateStoreConfig(max_entries=2)`` over 5j's 96 blocks, then
+   ``invalidate_templates()``; (b) 5k's oversubscribed stream over 40
+   blocks with ``SLOConfig(priority_admission=False)``, traced.  A
+   one-rank mesh is the one-card schedule, so the gates are 5j's and 5k
+   (b)'s records: each burst's tokens and its counters (prefix hits,
+   tokens reused, pinned blocks, entries, prefill chunks) equal 5j's, the
+   pool drains to 0 after invalidation; (b)'s tokens, shed flags and
+   sched_* counters equal 5k (b)'s, and its trace validates; each serve's
+   paged_clustered_decode = layers x engine steps, clustered_decode 0,
+   bitserial_median >= absorbs + compactions.  Printed: wall and ITL p50
+   against 5j's / 5k's, the store Server's construction (the weights'
+   digest, gathered over the world) and the collectives a step.  The
+   swap payload's move between data shards, steering and the deadline
+   verdict are held on the CPU (gloo, tests/test_torch_sharded_slo.py,
+   tests/test_torch_sharded_prefix.py);
 5s. the serving CLI (``repro_torch.launch.serve``) on qwen3-4b at full
    width and depth: (a) ``--arch qwen3-4b --requests 16 --kv-clusters
    32`` in a subprocess (``PYTHONPATH=src``, the module run as ``python
@@ -405,8 +423,10 @@ B2's and B3's ``launches_prefix_share`` from 5i's shared serve,
 from 4b's chunked serves, by pattern, ``launches_moe`` from 5n's
 serves, by mode, B1's and B3's ``launches_frontend`` from 5p's
 blocking serve, and B1's, B2's and B3's ``launches_cli`` from 5s, by
-part, ``launches_example`` from 5t, ``launches_mesh`` from 5v and
-B1's and B3's ``launches_mesh_moe`` from 5w; B1's
+part, ``launches_example`` from 5t, B1's and B3's ``launches_mesh``
+from 5v, B2's and B3's ``launches_mesh_store`` (its two serves) and
+``launches_mesh_slo`` from 5y, and B1's and B3's ``launches_mesh_moe``
+from 5w; B1's
 ``launches_dryrun_per_step`` from 5u and its times at 5u's shape under
 ``dryrun``),
 and the last line ``{"ok": true, "device": {...}}``; the full record goes
@@ -639,7 +659,7 @@ def _flush_names(torch, flush, probes=8, tries=5):
     return _FLUSH_NAMES
 
 
-def device_ms(torch, fn, match=None, n=50, warm=5, tries=3):
+def device_ms(torch, fn, match=None, n=50, warm=5, tries=5):
     """Median over ``n`` calls of ``fn`` of the device time of one call,
     read from torch.profiler's CUDA activity: the summed durations of the
     call's kernels whose name contains ``match`` (a string or a tuple of
@@ -647,9 +667,12 @@ def device_ms(torch, fn, match=None, n=50, warm=5, tries=3):
     None.  Before each call an f64 fill of 64 MB leaves L2 cold, as each
     layer's attention finds it in the serve; the fill separates the calls
     in the trace and is not counted.  Two more calls than ``n`` run
-    under the profiler, and the last ``n`` count.  A trace that does not
-    separate ``n`` calls, each with device time (CUPTI dropped an
-    activity), is taken again, up to ``tries`` traces."""
+    under the profiler, and the last ``n`` count.  CUPTI may drop
+    activities from a trace: a call that lost its flush merges with its
+    neighbour, one that lost a kernel comes up short, so only the calls
+    with the usual number of counted kernels are kept; a trace that keeps
+    fewer than ``n // 2`` of them is taken again, up to ``tries``
+    traces."""
     from torch.profiler import ProfilerActivity, profile
 
     if isinstance(match, str):
@@ -666,24 +689,29 @@ def device_ms(torch, fn, match=None, n=50, warm=5, tries=3):
                 flush()
                 fn()
             torch.cuda.synchronize()
-        calls = []
+        calls = []                # [device ns, kernels counted]
         for name, _, dur in _device_activities(prof):
             if name in flush_names:
-                calls.append(0)
+                calls.append([0, 0])
             elif calls and (match is None or any(m in name for m in match)):
-                calls[-1] += dur
-        # the first calls of a trace may lose an activity: keep the last n
+                calls[-1][0] += dur
+                calls[-1][1] += 1
+        # the first calls of a trace may lose an activity: the last n
         calls = calls[-n:]
-        if len(calls) == n and min(calls) > 0:
-            return float(np.median(calls)) / 1e6
+        counts = [c[1] for c in calls if c[1]]
+        usual = max(set(counts), key=counts.count) if counts else 0
+        kept = [c[0] for c in calls if c[1] == usual and c[0] > 0]
+        if usual and len(kept) >= n // 2:
+            return float(np.median(kept)) / 1e6
         if not calls:             # no flush recognised: read its name again
             _FLUSH_NAMES.clear()
             flush_names = _flush_names(torch, flush)
     seen = sorted({a[0][:60] for a in _device_activities(prof)})
     raise AssertionError(
         f"device_ms: {len(calls)} calls of {n} separated in the trace, "
-        f"least device time {min(calls, default=0)} ns (match {match}), "
-        f"{tries} traces; flush {sorted(flush_names)}, seen {seen}")
+        f"{len(kept)} with the usual {usual} counted kernels (match "
+        f"{match}), {tries} traces; flush {sorted(flush_names)}, seen "
+        f"{seen}")
 
 
 # ---------------------------------------------------------------------------
@@ -1713,69 +1741,53 @@ def one_rank_mesh(tag):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def serve_mesh(torch, dev, smi, params, dense, paged):
+def serve_mesh(torch, dev, smi, params, dense):
     """5v: phase 5's requests on its weights through the mesh engine of a
-    one-rank NCCL world, chunked dense then paged, each held to 5's / 5b's
-    gates and to their tokens (``dense``, ``paged``: 5's and 5b's
-    records).  Returns the two records and one island gather's host
+    one-rank NCCL world, chunked dense, held to 5's gates and its tokens
+    (``dense``: 5's record; the paged serve is cut, 5y serves paged
+    through the mesh).  Returns the record and one island gather's host
     cost (``island_gather_us``)."""
     import torch.distributed as dist
-    from repro_torch.runtime.kv_pool import PagedKVConfig
 
     t0 = time.perf_counter()
     problems, recs = [], {}
     with one_rank_mesh("5v") as mesh:
-        for mode, pg, want in (
-                ("mesh dense", None, dense),
-                ("mesh paged", PagedKVConfig(block_size=16), paged)):
-            cfg, srv, reqs, prompts = serve_workload(torch, dev, pg, params,
-                                                     mesh=mesh)
-            rec = run_serve(torch, srv, reqs, prompts, f"5v {mode}")
-            recs[mode.split()[1]] = rec
-            st, launches = rec["stats"], rec["launches"]
-            steps = rec["engine_steps"]
-            kernel, other = (("paged_clustered_decode", "clustered_decode")
-                             if pg is not None else
-                             ("clustered_decode", "paged_clustered_decode"))
-            need = int(st["kv_absorbs"]) + int(st["kv_compactions"])
-            if (launches[kernel] != cfg.n_layers * steps
-                    or launches[other] != 0):
-                problems.append(
-                    f"{mode}: {kernel} {launches[kernel]} (want "
-                    f"{cfg.n_layers} x {steps}), {other} "
-                    f"{launches[other]} (want 0)")
-            if not launches["bitserial_median"] >= need > 0:
-                problems.append(
-                    f"{mode}: bitserial_median "
-                    f"{launches['bitserial_median']}, want >= absorbs + "
-                    f"compactions = {need} > 0")
-            if pg is not None and not (
-                    st["pool_blocks_end"] == 0
-                    and st["pool_allocs"] == st["pool_frees"]):
-                problems.append(
-                    f"{mode}: pool end {st['pool_blocks_end']}, allocs "
-                    f"{st['pool_allocs']}, frees {st['pool_frees']}")
-            diff = [uid for uid, t in want["tokens"].items()
-                    if rec["tokens"][uid] != t]
-            if diff:
-                problems.append(f"{mode}: tokens of uids {diff} differ "
-                                f"from phase {'5b' if pg else '5'}'s")
-            say(f"5v {mode} serve: {int(st['gen_tokens'])} tokens in "
-                f"{rec['wall_s']:.1f} s wall; {steps} engine steps, "
-                f"{int(st['kv_absorbs'])} absorbs, "
-                f"{int(st['kv_compactions'])} compactions; {kernel} "
-                f"launches {launches[kernel]} = {cfg.n_layers} x {steps} "
-                f"through the head island; bitserial_median "
-                f"{launches['bitserial_median']}; tokens sha256 "
-                f"{rec['tokens_sha256']} (phase "
-                f"{'5b' if pg else '5'}: {want['tokens_sha256']}); "
-                f"{len(want['tokens']) - len(diff)} of "
-                f"{len(want['tokens'])} requests equal")
-            say(f"[{smi}] 5v {mode}: wall_s {rec['wall_s']:.3f}  "
-                f"tokens_per_s {st['tokens_per_s']:.1f}  ttft_p50_ms "
-                f"{st['ttft_p50_ms']:.1f}  itl_p50_ms "
-                f"{st['itl_p50_ms']:.2f}  collectives a step: "
-                f"{cfg.n_layers} all_gather (model) + 1 all_gather (data)")
+        cfg, srv, reqs, prompts = serve_workload(torch, dev, None, params,
+                                                 mesh=mesh)
+        rec = run_serve(torch, srv, reqs, prompts, "5v mesh dense")
+        recs["dense"] = rec
+        st, launches = rec["stats"], rec["launches"]
+        steps = rec["engine_steps"]
+        need = int(st["kv_absorbs"]) + int(st["kv_compactions"])
+        if (launches["clustered_decode"] != cfg.n_layers * steps
+                or launches["paged_clustered_decode"] != 0):
+            problems.append(
+                f"clustered_decode {launches['clustered_decode']} (want "
+                f"{cfg.n_layers} x {steps}), paged_clustered_decode "
+                f"{launches['paged_clustered_decode']} (want 0)")
+        if not launches["bitserial_median"] >= need > 0:
+            problems.append(
+                f"bitserial_median {launches['bitserial_median']}, want >= "
+                f"absorbs + compactions = {need} > 0")
+        diff = [uid for uid, t in dense["tokens"].items()
+                if rec["tokens"][uid] != t]
+        if diff:
+            problems.append(f"tokens of uids {diff} differ from phase 5's")
+        say(f"5v mesh dense serve: {int(st['gen_tokens'])} tokens in "
+            f"{rec['wall_s']:.1f} s wall; {steps} engine steps, "
+            f"{int(st['kv_absorbs'])} absorbs, "
+            f"{int(st['kv_compactions'])} compactions; clustered_decode "
+            f"launches {launches['clustered_decode']} = {cfg.n_layers} x "
+            f"{steps} through the head island; bitserial_median "
+            f"{launches['bitserial_median']}; tokens sha256 "
+            f"{rec['tokens_sha256']} (phase 5: {dense['tokens_sha256']}); "
+            f"{len(dense['tokens']) - len(diff)} of {len(dense['tokens'])} "
+            f"requests equal")
+        say(f"[{smi}] 5v mesh dense: wall_s {rec['wall_s']:.3f}  "
+            f"tokens_per_s {st['tokens_per_s']:.1f}  ttft_p50_ms "
+            f"{st['ttft_p50_ms']:.1f}  itl_p50_ms {st['itl_p50_ms']:.2f}  "
+            f"collectives a step: {cfg.n_layers} all_gather (model) + 1 "
+            f"all_gather (data)")
         # what one island gather costs: a decode step's (4, 32, 128) bf16
         # head block through the model group's all_gather and cat, 200
         # times, the card synchronised at the end
@@ -2169,15 +2181,17 @@ def slo_stream(vocab):
     return reqs, prompts
 
 
-def slo_serves(torch, dev, cfg, params, trace_path=None):
-    """5k's two serves of ``slo_stream``, paged and chunked in arrival
-    order (``use_clustered_batching=False``): (a) over the slots' own 64
-    blocks with no scheduler, untraced; (b) over SLO_POOL blocks with
+def slo_serve(torch, dev, cfg, params, reqs, prompts, scheduled,
+              trace_path=None, mesh=None, pool_blocks=SLO_POOL):
+    """One serve of ``slo_stream``, paged and chunked in arrival order
+    (``use_clustered_batching=False``): over the slots' own 64 blocks with
+    no scheduler, untraced, or (``scheduled``) over ``pool_blocks`` blocks
+    (a data shard's; SLO_POOL) with
     ``SLOConfig(priority_admission=False)`` (priority acts through
     preemption alone) and ``TelemetryConfig(trace=True)``, its Chrome
-    trace written to ``trace_path`` when given.  Returns (a, b) records,
-    each with its completions' ``shed`` flags and TTFTs and (b) its trace
-    and ``phase_breakdown``."""
+    trace written to ``trace_path`` when given; through ``mesh`` when
+    given.  Returns its record, with its completions' ``shed`` flags and
+    TTFTs and, traced, its trace and ``phase_breakdown``."""
     from repro_torch.kernels import ops
     from repro_torch.runtime.kv_pool import PagedKVConfig
     from repro_torch.runtime.scheduler import SLOConfig
@@ -2185,35 +2199,45 @@ def slo_serves(torch, dev, cfg, params, trace_path=None):
     from repro_torch.runtime.telemetry import (TelemetryConfig,
                                                phase_breakdown)
 
+    kw = {}
+    if not scheduled:
+        pool_blocks = 0
+    else:
+        kw = dict(scheduler=SLOConfig(priority_admission=False),
+                  telemetry=TelemetryConfig(trace=True))
+    srv = Server(cfg, ServerConfig(
+        batch_size=4, max_seq=2048, prefill_chunk=64,
+        kv_compress=smoke_kv_compress(), use_clustered_batching=False,
+        paged=PagedKVConfig(block_size=BS, pool_blocks=pool_blocks),
+        mesh=mesh, **kw), params, device=dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = srv.serve(reqs, prompts)
+    if srv.device.type == "cuda":
+        torch.cuda.synchronize()
+    rec = {"wall_s": time.perf_counter() - t0,
+           "launches": ops.launch_counts(),
+           "stats": dict(srv.last_stats),
+           "tokens": {o.uid: list(map(int, o.tokens)) for o in outs},
+           "shed": {o.uid: o.shed for o in outs},
+           "ttft_ms": {o.uid: o.prefill_ms for o in outs}}
+    rec["engine_steps"] = int(rec["stats"]["decode_steps"])
+    if srv.tracer is not None:
+        rec["trace"] = srv.last_trace
+        rec["phases_ms"] = phase_breakdown(srv.last_trace)
+        if trace_path is not None:
+            srv.export_trace(str(trace_path))
+    return rec
+
+
+def slo_serves(torch, dev, cfg, params, trace_path=None):
+    """5k's two serves of ``slo_stream`` (``slo_serve``): (a) unpressured,
+    then (b) scheduled and traced.  Returns (requests, a, b)."""
     reqs, prompts = slo_stream(cfg.vocab)
-    out = []
-    for pool_blocks, kw in ((0, {}), (SLO_POOL, dict(
-            scheduler=SLOConfig(priority_admission=False),
-            telemetry=TelemetryConfig(trace=True)))):
-        srv = Server(cfg, ServerConfig(
-            batch_size=4, max_seq=2048, prefill_chunk=64,
-            kv_compress=smoke_kv_compress(), use_clustered_batching=False,
-            paged=PagedKVConfig(block_size=BS, pool_blocks=pool_blocks),
-            **kw), params, device=dev)
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        outs = srv.serve(reqs, prompts)
-        if srv.device.type == "cuda":
-            torch.cuda.synchronize()
-        rec = {"wall_s": time.perf_counter() - t0,
-               "launches": ops.launch_counts(),
-               "stats": dict(srv.last_stats),
-               "tokens": {o.uid: list(map(int, o.tokens)) for o in outs},
-               "shed": {o.uid: o.shed for o in outs},
-               "ttft_ms": {o.uid: o.prefill_ms for o in outs}}
-        rec["engine_steps"] = int(rec["stats"]["decode_steps"])
-        if srv.tracer is not None:
-            rec["trace"] = srv.last_trace
-            rec["phases_ms"] = phase_breakdown(srv.last_trace)
-            if trace_path is not None:
-                srv.export_trace(str(trace_path))
-        out.append(rec)
-    return reqs, out[0], out[1]
+    return (reqs,
+            slo_serve(torch, dev, cfg, params, reqs, prompts, False),
+            slo_serve(torch, dev, cfg, params, reqs, prompts, True,
+                      trace_path))
 
 
 def ttft_by_class(reqs, rec):
@@ -2320,6 +2344,96 @@ def serve_slo(torch, dev, smi, params):
     return {"unpressured": free, "scheduled": sched,
             "round_trip": {"fresh": fresh, "readopted": readopted,
                            "bytes": nbytes}}
+
+
+# 5y: 5j's store bursts and 5k's scheduled stream through the one-rank
+# NCCL mesh (5v's), on phase 5's weights
+
+STORE_KEYS = ("prefix_hits", "prefix_tokens_reused", "template_pinned_blocks",
+              "template_entries", "prefill_chunks", "pool_blocks_end")
+SLO_KEYS = ("sched_preemptions", "sched_swaps_in", "sched_swaps_out",
+            "sched_sheds", "sched_shed_high", "sched_deferrals",
+            "sched_readopted_blocks", "sched_reuploaded_blocks",
+            "pool_blocks_end")
+
+
+def serve_mesh_runtime(torch, dev, smi, params, store, slo):
+    """Phase 5y: (a) 5j's two templated bursts through one mesh Server
+    with ``TemplateStoreConfig(max_entries=2)`` over TPL_POOL blocks, then
+    ``invalidate_templates()``; (b) 5k's oversubscribed stream scheduled
+    and traced over SLO_POOL blocks, both through the one-rank NCCL mesh.
+    ``store`` and ``slo`` are 5j's and 5k's records: a one-rank mesh is
+    the one-card schedule, so the tokens, the shed flags and the counters
+    must equal theirs.  Returns the records."""
+    from repro_torch import configs
+    from repro_torch.runtime.telemetry import validate_trace
+    from repro_torch.runtime.template_store import TemplateStoreConfig
+
+    cfg = configs.get_config("qwen3-4b")
+    t0 = time.perf_counter()
+    problems, out = [], {}
+    with one_rank_mesh("5y") as mesh:
+        t1 = time.perf_counter()
+        srv = templated_server(
+            cfg, params, dev, TPL_POOL, mesh=mesh,
+            template_store=TemplateStoreConfig(max_entries=2))
+        out["init_store_s"] = time.perf_counter() - t1
+        serves = []
+        for i, seed in enumerate((1, 2)):
+            rec = run_serve(torch, srv, *templated_stream(cfg.vocab, seed),
+                            f"5y store serve {i + 1}")
+            serves.append(rec)
+        pool = srv._tmpl_pool
+        srv.invalidate_templates()
+        out["store"], out["drained"] = serves, pool.allocated()
+        reqs, prompts = slo_stream(cfg.vocab)
+        sched = slo_serve(torch, dev, cfg, params, reqs, prompts, True,
+                          mesh=mesh)
+        out["slo"] = sched
+    for i, (rec, want) in enumerate(zip(serves, store["serves"])):
+        mode = f"5y store serve {i + 1}"
+        paged_launch_gate(cfg, rec, mode)
+        if rec["tokens"] != want["tokens"]:
+            problems.append(f"{mode}: tokens differ from 5j's")
+        got = {k: rec["stats"][k] for k in STORE_KEYS}
+        exp = {k: want["stats"][k] for k in STORE_KEYS}
+        if got != exp:
+            problems.append(f"{mode}: {got}, 5j's {exp}")
+        say(f"[{smi}] {mode}: {times_line(rec)} (5j: itl_p50_ms "
+            f"{want['stats']['itl_p50_ms']:.2f}, wall_s "
+            f"{want['wall_s']:.3f}); {share_line(rec['stats'])}; tokens "
+            f"sha256 {rec['tokens_sha256']} (5j: {want['tokens_sha256']})")
+    if not serves[1]["stats"]["prefix_hits"] > 0:
+        problems.append("store serve 2 did not hit the store")
+    if out["drained"] != 0:
+        problems.append(f"{out['drained']} blocks after invalidation")
+    want = slo["scheduled"]
+    paged_launch_gate(cfg, sched, "5y scheduled")
+    if sched["tokens"] != want["tokens"] or sched["shed"] != want["shed"]:
+        problems.append("5y scheduled: tokens or shed flags differ from "
+                        "5k (b)'s")
+    got = {k: sched["stats"][k] for k in SLO_KEYS}
+    exp = {k: want["stats"][k] for k in SLO_KEYS}
+    if got != exp:
+        problems.append(f"5y scheduled: {got}, 5k (b)'s {exp}")
+    bad = validate_trace(sched["trace"], totals=sched["stats"])
+    if bad:
+        problems.append("5y trace: " + "; ".join(bad[:5]))
+    sched["trace_events"] = len(sched.pop("trace"))
+    steps = sum(r["engine_steps"] for r in (*serves, sched))
+    say(f"[{smi}] 5y scheduled: {times_line(sched)} (5k (b): itl_p50_ms "
+        f"{want['stats']['itl_p50_ms']:.2f}, wall_s {want['wall_s']:.3f}); "
+        f"{got}; trace {sched['trace_events']} events, "
+        f"{'clean' if not bad else 'NOT clean'}")
+    say(f"[{smi}] 5y mesh: store Server init {out['init_store_s']:.3f} s "
+        f"(the weights' digest and one all_gather of it over the world); "
+        f"collectives a step: {cfg.n_layers} all_gather (model) + 1 "
+        f"all_gather (data), {steps} engine steps in all; no swap payload "
+        f"moves (one data shard), no deadline broadcast (no deadline set)")
+    say(f"5y mesh runtime wall: {time.perf_counter() - t0:.1f} s")
+    if problems:
+        raise AssertionError("5y mesh runtime: " + "; ".join(problems))
+    return out
 
 
 # 5f and 5g: gemma2-27b at full width and depth, max_seq GEMMA_MAX_SEQ
@@ -5068,8 +5182,8 @@ def main() -> int:
     done("5-5e qwen3-4b serves")
 
     # phase 5v: the same requests through the mesh engine of a one-rank
-    # NCCL world, dense then paged
-    mesh = serve_mesh(torch, dev, smi, params, serve, paged)
+    # NCCL world, dense (its paged serve cut: 5y serves paged on the mesh)
+    mesh = serve_mesh(torch, dev, smi, params, serve)
     record["serve_mesh"] = mesh
     done("5v mesh serve")
 
@@ -5093,6 +5207,12 @@ def main() -> int:
     slo = serve_slo(torch, dev, smi, params)
     record["serve_slo"] = slo
     done("5k SLO scheduler")
+
+    # phase 5y: 5j's store bursts and 5k's scheduled stream through the
+    # one-rank NCCL mesh, tokens and counters held to 5j's and 5k's
+    mesh_rt = serve_mesh_runtime(torch, dev, smi, params, store, slo)
+    record["serve_mesh_runtime"] = mesh_rt
+    done("5y mesh prefix sharing and SLO")
 
     # phases 5s and 5t: the serving CLI at full width (the subprocess draws
     # its own weights; (b) and (c) serve qwen3's), then the example twin
@@ -5260,7 +5380,9 @@ def main() -> int:
                  "paged_clustered_decode"],
              launches_cli=cli_launches(cli, "paged_clustered_decode"),
              launches_example=example["launches"]["paged_clustered_decode"],
-             launches_mesh=mesh["paged"]["launches"][
+             launches_mesh_store=[r["launches"]["paged_clustered_decode"]
+                                  for r in mesh_rt["store"]],
+             launches_mesh_slo=mesh_rt["slo"]["launches"][
                  "paged_clustered_decode"],
              max_abs_err=pcd_err, ms=tm["paged_clustered_decode"]["ms"],
              plain_ms=tm["paged_clustered_decode"]["plain_ms"],
@@ -5303,8 +5425,11 @@ def main() -> int:
                  "bitserial_median"],
              launches_cli=cli_launches(cli, "bitserial_median"),
              launches_example=example["launches"]["bitserial_median"],
-             launches_mesh={m: mesh[m]["launches"]["bitserial_median"]
-                            for m in ("dense", "paged")},
+             launches_mesh=mesh["dense"]["launches"]["bitserial_median"],
+             launches_mesh_store=[r["launches"]["bitserial_median"]
+                                  for r in mesh_rt["store"]],
+             launches_mesh_slo=mesh_rt["slo"]["launches"][
+                 "bitserial_median"],
              launches_mesh_moe={m: r["launches"]["bitserial_median"]
                                 for m, r in moe["mesh"].items()},
              # the Trainer's straggler median and MAD: 4e's TINY run, 5r

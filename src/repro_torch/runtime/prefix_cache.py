@@ -36,8 +36,10 @@ This module is the host-side index that makes that sharing safe:
     engine.
   * **Shard locality**: block ids are only meaningful on the data shard
     that owns them, so the map is per shard and a request admitted on
-    shard ``s`` can only reuse shard-``s`` entries (prefix sharing on a
-    mesh is ROADMAP Queue A item 10c; one device is one shard).
+    shard ``s`` can only reuse shard-``s`` entries (one device is one
+    shard).  On a mesh every rank keeps every shard's map; the snapshot
+    of an entry is held only by the ranks of its shard (their head block
+    of it), the others keep None.
   * **LRU + pressure eviction**: beyond ``max_entries`` per shard — or
     whenever the engine needs blocks back (pool pressure) — the least
     recently used entry releases its refs.  Entries are a cache, never
@@ -95,7 +97,8 @@ class PrefixEntry:
     snap: object              # device snapshot of the slot's clustered
                               # rows (k_cents/v_cents/counts/cov), taken
                               # and restored by the engine
-                              # (transformer.clustered_slot_state)
+                              # (transformer.clustered_slot_state; on a
+                              # mesh None off the entry's data shard)
     stamp: int = 0            # LRU clock
     hits: int = 0             # times this entry was adopted
     cluster: int = -1         # template_store traffic cluster (-1 = none)

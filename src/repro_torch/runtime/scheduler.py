@@ -97,7 +97,9 @@ class SwapRecord:
     host-resident.  ``snap``/``tails`` are trees of CPU torch tensors
     (numpy has no bfloat16): the prefix-snapshot format
     (``transformer.clustered_slot_state``) and the gathered block
-    payloads (``Server._gather_swap_tails``);
+    payloads (``Server._gather_swap_tails``), on a mesh held by the
+    ranks of the data shard the slot left (their head block of each;
+    None on the others);
     ``held`` maps ring-block index → (gid, generation-at-release) for
     the re-adoption fast path; ``epoch`` stamps the server config/weights
     the snapshot was taken under (a resume under any other epoch must

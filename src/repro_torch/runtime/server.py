@@ -121,10 +121,25 @@ blocking admission's B=1 prefill runs on every rank (each needs its first
 token); the slot's owners keep their head block.  At most one admitting
 slot a data shard in chunked mode, the emptiest shard first.  Slots that do
 not divide the data axis replicate over it, heads that do not divide the
-model axis replicate over it (the reference's fallbacks).  Mesh serving of
-MoE, MLA, recurrent or 'L' layers, prefix sharing, the template store and
-the SLO scheduler raises a ValueError naming ROADMAP Queue A item 10's
-next part.
+model axis replicate over it (the reference's fallbacks).  Every model
+family serves on a mesh.
+
+Prefix sharing, the template store and the SLO scheduler keep their host
+maps per data shard, as the reference does: block ids mean something only
+on the shard that owns them, so a prefix entry lives on one shard's map,
+admission steers a request toward the shards that hold its match (then
+its traffic cluster), and an adoption never crosses shards.  Every rank
+keeps the same host entries; only the ranks of the entry's shard hold its
+snapshot (their head block of it).  Preemption picks a victim on the
+shard under pressure; a parked request resumes into the emptiest shard's
+lowest free slot, which may be another shard than the one it left: the
+owning ranks keep the only host copy of the payload (the slot snapshot
+and the tail blocks, their head block of each) and send it point to point
+to the ranks of the same model index on the resuming shard
+(``sharding.rules.move_payload``).  Every host decision is the same on
+every rank: the one that reads a clock (the TTFT deadline shed) takes
+rank 0's verdict, broadcast over the world, and the template store's
+epoch hashes the world's weight digests together.
 """
 
 from __future__ import annotations
@@ -371,6 +386,16 @@ class Server:
             tfm.prefill, recurrent_mode="sequential", recurrent_rows=rows)
         self._decode = functools.partial(tfm.decode_step,
                                          recurrent_rows=rows)
+        # the template store's weight stamp: the tree this rank was given,
+        # hashed before placement (the ranks of an MoE mesh then hold
+        # different blocks of it), and on a mesh the world's digests
+        # hashed together, so every rank holds one epoch and comes up warm
+        # or cold with the others
+        digest = None
+        if self._store is not None:
+            digest = self._params_digest(params)
+            if self._rules is not None:
+                digest = self._world_digest(digest)
         if self._rules is not None:
             # this rank's block of the routed-expert banks, every other
             # leaf whole (the reference's serving_param_specs placement)
@@ -413,16 +438,16 @@ class Server:
             self._store_epoch = (repr(cfg), repr(scfg.kv_compress),
                                  repr(scfg.paged), scfg.prefill_chunk,
                                  scfg.max_seq, scfg.batch_size,
-                                 self._n_data_shards,
-                                 self._params_digest(self.params))
+                                 self._n_data_shards, digest)
 
     def _mesh_setup(self, cfg: ModelConfig, scfg: ServerConfig) -> None:
         """Mesh serving's rules and this rank's place in them: the data
         shard count (``axes_for("batch", batch_size)``: slots that do not
         divide the data axis replicate over it, and so do their pools),
         this rank's data shard and the group the next tokens are gathered
-        over.  Every model family serves on a mesh; the modes of ROADMAP
-        Queue A item 10c's second part raise."""
+        over.  Every model family and every runtime mode (prefix
+        sharing, the template store, the SLO scheduler) serves on a
+        mesh."""
         self._rules: Optional[shard_rules.Rules] = None
         self._n_data_shards = 1
         self._data_index = 0
@@ -430,18 +455,6 @@ class Server:
         mesh = scfg.mesh
         if mesh is None:
             return
-        for hit, what in ((scfg.prefix_share is not None, "prefix_share"),
-                          (scfg.template_store is not None,
-                           "template_store"),
-                          (scfg.scheduler is not None, "scheduler= (SLO)")):
-            if hit:
-                raise ValueError(
-                    f"mesh serving with {what} is ROADMAP Queue A item "
-                    f"10's next part (10c's second part: prefix sharing, "
-                    f"the template store and the SLO scheduler with its "
-                    f"swap on a mesh); the mesh serves every model family "
-                    f"('G', 'L', 'M' / 'R', MLA, MoE), dense or paged, "
-                    f"chunked or blocking")
         if not isinstance(mesh, DeviceMesh):
             raise TypeError("mesh= takes a DeviceMesh "
                             "(launch.mesh.make_serving_mesh), not "
@@ -604,6 +617,9 @@ class Server:
             """Slot j's rows live on this rank."""
             return shard_of(j) == me
 
+        def shard_slots(sh):
+            return range(sh * per_shard, min((sh + 1) * per_shard, n))
+
         def phys(j):
             return shard_of(j) * bucket + idx_of(j)
 
@@ -629,7 +645,8 @@ class Server:
         store = self._store
         if paged is not None:
             parked = store.parked if store is not None else None
-            if parked is not None and parked[2] == self._store_epoch:
+            if (parked is not None and parked[2] == self._store_epoch
+                    and parked[3] == shards):
                 # warm start: the parked pool and device cache carry the
                 # store's pinned blocks.  They live on the store, keyed by
                 # epoch, so another Server under the same epoch adopts
@@ -648,14 +665,16 @@ class Server:
             if store is not None:
                 # a store warmed under another epoch or pool is
                 # invalidated here, never adopted
-                store.bind(self._store_epoch, 1, pool)
+                store.bind(self._store_epoch, shards, pool)
                 pcache = store
             elif self._pshare is not None:
-                pcache = prefix_mod.PrefixCache(self._pshare, 1, pool)
+                pcache = prefix_mod.PrefixCache(self._pshare, shards, pool)
         full = cache
-        if cache is None:
+        if cache is None or self._rules is not None:
             # on a mesh the whole cache is shapes only (meta): a rank
-            # allocates just its block, zeros like every fresh leaf
+            # allocates just its block, zeros like every fresh leaf, and a
+            # warm store's parked cache is that block too, so the byte
+            # prices below read the meta one
             full = tfm.init_cache(
                 cfg, n, scfg.max_seq,
                 kv_mode="clustered" if layout else "exact",
@@ -664,6 +683,7 @@ class Server:
                 kv_pool_blocks=pool.n_blocks if pool else 0,
                 kv_block_size=paged.block_size if paged else 0,
                 device=dev if self._rules is None else "meta")
+        if cache is None:
             cache = full
             if self._rules is not None:
                 cache = _zeros_on(shard_rules.shard_cache(full, self._rules),
@@ -798,16 +818,18 @@ class Server:
                     occ[shard_of(j)] += 1
             return occ
 
-        def sweep_covered():
-            """Give back every block the retention policy has already
-            retired (under FrontierRetention absorb and compaction do this
-            the moment ``cov`` advances, so a sweep only recovers blocks
-            under pool pressure; under QuotaRetention nothing retires
-            mid-flight and the sweep frees nothing).  Each slot's upcoming
-            write blocks are protected: allocated but not yet written,
-            they look dead."""
+        def sweep_covered(s):
+            """Give back every block of data shard ``s`` that the retention
+            policy has already retired (under FrontierRetention absorb and
+            compaction do this the moment ``cov`` advances, so a sweep only
+            recovers blocks under pool pressure; under QuotaRetention
+            nothing retires mid-flight and the sweep frees nothing).  Each
+            slot's upcoming write blocks are protected: allocated but not
+            yet written, they look dead."""
             freed = 0
             for j in range(n):
+                if shard_of(j) != s:
+                    continue
                 if admitting[j]:
                     plen = len(prompt_np[slot_uid[j]])
                     cl = int(min(chunk, plen - fed[j]))
@@ -823,13 +845,15 @@ class Server:
             return freed
 
         def reclaim_all():
-            """Last-resort reclaim: sweep covered blocks and drain the
-            prefix cache.  Returns the blocks freed; the zero-progress
-            raises fire only after this comes back empty twice."""
+            """Last-resort reclaim: sweep every shard's covered blocks and
+            drain the prefix cache.  Returns the blocks freed; the
+            zero-progress raises fire only after this comes back empty
+            twice."""
             held = pool.allocated()
-            sweep_covered()
-            while pcache is not None and pcache.evict_lru(0):
-                pass
+            for s in range(shards):
+                sweep_covered(s)
+                while pcache is not None and pcache.evict_lru(s):
+                    pass
             return held - pool.allocated()
 
         def try_ensure(j, blocks, pairs):
@@ -848,9 +872,11 @@ class Server:
                     pool.ensure(j, blocks, pairs)
                     return True
                 except kv_pool.PoolExhausted:
-                    if sweep_covered():
+                    # blocks are shard-local: only the slot's shard helps
+                    s = shard_of(j)
+                    if sweep_covered(s):
                         continue
-                    if pcache is not None and pcache.evict_lru(0):
+                    if pcache is not None and pcache.evict_lru(s):
                         continue
                     return False
 
@@ -862,13 +888,20 @@ class Server:
         # always decoding slots: an admitting slot may hold a prefix-cache
         # pin between lookup and restore, and waits by deferral instead.
 
-        def victim_candidates():
+        def victim_candidates(shard=None):
             """(priority, swap cost in bytes, slot) for every decoding
-            slot: its mapped tail blocks, plus the recurrent state."""
+            slot (of data shard ``shard`` only, when given: blocks are
+            shard-local, so pool pressure needs a victim on its shard):
+            its mapped tail blocks, plus the recurrent state."""
             return [(by_uid[slot_uid[j]].priority,
                      pool.mapped_blocks(j) * paged.block_size * tail_bpt
                      + rec_state_b, j)
-                    for j in range(n) if active[j]]
+                    for j in range(n) if active[j]
+                    and (shard is None or shard_of(j) == shard)]
+
+        # the data shard each parked request was swapped out of: its ranks
+        # hold the record's payload (the others keep snap / tails None)
+        swapped_from: Dict[int, int] = {}
 
         def preempt(j):
             """Swap slot j out to host memory: its slot snapshot and the
@@ -877,11 +910,17 @@ class Server:
             block's (gid, generation) for re-adoption); the request parks
             on the swap backlog.  The slot's state is a function of its
             own token stream, and the swap carries it exactly, so a
-            resumed request's tokens are an uninterrupted run's."""
+            resumed request's tokens are an uninterrupted run's.  On a
+            mesh only slot j's ranks gather (their head block of it)."""
             uid = slot_uid[j]
             r = by_uid[uid]
             t_sw0 = time.perf_counter()
-            snap, tails = self._swap_out(cache, j, pool.row_for_read(j))
+            snap = tails = None
+            if mine(j):
+                snap, tails = self._swap_out(
+                    cache, idx_of(j),
+                    pool.row_for_read(j) - pool.shard_base(j))
+            swapped_from[uid] = shard_of(j)
             held = pool.release_slot(j)
             rec = SwapRecord(
                 uid=uid, priority=r.priority, pos=int(pos[j]),
@@ -922,13 +961,15 @@ class Server:
             # hand one write block to the resumed slot and to each
             # decoding slot.  Only truly fresh blocks count: held blocks
             # whose (gid, gen) survived re-adopt for free
+            s = shard_of(j)
             t_r0 = time.perf_counter()
-            headroom = 1 + int(active.sum())
+            headroom = 1 + sum(1 for jj in range(n)
+                               if active[jj] and shard_of(jj) == s)
             fresh_demand = pool.resume_demand(j, rec.held)
-            if pool.free_blocks(0) < fresh_demand + headroom:
+            if pool.free_blocks(s) < fresh_demand + headroom:
                 slo.deferrals += 1
                 tr_brownout("defer", "resume_headroom", uid=rec.uid,
-                            free=pool.free_blocks(0), fresh=fresh_demand,
+                            free=pool.free_blocks(s), fresh=fresh_demand,
                             held=len(rec.held), headroom=headroom)
                 return False
             pool.free_slot(j)   # recycle any previous occupant's blocks
@@ -946,11 +987,27 @@ class Server:
             slo.reuploaded_blocks += len(fresh)
             # only the fresh blocks take the host bytes: a re-adopted block
             # may be shared, and writing it (even with equal bytes) would
-            # break copy-on-write
-            row = np.full(pool.blocks_per_slot, pool.n_blocks, np.int32)
+            # break copy-on-write.  Ids local to the shard's pool block;
+            # the others point past it
+            row = np.full(pool.blocks_per_slot, pool.pool_blocks, np.int32)
             for bi in fresh:
-                row[bi] = pool.table[j, bi]
-            self._swap_in(cache, rec.snap, rec.tails, j, row)
+                row[bi] = pool.table[j, bi] - pool.shard_base(j)
+            snap, tails = rec.snap, rec.tails
+            src = swapped_from.pop(rec.uid)
+            if src != s:
+                # resumed on another data shard: the payload travels from
+                # the ranks that swapped it out to those of the same model
+                # index here (a receiving rank's own rows give the shapes)
+                if me == s:
+                    snap, tails = self._swap_out(
+                        cache, idx_of(j),
+                        pool.row_for_read(j) - pool.shard_base(j))
+                if me in (src, s):
+                    snap, tails = shard_rules.move_payload(
+                        (snap, tails), self._data_group, src, s,
+                        self.device)
+            if mine(j):
+                self._swap_in(cache, snap, tails, idx_of(j), row)
             pos[j] = rec.pos
             cur[j] = rec.cur
             fed[j] = rec.fed
@@ -998,6 +1055,7 @@ class Server:
             rec = slo.pick_shed()
             if rec is not None:
                 slo.shed_record(rec)
+                swapped_from.pop(rec.uid, None)
                 slo.swap_bytes -= (rec.n_blocks_swapped * paged.block_size
                                    * tail_bpt + rec.state_bytes)
                 tr_brownout("shed", "parked_record", uid=rec.uid)
@@ -1094,18 +1152,22 @@ class Server:
             if wr is not None:
                 wr.on_slot_free(j)
             slot_uid[j] = uid
-            hit = (pcache.lookup(0, p, chunk, digests=prefix_digests(uid))
+            hit = (pcache.lookup(shard_of(j), p, chunk,
+                                 digests=prefix_digests(uid))
                    if pcache is not None else None)
             if hit is not None:
                 # prefix hit: adopt the registered ring blocks (a write
                 # into one still shared copies it first) and restore the
                 # prompt centroids and frontier; admission resumes at
-                # hit.fed.  The paged bucket never shrinks, so j is the
-                # slot's physical row.
+                # hit.fed.  The entry lives on slot j's shard, whose ranks
+                # hold its snapshot (their head block of it).  The paged
+                # bucket never shrinks, so idx_of(j) is the slot's row.
                 assert pool is not None and bucket == per_shard
                 for bi, gid in hit.blocks.items():
                     pool.adopt(j, bi, gid)
-                tfm.restore_clustered_slot_state(cache, hit.snap, idx_of(j))
+                if mine(j):
+                    tfm.restore_clustered_slot_state(cache, hit.snap,
+                                                     idx_of(j))
                 fed[j] = hit.fed
                 fr.set_frontier(j, hit.cov)
                 # the slot holds its own refs now: the entry may be
@@ -1227,11 +1289,19 @@ class Server:
                     rec = None
                 if rec is None and qi >= len(order):
                     break
-                free = [j for j in range(n)
-                        if not (active[j] or admitting[j])]
+                occ = occupancy()
                 if rec is not None:
-                    if free:
-                        if resume_swapped(free[0], rec):
+                    # the emptiest data shard's lowest free index (the
+                    # payload is slot-agnostic; another shard's ranks
+                    # receive it)
+                    rcands = []
+                    for sh in range(shards):
+                        sh_free = [jj for jj in shard_slots(sh)
+                                   if not (active[jj] or admitting[jj])]
+                        if sh_free:
+                            rcands.append((occ[sh], sh, sh_free[0]))
+                    if rcands:
+                        if resume_swapped(min(rcands)[-1], rec):
                             continue
                         break   # pool-deferred resume: retry later
                     # slot pressure on a resume: preempt a strictly
@@ -1247,31 +1317,42 @@ class Server:
                 uid = order[qi]
                 # the emptiest data shard's lowest free index (a burst
                 # spreads across shards and keeps indices low for tight
-                # launch buckets); chunked mode keeps at most one prefill
-                # in flight a shard
-                occ = occupancy()
+                # launch buckets); with prefix sharing, occupancy ties
+                # prefer the shard holding the longest match (block ids
+                # are shard-local, so reuse cannot cross shards), then
+                # the one holding the request's traffic cluster; chunked
+                # mode keeps at most one prefill in flight a shard
+                p_next = (np.asarray(prompts[uid], np.int32)[-scfg.max_seq:]
+                          if pcache is not None else None)
                 cands = []
                 for sh in range(shards):
-                    slots = range(sh * per_shard, min((sh + 1) * per_shard, n))
+                    slots = shard_slots(sh)
                     if chunk and any(admitting[jj] for jj in slots):
                         continue
                     sh_free = [jj for jj in slots
                                if not (active[jj] or admitting[jj])]
                     if sh_free:
-                        cands.append((occ[sh], sh, sh_free[0]))
-                if cands and pcache is not None:
-                    # slot choice hashes the head request (one shard: no
-                    # steering to do, but the store assigns its cluster)
-                    prefix_digests(uid)
+                        match = (pcache.match_len(
+                            sh, p_next, chunk, digests=prefix_digests(uid))
+                                 if pcache is not None else 0)
+                        aff = (store.shard_affinity(
+                            sh, cid_by_uid.get(uid, -1))
+                               if store is not None else 0)
+                        cands.append((occ[sh], -match, -aff, sh,
+                                      sh_free[0]))
                 if not cands:
                     # slot pressure: a higher-priority head preempts the
-                    # cheapest strictly-lower-priority decoding slot (not
-                    # while a prefill is in flight in chunked mode: a
-                    # freed slot could not admit anyway)
-                    if (slo is not None and slo.can_swap()
-                            and not (chunk and admitting.any())):
-                        v = slo.pick_victim(victim_candidates(),
-                                            by_uid[uid].priority)
+                    # cheapest strictly-lower-priority decoding slot on a
+                    # shard that could admit (chunked mode: a shard
+                    # already feeding a prefill cannot, free slot or not)
+                    if slo is not None and slo.can_swap():
+                        adm = [sh for sh in range(shards)
+                               if not (chunk and any(
+                                   admitting[jj] for jj in shard_slots(sh)))]
+                        v = slo.pick_victim(
+                            [c for c in victim_candidates()
+                             if shard_of(c[2]) in adm],
+                            by_uid[uid].priority)
                         if v is not None:
                             tr_brownout("preempt", "slot_pressure",
                                         victim=int(v), for_uid=uid)
@@ -1292,9 +1373,12 @@ class Server:
                 if slo is not None:
                     slo.deferrals += 1
                     r = by_uid[uid]
+                    # the clock is read once, on rank 0 (ranks whose
+                    # clocks disagree would part the world here)
                     if (not slo.is_high(r.priority) and r.deadline_ms > 0
-                            and (time.perf_counter() - t0_serve) * 1e3
-                            > r.deadline_ms):
+                            and self._rank0_verdict(
+                                (time.perf_counter() - t0_serve) * 1e3
+                                > r.deadline_ms)):
                         slo.shed_uid(uid, r.priority)
                         if tr is not None:
                             tr.event("shed", tid="queue", uid=uid,
@@ -1302,7 +1386,8 @@ class Server:
                         qi += 1
                         continue
                     if slo.can_swap():
-                        v = slo.pick_victim(victim_candidates(), r.priority)
+                        v = slo.pick_victim(victim_candidates(shard_of(j)),
+                                            r.priority)
                         if v is not None:
                             tr_brownout("preempt", "admission_pool",
                                         victim=int(v), for_uid=uid)
@@ -1393,6 +1478,12 @@ class Server:
                                 int(pos[j]), 1, R, paged.block_size),
                                 cow_pairs):
                             stalled_decode.add(j)
+                if shards > 1:
+                    # a pair lives on one data shard: this rank copies its
+                    # own shard's, in its pool block's local ids
+                    base = me * pool.pool_blocks
+                    cow_pairs = [(a - base, b - base) for a, b in cow_pairs
+                                 if a // pool.pool_blocks == me]
                 if cow_pairs:
                     self._cow_impl(cache, cow_pairs)
                 mixed = bool(step_chunks)
@@ -1592,9 +1683,14 @@ class Server:
                                     int(fed[j]), cov_of(j), R,
                                     paged.block_size)
                                 if pool.table[j, bi] >= 0}
+                            # every rank keeps the host entry (its maps
+                            # and LRU stay the same everywhere); only
+                            # slot j's ranks hold the snapshot
                             pcache.register(
-                                0, prompt_np[uid], int(fed[j]), cov_of(j),
-                                blocks, tfm.clustered_slot_state(cache, j),
+                                shard_of(j), prompt_np[uid], int(fed[j]),
+                                cov_of(j), blocks,
+                                tfm.clustered_slot_state(cache, idx_of(j))
+                                if mine(j) else None,
                                 cluster=cid_by_uid.get(uid, -1))
                         continue
                     # final chunk landed: its last row's logits are the
@@ -1700,14 +1796,18 @@ class Server:
 
             # ---- post-step priority pass ----------------------------------
             # a pool-stalled slot whose priority exceeds a neighbour's gets
-            # that neighbour's blocks next step: swap the cheapest
-            # lower-priority decoding slot out (one victim a step, at a
-            # clean boundary: this step's copy-on-write copies have landed)
+            # that neighbour's blocks next step: swap the shard's cheapest
+            # lower-priority decoding slot out (one victim a shard a step,
+            # at a clean boundary: this step's copy-on-write copies have
+            # landed)
             if slo is not None and (stalled_decode or stalled_admit):
-                sp = [by_uid[slot_uid[j]].priority
-                      for j in stalled_decode | stalled_admit]
-                if slo.can_swap():
-                    v = slo.pick_victim(victim_candidates(), max(sp))
+                for sh in range(shards):
+                    sp = [by_uid[slot_uid[j]].priority
+                          for j in stalled_decode | stalled_admit
+                          if shard_of(j) == sh]
+                    if not sp or not slo.can_swap():
+                        continue
+                    v = slo.pick_victim(victim_candidates(sh), max(sp))
                     if v is not None:
                         preempt(v)
 
@@ -1722,7 +1822,7 @@ class Server:
                 # mirrored on the server; the drain target weakens to
                 # allocated() == pinned_blocks()
                 self._tmpl_pool, self._tmpl_cache = pool, cache
-                store.parked = (pool, cache, self._store_epoch, 1)
+                store.parked = (pool, cache, self._store_epoch, shards)
         wall = time.perf_counter() - t0_serve
         gen_total = sum(len(v) for v in toks.values())
         # each request's first token comes from its last prompt chunk;
@@ -1908,6 +2008,27 @@ class Server:
 
         walk(params, "")
         return h.hexdigest()
+
+    def _world_digest(self, digest: str) -> str:
+        """One digest for the whole world: every rank's ``digest`` (hex),
+        gathered in rank order and hashed together."""
+        mine = torch.tensor(list(bytes.fromhex(digest)), dtype=torch.uint8,
+                            device=self.device)
+        parts = [torch.empty_like(mine)
+                 for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, mine)
+        return hashlib.blake2b(torch.cat(parts).cpu().numpy().tobytes(),
+                               digest_size=16).hexdigest()
+
+    def _rank0_verdict(self, flag: bool) -> bool:
+        """Rank 0's ``flag``, broadcast over the world (one device: the
+        flag itself): a host decision that reads a rank-local value (a
+        clock) is taken once, so no two ranks part."""
+        if self._rules is None:
+            return flag
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
+        dist.broadcast(t, src=0)
+        return bool(t.item())
 
     @staticmethod
     def _cow_impl(cache, pairs) -> None:

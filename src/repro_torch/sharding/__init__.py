@@ -3,7 +3,8 @@
 from repro_torch.sharding.rules import (P, Rules, admission_spec,  # noqa: F401
                                         block_table_spec, cache_spec,
                                         current_rules, default_table,
-                                        expert_axes, param_spec,
+                                        expert_axes, move_payload,
+                                        param_spec,
                                         place_admission,
                                         place_block_tables,
                                         place_prefix_snapshot,

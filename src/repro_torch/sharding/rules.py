@@ -32,6 +32,7 @@ import re
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.launch.mesh import mesh_sizes
 
@@ -349,15 +350,74 @@ def place_admission(cache, rules: Rules):
 
 
 def place_prefix_snapshot(snap, rules: Rules):
-    """This rank's block of a prefix-cache snapshot (one slot's clustered
-    summary rows): kv heads over ``model``, as ``admission_spec``."""
+    """This rank's block of a whole prefix-cache snapshot (one slot's
+    clustered summary rows): kv heads over ``model``, as
+    ``admission_spec``.  The mesh server never needs it: a rank snapshots
+    its own rows, already its head block, and an adoption never leaves
+    the data shard that registered the entry."""
     return _place(snap, rules, admission_spec)
 
 
 def place_swap_payload(payload, rules: Rules):
-    """This rank's block of a swapped-out slot's host payload (snapshot
-    and tail blocks): kv heads over ``model``, as ``admission_spec``."""
+    """This rank's block of a whole swapped-out slot's host payload
+    (snapshot and tail blocks): kv heads over ``model``, as
+    ``admission_spec``.  The mesh server's payloads are never whole: the
+    ranks of the data shard that swapped a slot out gather their own head
+    block of it from their cache, and a resume on another data shard
+    receives those bytes from the rank of the same model index
+    (``move_payload``)."""
     return _place(payload, rules, admission_spec)
+
+
+def _leaves(tree, out):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _leaves(tree[k], out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _leaves(v, out)
+    elif tree is not None:
+        out.append(tree)
+    return out
+
+
+def _refill(tree, it):
+    if isinstance(tree, dict):
+        return {k: _refill(tree[k], it) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_refill(v, it) for v in tree)
+    return None if tree is None else next(it)
+
+
+def move_payload(payload, group, src: int, dst: int, device):
+    """Send a host payload (a tree of CPU tensors) from the rank at index
+    ``src`` of ``group`` to the one at ``dst``, point to point, as one
+    buffer of its bytes staged on ``device`` (NCCL sends device memory,
+    gloo host memory).  On ``src`` the payload is sent and returned as
+    is; on ``dst`` it is the buffer of the right shapes and dtypes (its
+    contents are not read) and comes back holding ``src``'s bytes; any
+    other rank returns it untouched.  The mesh server moves a swapped-out
+    slot's payload (snapshot and tail blocks) this way when the slot
+    resumes on another data shard: ``group`` is the data group, whose
+    index is the data shard's."""
+    rank = dist.get_rank(group)
+    if rank not in (src, dst) or src == dst:
+        return payload
+    leaves = _leaves(payload, [])
+    flat = [t.detach().contiguous().reshape(-1).view(torch.uint8)
+            for t in leaves]
+    buf = torch.cat(flat).to(device)
+    if rank == src:
+        dist.send(buf, dst=dist.get_global_rank(group, dst), group=group)
+        return payload
+    dist.recv(buf, src=dist.get_global_rank(group, src), group=group)
+    buf = buf.cpu()
+    got, off = [], 0
+    for t, f in zip(leaves, flat):
+        n = f.numel()
+        got.append(buf[off:off + n].clone().view(t.dtype).reshape(t.shape))
+        off += n
+    return _refill(payload, iter(got))
 
 
 def place_block_tables(bt, rules: Rules, local_blocks: int = 0):

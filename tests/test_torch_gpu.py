@@ -1597,3 +1597,71 @@ def test_family_mesh_serve_on_card(cuda, family, tmp_path):
         assert srv.last_stats["pool_blocks_end"] == 0.0
     if is_moe:
         assert moe.mesh_dispatches["sharded"] > 0
+
+
+def test_runtime_modes_mesh_serve_on_card(cuda, tmp_path):
+    """Prefix sharing's template store and the SLO scheduler through the
+    mesh engine of a one-rank NCCL world (a file store, no network): the
+    reduced qwen3-4b serves tests/test_sharded_serving.py's two store
+    bursts through one mesh Server (:213), then its oversubscribed stream
+    under ``SLOConfig(priority_admission=False)`` over 8 blocks (:312),
+    traced.  A one-rank mesh is the one-card schedule: tokens, shed flags
+    and counters equal the same serves without a mesh; B2 launches once a
+    layer an engine step through the head island; the trace validates;
+    ``invalidate_templates()`` drains the pool."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.server import Server
+    from repro_torch.runtime.telemetry import validate_trace
+
+    import _torch_runtime_ranks as rk
+
+    cfg = configs.get_reduced("qwen3-4b")
+    params = tfm.init_params(0, cfg, device=cuda)
+    keys = ("prefix_hits", "prefix_tokens_reused", "template_pinned_blocks",
+            "sched_preemptions", "sched_swaps_in", "sched_swaps_out",
+            "sched_sheds", "sched_deferrals", "pool_blocks_end")
+
+    def serves(mesh=None):
+        out = []
+        srv = Server(cfg, rk.server_config(pool=24, store=True, mesh=mesh),
+                     params, device=cuda)
+        for seed in (11, 13):
+            got = rk.run(srv, rk.store_burst(seed), keys)
+            out.append(got + (ops.launch_counts(),
+                              srv.last_stats["decode_steps"]))
+            ops.reset_launches()
+        srv.invalidate_templates()
+        srv = Server(cfg, rk.server_config(pool=8, slo=True, fifo=True,
+                                           trace=True, mesh=mesh),
+                     params, device=cuda)
+        got = rk.run(srv, rk.slo_stream(), keys)
+        out.append(got + (ops.launch_counts(),
+                          srv.last_stats["decode_steps"]))
+        assert validate_trace(srv.last_trace,
+                              totals=dict(srv.last_stats)) == []
+        return out
+
+    ops.reset_launches()
+    want = serves()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        assert dist.get_backend() == "nccl"
+        ops.reset_launches()
+        got = serves(make_serving_mesh("1x1"))
+    finally:
+        dist.destroy_process_group()
+    assert want[1][2]["prefix_hits"] > 0
+    assert want[2][2]["sched_preemptions"] >= 1
+    for g, w in zip(got, want):
+        assert g[:3] == w[:3]
+        counts, steps = g[3], g[4]
+        assert counts["paged_clustered_decode"] == cfg.n_layers * steps
+        assert counts["clustered_decode"] == 0

@@ -5,8 +5,10 @@ with weights from the same seed: every printed line equal but for its
 timing fields (the lines count requests, tokens, launches and positions,
 which the schedule alone sets), for blocking exact KV and for paged
 chunked clustered KV (its peak KV bytes count every kv head, though a
-rank holds half of them), and the reduced qwen2-moe chunked (its routed
-experts 2 a rank).  The port's launcher starts the four gloo ranks
+rank holds half of them), the reduced qwen2-moe chunked (its routed
+experts 2 a rank), and paged chunked with ``--priority-demo`` (the SLO
+scheduler's counters and its shed uids) and with ``--persist-templates``
+(the warm re-serve's store hits, ``tokens identical: True``).  The port's launcher starts the four gloo ranks
 itself and rank 0 prints.  Also: a rank that fails fails the run at once,
 with its exit code, and the waiting ranks are stopped."""
 
@@ -26,12 +28,17 @@ from _serve_lines import mask
 ROOT = Path(__file__).resolve().parents[1]
 ARGV = ["--reduced", "--requests", "8", "--max-new", "4", "--mesh", "2x2"]
 QWEN3 = ["--arch", "qwen3-4b"]
+PAGED = QWEN3 + ["--paged", "--prefill-chunk", "16", "--kv-clusters", "8",
+                 "--keep-recent", "16", "--refresh-every", "8"]
 CASES = {
     "exact": QWEN3,
-    "paged": QWEN3 + ["--paged", "--prefill-chunk", "16", "--kv-clusters",
-                      "8", "--keep-recent", "16", "--refresh-every", "8"],
+    "paged": PAGED,
     # 8 routed experts on 4 ranks: 2 a rank, the sharded dispatch
     "moe": ["--arch", "qwen2-moe-a2.7b", "--prefill-chunk", "16"],
+    # the SLO scheduler over a pool tightened below the slots' rings, and
+    # the template store served twice, per data shard
+    "priority": PAGED + ["--priority-demo"],
+    "templates": PAGED + ["--persist-templates"],
 }
 
 
@@ -76,6 +83,11 @@ def test_mesh_cli_lines_equal_reference(lines, case):
     assert "[serve] mesh 2x2: slots over data=2, heads over model=2" in got
     assert any(g.startswith("[serve] per-data-shard slot waste: ")
                for g in got)
+    if case == "priority":
+        assert any(g.startswith("[serve] SLO scheduling: ") for g in got)
+    if case == "templates":
+        assert any(g.startswith("[serve] warm re-serve: ")
+                   and g.endswith("tokens identical: True") for g in got)
 
 
 def test_a_failing_rank_fails_the_run(monkeypatch):

@@ -143,14 +143,17 @@ def test_server_defaults_to_cuda(weights):
 def test_unported_features_raise(weights, field, value):
     """``mesh=`` serves since the mesh slice
     (tests/test_torch_sharded_serving.py), every model family since 10b
-    and 10c's first part, but not yet under the SLO scheduler (nor with
-    prefix sharing or the template store): that raises naming ROADMAP
-    Queue A item 10's next part.  ``scheduler=`` and tracing serve since the SLO slice
-    (tests/test_torch_scheduler.py, tests/test_torch_telemetry.py)."""
+    and 10c's first part, and under the SLO scheduler, prefix sharing and
+    the template store since 10c's second part
+    (tests/test_torch_sharded_slo.py, tests/test_torch_sharded_prefix.py):
+    no mode gate stops a scheduled mesh serve, and the first check it
+    meets is the mesh's type.  ``scheduler=`` and tracing serve since the
+    SLO slice (tests/test_torch_scheduler.py,
+    tests/test_torch_telemetry.py)."""
     kw = {"prefill_chunk": 8, "kv_compress": _SHARE_CC,
           "paged": PagedKVConfigT(block_size=4),
           "scheduler": scheduler_t.SLOConfig(), field: value}
-    with pytest.raises(ValueError, match="ROADMAP Queue A item 10's next"):
+    with pytest.raises(TypeError, match="mesh= takes a DeviceMesh"):
         ServerT(TINY_T, ServerConfigT(**kw), weights[1], device="cpu")
 
 

@@ -19,8 +19,9 @@ tests/test_sharded_serving.py's ``test_sharded_windowed_paged_parity``
   blocking over exact KV and under a KVCompressConfig: the latent shards
   over slots only and every model rank decodes it in full; tokens equal
   the reference's and the port's single-device serves.
-* ``prefix_share``, ``template_store`` and ``scheduler=`` on a mesh raise
-  naming ROADMAP item 10c's second part.
+Prefix sharing, the template store and the SLO scheduler on a mesh are
+tests/test_torch_sharded_prefix.py's and tests/test_torch_sharded_slo.py's
+('GM' / 'GR' preemption among them).
 
 The ranks (``_torch_family_ranks.layers_main``) serve while this process
 runs the reference's and the single-device serves."""
@@ -40,12 +41,6 @@ from repro.models.config import SSMConfig as SSMConfigRef
 from repro.runtime.server import Server as ServerRef
 from repro.runtime.server import ServerConfig as ServerConfigRef
 from repro_torch import bridge
-from repro_torch.core import kv_compress as kv_t
-from repro_torch.runtime.kv_pool import PagedKVConfig
-from repro_torch.runtime.prefix_cache import PrefixShareConfig
-from repro_torch.runtime.scheduler import SLOConfig
-from repro_torch.runtime.server import Server, ServerConfig
-from repro_torch.runtime.template_store import TemplateStoreConfig
 
 import _torch_family_ranks as ranks
 import _torch_ref
@@ -147,26 +142,6 @@ def test_mla_parity(runs, name):
     latent passes the clustering untouched), == one device."""
     stats, _ = _check(runs, name)
     assert stats["kv_absorbs"] == 0.0
-
-
-_CC = kv_t.KVCompressConfig(**ranks.CCFG)
-_PAGED = dict(kv_compress=_CC, prefill_chunk=8,
-              paged=PagedKVConfig(block_size=4))
-
-
-@pytest.mark.parametrize("kw,what", [
-    (dict(_PAGED, prefix_share=PrefixShareConfig()), "prefix_share"),
-    (dict(_PAGED, template_store=TemplateStoreConfig()), "template_store"),
-    (dict(_PAGED, scheduler=SLOConfig()), "scheduler"),
-], ids=["prefix_share", "template_store", "slo"])
-def test_runtime_modes_on_a_mesh_raise(kw, what):
-    """On a recurrent 'GM' model (which serves these modes on one
-    device): refused before the mesh is touched, naming the next part."""
-    with pytest.raises(ValueError, match=f"mesh serving with {what}.*"
-                       "10c's second part"):
-        Server(ranks.family_config("GM"),
-               ServerConfig(batch_size=4, max_seq=64, mesh=object(), **kw),
-               None, device="cpu")
 
 
 def test_mla_config_keeps_the_reference_fields():

@@ -10,10 +10,12 @@ exact KV, mid-stream compaction, chunked prefill (exact and clustered,
 with absorbs), paged blocking and chunked (tokens also equal the dense
 engine's, the pool drains), and ``tiny2`` (2 kv heads on a model axis of
 4: heads replicate, slots stay data-sharded).  Every rank returns the same
-completions (one host engine, run SPMD).  Prefix sharing, the template
-store and the SLO scheduler on a mesh raise the ValueError that names
-ROADMAP item 10's next part; the other model families serve on a mesh
-(tests/test_torch_sharded_moe.py, tests/test_torch_sharded_layers.py).
+completions (one host engine, run SPMD).  The other model families serve
+on a mesh (tests/test_torch_sharded_moe.py,
+tests/test_torch_sharded_layers.py), and so do prefix sharing, the
+template store and the SLO scheduler (tests/test_torch_sharded_prefix.py,
+tests/test_torch_sharded_slo.py); a mesh that is not a ``DeviceMesh`` is
+refused for every family.
 
 The reference's and the single-device serves run here, in the test
 process, while the ranks (``_torch_serving_ranks.main``) serve."""
@@ -33,13 +35,8 @@ from repro.runtime.server import Server as ServerRef
 from repro.runtime.server import ServerConfig as ServerConfigRef
 from repro_torch import bridge
 from repro_torch import configs as configs_t
-from repro_torch.core import kv_compress as kv_t
 from repro_torch.models.config import ModelConfig, SSMConfig
-from repro_torch.runtime.kv_pool import PagedKVConfig
-from repro_torch.runtime.prefix_cache import PrefixShareConfig
-from repro_torch.runtime.scheduler import SLOConfig
 from repro_torch.runtime.server import Server, ServerConfig
-from repro_torch.runtime.template_store import TemplateStoreConfig
 
 import _torch_ref
 import _torch_serving_ranks as ranks
@@ -159,42 +156,19 @@ _GM = ModelConfig(name="gm4", family="hybrid", n_layers=2, d_model=64,
 # reduced deepseek-v3 without its MoE layers: MLA alone
 _MLA = dataclasses.replace(configs_t.get_reduced("deepseek-v3-671b"),
                            moe=None, family="dense")
-_CC = kv_t.KVCompressConfig(**ranks.CCFG)
-_PAGED = dict(kv_compress=_CC, prefill_chunk=8,
-              paged=PagedKVConfig(block_size=4))
 
 
-@pytest.mark.parametrize("cfg,kw,what", [
-    (configs_t.get_reduced("qwen2-moe-a2.7b"), {}, "MoE layers"),
-    (_MLA, {}, "MLA attention"),
-    (_GM, {}, "recurrent"),
-    (ModelConfig(**dict(ranks.TINY4, layer_pattern="GL",
-                        sliding_window=16)), {}, "sliding-window"),
-    (ModelConfig(**ranks.TINY4), dict(_PAGED,
-                                     prefix_share=PrefixShareConfig()),
-     "prefix_share"),
-    (ModelConfig(**ranks.TINY4),
-     dict(_PAGED, template_store=TemplateStoreConfig()), "template_store"),
-    (ModelConfig(**ranks.TINY4), dict(_PAGED, scheduler=SLOConfig()),
-     "scheduler"),
-], ids=["moe", "mla", "recurrent", "window", "prefix_share",
-        "template_store", "slo"])
-def test_unported_mesh_modes_raise(cfg, kw, what):
-    """Prefix sharing, the template store and the SLO scheduler are
-    refused before the mesh is touched, naming ROADMAP item 10's next part
-    (10c's second part).  The model families (MoE, MLA, recurrent,
-    sliding-window) serve on a mesh since 10b and 10c's first part
-    (tests/test_torch_sharded_moe.py, tests/test_torch_sharded_layers.py):
-    no family gate stops them, and the first check they meet is the
-    mesh's type."""
-    if what in ("MoE layers", "MLA attention", "recurrent",
-                "sliding-window"):
-        with pytest.raises(TypeError, match="mesh= takes a DeviceMesh"):
-            Server(cfg, ServerConfig(batch_size=4, max_seq=64,
-                                     mesh=object(), **kw), None,
-                   device="cpu")
-        return
-    with pytest.raises(ValueError, match=f"mesh serving with {what}.*"
-                       "item 10's next part \\(10c's second part"):
-        Server(cfg, ServerConfig(batch_size=4, max_seq=64, mesh=object(),
-                                 **kw), None, device="cpu")
+@pytest.mark.parametrize("cfg", [
+    configs_t.get_reduced("qwen2-moe-a2.7b"),
+    _MLA,
+    _GM,
+    ModelConfig(**dict(ranks.TINY4, layer_pattern="GL", sliding_window=16)),
+], ids=["moe", "mla", "recurrent", "window"])
+def test_unported_mesh_modes_raise(cfg):
+    """The model families (MoE, MLA, recurrent, sliding-window) serve on a
+    mesh since 10b and 10c's first part (tests/test_torch_sharded_moe.py,
+    tests/test_torch_sharded_layers.py): no family gate stops them, and
+    the first check they meet is the mesh's type."""
+    with pytest.raises(TypeError, match="mesh= takes a DeviceMesh"):
+        Server(cfg, ServerConfig(batch_size=4, max_seq=64, mesh=object()),
+               None, device="cpu")
