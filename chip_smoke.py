@@ -271,6 +271,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``latest_step`` 10 and meta.json listing every parameter and moment
    leaf.  Printed: seconds a step, launches, peak memory, the
    checkpoint's bytes and seconds.  Then qwen3's weights are freed;
+5z. 5r's training through a one-rank NCCL mesh, after 5r has freed its
+   state: 5r's starting weights drawn again (the same card generator and
+   seed, cut to 5r's depth), the mesh Trainer (``launch.steps.
+   lower_step`` on the (data=1, model=1) mesh: the blocks placed by
+   ``rules.place_train_state``, each leaf gathered through
+   ``rules.GatherLeaf``) for 5r's 10 steps on 5r's batches, its final
+   checkpoint through ``ckpt.save_gathered`` in a fresh temporary
+   directory (removed after).  Gates: every step's loss and gradient norm
+   equal to 5r's within ``TRAIN5Z_RTOL`` = 1e-6 relative (on one rank
+   every collective is an identity, so bit for bit is expected; the
+   differences are printed); bitserial_median launched 6 times;
+   ``latest_step`` 10 and meta.json listing every parameter and moment
+   leaf; batch 0's loss falls by ``TRAIN5R_MARGIN``.  Printed: seconds a
+   step, peak memory against 5r's, the collectives a step (the leaves
+   gathered and reduced; NCCL calls issued, 0 on one rank), the save's
+   bytes and seconds;
 5f. gemma2-27b at full width and depth (46 layers 'LG', window 4,096,
    d_model 4608, 32/16 heads of 128, d_ff 36864, vocab 256000; bf16
    weights from ``init_params`` seed 0, 54.5 GB), ``max_seq`` 8,192,
@@ -4237,6 +4253,9 @@ TRAIN5R_AW = dict(lr=3e-4, warmup_steps=2, total_steps=10)
 # the first chip run read 373.57 -> 167.84 (a fall of 205.73), and the
 # planted lr-0 step 0.0 (on an H100 80GB HBM3 at 700 W; PERF.md §6)
 TRAIN5R_MARGIN = 50.0
+# 5z: 5r's steps through a one-rank mesh, each loss and gradient norm
+# within this of 5r's (relative; bit for bit expected)
+TRAIN5Z_RTOL = 1e-6
 
 
 class _Routes:
@@ -4617,7 +4636,8 @@ def train_qwen3_full(torch, dev, smi, params):
         problems.append(f"non-finite loss or gradient norm: {vals}")
     peak = torch.cuda.max_memory_allocated()
     med_s = float(np.median(tr.step_times))
-    rec.update(losses=tr.losses, step_s=tr.step_times, run_s=run_s,
+    rec.update(losses=tr.losses, grad_norms=tr.grad_norms,
+               step_s=tr.step_times, run_s=run_s,
                loss0=loss0, loss10=loss10, fall=fall, fault_fall=fault_fall,
                launches=launches, ckpt_bytes=ck_bytes, ckpt_s=save_s,
                peak_bytes=peak, compressed=comp,
@@ -4641,6 +4661,163 @@ def train_qwen3_full(torch, dev, smi, params):
     torch.cuda.empty_cache()
     if problems:
         raise AssertionError("5r qwen3-4b training: " + "; ".join(problems))
+    return rec
+
+
+def train_mesh_qwen3_full(torch, dev, smi, want):
+    """Phase 5z: 5r's training through the mesh Trainer of a one-rank
+    NCCL world (the module docstring), against ``want``, 5r's record.
+    Returns the record."""
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import bridge, configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import tree
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.sharding import rules as shard_rules
+
+    full = configs.get_config("qwen3-4b")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(0),
+                             full, device=dev)
+    cfg = full
+    if want["n_layers"] != full.n_layers:
+        cfg = dataclasses.replace(full, n_layers=want["n_layers"])
+        params = dict(params, layers=params["layers"][:want["n_layers"]])
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    data = pipeline.SyntheticLM(cfg, pipeline.DataConfig(
+        seed=0, global_batch=TRAIN5R["batch"], seq_len=TRAIN5R["seq"]))
+    aw = adamw.AdamWConfig(**TRAIN5R_AW)
+    cell = ShapeCell("5z", TRAIN5R["seq"], TRAIN5R["batch"], "train")
+    b0 = steps.batch_to(data.batch_at(0), dev)
+
+    def eval_loss(p):
+        with torch.no_grad():
+            return float(tfm.train_loss(p, cfg, b0,
+                                        loss_chunk=TRAIN5R["loss_chunk"])[0])
+
+    problems, rec = [], {"n_layers": cfg.n_layers, "draw_s": draw_s}
+    loss0 = eval_loss(params)
+    torch.cuda.reset_peak_memory_stats()
+    ckdir = tempfile.mkdtemp(prefix="repro_torch_5z_")
+    try:
+        with one_rank_mesh("5z") as mesh:
+            opts = steps.pick_options(cfg, mesh, cell, remat=True,
+                                      loss_chunk=TRAIN5R["loss_chunk"])
+            if (opts.kv_repeat, opts.microbatch, opts.fsdp) != (1, 1, False):
+                problems.append(f"options {opts}: want 5r's (kv_repeat 1, "
+                                "microbatch 1, no fsdp)")
+            step, _ = steps.lower_step(cfg, mesh, cell, opts, aw)
+            tr = Trainer(cfg, TrainerConfig(n_steps=TRAIN5R["steps"],
+                                            ckpt_dir=ckdir, ckpt_every=1000,
+                                            log_every=1), aw, step, data,
+                         init_params_fn=lambda: params, device=dev)
+            save_s = []
+            save = tr._save
+
+            def timed_save(*a, **kw):
+                t1 = time.perf_counter()
+                out = save(*a, **kw)
+                save_s.append(time.perf_counter() - t1)
+                return out
+
+            tr._save = timed_save
+            issued = {}
+            record = shard_rules._record
+
+            def counting(kind, t):
+                issued[kind] = issued.get(kind, 0) + 1
+                record(kind, t)
+
+            shard_rules._record = counting
+            ops.reset_launches()
+            t1 = time.perf_counter()
+            try:
+                params, opt_state = tr.run()
+            finally:
+                shard_rules._record = record
+            run_s = time.perf_counter() - t1
+            launches = {k: v for k, v in ops.launch_counts().items() if v}
+            n_leaves = len(step.specs(params))
+        peak = torch.cuda.max_memory_allocated()
+        loss10 = eval_loss(params)
+        step_dir = os.path.join(ckdir, "step_00000010")
+        ck_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                       for f in os.listdir(step_dir))
+        with open(os.path.join(step_dir, "meta.json")) as f:
+            meta_keys = set(json.load(f)["leaves"])
+        want_keys = set(ckpt.leaf_keys({
+            "params": bridge.params_to_meta(params, cfg),
+            "opt": adamw.OptState(bridge.params_to_meta(opt_state.m, cfg),
+                                  bridge.params_to_meta(opt_state.v, cfg),
+                                  opt_state.step)}))
+        latest = ckpt.latest_step(ckdir)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    rel = {k: [abs(a - b) / max(abs(b), 1e-30)
+               for a, b in zip(got, want[k])]
+           for k, got in (("losses", tr.losses),
+                          ("grad_norms", tr.grad_norms))}
+    for k, r in rel.items():
+        if len(r) != TRAIN5R["steps"] or not max(r) <= TRAIN5Z_RTOL:
+            problems.append(f"{k} {getattr(tr, k)} vs 5r's {want[k]}: "
+                            f"relative differences {r}, want <= "
+                            f"{TRAIN5Z_RTOL}")
+    if launches.get("bitserial_median", 0) != 2 * (TRAIN5R["steps"] - 7):
+        problems.append(f"bitserial_median launched "
+                        f"{launches.get('bitserial_median', 0)} times in "
+                        "the mesh Trainer, want 6")
+    if latest != TRAIN5R["steps"]:
+        problems.append(f"checkpoint latest_step {latest}, want 10")
+    if meta_keys != want_keys:
+        problems.append(f"meta.json lists {len(meta_keys)} leaves, want "
+                        f"{len(want_keys)}")
+    fall = loss0 - loss10
+    if not fall >= TRAIN5R_MARGIN:
+        problems.append(f"batch 0's loss fell {fall:.4f} over 10 steps, "
+                        f"want >= {TRAIN5R_MARGIN}")
+    bit = all(a == b for k in rel for a, b in zip(getattr(tr, k), want[k]))
+    med_s = float(np.median(tr.step_times))
+    rec.update(losses=tr.losses, grad_norms=tr.grad_norms, rel=rel,
+               bit_for_bit=bit, step_s=tr.step_times, run_s=run_s,
+               loss0=loss0, loss10=loss10, fall=fall, launches=launches,
+               peak_bytes=peak, ckpt_bytes=ck_bytes, ckpt_s=save_s,
+               leaves=n_leaves, issued=issued)
+    say(f"[{smi}] 5z qwen3-4b mesh Trainer (one-rank NCCL mesh, "
+        f"{cfg.n_layers} layers, weights drawn again in {draw_s:.1f} s): "
+        f"{TRAIN5R['steps']} steps, {med_s:.3f} s a step (median; 5r "
+        f"{float(np.median(want['step_s'])):.3f} s); losses equal to 5r's "
+        f"{'bit for bit' if bit else 'within ' + str(TRAIN5Z_RTOL)} (max "
+        f"relative differences: loss {max(rel['losses']):.3g}, grad_norm "
+        f"{max(rel['grad_norms']):.3g}); batch 0's loss {loss0:.4f} -> "
+        f"{loss10:.4f}; launches {launches} (bitserial_median want 6); "
+        f"peak memory allocated {peak / 2**30:.2f} GiB (5r "
+        f"{want['peak_bytes'] / 2**30:.2f} GiB)")
+    say(f"[{smi}] 5z collectives a step: {n_leaves} leaves gathered "
+        f"(GatherLeaf) and reduced, 3 all_reduce sites (label counts, "
+        f"metrics, gradient norm), 1 for the straggler time; NCCL calls "
+        f"issued in the run {issued or 0} (every mesh axis has size 1)")
+    say(f"[{smi}] 5z mesh checkpoint of step 10 (save_gathered): "
+        f"{ck_bytes / 1e9:.2f} GB in {save_s[-1]:.1f} s "
+        f"({ck_bytes / save_s[-1] / 1e9:.2f} GB/s; 5r "
+        f"{want['ckpt_bytes'] / 1e9:.2f} GB in {want['ckpt_s'][-1]:.1f} s), "
+        f"latest_step {latest}, meta.json {len(meta_keys)} leaves")
+    del params, opt_state, tr
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("5z qwen3-4b mesh training: "
+                             + "; ".join(problems))
     return rec
 
 
@@ -5236,6 +5413,12 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    # phase 5z: 5r's training through the mesh Trainer of a one-rank NCCL
+    # world, on 5r's starting weights drawn again
+    train_mesh = train_mesh_qwen3_full(torch, dev, smi, train_full)
+    record["train_qwen3_mesh"] = train_mesh
+    done("5z qwen3-4b mesh training")
+
     # phases 5f and 5g: gemma2-27b at full width and depth, dense then paged
     windowed, gparams = serve_gemma2(torch, dev, smi)
     record["serve_gemma2"] = windowed
@@ -5437,6 +5620,8 @@ def main() -> int:
                  "4e tiny": train_tiny["tiny_trainer"][
                      "bitserial_median_launches"],
                  "5r qwen3-4b": train_full["launches"].get(
+                     "bitserial_median", 0),
+                 "5z qwen3-4b mesh": train_mesh["launches"].get(
                      "bitserial_median", 0)},
              max_abs_err=bsm_err, ms=tm["bitserial_median"]["ms"],
              plain_ms=tm["bitserial_median"]["plain_ms"],

@@ -121,19 +121,28 @@ def _stack(trees, conv):
     return out
 
 
+def _fetch(t) -> torch.Tensor:
+    """A leaf's CPU tensor: a tensor copied to the host, or a callable's
+    result (a mesh checkpoint's leaf gathers itself)."""
+    return t() if callable(t) else t.detach().cpu()
+
+
 def _stack_lazy(trees):
-    """Host stacks of matching tensor subtrees, deferred: each stacked
-    leaf a callable that copies the layers straight into one CPU tensor
-    when called."""
+    """Host stacks of matching subtrees of tensors (or of callables that
+    give one), deferred: each stacked leaf a callable that copies the
+    layers straight into one CPU tensor when called."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: _stack_lazy([t[k] for t in trees]) for k in first}
 
     def build():
-        out = torch.empty((len(trees),) + tuple(first.shape),
-                          dtype=first.dtype)
+        out = None
         for i, t in enumerate(trees):
-            out[i].copy_(t.detach())
+            a = t() if callable(t) else t.detach()
+            if out is None:
+                out = torch.empty((len(trees),) + tuple(a.shape),
+                                  dtype=a.dtype)
+            out[i].copy_(a)
         return out
 
     return build
@@ -194,13 +203,14 @@ def params_to_numpy(params, cfg: ModelConfig):
 
 
 def params_to_host(params, cfg: ModelConfig):
-    """The port's parameters → the reference's tree layout, each leaf a
-    callable that makes its CPU copy (bf16 included, with no numpy bf16
-    type needed) when called: what the Trainer checkpoints
+    """The port's parameters (tensors, or callables that give one) → the
+    reference's tree layout, each leaf a callable that makes its CPU copy
+    (bf16 included, with no numpy bf16 type needed) when called: what the
+    Trainer checkpoints
     (``checkpoint.ckpt.save`` calls each leaf as it writes it, or all of
     them at once for an async save's snapshot)."""
     return _to_reference(params, cfg,
-                         lambda t, _k: (lambda: t.detach().cpu()),
+                         lambda t, _k: (lambda: _fetch(t)),
                          lambda trees, _c: _stack_lazy(trees))
 
 
@@ -209,6 +219,32 @@ def params_to_meta(params, cfg: ModelConfig):
     tensors: shapes and dtypes, no storage (a restore's template)."""
     return _to_reference(params, cfg, lambda t, _k: torch.empty(
         t.shape, dtype=t.dtype, device="meta"))
+
+
+def stack_groups(params, cfg: ModelConfig) -> list:
+    """The leaves of the port's ``params`` that are one leaf of the
+    reference's tree, as lists of indices into ``core.tree.leaves(params)``
+    in stack order: a leaf of each scan-stacked layer group (pattern
+    position j over the repeats, and the encoder's layers) together, every
+    other leaf alone; sorted by first index.  A transform whose result
+    depends on the whole leaf (the k-means gradient compression) acts on
+    these."""
+    from repro_torch.core import tree as tree_mod
+
+    idx = tree_mod.unflatten(params, range(len(tree_mod.leaves(params))))
+    n_prefix, n_rep, _ = layout(cfg)
+    plen = len(cfg.layer_pattern)
+    stacks = [[idx["layers"][n_prefix + rep * plen + j]
+               for rep in range(n_rep)] for j in range(plen)] if n_rep else []
+    if "encoder" in idx:
+        stacks.append(idx["encoder"]["layers"])
+    groups, grouped = [], set()
+    for members in stacks:
+        for leaf in zip(*(tree_mod.leaves(m) for m in members)):
+            groups.append(list(leaf))
+            grouped.update(leaf)
+    groups += [[i] for i in tree_mod.leaves(idx) if i not in grouped]
+    return sorted(groups)
 
 
 def opt_state_from_numpy(state, cfg: ModelConfig, device=None):

@@ -34,6 +34,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # dtypes numpy's npz cannot round-trip: the unsigned view stored, and the
 # torch dtype that view reads back as
@@ -145,6 +146,22 @@ def save(ckpt_dir: str, step: int, tree: Any, *, blocking: bool = True
     return th
 
 
+def save_gathered(ckpt_dir: str, step: int, tree: Any) -> None:
+    """Save a mesh's tree: every rank calls each leaf (a callable that
+    gathers the leaf whole, a collective; or a tensor every rank holds) in
+    the writer's order; rank 0 writes them as :func:`save` does, one leaf
+    in host memory at a time, meta.json and DONE last, and the others wait
+    at a barrier until it has committed."""
+    items = (("/".join(path), leaf) for path, leaf in _items(tree))
+    if dist.get_rank() == 0:
+        _write(ckpt_dir, step, ((k, _host(leaf)) for k, leaf in items))
+    else:
+        for _, leaf in items:
+            if callable(leaf):
+                leaf()
+    dist.barrier()
+
+
 def _committed(ckpt_dir: str) -> list:
     if not os.path.isdir(ckpt_dir):
         return []
@@ -167,10 +184,13 @@ def _leaf(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def restore(ckpt_dir: str, like_tree: Any, step: Optional[int] = None,
-            device=None) -> tuple[Any, int]:
+            device=None, specs: Any = None, rules=None) -> tuple[Any, int]:
     """Restore into the structure of ``like_tree`` (its leaves give the
     keys and the expected shapes): (tree of tensors on ``device``, CPU by
-    default, in the dtypes saved, step)."""
+    default, in the dtypes saved, step).  With ``specs`` (a tree of
+    partition specs of ``like_tree``'s structure) and ``rules`` each leaf
+    is this rank's block of it on the rules' mesh (the reference's
+    ``restore(shardings=)``), one whole leaf in host memory at a time."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -179,29 +199,36 @@ def restore(ckpt_dir: str, like_tree: Any, step: Optional[int] = None,
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        def load(path_, like):
+        def load(path_, like, spec):
             key = "/".join(path_)
             t = _leaf(data[key], meta["leaves"][key]["dtype"])
             assert tuple(t.shape) == tuple(like.shape), (key, t.shape,
                                                          like.shape)
+            if spec is not None:
+                from repro_torch.sharding.rules import take_block
+
+                t = take_block(t, spec, rules)
             return t if device is None else t.to(device)
 
-        return _rebuild(like_tree, load), step
+        return _rebuild(like_tree, load, specs=specs), step
 
 
-def _rebuild(tree, load, prefix=()):
-    """``like``'s structure with each leaf replaced by ``load(path,
-    leaf)``, paths as :func:`_items` makes them."""
+def _rebuild(tree, load, prefix=(), specs=None):
+    """``like``'s structure with each leaf replaced by ``load(path, leaf,
+    spec)``, paths as :func:`_items` makes them, ``spec`` the matching
+    entry of ``specs`` (a tree of ``tree``'s structure) or None."""
+    sub = (lambda k: None) if specs is None else specs.__getitem__
     if isinstance(tree, dict):
-        return {k: _rebuild(v, load, prefix + (str(k),))
+        return {k: _rebuild(v, load, prefix + (str(k),), sub(k))
                 for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_rebuild(v, load, prefix + ("." + n,))
-                            for n, v in zip(tree._fields, tree)))
+        return type(tree)(*(_rebuild(v, load, prefix + ("." + n,), sub(i))
+                            for i, (n, v) in enumerate(zip(tree._fields,
+                                                           tree))))
     if isinstance(tree, (list, tuple)):
-        return [_rebuild(v, load, prefix + (str(i),))
+        return [_rebuild(v, load, prefix + (str(i),), sub(i))
                 for i, v in enumerate(tree)]
-    return None if tree is None else load(prefix, tree)
+    return None if tree is None else load(prefix, tree, specs)
 
 
 def prune(ckpt_dir: str, keep: int = 3):

@@ -82,7 +82,10 @@ def quantize_tensor(g: torch.Tensor, cfg: CompressConfig):
 
 
 def dequantize_tensor(idx: torch.Tensor, cents: torch.Tensor) -> torch.Tensor:
-    return cents[idx.long()]
+    """Each index's codebook entry, gathered by int32 indices (a stacked
+    qwen3-4b leaf has 0.9 G elements: int64 indices would take 7 GB)."""
+    flat = idx.reshape(-1).to(torch.int32)
+    return torch.index_select(cents, 0, flat).reshape(idx.shape)
 
 
 def compress_decompress(g: torch.Tensor, cfg: CompressConfig):
@@ -98,20 +101,41 @@ def make_grad_transform(cfg: CompressConfig, axis_name: str = None):
     (smaller ones unchanged).  It takes a tree or one tensor (``adamw.
     update`` passes one clipped leaf at a time).  Without error feedback
     this is a pure transform; with it the caller threads ``EFState``
-    through :func:`apply_ef`.  ``axis_name`` (the reference's cross-pod
-    reduction over a mesh axis) is refused: training on a mesh is ROADMAP
-    Queue A item 10d."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"make_grad_transform(axis_name={axis_name!r}): a cross-pod "
-            "reduction needs training on a mesh (ROADMAP Queue A item 10d)")
+    through :func:`apply_ef`.  ``axis_name`` names the mesh axis of the
+    cross-pod reduction ("pod"), as in the reference, where it changes
+    nothing: the transform models the quantize -> reduce -> dequantize
+    round trip on the reduced gradient, and :func:`wire_bytes` gives the
+    saving.  On a mesh the step sums the gradient over the row axes
+    (``pod`` among them) and hands the transform each whole clipped leaf
+    (``launch.steps.MeshTrainStep``).  The returned transform is marked
+    ``reference_leaves``: the train steps apply it to the reference's
+    leaves (:func:`stacked` over ``bridge.stack_groups``), since a
+    codebook fitted over one layer of a scan-stacked leaf is another
+    codebook."""
+    del axis_name  # the reduction is the step's; the round trip is this
 
     def one(g):
         if g.numel() < 1024:  # tiny tensors aren't worth compressing
             return g
-        return compress_decompress(g, cfg)[0].to(g.dtype)
+        return dequantize_tensor(*quantize_tensor(g, cfg)).to(g.dtype)
 
-    return lambda grads: tree_mod.map_(one, grads)
+    def transform(grads):
+        return tree_mod.map_(one, grads)
+
+    # a leaf's codebook is fitted over the whole leaf: the train steps
+    # hand it the reference's leaves (``stacked``)
+    transform.reference_leaves = True
+    return transform
+
+
+def stacked(transform, leaves: list) -> list:
+    """``transform`` of the reference's leaf made of ``leaves`` (a group of
+    ``bridge.stack_groups``: the per-layer leaves of one scan-stacked
+    leaf, stacked along a new leading dim, or one leaf alone), split back
+    into the group's leaves."""
+    if len(leaves) == 1:
+        return [transform(leaves[0])]
+    return list(torch.unbind(transform(torch.stack(leaves))))
 
 
 def apply_ef(grads, ef: EFState, cfg: CompressConfig):

@@ -25,13 +25,32 @@ step, one step under ``torch.profiler`` (where its time goes: the host's
 time to enqueue it, the device's busy time and idle share, the kernels of
 most device time) and one more under the counter (``card_op_stats``).
 
-One card has no mesh cell: there is no ``--mesh`` (the dry run on a mesh
-is ROADMAP Queue A item 10d).  ``--moe-impl`` takes the reference's
-impls and sets the config's, as the reference's dry run does; with no
-mesh every impl reaches the same one-shard dispatch
-(``repro_torch.models.moe``), ``a2a`` through its sharded fallback, as the
-reference's ``apply_moe`` does without a mesh, so the counts do not
-change.
+``--mesh pod`` / ``multipod`` / ``both`` count **one rank's** step of each
+cell on a (data=16, model=16) / (pod=2, data=16, model=16) mesh, on
+``meta`` only, with no world: a ``launch.mesh.StandInMesh`` at rank
+coordinate 0, ``launch.steps.lower_step``'s step with the reference's
+options (``pick_options``).  The rank's arguments are its blocks by the
+reference's placements (parameters and, for train, both AdamW moments by
+``tree_param_specs``, the batch by ``batch_pspec``, a decode cache by
+``cache_pspecs``), so ``argument_bytes`` is the reference's per-device
+``argument_size_in_bytes`` where the dtypes agree (the port trains its
+weights in the config's dtype, the reference f32 masters).  The rules'
+collectives move nothing on ``meta`` and the counter records each
+(``op_stats["collectives"]``: bytes by kind, the reference's
+``hlo_stats["collectives"]``; ``collective_calls``).  The rank's FLOPs
+and bytes are the port's own: its design splits compute over rows only
+(the model axis shards storage, ``launch.steps``), so they are the row
+shard's whole-width step, where the reference's partitioner splits over
+``model`` too.  A serving cell's step gathers its parameters and its
+cache rows' blocks whole and computes its rows.  The records' tags are
+the reference's, ``{arch}__{shape}__16x16`` / ``__2x16x16``; a mesh cell
+on ``--device cuda`` is refused (it would need 256 / 512 cards).
+
+``--moe-impl`` takes the reference's impls and sets the config's, as the
+reference's dry run does; with no mesh every impl reaches the same
+one-shard dispatch (``repro_torch.models.moe``), ``a2a`` through its
+sharded fallback, as the reference's ``apply_moe`` does without a mesh, so
+the counts do not change.
 """
 
 from __future__ import annotations
@@ -39,6 +58,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -51,12 +71,14 @@ from repro_torch import configs
 from repro_torch.core import tree as tree_mod
 from repro_torch.kernels import ops
 from repro_torch.launch import steps
+from repro_torch.launch.mesh import StandInMesh, production_shape
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import SHAPES, ModelConfig, ShapeCell
 from repro_torch.models.layers import cdtype, resolve_device
 from repro_torch.optim import adamw
 from repro_torch.roofline import analysis
 from repro_torch.roofline.op_count import OpCounter
+from repro_torch.sharding import rules as shard_rules
 
 # long_500k requires sub-quadratic serving; pure full-attention archs are
 # skipped per the brief (documented in DESIGN.md §7)
@@ -67,6 +89,7 @@ WARM_STEPS, TIMED_STEPS = 2, 10
 # activations may take 9/16 of a device's HBM, the reference's rule for
 # choosing the training microbatch
 ACT_BUDGET = analysis.HBM_BYTES * 9 / 16
+ONE_CARD = StandInMesh({"data": 1, "model": 1})
 
 
 def cell_is_skipped(arch: str, shape_name: str):
@@ -78,22 +101,9 @@ def cell_is_skipped(arch: str, shape_name: str):
 
 def pick_microbatch(cfg: ModelConfig, cell: ShapeCell,
                     budget_bytes: float = ACT_BUDGET) -> int:
-    """The reference's ``pick_microbatch`` on one device: the smallest
-    power-of-two microbatch count keeping the activation estimate (the
-    layer-boundary hidden per layer under remat, plus the f32 logits
-    chunk of the chunked CE) under ``budget_bytes``."""
-    if cell.step != "train":
-        return 1
-    local_b, s = cell.global_batch, cell.seq_len
-    m = 1
-    while m < local_b:
-        b_eff = local_b / m
-        acts = cfg.n_layers * b_eff * s * cfg.d_model * 2 * 2.5
-        logits = b_eff * 256 * cfg.padded_vocab * 4 * 2
-        if acts + logits < budget_bytes:
-            break
-        m *= 2
-    return m
+    """The reference's ``pick_microbatch`` on one device, under one card's
+    activation budget ``budget_bytes``."""
+    return steps.pick_microbatch(cfg, ONE_CARD, cell, budget_bytes)
 
 
 def pick_options(cfg: ModelConfig, cell: ShapeCell,
@@ -237,6 +247,53 @@ def count_step(cfg, cell, opts):
     return counter.stats(), mem, time.time() - t0
 
 
+MESHES = {"16x16": False, "2x16x16": True}   # tag -> multi_pod
+
+
+def _cache_blocks(cache, rules):
+    return tree_mod.unflatten(cache, [
+        shard_rules.take_block(c, s, rules)
+        for c, s in zip(tree_mod.leaves(cache), shard_rules.specs_like(
+            cache, steps.cache_pspecs(cache, rules)))])
+
+
+def count_mesh_step(cfg, cell, opts, shape: dict):
+    """One rank's step of the cell on a mesh of ``shape`` (coordinate 0),
+    on meta under the counter: (op_stats, memory analysis of the rank's
+    blocks without temp_bytes, seconds)."""
+    t0 = time.time()
+    mesh = StandInMesh(shape)
+    step, _ = steps.lower_step(cfg, mesh, cell, opts)
+    rules = step.rules
+    params = tfm.init_params(torch.Generator(), cfg, device="meta")
+    batch = steps.batch_struct(cfg, cell)
+    rows = shard_rules.take_rows(batch, step.rows, rules)
+    if cell.step == "train":
+        blocks, opt = shard_rules.place_train_state(
+            params, adamw.init(params), rules)
+        args, alias = [blocks, opt, rows], _nbytes(blocks) + _nbytes(opt)
+        run = lambda: step(blocks, opt, batch)  # noqa: E731
+    else:
+        blocks = shard_rules.place_params(serving_params(params, cfg), rules)
+        cache = None
+        if cell.step == "decode":
+            cache = _cache_blocks(steps.cache_struct(cfg, cell, opts), rules)
+        args = [blocks, cache, rows]
+        alias = _nbytes(cache) if cache is not None else 0
+        run = (lambda: step(blocks, batch)) if cache is None else (
+            lambda: step(blocks, cache, batch))
+    with OpCounter() as counter:
+        out = run()
+    if cell.step == "train":
+        out_bytes = _nbytes(out)
+    else:       # the logits of the rank's rows and its block of the cache
+        out_bytes = _nbytes(out[0]) + _nbytes(_cache_blocks(out[1], rules))
+    mem = {"argument_bytes": sum(_nbytes(a) for a in args if a is not None),
+           "output_bytes": out_bytes, "temp_bytes": None,
+           "alias_bytes": alias}
+    return counter.stats(), mem, time.time() - t0
+
+
 def profile_step(run) -> dict:
     """One call of ``run`` (a step) under ``torch.profiler``, the card's
     activity only: its wall, the host's time to enqueue it (no
@@ -309,13 +366,18 @@ def run_on_card(cfg, cell, opts, device, params=None) -> dict:
 
 def run_cell(arch: str, shape_name: str, overrides=None, moe_impl=None,
              device=None, params=None, *, cfg: ModelConfig = None,
-             cell: ShapeCell = None) -> dict:
+             cell: ShapeCell = None, mesh: str = "1") -> dict:
     """The cell's record: counted on ``meta``, and on ``cuda`` (the
     default) run on the card as well when it fits.  ``params`` (on the
     card) reuses weights already there; ``cfg`` / ``cell`` replace the
     arch's config and the shape's cell (reduced configs, small cells).
     ``moe_impl`` replaces a MoE config's impl; on one card every impl
-    reaches the same dispatch ("a2a" its sharded fallback)."""
+    reaches the same dispatch ("a2a" its sharded fallback).  ``mesh``
+    "16x16" / "2x16x16" (or a stand-in shape {axis: size}): one rank's
+    step of that mesh, on meta only (the module docstring)."""
+    if mesh != "1":
+        return run_mesh_cell(arch, shape_name, overrides, moe_impl,
+                             device, cfg=cfg, cell=cell, mesh=mesh)
     dev = resolve_device(device)
     cfg = cfg or configs.get_config(arch)
     if moe_impl and cfg.moe is not None:
@@ -367,12 +429,54 @@ def run_cell(arch: str, shape_name: str, overrides=None, moe_impl=None,
     return result
 
 
+def run_mesh_cell(arch: str, shape_name: str, overrides=None,
+                  moe_impl=None, device="meta", *, cfg: ModelConfig = None,
+                  cell: ShapeCell = None, mesh="16x16") -> dict:
+    """One rank's count of the cell on a mesh: ``mesh`` a production tag
+    ("16x16", "2x16x16") or a stand-in shape {axis: size}."""
+    shape = (production_shape(MESHES[mesh]) if isinstance(mesh, str)
+             else dict(mesh))
+    tag = "x".join(str(v) for v in shape.values())
+    n = math.prod(shape.values())
+    if torch.device(device or "cuda").type != "meta":
+        raise ValueError(f"the {tag} mesh's cell needs {n} cards: count "
+                         "one rank's step with --device meta")
+    cfg = cfg or configs.get_config(arch)
+    if moe_impl and cfg.moe is not None:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, impl=moe_impl))
+    cell = cell or SHAPES[shape_name]
+    opts = steps.pick_options(cfg, StandInMesh(shape), cell,
+                              **(overrides or {}))
+    t0 = time.time()
+    _, info = steps.lower_step(cfg, StandInMesh(shape), cell, opts)
+    stats, mem, count_s = count_mesh_step(cfg, cell, opts, shape)
+    result = {
+        "arch": arch, "shape": shape_name, "mesh": tag, "n_devices": n,
+        "info": info, "trace_s": round(time.time() - t0, 1),
+        "compile_s": None, "memory_analysis": mem,
+        "xla_cost_analysis": {"flops": None, "bytes_accessed": None},
+        "op_stats": stats,
+    }
+    if SHAPES.get(shape_name) != cell:
+        result["cell"] = dataclasses.asdict(cell)
+    row = analysis.analyze_record(result)
+    print(f"[dryrun] {arch} × {shape_name} × {tag} (rank 0): count "
+          f"{count_s:.1f}s, flops {stats['flops']:.3e}, hbm "
+          f"{stats['hbm_bytes']:.3e} B, collectives "
+          f"{stats['collectives']} in {stats['collective_calls']} calls")
+    print(f"[dryrun] memory (rank 0): {mem}; device bytes "
+          f"{row['device_bytes'] / 1e9:.2f} GB, fits 80 GB "
+          f"{row['fits_80gb']}")
+    return result
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="one-card dry run: count each arch x shape cell's step "
-                    "on the meta device and, on the card, run the cells "
-                    "that fit its 80 GB.  There is no --mesh: the dry run "
-                    "on a mesh is ROADMAP Queue A item 10d.")
+        description="dry run: count each arch x shape cell's step on the "
+                    "meta device and, on the card, run the cells that fit "
+                    "its 80 GB; with --mesh pod / multipod / both, count "
+                    "one rank's step of the 16x16 / 2x16x16 mesh on meta")
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
     ap.add_argument("--out", default="artifacts/dryrun_torch")
@@ -385,6 +489,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-mode", default=None,
                     choices=[None, "exact", "clustered", "int8"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "meta"])
+    ap.add_argument("--mesh", default="1",
+                    choices=["1", "pod", "multipod", "both"],
+                    help="1: one card (the default); pod / multipod / "
+                         "both: one rank of the 16x16 / 2x16x16 mesh, "
+                         "counted on meta (256 / 512 cards)")
     return ap
 
 
@@ -393,34 +502,42 @@ def main(argv=None):
     args = ap.parse_args(argv)
     archs = list(configs.ARCH_IDS) if args.arch == "all" else [args.arch]
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
+    meshes = {"1": ["1"], "pod": ["16x16"], "multipod": ["2x16x16"],
+              "both": ["16x16", "2x16x16"]}[args.mesh]
+    if args.mesh != "1" and args.device != "meta":
+        ap.error(f"--mesh {args.mesh}: the 16x16 mesh needs 256 cards and "
+                 "the 2x16x16 mesh 512; count one rank's step with "
+                 "--device meta")
 
     os.makedirs(args.out, exist_ok=True)
     failures = []
     for arch in archs:
         for shape in shapes:
-            tag = f"{arch}__{shape}__1"
-            path = os.path.join(args.out, tag + ".json")
-            if os.path.exists(path):
-                print(f"[dryrun] cached: {tag}")
-                continue
-            skip = cell_is_skipped(arch, shape)
-            if skip:
-                res = {"arch": arch, "shape": shape, "mesh": "1",
-                       "skipped": skip}
-                print(f"[dryrun] SKIP {tag}: {skip}")
-            else:
-                try:
-                    ov = {"kv_mode": args.kv_mode} if args.kv_mode else None
-                    res = run_cell(arch, shape, overrides=ov,
-                                   moe_impl=args.moe_impl,
-                                   device=args.device)
-                except Exception as e:  # noqa: BLE001
-                    traceback.print_exc()
-                    failures.append(tag)
-                    res = {"arch": arch, "shape": shape, "mesh": "1",
-                           "error": f"{type(e).__name__}: {e}"}
-            with open(path, "w") as f:
-                json.dump(res, f, indent=1)
+            for mesh in meshes:
+                tag = f"{arch}__{shape}__{mesh}"
+                path = os.path.join(args.out, tag + ".json")
+                if os.path.exists(path):
+                    print(f"[dryrun] cached: {tag}")
+                    continue
+                skip = cell_is_skipped(arch, shape)
+                if skip:
+                    res = {"arch": arch, "shape": shape, "mesh": mesh,
+                           "skipped": skip}
+                    print(f"[dryrun] SKIP {tag}: {skip}")
+                else:
+                    try:
+                        ov = ({"kv_mode": args.kv_mode} if args.kv_mode
+                              else None)
+                        res = run_cell(arch, shape, overrides=ov,
+                                       moe_impl=args.moe_impl,
+                                       device=args.device, mesh=mesh)
+                    except Exception as e:  # noqa: BLE001
+                        traceback.print_exc()
+                        failures.append(tag)
+                        res = {"arch": arch, "shape": shape, "mesh": mesh,
+                               "error": f"{type(e).__name__}: {e}"}
+                with open(path, "w") as f:
+                    json.dump(res, f, indent=1)
     if failures:
         print("[dryrun] FAILURES:", failures)
         raise SystemExit(1)

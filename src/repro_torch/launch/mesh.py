@@ -43,9 +43,9 @@ def _mesh(shape, axes, spec: str):
 def make_production_mesh(*, multi_pod: bool = False):
     """(data=16, model=16), or (pod=2, data=16, model=16): raises unless
     the world holds exactly that many ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh(shape, axes, "x".join(map(str, shape)))
+    sizes = production_shape(multi_pod)
+    shape = tuple(sizes.values())
+    return _mesh(shape, tuple(sizes), "x".join(map(str, shape)))
 
 
 def make_host_mesh(model: int = 1):
@@ -83,3 +83,27 @@ def mesh_sizes(mesh) -> dict:
     if isinstance(mesh.shape, dict):
         return dict(mesh.shape)
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+class StandInMesh:
+    """A mesh's shape without a world, for one rank of it: ``shape``
+    {axis: size} (what :func:`mesh_sizes` reads), ``mesh_dim_names`` and
+    ``get_coordinate()`` (this rank's coordinate, every axis 0 unless
+    ``coord`` says otherwise).  The dry run counts a rank's step of a
+    16 x 16 or 2 x 16 x 16 mesh on the ``meta`` device through one, where
+    the rules' collectives move nothing."""
+
+    def __init__(self, shape: dict, coord: dict = None):
+        self.shape = dict(shape)
+        self.mesh_dim_names = tuple(shape)
+        self._coord = dict(coord or {})
+
+    def get_coordinate(self):
+        return [self._coord.get(a, 0) for a in self.mesh_dim_names]
+
+
+def production_shape(multi_pod: bool) -> dict:
+    """{axis: size} of the production mesh: (data=16, model=16), or
+    (pod=2, data=16, model=16)."""
+    return ({"pod": 2, "data": 16, "model": 16} if multi_pod
+            else {"data": 16, "model": 16})

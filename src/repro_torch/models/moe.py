@@ -34,6 +34,19 @@ run with explicit collectives:
 
 ``mesh_dispatches`` counts the mesh branch each MoE layer call took.
 
+Under a training step's rules (``Rules.train_rows``, ``launch.steps.
+MeshTrainStep``) a rank holds every expert (its leaves gathered whole)
+and its rows of the global batch, and gives the reference's drops
+without an exchange (:func:`_train_dispatch`): its rows cut into the
+reference's data shards, each with its own capacity (``impl="a2a"``
+where the reference's geometry takes the all-to-all: each data shard's
+rows in ``model`` chunks, each chunk's own capacity a destination expert,
+as its exchange packs them).  The expert load and the kept share are
+summed over the row axes before they are read, and the mean router
+probabilities stay this rank's part of the global mean, so the
+auxiliary loss is this rank's part of the global one and its gradient
+sums to the global gradient.
+
 Routers: softmax (Qwen2-MoE, no top-k renorm) and sigmoid with selection
 bias (DeepSeek-V3 aux-loss-free balancing; the bias is a non-gradient
 buffer updated from expert load by :func:`update_router_bias`).
@@ -149,7 +162,7 @@ def _expert_ffn(p, buf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _dispatch_compute(p, x_flat: torch.Tensor, cfg: ModelConfig,
-                      ds: int = 1, ffn=None):
+                      ds: int = 1, ffn=None, cap: int = None):
     """Capacity-buffer dispatch of x_flat (T, d) over ``ds`` data shards
     of T / ds rows, each with its own ``capacity(cfg, T / ds)``.
 
@@ -166,7 +179,7 @@ def _dispatch_compute(p, x_flat: torch.Tensor, cfg: ModelConfig,
     dev = x_flat.device
     tl = t // ds
     w, idx, probs = route(p, x_flat, cfg)                # (T,K),(T,K),(T,E)
-    cap = capacity(cfg, tl)
+    cap = capacity(cfg, tl) if cap is None else cap
     flat_e = idx.reshape(ds, tl * k).long()
     token_id = torch.arange(tl * k, device=dev) // k
     row = torch.arange(ds, device=dev)[:, None]
@@ -447,6 +460,44 @@ def _apply_moe_a2a(p, x: torch.Tensor, cfg: ModelConfig, rules):
     return y.reshape(b, s, d), load, pbar, keep_mean
 
 
+def _train_dispatch(p, x_flat: torch.Tensor, cfg: ModelConfig, rules):
+    """A training step's dispatch of this rank's rows x_flat (T_here, d)
+    under ``rules.train_rows`` (module docstring): (y, expert load over
+    the step, this rank's part of the mean router probabilities, the
+    step's kept share, the step's token count)."""
+    m = cfg.moe
+    rows = rules.train_rows
+    rs = rules.size(rows) if rows else 1
+    t_here = x_flat.shape[0]
+    t = t_here * rs
+    sizes = mesh_sizes(rules.mesh)
+    n_batch = _n_data_shards(rules)
+    cap = None
+    if (m.impl == "a2a" and m.n_routed == sizes["model"] * sizes["data"]
+            and t % n_batch == 0 and (t // n_batch) % sizes["model"] == 0):
+        ds = n_batch * sizes["model"]
+        tk = t // ds * m.top_k
+        cap = max(8, int(-(-m.capacity_factor * tk // m.n_routed)))
+    else:
+        ds = n_batch if m.impl in ("sharded", "a2a") else 1
+        if t % ds != 0:
+            ds = 1
+    if ds % rs != 0:
+        raise ValueError(
+            f"MoE impl {m.impl!r} dispatches {t} rows in {ds} shard(s) but "
+            f"this mesh splits the rows over {rs} ranks: a shard would "
+            "span ranks")
+    y, counts, pbar, keep = _dispatch_compute(p, x_flat, cfg, ds // rs,
+                                              cap=cap)
+    if rs > 1:
+        e = m.n_routed
+        tot = torch.cat([counts, (keep * t_here).reshape(1)])
+        shard_rules.all_reduce(tot, rows, rules)
+        counts, keep = tot[:e], tot[e] / t
+        pbar = pbar * (t_here / t)
+    return y, counts, pbar, keep, t
+
+
 def apply_moe(p, x: torch.Tensor, cfg: ModelConfig):
     """x (B, S, d) → (y (B, S, d), {"aux_loss", "expert_load",
     "drop_frac"}): the routed experts' capacity-buffer dispatch over all B
@@ -459,6 +510,9 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig):
         y, counts, pbar, keep_mean = _dispatch_compute(p, x.reshape(-1, d),
                                                        cfg)
         t = b * s
+    elif rules.train_rows is not None:
+        y, counts, pbar, keep_mean, t = _train_dispatch(
+            p, x.reshape(-1, d), cfg, rules)
     elif m.impl == "a2a" and _a2a_geometry(cfg, rules, b * s):
         mesh_dispatches["a2a"] += 1
         y, counts, pbar, keep_mean = _apply_moe_a2a(p, x, cfg, rules)

@@ -10,14 +10,16 @@ time (a full-width qwen3-4b's f32 gradient tree would be 16 GB).  The
 update runs under ``torch.no_grad()`` and writes the parameters and the
 moments in place.  An optional gradient transform (the paper's k-means
 codebook compression, ``core.grad_compress``) acts on each clipped f32
-gradient leaf before the update.
+gradient leaf before the update, or on each group of leaves that the
+reference holds as one scan-stacked leaf (one group's f32 gradients at a
+time).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -93,18 +95,31 @@ def clip_by_global_norm(tree, max_norm: float):
 
 
 def update(grads, state: OptState, params, cfg: AdamWConfig,
-           grad_transform: Optional[Callable] = None):
+           grad_transform=None, *, gnorm: Optional[torch.Tensor] = None,
+           groups: Optional[list] = None):
     """One AdamW step.  ``grads`` is a tree shaped like ``params``.  Each
     gradient leaf is clipped by the global-norm factor in f32, then passed
-    through ``grad_transform`` (a function of one f32 leaf) when given.
-    Writes ``params`` and the moments in place and returns (params, the
-    new OptState, metrics {"grad_norm", "lr"})."""
+    through ``grad_transform`` when given: a function of one f32 leaf, or
+    with ``groups`` (lists of leaf indices in ``tree.leaves`` order,
+    covering every leaf: ``bridge.stack_groups``) a function ``(group,
+    leaves)`` of a group and the list of its clipped leaves that returns
+    the list transformed.
+    ``gnorm``: the global norm when the caller has it (a mesh step's, over
+    every rank's blocks), else that of ``grads``.  Writes ``params`` and
+    the moments in place and returns (params, the new OptState, metrics
+    {"grad_norm", "lr"})."""
     flat_p = tree_mod.leaves(params)
     flat_m = tree_mod.leaves(state.m)
     flat_v = tree_mod.leaves(state.v)
     flat_g = tree_mod.leaves(grads)
+    if groups is None:
+        groups = [[i] for i in range(len(flat_g))]
+        if grad_transform is not None:
+            tf = grad_transform
+            grad_transform = lambda _grp, gs: [tf(gs[0])]   # noqa: E731
     with torch.no_grad():
-        gnorm = global_norm(flat_g)
+        if gnorm is None:
+            gnorm = global_norm(flat_g)
         factor = clip_factor(gnorm, cfg.clip_norm)
         step = state.step + 1
         lr = schedule(cfg, step)
@@ -112,15 +127,18 @@ def update(grads, state: OptState, params, cfg: AdamWConfig,
         b1, b2 = cfg.b1, cfg.b2
         bc1 = 1.0 - torch.pow(torch.tensor(b1, device=stepf.device), stepf)
         bc2 = 1.0 - torch.pow(torch.tensor(b2, device=stepf.device), stepf)
-        for g, m, v, p in zip(flat_g, flat_m, flat_v, flat_p):
-            g = g.to(torch.float32) * factor
+        for group in groups:
+            gs = [flat_g[i].to(torch.float32) * factor for i in group]
             if grad_transform is not None:
-                g = grad_transform(g)
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * g * g)
-            p32 = p.to(torch.float32)
-            delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
-                + cfg.weight_decay * p32
-            p.copy_(p32 - lr * delta)
+                gs = grad_transform(group, gs)
+            for i, g in zip(group, gs):
+                m, v, p = flat_m[i], flat_v[i], flat_p[i]
+                m.mul_(b1).add_((1 - b1) * g)
+                v.mul_(b2).add_((1 - b2) * g * g)
+                p32 = p.to(torch.float32)
+                delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
+                    + cfg.weight_decay * p32
+                p.copy_(p32 - lr * delta)
+            del gs
     return (params, OptState(state.m, state.v, step),
             {"grad_norm": gnorm, "lr": lr})

@@ -1,19 +1,28 @@
 """Three-term roofline analysis over the dry-run records (port of
 ``repro.roofline.analysis``, for one H100).
 
-Per (arch × shape):
+Per (arch × shape × mesh), per card:
     compute term    = step FLOPs / peak bf16 FLOP/s
     memory term     = step HBM bytes / HBM bandwidth
-    collective term = 0: one card, no collective (the key stays)
+    collective term = collective wire bytes / link bandwidth (0 on one
+                      card, which has no collective; the key stays)
 
 The step's FLOPs and bytes are ``op_stats``, the count of
 ``roofline/op_count.py`` over the eager step (every aten op plus the
-kernels' work models), in ``hlo_stats``' place.
+kernels' work models), in ``hlo_stats``' place; a mesh record's
+(``--mesh pod|multipod``) are one rank's, its collectives the bytes each
+kind's results hold, weighted as the reference weighs them (a ring
+all-reduce moves about twice its tensor).  The port's rank computes its
+row shard at whole width (``launch.steps``: the model axis shards
+storage), so a mesh record's FLOPs and MODEL/HLO ratio are its own, not
+the reference's (data x model) split.
 
 Hardware model: NVIDIA's data sheet for the H100 SXM at 700 W, 989e12
 dense bf16 FLOP/s and 3.35e12 HBM bytes/s (``roofline/work.py``), 80 GB
-of HBM.  The terms, the ideal and ``fits_80gb`` are computed from these
-spec constants, not measured.
+of HBM, 450e9 NVLink bytes/s each way (a card's 900 GB/s to the other
+cards of its host; a 16 x 16 mesh spans hosts, whose network is slower,
+so the collective term is a floor).  The terms, the ideal and
+``fits_80gb`` are computed from these spec constants, not measured.
 
 MODEL_FLOPS uses 6·N·D (train) or 2·N·D (forward-only), with N = active
 params for MoE; the ratio MODEL_FLOPS / counted FLOPs exposes remat and
@@ -34,6 +43,9 @@ from repro_torch.roofline.work import PEAK_BF16_FLOP_PER_S, PEAK_BYTES_PER_S
 PEAK_FLOPS = PEAK_BF16_FLOP_PER_S   # bf16 / card
 HBM_BW = PEAK_BYTES_PER_S           # B/s / card
 HBM_BYTES = 80e9                    # one card's HBM
+LINK_BW = 450e9                     # NVLink B/s / card, each way
+WIRE_FACTOR = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
+               "all-to-all": 1.0, "collective-permute": 1.0}
 
 
 def _cell(rec: dict):
@@ -79,7 +91,10 @@ def analyze_record(rec: dict) -> Optional[dict]:
     flops_dev = hs["flops"]
     t_compute = flops_dev / PEAK_FLOPS
     t_memory = hs["hbm_bytes"] / HBM_BW
-    terms = {"compute": t_compute, "memory": t_memory, "collective": 0.0}
+    wire = sum(WIRE_FACTOR.get(k, 1.0) * v
+               for k, v in hs["collectives"].items())
+    terms = {"compute": t_compute, "memory": t_memory,
+             "collective": wire / LINK_BW}
     dominant = max(terms, key=terms.get)
     mf = model_flops_global(rec)
     hlo_global = flops_dev * chips
@@ -118,7 +133,9 @@ def suggestion(row: dict) -> str:
             return ("compute-bound with low useful ratio — cut remat "
                     "recompute / causal-chunk waste")
         return "compute-bound near peak — only algorithmic changes help"
-    # one card: the collective term is 0 and never dominates
+    if d == "collective":
+        return ("collective-bound — gather per layer, split compute over "
+                "model, or compress cross-pod traffic")
     return ("memory-bound — fuse/cast (bf16 cache, wider blocks), "
             "raise arithmetic intensity per HBM byte")
 
@@ -132,7 +149,8 @@ def load_all(art_dir: str = "artifacts/dryrun_torch") -> list[dict]:
 
 
 def table(art_dir: str = "artifacts/dryrun_torch", mesh: str = "1") -> str:
-    """Markdown roofline table of the one-card records."""
+    """Markdown roofline table of the records of ``mesh`` ("1": one card;
+    "16x16", "2x16x16": one rank of the mesh)."""
     rows, skipped = [], []
     for rec in load_all(art_dir):
         if rec.get("mesh") != mesh:
@@ -182,6 +200,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     md = ["# Roofline table — one H100 (terms from the data sheet's peaks)",
           "", table(args.art, "1"), ""]
+    for mesh in ("16x16", "2x16x16"):
+        if any(r.get("mesh") == mesh for r in load_all(args.art)):
+            md += [f"## One rank of the {mesh} mesh", "",
+                   table(args.art, mesh), ""]
     rows = [analyze_record(r) for r in load_all(args.art)
             if r.get("mesh") == "1"]
     md.append("## Per-cell bottleneck notes")

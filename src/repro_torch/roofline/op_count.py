@@ -32,8 +32,13 @@ one way.  With no counter in force (every serve) a wrapper reads one
 thread-local and calls straight through.
 
 On ``meta`` nothing is allocated or computed: a full-width step counts in
-seconds.  One device has no collective and no loop to unroll, so
-``collectives`` is ``{}`` and ``unknown_trip_loops`` 0, as
+seconds.  Collectives are opaque to dispatch too: the training step's
+(``sharding.rules``' ``all_gather_dim``, ``reduce_scatter_dim`` and
+``all_reduce``, which move nothing on ``meta``) each record their kind and
+result bytes (:meth:`OpCounter.add_collective`), as ``analyze_hlo`` sums
+a collective's result shape, and their calls a kind
+(``collective_calls``).  One device has no collective and no loop to
+unroll, so ``collectives`` is ``{}`` and ``unknown_trip_loops`` 0, as
 ``analyze_hlo`` gives them for such a module.
 """
 
@@ -116,6 +121,8 @@ class OpCounter(TorchDispatchMode):
         self.aten_ops = 0
         self.kernels = {}
         self.by_op = {}
+        self.collectives = {}
+        self.collective_calls = {}
         self._quiet = 0
         self._outer = None
 
@@ -197,14 +204,24 @@ class OpCounter(TorchDispatchMode):
         self.flops += flops
         self.hbm_bytes += nbytes
 
+    def add_collective(self, kind: str, nbytes: int) -> None:
+        """One collective of ``kind`` ("all-gather", "reduce-scatter",
+        "all-reduce") whose result holds ``nbytes``."""
+        self.collectives[kind] = self.collectives.get(kind, 0) + nbytes
+        self.collective_calls[kind] = self.collective_calls.get(kind, 0) + 1
+
     def stats(self) -> dict:
         """``analyze_hlo``'s keys (``flops``, ``hbm_bytes``,
         ``collectives``, ``unknown_trip_loops``), plus ``matmul_flops``,
         ``aten_ops`` (aten ops dispatched, views and allocations not
-        counted) and ``kernels`` (launches, FLOPs and bytes a kernel)."""
+        counted), ``kernels`` (launches, FLOPs and bytes a kernel) and
+        ``collective_calls`` (calls a collective kind)."""
         return {"flops": float(self.flops),
                 "hbm_bytes": float(self.hbm_bytes),
-                "collectives": {}, "unknown_trip_loops": 0,
+                "collectives": {k: float(v)
+                                for k, v in self.collectives.items()},
+                "collective_calls": dict(self.collective_calls),
+                "unknown_trip_loops": 0,
                 "matmul_flops": float(self.matmul_flops),
                 "aten_ops": self.aten_ops,
                 "kernels": {k: dict(v) for k, v in self.kernels.items()},

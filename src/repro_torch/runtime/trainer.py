@@ -14,6 +14,17 @@ restart fault tolerance and straggler statistics around a plain loop.
     ``bitserial_median`` kernel, two launches a step from the eighth
     step): a step slower than median + 6 MAD is flagged and logged;
   * ``fail_at_step``: an injected failure, for tests.
+
+On a mesh (a ``step_fn`` from ``launch.steps.lower_step``, which carries
+its ``rules``) every rank runs the same loop on its blocks: the starting
+parameters are placed by ``rules.place_train_state``; a resume restores
+each leaf's block onto the *current* mesh (``ckpt.restore(specs=,
+rules=)``), so a job may restart on another topology; checkpoints go
+through ``ckpt.save_gathered`` (blocking: each leaf gathered whole, rank 0
+writing the one-device format).  The straggler verdict is taken once for
+the world: the step time is the slowest rank's (one ``all_reduce`` MAX,
+what the reference's single controller times), so every rank computes
+the same median and MAD and flags the same steps.  Rank 0 prints.
 """
 
 from __future__ import annotations
@@ -25,14 +36,18 @@ import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import bridge
 from repro_torch.checkpoint import ckpt
 from repro_torch.core import bitserial
+from repro_torch.core import tree as tree_mod
+from repro_torch.launch.mesh import mesh_sizes
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import resolve_device
 from repro_torch.optim import adamw
+from repro_torch.sharding import rules as shard_rules
 
 
 @dataclasses.dataclass
@@ -51,7 +66,9 @@ class Trainer:
     """Runs ``step_fn(params, opt_state, batch) -> (params, opt_state,
     metrics)`` over ``data.batch_at(step)``.  ``device`` None means CUDA;
     ``init_params_fn`` (default: ``init_params`` seed 0 on the device)
-    gives the starting parameters when no checkpoint is committed."""
+    gives the starting parameters (whole) when no checkpoint is
+    committed.  A ``step_fn`` with ``rules`` (a mesh step) runs on the
+    mesh (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
                  aw: adamw.AdamWConfig, step_fn: Callable, data,
@@ -64,9 +81,16 @@ class Trainer:
         self.device = resolve_device(device)
         self.init_params_fn = init_params_fn or (
             lambda: tfm.init_params(0, cfg, device=self.device))
+        self.rules = getattr(step_fn, "rules", None)
         self.step_times: list[float] = []
         self.stragglers: list[int] = []
         self.losses: list[float] = []
+        self.grad_norms: list[float] = []
+
+    def say(self, line: str) -> None:
+        """Print, once for the world on a mesh (rank 0)."""
+        if self.rules is None or dist.get_rank() == 0:
+            print(line)
 
     def _init_state(self):
         params = self.init_params_fn()
@@ -81,12 +105,21 @@ class Trainer:
                         bridge.params_to_meta(opt_state.m, self.cfg),
                         bridge.params_to_meta(opt_state.v, self.cfg),
                         opt_state.step)}
-            tree, start = ckpt.restore(self.tcfg.ckpt_dir, like)
-            dev = opt_state.step.device
+            specs = None
+            if self.rules is not None:
+                ps = shard_rules.tree_param_specs(like["params"], self.rules)
+                specs = {"params": ps, "opt": adamw.OptState(ps, ps, ())}
+            del params, opt_state
+            tree, start = ckpt.restore(self.tcfg.ckpt_dir, like,
+                                       specs=specs, rules=self.rules)
+            dev = like["opt"].step.device
             params = bridge.params_from_numpy(tree["params"], self.cfg, dev)
             opt_state = bridge.opt_state_from_numpy(tree["opt"], self.cfg,
                                                     dev)
-            print(f"[trainer] resumed from step {start}")
+            self.say(f"[trainer] resumed from step {start}")
+        elif self.rules is not None:
+            params, opt_state = shard_rules.place_train_state(
+                params, opt_state, self.rules)
         return params, opt_state, start
 
     def run(self):
@@ -102,13 +135,14 @@ class Trainer:
                                                       batch)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            dt = time.perf_counter() - t0
+            dt = self._world_time(time.perf_counter() - t0)
             self.step_times.append(dt)
             self.losses.append(float(metrics["loss"]))
+            self.grad_norms.append(float(metrics["grad_norm"]))
             self._check_straggler(step, dt)
             if (step + 1) % self.tcfg.log_every == 0:
-                print(f"[trainer] step {step + 1}: "
-                      f"loss {self.losses[-1]:.4f} ({dt * 1e3:.0f} ms)")
+                self.say(f"[trainer] step {step + 1}: "
+                         f"loss {self.losses[-1]:.4f} ({dt * 1e3:.0f} ms)")
             if (step + 1) % self.tcfg.ckpt_every == 0:
                 if pending is not None:
                     pending.join()
@@ -116,17 +150,46 @@ class Trainer:
         if pending is not None:
             pending.join()
         self._save(params, opt_state, self.tcfg.n_steps, blocking=True)
-        ckpt.prune(self.tcfg.ckpt_dir, self.tcfg.keep_ckpts)
+        if self.rules is None or dist.get_rank() == 0:
+            ckpt.prune(self.tcfg.ckpt_dir, self.tcfg.keep_ckpts)
         return params, opt_state
 
     def _save(self, params, opt_state, step, blocking=None):
         """A blocking save copies and writes one leaf at a time; an async
-        one snapshots the whole tree to host memory first."""
+        one snapshots the whole tree to host memory first.  On a mesh the
+        save is blocking, each leaf gathered from the ranks' blocks."""
+        if self.rules is not None:
+            def gathering(tree):
+                return tree_mod.unflatten(tree, [
+                    (lambda b=b, s=s: shard_rules.gather_block(
+                        b.detach(), s, self.rules).cpu())
+                    for b, s in zip(tree_mod.leaves(tree),
+                                    self.step_fn.specs(tree))])
+
+            tree = {"params": bridge.params_to_host(gathering(params),
+                                                    self.cfg),
+                    "opt": adamw.OptState(
+                        bridge.params_to_host(gathering(opt_state.m),
+                                              self.cfg),
+                        bridge.params_to_host(gathering(opt_state.v),
+                                              self.cfg),
+                        opt_state.step.detach().cpu())}
+            return ckpt.save_gathered(self.tcfg.ckpt_dir, step, tree)
         tree = {"params": bridge.params_to_host(params, self.cfg),
                 "opt": bridge.opt_state_to_host(opt_state, self.cfg)}
         return ckpt.save(self.tcfg.ckpt_dir, step, tree,
                          blocking=(not self.tcfg.async_ckpt
                                    if blocking is None else blocking))
+
+    def _world_time(self, dt: float) -> float:
+        """The step's time for the straggler verdict: this rank's, or on a
+        mesh the slowest rank's."""
+        if self.rules is None:
+            return dt
+        t = torch.tensor([dt], dtype=torch.float64, device=self.device)
+        shard_rules.all_reduce(t, tuple(mesh_sizes(self.rules.mesh)),
+                               self.rules, op="max")
+        return float(t[0])
 
     def _check_straggler(self, step: int, dt: float):
         """Robust outlier detection on step times (the paper's median
@@ -140,5 +203,5 @@ class Trainer:
         med, mad = float(med), float(mad)
         if dt > med + self.tcfg.straggler_mad_factor * mad and mad > 0:
             self.stragglers.append(step)
-            print(f"[trainer] straggler: step {step} took {dt * 1e3:.0f} ms "
-                  f"(median {med * 1e3:.0f} ms)")
+            self.say(f"[trainer] straggler: step {step} took "
+                     f"{dt * 1e3:.0f} ms (median {med * 1e3:.0f} ms)")

@@ -21,6 +21,18 @@ Parameters replicate at serve time, as in the reference, but for the MoE
 routed-expert banks: ``serving_param_specs`` distributes those, and
 ``place_serving_params`` keeps this rank's block of them
 (``models/moe.py`` exchanges the rows the other experts need).
+
+Training places every parameter and both AdamW moments by
+``tree_param_specs`` (``place_train_state``).  The step gathers each leaf
+whole through :class:`GatherLeaf`, an autograd function whose backward
+sums the gradient over the axes the step's rows are split on and keeps
+this rank's block: the model axis shards storage, and compute is split
+over rows only.  Every collective of the training step goes through this
+module's three primitives (:func:`all_gather_dim`,
+:func:`reduce_scatter_dim`, :func:`all_reduce`); on the ``meta`` device
+they move nothing and return tensors of the right shape, and under a
+``roofline.op_count.OpCounter`` each records its kind and bytes, so the
+dry run counts a rank's collectives with no world.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import mesh_sizes
+from repro_torch.roofline import op_count
 
 
 def P(*dims):
@@ -50,6 +63,10 @@ class Rules:
     # every rank holds all rows of the step (a B=1 admission prefill,
     # ``admission_spec``) instead of its ``batch`` shard's
     whole_rows: bool = False
+    # a training step's rules: the mesh axes its rows are split over (()
+    # when every rank holds all rows); the parameters are whole on every
+    # rank (``GatherLeaf``).  None: serving
+    train_rows: Optional[tuple] = None
 
     def size(self, axes) -> int:
         """Ranks along mesh axes ``axes`` (a name or a tuple of names)."""
@@ -92,6 +109,10 @@ class Rules:
             raise ValueError(f"no process group over several mesh axes "
                              f"{axes}: a serving mesh is (data, model)")
         return self.mesh.get_group(axes[0])
+
+    def world(self) -> int:
+        """Ranks of the whole mesh."""
+        return math.prod(mesh_sizes(self.mesh).values())
 
 
 def _axes(axes) -> tuple:
@@ -503,3 +524,184 @@ def row_shards(rules: Rules) -> int:
     if rules.whole_rows or not axes:
         return 1
     return rules.size(axes)
+
+
+# ---------------------------------------------------------------------------
+# Training: placements, the leaf gather and the step's collectives
+# ---------------------------------------------------------------------------
+
+
+def place_train_state(params, opt_state, rules: Rules):
+    """This rank's block of every parameter leaf and of both AdamW moments
+    (``tree_param_specs``: ``model`` where a dim divides, ``fsdp`` over
+    ``data`` when the rules enable it); the step counter is replicated.
+    ``opt_state`` an ``optim.adamw.OptState``."""
+    return (_place(params, rules, param_spec),
+            type(opt_state)(_place(opt_state.m, rules, param_spec),
+                            _place(opt_state.v, rules, param_spec),
+                            opt_state.step))
+
+
+def place_params(params, rules: Rules):
+    """This rank's block of every parameter leaf (``tree_param_specs``)."""
+    return _place(params, rules, param_spec)
+
+
+def replicas(spec, rules: Rules) -> int:
+    """Ranks that hold the same block of a leaf placed by ``spec``: the
+    mesh's size over the sizes of the axes that cut it."""
+    cut = math.prod(rules.size(a) for a in spec if a)
+    return rules.world() // cut
+
+
+def take_rows(batch: dict, axes, rules: Rules, n_micro: int = 1) -> dict:
+    """This rank's rows of a global batch (numpy arrays or tensors, rows
+    first) split over mesh axes ``axes`` (``batch_pspec``'s; () or None:
+    every row).  With ``n_micro`` microbatches the rank takes its shard of
+    each microbatch, in microbatch order, as the reference's partitioner
+    splits each of ``_accum_grads``' slices over the data shards: the
+    rank's own ``n_micro`` equal slices are then exactly those shards."""
+    if not axes:
+        return batch
+    n, idx = rules.size(axes), rules.axis_index(axes)
+    out = {}
+    for k, v in batch.items():
+        b = v.shape[0]
+        r = v.reshape(n_micro, n, b // (n_micro * n), *v.shape[1:])[:, idx]
+        out[k] = r.reshape(b // n, *v.shape[1:])
+    return out
+
+
+def _record(kind: str, t: torch.Tensor) -> None:
+    counter = op_count.active()
+    if counter is not None:
+        counter.add_collective(kind, t.numel() * t.element_size())
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, axis: str,
+                   rules: Rules) -> torch.Tensor:
+    """The blocks of the ranks along one mesh axis (all other coordinates
+    this rank's), concatenated along ``dim`` in axis order."""
+    n = rules.size(axis)
+    if n == 1:
+        return x
+    shape = list(x.shape)
+    shape[dim] *= n
+    if x.device.type == "meta":
+        out = x.new_empty(shape)
+    else:
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=rules.group(axis))
+        out = torch.cat(parts, dim=dim)
+    _record("all-gather", out)
+    return out
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, axis: str,
+                       rules: Rules) -> torch.Tensor:
+    """x summed over the ranks along one mesh axis, of which this rank
+    keeps its part: ``dim`` cut into equal parts in axis order."""
+    n = rules.size(axis)
+    if n == 1:
+        return x
+    parts = [c.contiguous() for c in torch.chunk(x, n, dim=dim)]
+    if x.device.type == "meta":
+        out = parts[0].new_empty(parts[0].shape)
+    else:
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=rules.group(axis))
+    _record("reduce-scatter", out)
+    return out
+
+
+def all_reduce(x: torch.Tensor, axes, rules: Rules,
+               op: str = "sum") -> torch.Tensor:
+    """x reduced (``op`` "sum" or "max") over the ranks that differ along
+    mesh axes ``axes``, in place; the whole mesh in one call, else one
+    call an axis.  Returns x."""
+    axes = tuple(a for a in _axes(axes or ()) if rules.size(a) > 1)
+    if not axes:
+        return x
+    _record("all-reduce", x)
+    if x.device.type == "meta":
+        return x
+    rop = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+    if rules.size(axes) == rules.world():
+        dist.all_reduce(x, op=rop)
+    else:
+        for a in axes:
+            dist.all_reduce(x, op=rop, group=rules.group(a))
+    return x
+
+
+def gather_block(x: torch.Tensor, spec, rules: Rules) -> torch.Tensor:
+    """The whole tensor of which ``x`` is this rank's block under ``spec``
+    (:func:`take_block`'s inverse): each sharded dimension gathered over
+    its axes, the minor axis first.  No copy where nothing is cut."""
+    for dim, axes in enumerate(spec):
+        for a in reversed(_axes(axes or ())):
+            x = all_gather_dim(x, dim, a, rules)
+    return x
+
+
+def reduce_block(g: torch.Tensor, spec, rules: Rules,
+                 rows) -> torch.Tensor:
+    """This rank's block, under ``spec``, of a whole gradient summed over
+    the ranks along ``rows`` (the axes the step's rows are split on):
+    ``reduce_scatter`` over a row axis that also cuts the leaf, ``narrow``
+    over one that does not sum (a ``model`` cut: every model rank computed
+    the same contribution), one ``all_reduce`` for the row axes left.
+    The sum runs in f32 when any rank is summed over; returns a tensor of
+    its own (or ``g`` itself where nothing is cut or summed)."""
+    rows = tuple(a for a in (rows or ()) if rules.size(a) > 1)
+    if rows and g.is_floating_point() and g.element_size() < 4:
+        g = g.to(torch.float32)
+    done, cut = set(), False
+    for dim, axes in enumerate(spec):
+        for a in _axes(axes or ()):
+            n = rules.size(a)
+            if n == 1:
+                continue
+            if a in rows:
+                g = reduce_scatter_dim(g, dim, a, rules)
+                done.add(a)
+            else:
+                size = g.shape[dim] // n
+                g = g.narrow(dim, rules.axis_index(a) * size, size)
+                cut = True
+    left = tuple(a for a in rows if a not in done)
+    if cut:
+        g = g.clone()
+    return all_reduce(g, left, rules)
+
+
+class GatherLeaf(torch.autograd.Function):
+    """``apply(block, spec, rules, rows)``: the whole parameter leaf from
+    this rank's block (:func:`gather_block`); its backward gives the
+    block's gradient, the whole gradient summed over ``rows``
+    (:func:`reduce_block`) in the block's dtype."""
+
+    @staticmethod
+    def forward(ctx, block, spec, rules, rows):
+        ctx.spec, ctx.rules, ctx.rows = spec, rules, rows
+        ctx.dtype = block.dtype
+        return gather_block(block, spec, rules)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_block(g, ctx.spec, ctx.rules, ctx.rows).to(ctx.dtype),
+                None, None, None)
+
+
+def specs_like(tree, spec_tree) -> list:
+    """The specs of ``spec_tree`` (a spec tree of the same keys) for each
+    leaf of ``tree``, in ``core.tree.leaves`` order of ``tree``, whatever
+    order ``spec_tree``'s dicts keep."""
+    if isinstance(tree, dict):
+        return [s for k, v in tree.items()
+                for s in specs_like(v, spec_tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [s for v, sv in zip(tree, spec_tree)
+                for s in specs_like(v, sv)]
+    return [] if tree is None else [spec_tree]
+

@@ -11,6 +11,14 @@ one device); ``result(proc)`` reads the one JSON line it prints: each
 serve's tokens, shed flags, counters and, for the traced SLO serves, the
 ``swap_out`` / ``resume`` / ``shed`` events as the port's ranks report
 them (``_torch_runtime_ranks.swap_events``).
+
+``start("train", out, *cases)`` runs the training cases of
+``_torch_train_ranks.CASES`` instead: each case's own 8-device mesh
+step (``lower_step(...).compile()``) for ``STEPS`` steps from
+``init_params(PRNGKey(0))`` (its router skewed where the case says), and
+pickles to ``out`` every step's loss and gradient norm, the last
+metrics, and the parameters and both moments after the last step
+(numpy trees).
 """
 
 import json
@@ -22,11 +30,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(os.path.dirname(HERE), "src")
 
 
-def start(which: str) -> subprocess.Popen:
+def start(which: str, *args) -> subprocess.Popen:
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([SRC, HERE]))
-    return subprocess.Popen([sys.executable, os.path.abspath(__file__), which],
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), which,
+                             *args],
                             env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
 
@@ -110,5 +119,62 @@ def _serves():
     return out
 
 
+def _train(out_path: str, cases):
+    """Run in the child: the reference's own mesh training steps of
+    ``cases`` (``_torch_train_ranks``), pickled to ``out_path``."""
+    import pickle
+
+    import jax
+    import numpy as np
+
+    from repro import configs
+    from repro.core import grad_compress
+    from repro.data import pipeline
+    from repro.launch import steps
+    from repro.launch.mesh import _mesh
+    from repro.models.config import ShapeCell
+    from repro.optim import adamw
+
+    import _torch_ref
+    import _torch_train_ranks as tr
+
+    assert len(jax.devices()) == 8
+    out = {}
+    for name in cases:
+        c = tr.case(name)
+        cfg = tr.config(name, configs.get_reduced)
+        mesh = _mesh(tuple(c["mesh"].values()), tuple(c["mesh"]))
+        cell = ShapeCell("t", tr.SEQ, c["batch"], "train")
+        opts = steps.pick_options(cfg, mesh, cell, **c["overrides"])
+        aw = adamw.AdamWConfig(**tr.AW)
+        gt = (grad_compress.make_grad_transform(
+            grad_compress.CompressConfig(), axis_name="pod")
+            if c["grad_compress"] else None)
+        lowered, info = steps.lower_step(cfg, mesh, cell, opts, aw, gt)
+        fn = lowered.compile()
+        p = jax.tree.map(np.asarray, _torch_ref.ref_init_params(cfg))
+        if c["skew"]:
+            p = tr.skew_router(p)
+        o = adamw.init(p)
+        data = pipeline.SyntheticLM(cfg, pipeline.DataConfig(
+            seed=0, global_batch=c["batch"], seq_len=tr.SEQ))
+        losses, norms = [], []
+        for s in range(tr.STEPS):
+            p, o, m = fn(p, o, data.batch_at(s))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        out[name] = {"losses": losses, "norms": norms,
+                     "options": info["options"],
+                     "metrics": {k: float(v) for k, v in m.items()},
+                     "tree": [jax.tree.map(np.asarray, t)
+                              for t in (p, o.m, o.v)]}
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    return {"cases": list(out)}
+
+
 if __name__ == "__main__":
-    print(json.dumps(_serves()))
+    if sys.argv[1] == "train":
+        print(json.dumps(_train(sys.argv[2], sys.argv[3:])))
+    else:
+        print(json.dumps(_serves()))

@@ -1335,6 +1335,87 @@ def test_train_step_card_matches_cpu(cuda, arch, monkeypatch):
     assert flipped <= 1e-3 * total, (flipped, total)
 
 
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-27b", "mamba2-2.7b",
+                                  "recurrentgemma-9b", "deepseek-v3-671b",
+                                  "qwen2-moe-a2.7b"])
+def test_train_step_mesh_on_card(cuda, arch, monkeypatch, tmp_path):
+    """One train step of each reduced family in f32 through a one-rank
+    NCCL mesh (``lower_step`` on ``make_host_mesh()``, a file store, no
+    network) against the one-card ``make_train_step`` step: first every
+    MoE layer's expert sets equal, then the loss and every metric, each
+    clipped gradient leaf and every updated parameter equal to the bit
+    (on one rank every collective is an identity)."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.core import tree
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules as shard_rules
+
+    cfg = dataclasses.replace(configs.get_reduced(arch), dtype="float32")
+    params = tfm.init_params(0, cfg, device="cpu")
+    batch = pipeline.SyntheticLM(cfg, pipeline.DataConfig(
+        seed=0, global_batch=2, seq_len=64)).batch_at(0)
+    aw = adamw.AdamWConfig(**_TRAIN_AW)
+    opts = steps.StepOptions(loss_chunk=16)
+    runs = []
+    for mesh_run in (False, True):
+        routes, apply_moe = [], moe.apply_moe
+
+        def recording(p, x, cfg_):
+            with torch.no_grad():
+                _, idx, _ = moe.route(p, x.reshape(-1, x.shape[-1]), cfg_)
+            routes.append(torch.sort(idx, dim=1).values.cpu())
+            return apply_moe(p, x, cfg_)
+
+        grads = []
+
+        def record(g):
+            grads.append(g.detach().cpu())
+            return g
+
+        monkeypatch.setattr(moe, "apply_moe", recording)
+        p = tree.map_(lambda t: t.detach().to(cuda, copy=True), params)
+        o = adamw.init(p)
+        if mesh_run:
+            dist.init_process_group(
+                "nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                world_size=1, timeout=datetime.timedelta(seconds=120))
+            try:
+                step, _ = steps.lower_step(
+                    cfg, make_host_mesh(), ShapeCell("t", 64, 2, "train"),
+                    opts, aw, grad_transform=record)
+                p, o = shard_rules.place_train_state(p, o, step.rules)
+                p, o, m = step(p, o, batch)
+                torch.cuda.synchronize()
+            finally:
+                dist.destroy_process_group()
+        else:
+            p, o, m = steps.make_train_step(cfg, aw, opts, record)(p, o,
+                                                                   batch)
+        monkeypatch.setattr(moe, "apply_moe", apply_moe)
+        runs.append(({k: float(v) for k, v in m.items()},
+                     [t.detach().cpu() for t in tree.leaves(p)], routes,
+                     grads))
+    (m_1, p_1, r_1, g_1), (m_m, p_m, r_m, g_m) = runs
+    assert len(r_1) == len(r_m) and (len(r_1) > 0) == (cfg.moe is not None)
+    for a, b in zip(r_m, r_1):
+        assert torch.equal(a, b), "MoE expert sets differ mesh / one card"
+    assert m_m == m_1
+    assert len(g_m) == len(g_1) == len(p_1)
+    for a, b in zip(g_m + p_m, g_1 + p_1):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("n", [8, 23, 64])
 def test_bitserial_median_trainer_shapes(cuda, n):
     """The Trainer's straggler median and MAD (n step times x 1, K 1, 16

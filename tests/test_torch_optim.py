@@ -256,7 +256,8 @@ def test_grad_compress_error_feedback_reduces_bias():
 def test_grad_compress_transform_and_wire_bytes():
     """``make_grad_transform`` leaves small tensors alone and keeps
     dtypes, on a tree and on one tensor; ``wire_bytes`` equals the
-    reference's; ``axis_name`` is refused."""
+    reference's; with ``axis_name="pod"`` (the cross-pod reduction's
+    axis) the transform of a tree equals the reference's."""
     tree_t = {"w": torch.zeros((1024, 64)), "s": [torch.ones(10)]}
     r = gc.wire_bytes(tree_t, gc.CompressConfig())
     r_ref = gc_ref.wire_bytes({"w": jnp.zeros((1024, 64)),
@@ -269,8 +270,17 @@ def test_grad_compress_transform_and_wire_bytes():
     assert out["a"].dtype == torch.bfloat16
     assert torch.equal(out["b"], torch.ones(5))
     assert len(torch.unique(tf(g))) <= 16
-    with pytest.raises(NotImplementedError, match="item 10"):
-        gc.make_grad_transform(gc.CompressConfig(), axis_name="pod")
+    rng = np.random.default_rng(3)
+    tree = {"w": rng.normal(size=(64, 48)).astype(np.float32),
+            "s": rng.normal(size=(10,)).astype(np.float32)}
+    got = gc.make_grad_transform(gc.CompressConfig(), axis_name="pod")(
+        {k: T(v) for k, v in tree.items()})
+    want = gc_ref.make_grad_transform(gc_ref.CompressConfig(),
+                                      axis_name="pod")(
+        {k: jnp.asarray(v) for k, v in tree.items()})
+    for k in tree:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
 
 
 # ---------------------------------------------------------------------------
@@ -587,8 +597,9 @@ def test_param_counts_match():
 
 def test_train_entry_points_on_cpu(tmp_path, capsys, monkeypatch):
     """``python -m repro_torch.launch.train`` on the CPU trains the reduced
-    qwen3 and checkpoints its last step; ``--mesh pod`` is refused naming
-    item 10; ``examples/train_lm_torch.py`` prints its twin's lines."""
+    qwen3 and checkpoints its last step; ``--mesh pod`` with no world of
+    256 ranks fails naming them; ``examples/train_lm_torch.py`` prints
+    its twin's lines."""
     import runpy
     import sys
 
@@ -600,8 +611,9 @@ def test_train_entry_points_on_cpu(tmp_path, capsys, monkeypatch):
     assert "[train] done: final loss" in capsys.readouterr().out
     assert ckpt.latest_step(str(tmp_path / "t")) == 3
     with pytest.raises(SystemExit):
-        train.main(["--arch", "qwen3-4b", "--mesh", "pod"])
-    assert "item 10" in capsys.readouterr().err
+        train.main(["--arch", "qwen3-4b", "--mesh", "pod", "--device",
+                    "cpu"])
+    assert "256 ranks" in capsys.readouterr().err
     monkeypatch.setattr(sys, "argv", [
         "train_lm_torch.py", "--steps", "5", "--batch", "2", "--seq", "16",
         "--device", "cpu", "--ckpt-dir", str(tmp_path / "e")])
